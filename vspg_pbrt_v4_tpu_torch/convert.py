@@ -1,0 +1,113 @@
+"""Build this package's scene objects from the JAX package's.
+
+``from_jax(scene, camera, film, cfg, device)`` reads the JAX objects'
+leaves through ``np.asarray`` and attribute access only, so both packages
+can render one scene in the tests. It imports no JAX: ``np.asarray`` of a
+JAX array needs none. Objects outside the ported scope raise
+``NotImplementedError`` instead of being converted partly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.cameras import PerspectiveCamera
+from .models.film import RGBFilm
+from .models.filters import Filter
+from .models.integrators.volpath import Scene, VolPathConfig
+from .models.lights import Lights
+from .models.materials import Materials
+from .models.media import GridMedium, Media
+from .models.shapes import Geometry
+from .utils.transform import Transform
+
+
+def _t(x, device, dtype=None):
+    a = np.asarray(x)
+    if dtype is None:
+        dtype = torch.float32 if a.dtype.kind == "f" else torch.int32
+    return torch.as_tensor(a.copy(), dtype=dtype, device=device)
+
+
+def _count(x):
+    return 0 if x is None else int(np.asarray(x).shape[0])
+
+
+def _geometry(g, device):
+    others = (_count(g.sph_c) + _count(g.dsk_c) + _count(g.cyl_c)
+              + _count(g.blp_p00) + _count(g.crv_p0))
+    if others or getattr(g, "inst", None) is not None:
+        raise NotImplementedError("only boxes (and a triangle count) are "
+                                  "ported")
+    return Geometry(_t(g.box_min, device), _t(g.box_max, device),
+                    _t(g.box_mat, device), _t(g.box_light, device),
+                    _t(g.box_med_in, device), _t(g.box_med_out, device),
+                    n_tri=_count(g.tri_p0))
+
+
+def _media(m, device):
+    if len(getattr(m, "procedurals", ())):
+        raise NotImplementedError("procedural media are not ported yet")
+    grids = []
+    for gm in m.grids:
+        if type(gm).__name__ != "GridMedium":
+            raise NotImplementedError(f"{type(gm).__name__} is not ported")
+        grids.append(GridMedium(
+            _t(gm.density, device), _t(gm.sigma_a, device),
+            _t(gm.sigma_s, device), _t(gm.Le, device), _t(gm.g, device),
+            _t(gm.b_min, device), _t(gm.b_max, device),
+            _t(gm.majorant, device), tuple(int(v) for v in gm.res),
+            tuple(int(v) for v in gm.maj_res)))
+    return Media(_t(m.h_sigma_a, device), _t(m.h_sigma_s, device),
+                 _t(m.h_Le, device), _t(m.h_g, device), tuple(grids))
+
+
+def _lights(li, device):
+    if (_count(li.spot_p) or _count(li.gonio_p) or _count(li.proj_p)
+            or _count(li.distant_dir) or _count(li.area_p0)
+            or li.has_env_img or li.portal is not None
+            or li.bvh is not None):
+        raise NotImplementedError("only point lights and a constant "
+                                  "environment are ported")
+    return Lights(_t(li.point_p, device), _t(li.point_I, device),
+                  _t(li.env_L, device), _t(li.select_pmf_table, device),
+                  _t(li.select_cdf, device), bool(li.has_env),
+                  float(li.world_radius))
+
+
+def _transform(t, device):
+    return Transform(_t(t.m, device), _t(t.m_inv, device))
+
+
+def _camera(cam, device):
+    if type(cam).__name__ != "PerspectiveCamera" or cam.lens_radius > 0:
+        raise NotImplementedError("only the pinhole perspective camera is "
+                                  "ported")
+    if cam.shutter_close > cam.shutter_open:
+        raise NotImplementedError("motion blur is not ported yet")
+    return PerspectiveCamera(_transform(cam.camera_to_world, device),
+                             _transform(cam.raster_to_camera, device),
+                             float(cam.lens_radius),
+                             float(cam.focal_distance),
+                             tuple(int(v) for v in cam.resolution))
+
+
+def _film(film, device):
+    if type(film).__name__ != "RGBFilm" or film.filter.kind != "box":
+        raise NotImplementedError("only RGBFilm with a box filter is ported")
+    return RGBFilm(_t(film.sensor_matrix, device),
+                   Filter("box", float(film.filter.radius)),
+                   tuple(int(v) for v in film.resolution),
+                   float(film.imaging_ratio), float(film.max_component))
+
+
+def from_jax(scene, camera, film, cfg, device):
+    """(Scene, PerspectiveCamera, RGBFilm, VolPathConfig) of this package
+    holding the values of the given JAX objects, on `device`."""
+    port_scene = Scene(_geometry(scene.geometry, device),
+                       Materials(_t(scene.materials.mat_type, device)),
+                       _media(scene.media, device),
+                       _lights(scene.lights, device))
+    return (port_scene, _camera(camera, device), _film(film, device),
+            VolPathConfig(**cfg._asdict()))

@@ -1,0 +1,920 @@
+"""Counterpart of ``ops/pallas_volpath.py``: the hand-written CUDA kernels of
+the delta-tracking volpath path, their plain PyTorch versions, and the
+support predicate that decides when ``render_persistent`` may use them.
+
+Two scene classes, each with one kernel (sources under ``csrc/``):
+
+- ``"homog"``: one box of homogeneous fog. ``csrc/volpath_homog.cu``
+  replaces ``pallas_volpath._make_kernel``. It keeps that kernel's random
+  stream exactly (camera on dimension 0, then three ``uniform4``
+  dimensions per path event), so ``render_homog_plain`` agrees per pixel
+  with the Pallas kernel run in interpret mode.
+- ``"grid"``: one box holding one density grid. ``csrc/volpath_grid.cu``
+  replaces ``pallas_volpath._make_grid_kernel`` without triangles. Its
+  random stream is its own (``render_grid_plain`` documents it), so it
+  agrees with the JAX package within Monte Carlo error.
+
+Each kernel thread renders all samples of one pixel; a sample runs at most
+``cfg.max_events`` path events. A wrapper renders with the plain version
+only when its constant tensor lies on the CPU; on a CUDA tensor it launches
+its kernel or raises. ``LAUNCHES`` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..models.media import GridMedium, Media, seg_init, seg_next
+from ..utils import rng
+from ..utils.math import INV_4PI
+
+LAUNCHES = {"homog": 0, "grid": 0}
+
+# float32 constant table; csrc/common.cuh holds the same layout
+F_RC, F_CW = 0, 16  # raster->camera, camera->world (4x4 row-major)
+F_SA, F_SS, F_ST = 32, 35, 38  # sigma_a, sigma_s, their f32 sum
+F_BMIN, F_BMAX = 41, 44  # medium box
+F_LP, F_LI, F_ENV = 47, 50, 53  # point position / intensity, env radiance
+F_PMF, F_PENV = 56, 57  # light-selection pmf, pmf / (4 pi)
+F_HG_C1, F_HG_C2, F_HG_C3 = 58, 59, 60  # 1+g^2, 2g, (1-g^2)/(4 pi)
+F_HG_1MG2, F_HG_1PG, F_TWO_PI = 61, 62, 63  # 1-g^2, 1+g, 2 pi
+N_FCONST = 64
+# int32 constant table
+(I_NX, I_NY, I_HAS_POINT, I_HAS_ENV, I_MAX_DEPTH, I_MAX_EVENTS, I_MAX_COLL,
+ I_RR_START, I_HG_ISO, I_GX, I_GY, I_GZ, I_MX, I_MY, I_MZ) = range(15)
+N_ICONST = 15
+
+# majorant grids live in one block's shared memory
+MAX_MAJ_VOX = 4096
+_BIG = 3e37
+# lanes (pixel, sample pairs) a plain render holds at once
+_PLAIN_CHUNK = 1 << 21
+
+
+@dataclass(frozen=True)
+class KernelConstants:
+    """What a kernel needs of a scene, as tensors on the scene's device."""
+
+    kind: str  # "homog" | "grid"
+    nx: int
+    ny: int
+    imaging_ratio: float
+    fconst: torch.Tensor  # (N_FCONST,) float32
+    iconst: torch.Tensor  # (N_ICONST,) int32
+    density: torch.Tensor = None  # (gx, gy, gz) float32, grid class
+    majorant: torch.Tensor = None  # (mx, my, mz) float32, grid class
+
+
+# ---------------------------------------------------------------------------
+# Support predicate + constant extraction
+# ---------------------------------------------------------------------------
+
+
+def extract_constants(scene, camera, film, cfg):
+    """KernelConstants if the scene, camera, film and config are of a
+    kernel's class, else None. Only the explicit tests below return None;
+    anything else that goes wrong raises."""
+    if type(camera).__name__ != "PerspectiveCamera" or camera.lens_radius > 0:
+        return None
+    if cfg.spectral or cfg.sss:
+        return None
+    g = scene.geometry
+    if g.n_tri or g.n_box != 1:
+        return None
+    if int(g.box_mat[0]) >= 0:
+        return None
+    if int(g.box_med_in[0]) != 0 or int(g.box_med_out[0]) != -1:
+        return None
+    m = scene.media
+    bmin = g.box_min[0].cpu().numpy()
+    bmax = g.box_max[0].cpu().numpy()
+    grid = None
+    if len(m.grids) == 0:
+        if m.n_homog != 1 or float(m.h_Le.max()) > 0:
+            return None
+        kind = "homog"
+        sa = m.h_sigma_a[0].cpu().numpy()
+        ss = m.h_sigma_s[0].cpu().numpy()
+        g_hg = float(m.h_g[0])
+    elif len(m.grids) == 1 and m.n_homog == 0:
+        grid = m.grids[0]
+        if float(grid.Le.max()) > 0:
+            return None
+        if not (np.allclose(grid.b_min.cpu().numpy(), bmin)
+                and np.allclose(grid.b_max.cpu().numpy(), bmax)):
+            return None
+        # the DDA's uniform cells must match GridMedium.make's partition,
+        # or a majorant could fail to bound the density it covers
+        if any(grid.res[k] % grid.maj_res[k] for k in range(3)):
+            return None
+        if int(np.prod(grid.maj_res)) > MAX_MAJ_VOX:
+            return None
+        if int(np.prod(grid.res)) >= 2 ** 31:
+            return None
+        kind = "grid"
+        sa = grid.sigma_a.cpu().numpy()
+        ss = grid.sigma_s.cpu().numpy()
+        g_hg = float(grid.g)
+    else:
+        return None
+    li = scene.lights
+    if li.n_point > 1:
+        return None
+    has_point, has_env = li.n_point == 1, bool(li.has_env)
+    if not (has_point or has_env):
+        return None
+    if film.filter.kind != "box" or abs(film.filter.radius - 0.5) > 1e-6:
+        return None
+    if not np.allclose(film.sensor_matrix.cpu().numpy(), np.eye(3)):
+        return None
+    if not math.isinf(film.max_component):
+        return None
+
+    sa = np.asarray(sa, np.float32)
+    ss = np.asarray(ss, np.float32)
+    gc = float(np.clip(g_hg, -0.99, 0.99))
+    pmf = 1.0 / (int(has_point) + int(has_env))
+    f = np.zeros(N_FCONST, np.float32)
+    f[F_RC:F_RC + 16] = camera.raster_to_camera.m.cpu().numpy().reshape(-1)
+    f[F_CW:F_CW + 16] = camera.camera_to_world.m.cpu().numpy().reshape(-1)
+    f[F_SA:F_SA + 3] = sa
+    f[F_SS:F_SS + 3] = ss
+    f[F_ST:F_ST + 3] = sa + ss
+    f[F_BMIN:F_BMIN + 3] = bmin
+    f[F_BMAX:F_BMAX + 3] = bmax
+    if has_point:
+        f[F_LP:F_LP + 3] = li.point_p[0].cpu().numpy()
+        f[F_LI:F_LI + 3] = li.point_I[0].cpu().numpy()
+    if has_env:
+        f[F_ENV:F_ENV + 3] = li.env_L.cpu().numpy()
+    f[F_PMF] = pmf
+    f[F_PENV] = pmf * INV_4PI
+    # HG constants folded in double, as the Pallas kernel folds them at
+    # trace time
+    f[F_HG_C1] = 1.0 + gc * gc
+    f[F_HG_C2] = 2.0 * gc
+    f[F_HG_C3] = INV_4PI * (1.0 - gc * gc)
+    f[F_HG_1MG2] = 1.0 - gc * gc
+    f[F_HG_1PG] = 1.0 + gc
+    f[F_TWO_PI] = 2.0 * np.pi
+    i = np.zeros(N_ICONST, np.int32)
+    i[I_NX], i[I_NY] = film.resolution
+    i[I_HAS_POINT], i[I_HAS_ENV] = int(has_point), int(has_env)
+    i[I_MAX_DEPTH] = cfg.max_depth
+    i[I_MAX_EVENTS] = cfg.max_events
+    i[I_MAX_COLL] = cfg.max_collisions
+    i[I_RR_START] = cfg.rr_start_depth
+    i[I_HG_ISO] = int(abs(gc) < 1e-3)
+    if grid is not None:
+        i[I_GX:I_GX + 3] = grid.res
+        i[I_MX:I_MX + 3] = grid.maj_res
+    dev = film.device
+    return KernelConstants(
+        kind, int(film.resolution[0]), int(film.resolution[1]),
+        float(film.imaging_ratio), torch.as_tensor(f, device=dev),
+        torch.as_tensor(i, device=dev),
+        None if grid is None else grid.density.to(dev).contiguous(),
+        None if grid is None else grid.majorant.to(dev).contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: shared per-lane math (the Pallas kernels' formulas, in
+# their operation order, so that interpret-mode runs compare closely)
+# ---------------------------------------------------------------------------
+
+
+class _Consts:
+    """A KernelConstants unpacked for the plain versions: per-channel
+    constants stay (3,) float32 tensors, scalars become Python floats (each
+    exactly the float32 the kernel reads)."""
+
+    def __init__(self, c: KernelConstants):
+        f = c.fconst
+        fl = f.tolist()
+        il = c.iconst.tolist()
+        self.rc = fl[F_RC:F_RC + 16]
+        self.cw = fl[F_CW:F_CW + 16]
+        self.sa, self.ss, self.st = f[F_SA:F_SA + 3], f[F_SS:F_SS + 3], \
+            f[F_ST:F_ST + 3]
+        self.nst = -self.st
+        self.bmin, self.bmax = fl[F_BMIN:F_BMIN + 3], fl[F_BMAX:F_BMAX + 3]
+        self.lp, self.lI, self.envL = f[F_LP:F_LP + 3], f[F_LI:F_LI + 3], \
+            f[F_ENV:F_ENV + 3]
+        self.pmf, self.penv = fl[F_PMF], fl[F_PENV]
+        self.c1, self.c2, self.c3 = fl[F_HG_C1], fl[F_HG_C2], fl[F_HG_C3]
+        self.omg2, self.opg, self.two_pi = (fl[F_HG_1MG2], fl[F_HG_1PG],
+                                            fl[F_TWO_PI])
+        self.nx, self.ny = il[I_NX], il[I_NY]
+        self.has_point, self.has_env = bool(il[I_HAS_POINT]), \
+            bool(il[I_HAS_ENV])
+        self.max_depth, self.max_events = il[I_MAX_DEPTH], il[I_MAX_EVENTS]
+        self.max_coll, self.rr_start = il[I_MAX_COLL], il[I_RR_START]
+        self.iso = bool(il[I_HG_ISO])
+        self.res = tuple(il[I_GX:I_GX + 3])
+        self.mres = tuple(il[I_MX:I_MX + 3])
+        self.dev = f.device
+
+
+def _dot(a, b):
+    return a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1] + a[:, 2] * b[:, 2]
+
+
+def _avg3(v):
+    return (v[:, 0] + v[:, 1] + v[:, 2]) * (1.0 / 3.0)
+
+
+def _normalize(v):
+    return v * torch.rsqrt(torch.clamp(_dot(v, v), min=1e-30))[:, None]
+
+
+def _box_hit(o, d, bmin, bmax):
+    """Slab test of the Pallas kernels: (hit, t_hit, entering); entering =
+    the near face is ahead (origin outside the box)."""
+    t_n = torch.full_like(o[:, 0], -_BIG)
+    t_f = torch.full_like(o[:, 0], _BIG)
+    for k in range(3):
+        dc = d[:, k]
+        inv = 1.0 / torch.where(torch.abs(dc) < 1e-12,
+                                torch.where(dc >= 0, 1e-12, -1e-12), dc)
+        t0 = (bmin[k] - o[:, k]) * inv
+        t1 = (bmax[k] - o[:, k]) * inv
+        t_n = torch.maximum(t_n, torch.minimum(t0, t1))
+        t_f = torch.minimum(t_f, torch.maximum(t0, t1))
+    ok = (t_n <= t_f) & (t_f > 1e-4)
+    entering = t_n > 1e-4
+    t_hit = torch.where(entering, t_n, t_f)
+    return ok, torch.where(ok, t_hit, _BIG), entering
+
+
+def _camera_ray(K, px, py):
+    """Continuous raster coordinates -> normalized world direction."""
+    rc, cw = K.rc, K.cw
+    xc = rc[0] * px + rc[1] * py + rc[3]
+    yc = rc[4] * px + rc[5] * py + rc[7]
+    zc = rc[8] * px + rc[9] * py + rc[11]
+    wc = rc[12] * px + rc[13] * py + rc[15]
+    inv_w = torch.where(torch.abs(wc - 1.0) < 1e-9, 1.0, 1.0 / wc)
+    dc = _normalize(torch.stack([xc * inv_w, yc * inv_w, zc * inv_w], -1))
+    dx = cw[0] * dc[:, 0] + cw[1] * dc[:, 1] + cw[2] * dc[:, 2]
+    dy = cw[4] * dc[:, 0] + cw[5] * dc[:, 1] + cw[6] * dc[:, 2]
+    dz = cw[8] * dc[:, 0] + cw[9] * dc[:, 1] + cw[10] * dc[:, 2]
+    return _normalize(torch.stack([dx, dy, dz], -1))
+
+
+def _hg_value(K, cos_theta):
+    denom = torch.clamp(K.c1 + K.c2 * cos_theta, min=1e-12)
+    return K.c3 / (denom * torch.sqrt(denom))
+
+
+def _sample_hg(K, wo, u0, u1):
+    """HG direction around -wo (pbrt convention) and its pdf."""
+    if K.iso:
+        cos_t = 1.0 - 2.0 * u0
+    else:
+        sq = K.omg2 / (K.opg - K.c2 * u0)
+        cos_t = -(K.c1 - sq * sq) / K.c2
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = K.two_pi * u1
+    lx = sin_t * torch.cos(phi)
+    ly = sin_t * torch.sin(phi)
+    vx, vy, vz = wo[:, 0], wo[:, 1], wo[:, 2]
+    sign = torch.where(vz >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + vz)
+    b = vx * vy * a
+    t1 = (1.0 + sign * vx * vx * a, sign * b, -sign * vx)
+    t2 = (b, sign + vy * vy * a, -vy)
+    wi = torch.stack([lx * t1[k] + ly * t2[k] + cos_t * wo[:, k]
+                      for k in range(3)], -1)
+    return wi, _hg_value(K, cos_t)
+
+
+def _start_lanes(K, seed, pix, samp):
+    """Camera rays + fresh state for lanes (pixel, sample): dimension 0
+    jitters the pixel (u0, u1) and picks the hero channel (u2)."""
+    u0, u1, u2, _ = rng.uniform4(seed, pix, samp, 0)
+    px = (pix % K.nx).to(torch.float32) + 0.5 + (u0 - 0.5)
+    py = (pix // K.nx).to(torch.float32) + 0.5 + (u1 - 0.5)
+    d = _camera_ray(K, px, py)
+    cam_o = torch.tensor([K.cw[3], K.cw[7], K.cw[11]], dtype=torch.float32,
+                         device=K.dev)
+    ones = torch.ones_like(d)
+    return dict(
+        pix=pix, samp=samp, dim=torch.ones_like(pix), o=cam_o.expand_as(d),
+        d=d, beta=ones, ru=ones, rl=ones, L=torch.zeros_like(d),
+        depth=torch.zeros_like(pix),
+        hero=torch.clamp(torch.floor(u2 * 3.0).to(torch.int64), max=2),
+        med=torch.full_like(pix, -1))
+
+
+def _keep(S, mask):
+    """The lanes of `mask` of every tensor of S, and of every tensor of a
+    NamedTuple in S."""
+    return {k: type(v)(*(x[mask] for x in v)) if isinstance(v, tuple)
+            else v[mask] for k, v in S.items()}
+
+
+def _render_plain(c, spp, seed, event):
+    """Shared driver of the plain versions: lanes are (pixel, sample)
+    pairs, chunked; `event` advances every live lane by one path event and
+    returns its alive mask; dead lanes commit their radiance and leave."""
+    K = _Consts(c)
+    seed = int(seed) & 0xFFFFFFFF
+    npix = K.nx * K.ny
+    total = npix * int(spp)
+    acc = torch.zeros((npix, 3), dtype=torch.float32, device=K.dev)
+    for start in range(0, total, _PLAIN_CHUNK):
+        gid = torch.arange(start, min(total, start + _PLAIN_CHUNK),
+                           device=K.dev)
+        S = _start_lanes(K, seed, gid % npix, gid // npix)
+        for _ in range(K.max_events):
+            if S["pix"].numel() == 0:
+                break
+            alive = event(K, seed, S)
+            # NaN/Inf scrub (RayIntegrator, integrators.cpp:308)
+            S["L"] = torch.where(torch.isfinite(S["L"]).all(-1)[:, None],
+                                 S["L"], 0.0)
+            acc.index_add_(0, S["pix"][~alive], S["L"][~alive])
+            S = _keep(S, alive)
+        # lanes still alive after max_events commit what they gathered
+        acc.index_add_(0, S["pix"], S["L"])
+    return (acc * (c.imaging_ratio / int(spp))).reshape(K.ny, K.nx, 3)
+
+
+def _where3(m, new, old):
+    return torch.where(m[:, None], new, old)
+
+
+# ---------------------------------------------------------------------------
+# B1: homogeneous fog box
+# ---------------------------------------------------------------------------
+
+
+def _homog_event(K, seed, S):
+    """One event of ``pallas_volpath._make_kernel`` for every lane of S
+    (updated in place). Dimensions: collision/absorb/light-select/env-z,
+    then env-phi/phase-u0, then phase-u1."""
+    o, d, hero = S["o"], S["d"], S["hero"]
+    beta, ru, rl, L = S["beta"], S["ru"], S["rl"], S["L"]
+    st_h, sa_h, ss_h = K.st[hero], K.sa[hero], K.ss[hero]
+    hit, t_wall, entering = _box_hit(o, d, K.bmin, K.bmax)
+    in_med = S["med"] == 0
+    seg = torch.where(hit, t_wall, _BIG)
+
+    ua, ub, uc, ud = rng.uniform4(seed, S["pix"], S["samp"], S["dim"])
+    t_coll = -torch.log1p(-ua) / torch.clamp(st_h, min=1e-30)
+    t_coll = torch.where(st_h > 0, t_coll, _BIG)
+    coll = in_med & (t_coll < seg)
+
+    # ran-to-end spectral rescale exp(-seg (sigma - sigma_h))
+    ran = in_med & ~coll
+    segc = torch.clamp(seg, max=_BIG)
+    Te = torch.exp(K.nst * segc[:, None])
+    Te_h = torch.clamp(torch.exp(-st_h * segc), min=1e-30)
+    se = Te / Te_h[:, None]
+    beta = _where3(ran, beta * se, beta)
+    ru = _where3(ran, ru * se, ru)
+    rl = _where3(ran, rl * se, rl)
+
+    # collision: absorb vs scatter (no null collisions)
+    p_absorb = sa_h / torch.clamp(st_h, min=1e-30)
+    is_absorb = coll & (ub < p_absorb)
+    is_scatter = coll & ~is_absorb
+    depth_exceeded = is_scatter & (S["depth"] >= K.max_depth)
+    scat = is_scatter & ~depth_exceeded
+    S["depth"] = torch.where(scat, S["depth"] + 1, S["depth"])
+    Tm = torch.exp(K.nst * t_coll[:, None])
+    Tm_h = torch.clamp(torch.exp(-st_h * t_coll), min=1e-30)
+    pdf_s = torch.clamp(Tm_h * ss_h, min=1e-30)
+    sc = Tm * K.ss / pdf_s[:, None]
+    beta = _where3(scat, beta * sc, beta)
+    ru = _where3(scat, ru * sc, ru)
+    alive = ~(is_absorb | depth_exceeded)
+
+    sp = o + t_coll[:, None] * d
+    wo = -d
+    un0, un1, _, _ = rng.uniform4(seed, S["pix"], S["samp"], S["dim"] + 1)
+    if K.has_point:
+        pl = sp - K.lp
+        dist2 = torch.clamp(_dot(pl, pl), min=1e-12)
+        dist = torch.sqrt(dist2)
+        wi = -pl * (1.0 / dist)[:, None]
+        f_hg = _hg_value(K, _dot(wo, wi))
+        _, t_exit, _ = _box_hit(sp, wi, K.bmin, K.bmax)
+        Tr = torch.exp(K.nst * torch.minimum(dist, t_exit)[:, None])
+        denom = torch.clamp(_avg3(ru * K.pmf), min=1e-30)
+        okp = scat & (f_hg > 0)
+        if K.has_env:
+            okp = okp & (uc < K.pmf)
+        w = f_hg / (dist2 * denom)
+        L = _where3(okp, L + beta * Tr * K.lI * w[:, None], L)
+    if K.has_env:
+        ez = 1.0 - 2.0 * ud
+        er = torch.sqrt(torch.clamp(1.0 - ez * ez, min=0.0))
+        ephi = K.two_pi * un0
+        wi = torch.stack([er * torch.cos(ephi), er * torch.sin(ephi), ez], -1)
+        f_hg = _hg_value(K, _dot(wo, wi))
+        _, t_exit, _ = _box_hit(sp, wi, K.bmin, K.bmax)
+        Tr = torch.exp(K.nst * torch.clamp(t_exit, max=_BIG)[:, None])
+        denom = torch.clamp(_avg3(ru * K.penv + ru * f_hg[:, None]),
+                            min=1e-30)
+        oke = scat & (f_hg > 0)
+        if K.has_point:
+            oke = oke & (uc >= K.pmf)
+        w = f_hg / denom
+        L = _where3(oke, L + beta * Tr * K.envL * w[:, None], L)
+
+    u_ph = rng.uniform4(seed, S["pix"], S["samp"], S["dim"] + 2)[0]
+    S["dim"] = S["dim"] + 3
+    pw, ppdf = _sample_hg(K, wo, un1, u_ph)
+    alive = alive & ~(scat & (ppdf <= 0))
+    rl = _where3(scat, ru * (1.0 / torch.clamp(ppdf, min=1e-30))[:, None], rl)
+    o = _where3(scat, sp, o)
+    d2 = _where3(scat, pw, d)
+
+    # non-scattered lanes: escape (env MIS) / interface skip
+    flew = alive & ~scat & ~coll
+    escaped = flew & ~hit
+    if K.has_env:
+        first = S["depth"] == 0
+        ru_avg = torch.clamp(_avg3(ru), min=1e-30)
+        L = _where3(escaped & first, L + beta * K.envL / ru_avg[:, None], L)
+        den = torch.clamp(_avg3(ru + rl * K.penv), min=1e-30)
+        L = _where3(escaped & ~first, L + beta * K.envL / den[:, None], L)
+    alive = alive & ~escaped
+    iface = alive & flew & hit
+    S["med"] = torch.where(iface, torch.where(entering, 0, -1), S["med"])
+    o = _where3(iface, o + (t_wall + 1e-4)[:, None] * d, o)
+    S.update(o=o, d=d2, beta=beta, ru=ru, rl=rl, L=L)
+    return alive
+
+
+def render_homog_plain(c: KernelConstants, spp, seed):
+    """Plain PyTorch version of ``csrc/volpath_homog.cu``: (ny, nx, 3)."""
+    return _render_plain(c, spp, seed, _homog_event)
+
+
+# ---------------------------------------------------------------------------
+# B2a: one density grid in the box
+#
+# Random stream (the kernel's own): dimension 0 is the camera, as in B1.
+# Then each flight iteration of delta tracking (a tentative collision or a
+# majorant-cell crossing) draws one dimension [step, event]; a real scatter
+# draws one for NEE [light select, env u, env v], one per iteration of the
+# shadow ray's ratio tracking [step, roulette], and one for the phase
+# function [u0, u1, Russian roulette].
+# ---------------------------------------------------------------------------
+
+
+def _put(t, idx, v):
+    return t.index_put((idx,), v)
+
+
+def _sel3(v, hero):
+    return torch.gather(v, 1, hero[:, None])[:, 0]
+
+
+def _max3(v):
+    return torch.amax(v, dim=-1)
+
+
+def _grid_media(K, c):
+    """The grid of a grid-class KernelConstants as a one-grid ``Media``
+    (medium id 0), walked by ``media.seg_init``/``seg_next``."""
+    z3 = torch.zeros(3, device=K.dev)
+    f = c.fconst
+    gm = GridMedium(c.density, K.sa, K.ss, z3, torch.zeros((), device=K.dev),
+                    f[F_BMIN:F_BMIN + 3], f[F_BMAX:F_BMAX + 3], c.majorant,
+                    K.res, K.mres)
+    empty = torch.zeros((0, 3), device=K.dev)
+    return Media(empty, empty, empty, torch.zeros(0, device=K.dev), (gm,))
+
+
+def _seg_start(media, o, d, t_max):
+    """Majorant DDA over [0, t_max] of (o, d): the per-lane cursor and the
+    lanes whose ray misses the grid."""
+    mid = torch.zeros(t_max.shape, dtype=torch.int64, device=t_max.device)
+    it = seg_init(media, mid, o, d, t_max, torch.ones_like(mid, dtype=bool))
+    return it, it.done
+
+
+def _seg_advance(media, it, past):
+    """Move the lanes in `past` to their next majorant cell; the cursor and
+    the lanes that left the grid."""
+    mid = torch.zeros_like(it.step[:, 0])
+    it = seg_next(media, mid, it, past)
+    return it, it.done
+
+
+def _flight(K, media, seed, F):
+    """Delta tracking of the lanes of F along (o, d) over [0, seg]
+    (``volpath.sample_medium_interaction`` per lane). Updates F's dim,
+    beta, ru, rl, depth; adds scattered, terminated and t_scatter."""
+    n = F["pix"].numel()
+    dev = K.dev
+    it, miss = _seg_start(media, F["o"], F["d"], F["seg"])
+    W = dict(it=it, t_min=it.t_seg_start, i=torch.arange(n, device=dev),
+             T_maj=torch.ones_like(F["o"]),
+             **{k: F[k] for k in ("pix", "samp", "dim", "o", "d", "hero",
+                                  "beta", "ru", "rl", "depth")})
+    F["scattered"] = torch.zeros(n, dtype=torch.bool, device=dev)
+    F["terminated"] = torch.zeros(n, dtype=torch.bool, device=dev)
+    F["t_scatter"] = torch.zeros(n, device=dev)
+    W = _keep(W, ~miss)  # missed the grid: ran to the end with T_maj = 1
+
+    def finish(W, fin, ran):
+        """Write finished lanes back; lanes that ran to the end of their
+        flight get the hero-relative rescale T_maj / T_maj[hero]."""
+        T_h = torch.clamp(_sel3(W["T_maj"], W["hero"]), min=1e-30)
+        scale = torch.where(ran[:, None], W["T_maj"] / T_h[:, None], 1.0)
+        i = W["i"][fin]
+        for k in ("beta", "ru", "rl"):
+            F[k] = _put(F[k], i, (W[k] * scale)[fin])
+        for k in ("dim", "depth"):
+            F[k] = _put(F[k], i, W[k][fin])
+
+    for _ in range(K.max_coll):
+        if W["i"].numel() == 0:
+            break
+        hero = W["hero"]
+        ua, ub, _, _ = rng.uniform4(seed, W["pix"], W["samp"], W["dim"])
+        W["dim"] = W["dim"] + 1
+        it = W["it"]
+        sigma_maj = it.sigma_maj
+        maj_h = _sel3(sigma_maj, hero)
+        t = torch.where(maj_h > 0, W["t_min"] + (-torch.log1p(-ua))
+                        / torch.clamp(maj_h, min=1e-30), torch.inf)
+        past = t >= it.t_seg_end
+        dt = torch.clamp(it.t_seg_end - W["t_min"], 0.0, 3e37)
+        T_maj = _where3(past, W["T_maj"] * torch.exp(-dt[:, None] * sigma_maj),
+                        W["T_maj"])
+        W["it"], exhausted = _seg_advance(media, it, past)
+
+        coll = ~past
+        t_min = torch.where(past, W["it"].t_seg_start, W["t_min"])
+        T_maj = _where3(coll, T_maj * torch.exp(-(t - t_min)[:, None]
+                                                * sigma_maj), T_maj)
+        dens = media.grids[0].density_at(W["o"] + t[:, None] * W["d"])
+        sa_c = dens[:, None] * K.sa
+        ss_c = dens[:, None] * K.ss
+        T_maj_h = _sel3(T_maj, hero)
+        sa_h, ss_h = _sel3(sa_c, hero), _sel3(ss_c, hero)
+        p_absorb = sa_h / torch.clamp(maj_h, min=1e-30)
+        p_scatter = ss_h / torch.clamp(maj_h, min=1e-30)
+        is_absorb = coll & (ub < p_absorb)
+        is_scatter = coll & ~is_absorb & (ub < p_absorb + p_scatter)
+        is_null = coll & ~is_absorb & ~is_scatter
+        depth_exceeded = is_scatter & (W["depth"] >= K.max_depth)
+        do_scatter = is_scatter & ~depth_exceeded
+        W["depth"] = torch.where(do_scatter, W["depth"] + 1, W["depth"])
+        scale_s = T_maj * ss_c / torch.clamp(T_maj_h * ss_h,
+                                             min=1e-30)[:, None]
+        beta = _where3(do_scatter, W["beta"] * scale_s, W["beta"])
+        ru = _where3(do_scatter, W["ru"] * scale_s, W["ru"])
+        rl = W["rl"]
+        sigma_n = torch.clamp(sigma_maj - sa_c - ss_c, min=0.0)
+        pdf_n = T_maj_h * _sel3(sigma_n, hero)
+        inv_pdf_n = (1.0 / torch.clamp(pdf_n, min=1e-30))[:, None]
+        beta = _where3(is_null, beta * T_maj * sigma_n * inv_pdf_n, beta)
+        beta = _where3(is_null & (pdf_n == 0), torch.zeros_like(beta), beta)
+        ru = _where3(is_null, ru * T_maj * sigma_n * inv_pdf_n, ru)
+        rl = _where3(is_null, rl * T_maj * sigma_maj * inv_pdf_n, rl)
+        died = is_null & ((_max3(beta) == 0) | (_max3(ru) == 0))
+        W["T_maj"] = _where3(is_null & ~died, torch.ones_like(T_maj), T_maj)
+        W["t_min"] = torch.where(is_null, t, t_min)
+        W.update(beta=beta, ru=ru, rl=rl)
+
+        term = is_absorb | depth_exceeded | died
+        fin = term | do_scatter | exhausted
+        finish(W, fin, exhausted)
+        i = W["i"]
+        F["scattered"] = _put(F["scattered"], i[do_scatter],
+                              torch.ones_like(i[do_scatter], dtype=torch.bool))
+        F["terminated"] = _put(F["terminated"], i[term],
+                               torch.ones_like(i[term], dtype=torch.bool))
+        F["t_scatter"] = _put(F["t_scatter"], i[do_scatter], t[do_scatter])
+        W = _keep(W, ~fin)
+    # lanes stopped by max_collisions count as having reached the end
+    finish(W, torch.ones_like(W["i"], dtype=torch.bool),
+           torch.ones_like(W["i"], dtype=torch.bool))
+
+
+def _ratio_track(K, media, seed, P):
+    """Ratio-tracking transmittance of shadow rays (o, wi) over [0, seg]
+    (``volpath.transmittance_ratio_tracking`` per lane, with its
+    low-transmittance roulette). Updates P's dim; adds T_ray, tr_l, tr_u."""
+    n = P["pix"].numel()
+    dev = K.dev
+    it, miss = _seg_start(media, P["o"], P["wi"], P["seg"])
+    ones = torch.ones_like(P["o"])
+    W = dict(it=it, t_min=it.t_seg_start, i=torch.arange(n, device=dev),
+             T_maj=ones, T_ray=ones, tr_l=ones, tr_u=ones,
+             **{k: P[k] for k in ("pix", "samp", "dim", "o", "wi", "hero")})
+    P.update(T_ray=ones, tr_l=ones, tr_u=ones)
+    W = _keep(W, ~miss)
+
+    def finish(W, fin):
+        T_h = torch.clamp(_sel3(W["T_maj"], W["hero"]), min=1e-30)
+        scale = W["T_maj"] / T_h[:, None]
+        i = W["i"][fin]
+        for k in ("T_ray", "tr_l", "tr_u"):
+            P[k] = _put(P[k], i, (W[k] * scale)[fin])
+        P["dim"] = _put(P["dim"], i, W["dim"][fin])
+
+    for _ in range(K.max_coll):
+        if W["i"].numel() == 0:
+            break
+        hero = W["hero"]
+        ua, u_rr, _, _ = rng.uniform4(seed, W["pix"], W["samp"], W["dim"])
+        W["dim"] = W["dim"] + 1
+        it = W["it"]
+        sigma_maj = it.sigma_maj
+        maj_h = _sel3(sigma_maj, hero)
+        t = torch.where(maj_h > 0, W["t_min"] + (-torch.log1p(-ua))
+                        / torch.clamp(maj_h, min=1e-30), torch.inf)
+        past = t >= it.t_seg_end
+        dt = torch.clamp(it.t_seg_end - W["t_min"], 0.0, 3e37)
+        T_maj = _where3(past, W["T_maj"] * torch.exp(-dt[:, None] * sigma_maj),
+                        W["T_maj"])
+        W["it"], exhausted = _seg_advance(media, it, past)
+
+        coll = ~past
+        t_min = torch.where(past, W["it"].t_seg_start, W["t_min"])
+        T_maj = _where3(coll, T_maj * torch.exp(-(t - t_min)[:, None]
+                                                * sigma_maj), T_maj)
+        dens = media.grids[0].density_at(W["o"] + t[:, None] * W["wi"])
+        sigma_n = torch.clamp(sigma_maj - dens[:, None] * K.sa
+                              - dens[:, None] * K.ss, min=0.0)
+        pdf = torch.clamp(_sel3(T_maj, hero) * maj_h, min=1e-30)[:, None]
+        T_ray = _where3(coll, W["T_ray"] * T_maj * sigma_n / pdf, W["T_ray"])
+        tr_l = _where3(coll, W["tr_l"] * T_maj * sigma_maj / pdf, W["tr_l"])
+        tr_u = _where3(coll, W["tr_u"] * T_maj * sigma_n / pdf, W["tr_u"])
+        Tr = T_ray / torch.clamp(_avg3(tr_l + tr_u), min=1e-30)[:, None]
+        low = coll & (_max3(Tr) < 0.05)
+        killed = low & (u_rr < 0.75)
+        T_ray = _where3(killed, torch.zeros_like(T_ray), T_ray)
+        T_ray = _where3(low & ~killed, T_ray / 0.25, T_ray)
+        dead = coll & (_max3(T_ray) == 0)
+        W["T_maj"] = _where3(coll & ~dead, torch.ones_like(T_maj), T_maj)
+        W["t_min"] = torch.where(coll, t, t_min)
+        W.update(T_ray=T_ray, tr_l=tr_l, tr_u=tr_u)
+        fin = exhausted | dead
+        finish(W, fin)
+        W = _keep(W, ~fin)
+    finish(W, torch.ones_like(W["i"], dtype=torch.bool))
+
+
+def _grid_event(K, media, seed, S):
+    """One path event of ``csrc/volpath_grid.cu`` for every lane of S."""
+    dev = K.dev
+    n = S["pix"].numel()
+    o, d = S["o"], S["d"]
+    # stuck-lane guard: a lane whose origin left the box is in vacuum
+    gm = media.grids[0]
+    outside = ((o < gm.b_min) | (o > gm.b_max)).any(-1)
+    S["med"] = torch.where((S["med"] == 0) & outside, -1, S["med"])
+    hit, t_wall, entering = _box_hit(o, d, K.bmin, K.bmax)
+
+    scattered = torch.zeros(n, dtype=torch.bool, device=dev)
+    terminated = torch.zeros(n, dtype=torch.bool, device=dev)
+    t_sc = torch.zeros(n, device=dev)
+    idx = torch.nonzero(S["med"] == 0)[:, 0]
+    if idx.numel():
+        F = {k: S[k][idx] for k in ("pix", "samp", "dim", "o", "d", "hero",
+                                     "beta", "ru", "rl", "depth")}
+        F["seg"] = torch.where(hit, t_wall, _BIG)[idx]
+        _flight(K, media, seed, F)
+        for k in ("dim", "beta", "ru", "rl", "depth"):
+            S[k] = _put(S[k], idx, F[k])
+        scattered = _put(scattered, idx, F["scattered"])
+        terminated = _put(terminated, idx, F["terminated"])
+        t_sc = _put(t_sc, idx, F["t_scatter"])
+    alive = ~terminated
+
+    idx = torch.nonzero(scattered)[:, 0]
+    if idx.numel():
+        P = {k: S[k][idx] for k in ("pix", "samp", "dim", "hero", "beta",
+                                     "ru")}
+        p = o[idx] + t_sc[idx][:, None] * d[idx]
+        wo = -d[idx]
+        u_sel, ua, ub, _ = rng.uniform4(seed, P["pix"], P["samp"], P["dim"])
+        P["dim"] = P["dim"] + 1
+        use_point = torch.full_like(u_sel, K.has_point, dtype=torch.bool)
+        if K.has_point and K.has_env:
+            use_point = u_sel < K.pmf
+        pl = p - K.lp
+        dist2 = torch.clamp(_dot(pl, pl), min=1e-12)
+        dist = torch.sqrt(dist2)
+        ez = 1.0 - 2.0 * ua
+        er = torch.sqrt(torch.clamp(1.0 - ez * ez, min=0.0))
+        phi = K.two_pi * ub
+        wi = torch.where(use_point[:, None], -pl * (1.0 / dist)[:, None],
+                         torch.stack([er * torch.cos(phi),
+                                      er * torch.sin(phi), ez], -1))
+        f = _hg_value(K, _dot(wo, wi))
+        _, t_exit, _ = _box_hit(p, wi, K.bmin, K.bmax)
+        ok = f > 0
+        P.update(o=p, wi=wi, seg=torch.minimum(
+            torch.where(use_point, dist, _BIG), t_exit))
+        T_ray = torch.zeros_like(p)
+        tr_l = tr_u = torch.ones_like(p)
+        j = torch.nonzero(ok)[:, 0]
+        if j.numel():
+            Q = {k: v[j] for k, v in P.items()}
+            _ratio_track(K, media, seed, Q)
+            P["dim"] = _put(P["dim"], j, Q["dim"])
+            T_ray = _put(T_ray, j, Q["T_ray"])
+            tr_l = _put(tr_l, j, Q["tr_l"])
+            tr_u = _put(tr_u, j, Q["tr_u"])
+        ru = P["ru"]
+        Le = torch.where(use_point[:, None], K.lI / dist2[:, None], K.envL)
+        p_l = torch.where(use_point, K.pmf, K.penv)
+        r_l = tr_l * ru * p_l[:, None]
+        r_u = tr_u * ru * f[:, None]
+        denom = torch.where(use_point, _avg3(r_l), _avg3(r_l + r_u))
+        contrib = (P["beta"] * f[:, None] * T_ray * Le
+                   / torch.clamp(denom, min=1e-30)[:, None])
+        L = S["L"][idx] + torch.where((ok & (denom > 0))[:, None], contrib,
+                                      0.0)
+
+        v0, v1, v_rr, _ = rng.uniform4(seed, P["pix"], P["samp"], P["dim"])
+        P["dim"] = P["dim"] + 1
+        wi_p, ppdf = _sample_hg(K, wo, v0, v1)
+        ok_phase = ppdf > 0
+        rl = ru / torch.clamp(ppdf, min=1e-30)[:, None]
+        beta = P["beta"]
+        # Russian roulette after NEE and phase sampling
+        # (integrators.cpp:1301-1312)
+        rr_max = _max3(beta / torch.clamp(_avg3(ru), min=1e-30)[:, None])
+        do_rr = ok_phase & (S["depth"][idx] >= K.rr_start) & (rr_max < 1.0)
+        q = torch.clamp(1.0 - rr_max, min=0.0)
+        rr_kill = do_rr & (v_rr < q)
+        beta = _where3(do_rr & ~rr_kill,
+                       beta / torch.clamp(1.0 - q, min=1e-6)[:, None], beta)
+        alive = _put(alive, idx, ok_phase & ~rr_kill)
+        for k, v in (("o", p), ("d", wi_p), ("rl", rl), ("beta", beta),
+                     ("L", L), ("dim", P["dim"])):
+            S[k] = _put(S[k], idx, v)
+
+    # lanes that flew through: escape with env MIS, or cross the interface
+    flew = alive & ~scattered
+    escaped = flew & ~hit
+    if K.has_env:
+        beta, ru, rl, L = S["beta"], S["ru"], S["rl"], S["L"]
+        first = S["depth"] == 0
+        L = _where3(escaped & first, L + beta * K.envL
+                    / torch.clamp(_avg3(ru), min=1e-30)[:, None], L)
+        den = torch.clamp(_avg3(ru + rl * K.penv), min=1e-30)
+        S["L"] = _where3(escaped & ~first, L + beta * K.envL / den[:, None], L)
+    alive = alive & ~escaped
+    iface = flew & hit
+    S["med"] = torch.where(iface, torch.where(entering, 0, -1), S["med"])
+    S["o"] = _where3(iface, S["o"] + (t_wall + 1e-4)[:, None] * S["d"],
+                     S["o"])
+    return alive
+
+
+def render_grid_plain(c: KernelConstants, spp, seed):
+    """Plain PyTorch version of ``csrc/volpath_grid.cu``: (ny, nx, 3)."""
+    K = _Consts(c)
+    media = _grid_media(K, c)
+    return _render_plain(c, spp, seed,
+                         lambda K, seed, S: _grid_event(K, media, seed, S))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(t, dtype, shape, device, name):
+    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
+            or tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: want a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _launch(c: KernelConstants, spp, seed, name, extra_ptrs, extra_args):
+    """Launch kernel `name` on the current stream of the constants' card;
+    returns the (ny, nx, 3) image."""
+    from . import _build
+
+    dev = c.fconst.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    _check(c.fconst, torch.float32, (N_FCONST,), dev, "fconst")
+    _check(c.iconst, torch.int32, (N_ICONST,), dev, "iconst")
+    if int(spp) < 1:
+        raise ValueError("spp must be at least 1")
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        fn = getattr(lib, f"volpath_{name}_launch")
+        err = fn(c.fconst.data_ptr(), c.iconst.data_ptr(), *extra_ptrs,
+                 out.data_ptr(), c.nx * c.ny, int(spp),
+                 int(seed) & 0xFFFFFFFF, c.imaging_ratio / int(spp),
+                 *extra_args, stream)
+    if err != 0:
+        raise RuntimeError(f"volpath_{name} kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def render_homog(c: KernelConstants, spp, seed):
+    """B1: render the homogeneous-fog class; the CUDA kernel on a card, the
+    plain version for constants on the CPU."""
+    if c.kind != "homog":
+        raise ValueError(f"render_homog got a {c.kind!r} scene")
+    if c.fconst.device.type == "cpu":
+        return render_homog_plain(c, spp, seed)
+    return _launch(c, spp, seed, "homog", (), ())
+
+
+def render_grid(c: KernelConstants, spp, seed):
+    """B2a: render the grid-cloud class; the CUDA kernel on a card, the
+    plain version for constants on the CPU."""
+    if c.kind != "grid":
+        raise ValueError(f"render_grid got a {c.kind!r} scene")
+    if c.fconst.device.type == "cpu":
+        return render_grid_plain(c, spp, seed)
+    dev = c.fconst.device
+    res = tuple(int(v) for v in c.iconst[I_GX:I_GX + 3].tolist())
+    mres = tuple(int(v) for v in c.iconst[I_MX:I_MX + 3].tolist())
+    _check(c.density, torch.float32, res, dev, "density")
+    _check(c.majorant, torch.float32, mres, dev, "majorant")
+    nmaj = mres[0] * mres[1] * mres[2]
+    if nmaj > MAX_MAJ_VOX:
+        raise ValueError(f"majorant grid of {nmaj} cells exceeds "
+                         f"{MAX_MAJ_VOX}")
+    return _launch(c, spp, seed, "grid",
+                   (c.density.data_ptr(), c.majorant.data_ptr()), (nmaj,))
+
+
+def render(c: KernelConstants, spp, seed):
+    """Render with the kernel of the constants' scene class."""
+    return (render_homog if c.kind == "homog" else render_grid)(c, spp, seed)
+
+
+# ---------------------------------------------------------------------------
+# Bench scenes, built without JAX
+# ---------------------------------------------------------------------------
+
+
+def make_fog_box_scene(*, device):
+    """The bench fog (``bench.py`` bench_config1): HG fog box, point light
+    inside the box plus a constant environment."""
+    from ..models.integrators.volpath import make_fog_box_scene as _fog
+
+    return _fog([0.05, 0.05, 0.05], [0.5, 0.6, 0.7], g=0.3,
+                env_L=[0.1, 0.12, 0.15],
+                point=((0.0, 0.8, 0.0), (5.0, 5.0, 5.0)), device=device)
+
+
+def cloud64_density(n=64):
+    """The bench cloud's lumpy density (``bench.py`` _cloud_scene), numpy
+    (n, n, n) float32."""
+    x = np.linspace(-1, 1, n, dtype=np.float32)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    r = np.sqrt(X * X + Y * Y + Z * Z)
+    dens = np.clip(1.0 - r, 0.0, None)
+    dens *= (0.75 + 0.25 * np.sin(7.1 * X) * np.sin(5.3 * Y + 1.1)
+             * np.sin(6.7 * Z + 2.3))
+    return (np.clip(dens, 0.0, None) * 4.0).astype(np.float32)
+
+
+def make_cloud64_scene(*, device):
+    """The bench cloud (``bench.py`` _cloud_scene): 64^3 density, 8^3
+    majorants, sigma_a 0.1, sigma_s 2.0, g 0.3, external point + env."""
+    from ..models.integrators.volpath import Scene
+    from ..models.lights import Lights
+    from ..models.materials import Materials
+    from ..models.media import GridMedium, Media
+    from ..models.shapes import Geometry
+
+    gm = GridMedium.make(cloud64_density(), [0.1] * 3, [2.0] * 3,
+                         (-1, -1, -1), (1, 1, 1), g=0.3, maj_res=8,
+                         device=device)
+    lights = Lights.make(point_p=[(0.0, 1.8, 0.0)], point_I=[(8.0,) * 3],
+                         env_L=[0.1, 0.12, 0.15], world_radius=100.0,
+                         device=device)
+    geom = Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
+                                      mat=-1, light=-1, med_in=0,
+                                      med_out=-1)], device=device)
+    return Scene(geom, Materials.build([], device=device),
+                 Media.make(grids=(gm,), device=device), lights)
+
+
+def bench_camera(res, *, device):
+    """The bench camera: from (0, 0, -4) at the origin, 30 degree fov."""
+    from ..models.cameras import PerspectiveCamera
+    from ..utils import transform as tr
+
+    return PerspectiveCamera.make(
+        tr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=device), 30.0,
+        (res, res), device=device)

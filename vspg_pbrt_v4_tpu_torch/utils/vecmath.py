@@ -1,0 +1,40 @@
+"""Vector geometry over ``(..., 3)`` tensors (counterpart of
+``utils/vecmath.py``, only what volpath uses)."""
+
+from __future__ import annotations
+
+import torch
+
+from .math import safe_div, sqr
+
+
+def dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def normalize(v):
+    return v * safe_div(1.0, torch.sqrt(dot(v, v)), fill=0.0)[..., None]
+
+
+def face_forward(n, v):
+    """Flip n into the hemisphere of v (pbrt FaceForward)."""
+    return torch.where(dot(n, v)[..., None] < 0, -n, n)
+
+
+def coordinate_system(v):
+    """Orthonormal (t1, t2) around unit v (Duff et al. branchless)."""
+    z = v[..., 2]
+    sign = torch.where(z >= 0.0, 1.0, -1.0)
+    a = -1.0 / (sign + z)
+    b = v[..., 0] * v[..., 1] * a
+    t1 = torch.stack(
+        [1.0 + sign * sqr(v[..., 0]) * a, sign * b, -sign * v[..., 0]], dim=-1)
+    t2 = torch.stack([b, sign + sqr(v[..., 1]) * a, -v[..., 1]], dim=-1)
+    return t1, t2
+
+
+def spherical_direction(sin_theta, cos_theta, phi):
+    sin_theta = torch.clamp(sin_theta, -1.0, 1.0)
+    cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                        cos_theta], dim=-1)
