@@ -7,7 +7,11 @@ its plain PyTorch version and in a furnace, then renders the two bench
 scenes at bench size through ``render_persistent(backend="auto")``,
 checks that the main path went through both kernels, and holds each
 kernel's bench-size image against its plain version pixel for pixel at the
-same shape, spp and seed. Every line with a
+same shape, spp and seed. Phase 7 does the same for the VSP-guided path:
+the VSPG kernel's record and render variants (RIS and MIS) against their
+plain versions, a guided furnace, and ``render_vspg`` on the bench's pyro
+cloud at 256^2 (48 training waves, then 64 frozen spp), its time split by
+CUDA events around each kernel launch. Every line with a
 number names the card and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -38,6 +42,55 @@ def _parity(k, p):
     ok = ((rel < 1e-3) | (diff < 1e-5)).all(-1)
     mean_rel = abs(k.mean().item() - p.mean().item()) / abs(p.mean().item())
     return ok.float().mean().item(), mean_rel, diff.max().item()
+
+
+# Peak rates of one H100 SXM at its 700 W limit: HBM bytes per second
+# (NVIDIA's data sheet), and per pipe of 132 SMs at the 1.98 GHz boost
+# clock, FP32 instructions (add, multiply or FMA: 128 lanes an SM, the data
+# sheet's 67 TFLOP/s when an FMA counts as two operations) and MUFU
+# special-function results (16 an SM).
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 132 * 128 * 1.98e9
+MUFU_PER_S = 132 * 16 * 1.98e9
+# (FP32 operations, MUFU operations) per unit of work the plain versions
+# count, counted by hand from the kernel sources, so estimates: an add,
+# multiply, min/max or compare-select counts one FP32 operation; a
+# division, square root, exp or log counts one MUFU operation and one FP32
+# operation (its range reduction and Newton steps are not counted); sin
+# and cos count one FP32 operation; the integer RNG and index arithmetic
+# are not counted. "fma": the source is built with FMA contraction, so a
+# multiply and an add may issue as one instruction.
+OPS = {
+    "volpath_homog": {"fma": True, "events": (220, 30)},
+    "volpath_grid": {"fma": True, "events": (170, 30),
+                     "flight_steps": (90, 13), "shadow_steps": (100, 20)},
+    # lane-iterations (box test, deferred roulette, eight draws), walk and
+    # shadow steps (cell exit, eight-corner trilerp, mode update), scatter
+    # vertices (field query, HG product, NEE pick, RIS or MIS direction)
+    # and walk-start field queries (secondary VSP); built with -fmad=false
+    "vspg": {"fma": False, "iters": (60, 4), "steps": (180, 14),
+             "scatters": (740, 140), "queries": (225, 30)},
+}
+
+
+def _bound_ms(name, counts, scale, nbytes):
+    """(least time in ms, what binds it, the three times in ms): the
+    largest of nbytes over the HBM rate, the counted FP32 work over the
+    FP32 instruction rate (half of it where FMAs fuse pairs) and the
+    counted MUFU work over the MUFU rate, the work times `scale`."""
+    units = [k for k in OPS[name] if k != "fma"]
+    fp32 = sum(OPS[name][k][0] * counts.get(k, 0) for k in units) * scale
+    mufu = sum(OPS[name][k][1] * counts.get(k, 0) for k in units) * scale
+    instr = fp32 / 2 if OPS[name]["fma"] else fp32
+    t = {"bytes": nbytes / HBM_BYTES_PER_S, "fp32": instr / FP32_INSTR_PER_S,
+         "mufu": mufu / MUFU_PER_S}
+    binds = max(t, key=t.get)
+    return (t[binds] * 1e3, "bytes" if binds == "bytes" else "operations",
+            {k: round(v * 1e3, 4) for k, v in t.items()})
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _best_of_3(fn):
@@ -73,10 +126,25 @@ def main():
     tag = f"[{card}]"
     print(f"phase 1 card: {card}", flush=True)
 
-    _build.build(force=True)
+    # the VSPG kernel is shipped without FMA contraction, for parity with
+    # its plain version; a second build with it, started alongside the
+    # package's, times what that costs (phase 7c)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fma_lib = _build.BUILD_DIR / "libvspg_fma.so"
+    with subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+             str(fma_lib), str(_build.CSRC / "vspg.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) as fma_build:
+        _build.build(force=True, verbose=True)
+        fma_log = fma_build.communicate()[0]
+    assert fma_build.returncode == 0, fma_log
     _build.load()
     print(f"phase 2 build: nvcc {_build.last_build_seconds:.2f} s {tag}",
           flush=True)
+    for line in _build.last_build_log.splitlines():
+        if "vspg_kernel" in line or "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}", flush=True)
 
     bench_cfg = volpath.VolPathConfig(max_depth=32, max_events=128,
                                       max_collisions=2048)
@@ -94,7 +162,7 @@ def main():
     # kernel against its plain version: least fraction of pixels within 1e-3
     # relative (or 1e-5 absolute), largest relative difference of the means;
     # the grid walk branches on more float compares, so it flips more pixels
-    tol = {"homog": (0.99, 1e-3), "grid": (0.98, 2e-3)}
+    tol = {"homog": (0.99, 1e-3), "grid": (0.98, 2e-3), "vspg": (0.98, 2e-3)}
 
     def check_parity(label, kind, k, p):
         frac, mean_rel, max_abs = _parity(k, p)
@@ -161,7 +229,8 @@ def main():
     for kind, name, scene, spp in cells:
         t_main, img = timed[kind]
         c = consts(scene, res)
-        ref8 = plain[kind](c, 8, 5)
+        counts = {}
+        ref8 = plain[kind](c, 8, 5, counts)
         t_kernel, k_img = _best_of_3(lambda: vk.render(c, spp, 5))
         t_plain, p_img = _best_of_3(lambda: plain[kind](c, spp, 5))
         # the main path's image is the kernel's (deterministic, same seed)
@@ -179,6 +248,14 @@ def main():
         assert tuple(img.shape) == (res, res, 3)
         assert bool(torch.isfinite(img).all()) and mean > 0
         assert abs(mean - mean8) / mean8 < 0.03, (name, mean, mean8)
+        # the work of `spp` samples: the 8-spp plain run's counts, scaled
+        nbytes = _nbytes(c.fconst, c.iconst, k_img) + (
+            _nbytes(c.density, c.majorant) if kind == "grid" else 0)
+        bound, bound_by, pipes = _bound_ms(f"volpath_{kind}", counts,
+                                           spp / 8, nbytes)
+        print(f"phase 6 {name} bound {bound:.4f} ms ({bound_by}; ms by "
+              f"pipe {pipes}), kernel at {bound / (t_kernel * 1e3):.4f} of "
+              f"it; counted work at 8 spp {counts} {tag}", flush=True)
         kernels.append(dict(
             name=f"volpath_{kind}", route="cuda",
             source=f"vspg_pbrt_v4_tpu_torch/csrc/volpath_{kind}.cu",
@@ -186,7 +263,10 @@ def main():
                       if kind == "homog" else
                       "vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380"),
             launches=launches[kind], max_abs_err=max_abs,
-            ms=t_kernel * 1e3, plain_ms=t_plain * 1e3))
+            ms=t_kernel * 1e3, plain_ms=t_plain * 1e3, bound_ms=bound,
+            bound_by=bound_by, library_ms=None))
+
+    kernels += _phase7(dev, tag, check_parity, fma_lib)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -194,6 +274,232 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _phase7(dev, tag, check_parity, fma_lib):
+    """Phase 7, the VSP-guided path: B4a and B3a against their plain
+    versions in both direction modes (RIS, MIS), a guided furnace, then
+    ``render_vspg`` on the bench's pyro cloud at 256^2. `fma_lib` is
+    vspg.cu built with FMA contraction, timed against the shipped build.
+    Returns the two kernels' entries of the kernels line."""
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import _build
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    # the configuration of bench.py's two VSPG cells (bench_config3/4)
+    cfg = volpath.VolPathConfig(max_depth=64, max_events=256,
+                                max_collisions=4096)
+    gopt = guided_volpath.GuidingOptions(field_res=8, record_depth=6,
+                                         min_train_weight=16.0,
+                                         train_waves=48)
+    vopt = vspg.VSPGOptions(vsp_criterion="contribution")
+    pyro = sk.make_pyro64_scene(device=dev)
+
+    def view(res):
+        return (vk.bench_camera(res, device=dev),
+                RGBFilm.make((res, res), device=dev))
+
+    def trained(scene, res, waves, seed, vopt=vopt):
+        cam, film = view(res)
+        _, field, isgb = vspg.render_vspg(
+            scene, cam, film, spp=waves, cfg=cfg,
+            gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
+            device=dev)
+        return field, isgb
+
+    def inputs(scene, res, field, isgb, vopt=vopt, gopt=gopt):
+        cam, film = view(res)
+        return sk.kernel_inputs(scene, cam, film, cfg, gopt, vopt, field,
+                                isgb)
+
+    # ---- 7a: parity at 64^2 on a field trained by 4 kernel waves, in the
+    # RIS variants (the main path's) and the MIS variants --------------------
+    field, isgb = trained(pyro, 64, 4, 1)
+    for mode in ("ris", "mis"):
+        c, g, ftab, itab = inputs(pyro, 64, field, isgb,
+                                  gopt=gopt._replace(mode=mode))
+        assert g.ris == (mode == "ris")
+        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
+        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
+        torch.cuda.synchronize()
+        check_parity(f"phase 7a parity vspg_record ({mode}) image 64x64x1",
+                     "vspg", img_k, img_p)
+        rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
+        diff = (rk - rp).abs().reshape(rk.shape[0], -1)
+        ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape)) | (diff <= 1e-5))
+        frac_rec = ok.all(-1).float().mean().item()
+        n_valid = int((rec_p[7] > 0).sum())
+        print(f"phase 7a parity vspg_record ({mode}) rows: {frac_rec:.5f} of "
+              f"lanes with every record row within 1e-3 ({n_valid} valid "
+              f"slots) {tag}", flush=True)
+        assert frac_rec >= 0.98, frac_rec
+        k4 = sk.render_vspg_kernel(c, g, ftab, itab, 4, 22)
+        p4 = sk.render_vspg_plain(c, g, ftab, itab, 4, 22)
+        torch.cuda.synchronize()
+        check_parity(f"phase 7a parity vspg_render ({mode}) 64x64x4", "vspg",
+                     k4, p4)
+
+    # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
+    x = np.linspace(-1, 1, 16)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
+        np.float32) * 3.0
+    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
+                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
+    furnace = volpath.Scene(
+        Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
+                                   mat=-1, light=-1, med_in=0, med_out=-1)],
+                       device=dev),
+        Materials.build([], device=dev), Media.make(grids=(gm,), device=dev),
+        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
+    f_field, f_isgb = trained(furnace, 64, 8, 3)
+    assert f_field.iteration > 0 and f_isgb.ready
+    m_f = sk.render_vspg_kernel(*inputs(furnace, 64, f_field, f_isgb), 64,
+                                9).mean().item()
+    print(f"phase 7b furnace: guided render mean {m_f:.5f} (0.7 within 3%), "
+          f"field trained {f_field.iteration} waves {tag}", flush=True)
+    assert abs(m_f - 0.7) / 0.7 < 0.03, m_f
+
+    # ---- 7c: the main path at bench size ----------------------------------
+    res, n_train, n_frozen = 256, 48, 64
+    cam, film = view(res)
+    npix = res * res
+    for counter in (vk.LAUNCHES, sk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    # CUDA events around each kernel launch of this call split its time
+    sk.LAUNCH_EVENTS = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, field, isgb = vspg.render_vspg(
+        pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
+        vopt=vopt, seed=5, spp_per_pass=1, device=dev)
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+    launches = dict(sk.LAUNCHES)
+    mean = img.mean().item()
+    print(f"phase 7c render_vspg pyro64 {res}x{res} {n_train} training "
+          f"waves + {n_frozen} frozen spp: {t_main:.3f} s, mean {mean:.5f}, "
+          f"field iteration {field.iteration}, isgb ready {isgb.ready}, "
+          f"launches {launches} {tag}", flush=True)
+    assert field.iteration == n_train and isgb.ready
+    assert launches["vspg_record"] > 0 and launches["vspg_render"] > 0
+    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+    assert tuple(img.shape) == (res, res, 3)
+    assert bool(torch.isfinite(img).all()) and mean > 0
+    assert len(events) == sum(launches.values()), (len(events), launches)
+    k_ms = {name: 0.0 for name in sk.LAUNCHES}
+    for name, start, end in events:
+        k_ms[name] += start.elapsed_time(end)
+    rest_ms = t_main * 1e3 - k_ms["vspg_record"] - k_ms["vspg_render"]
+    print(f"phase 7c split of that call: record kernel "
+          f"{k_ms['vspg_record']:.3f} ms in {launches['vspg_record']} "
+          f"launches ({k_ms['vspg_record'] / launches['vspg_record']:.3f} "
+          f"ms each), render kernel {k_ms['vspg_render']:.3f} ms in "
+          f"{launches['vspg_render']}, the rest (tables, propagate, EM, "
+          f"ISGB, launch gaps) {rest_ms:.3f} ms of {t_main * 1e3:.3f} ms "
+          f"{tag}", flush=True)
+
+    # the frozen render alone, through the main path's entry point
+    def frozen(vopt, field, isgb):
+        return vspg.render_vspg(pyro, cam, film, spp=n_frozen, cfg=cfg,
+                                gopt=gopt, vopt=vopt, seed=7, field=field,
+                                isgb=isgb, train=False, device=dev)[0]
+
+    t_frozen, _ = _best_of_3(lambda: frozen(vopt, field, isgb))
+    print(f"phase 7c frozen render {res}x{res}x{n_frozen} (contribution): "
+          f"{npix * n_frozen / t_frozen / 1e6:.3f} Mpaths/s "
+          f"({t_frozen * 1e3:.2f} ms) {tag}", flush=True)
+
+    # each variant alone at the main path's shapes, and its plain version
+    c, g, ftab, itab = inputs(pyro, res, field, isgb)
+    t_rk, (img_rk, _) = _best_of_3(
+        lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
+    counts_r = {}
+    t0 = time.perf_counter()
+    img_rp, _ = sk.train_wave_plain(c, g, ftab, itab, 31, 6, counts_r)
+    torch.cuda.synchronize()
+    t_rp = time.perf_counter() - t0
+    max_rec = check_parity(f"phase 7c parity vspg_record {res}x{res}x1",
+                           "vspg", img_rk, img_rp)
+    t_k64, k64 = _best_of_3(
+        lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
+    # the same launch from the build with FMA contraction, then the shipped
+    # build again, on the same inputs
+    lib_fma = _build.bind(fma_lib, ("vspg_render_launch",))
+    t_fma, k64_fma = _best_of_3(
+        lambda: sk._launch(c, g, ftab, itab, n_frozen, 11, None, lib=lib_fma))
+    t_k64b, _ = _best_of_3(
+        lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
+    frac_fma, mean_fma, _ = _parity(k64_fma, k64)
+    print(f"phase 7c vspg_render {res}x{res}x{n_frozen} built with FMA "
+          f"contraction {t_fma * 1e3:.3f} ms against the shipped -fmad=false "
+          f"build {t_k64 * 1e3:.3f} ms before it and {t_k64b * 1e3:.3f} ms "
+          f"after; its image: {frac_fma:.5f} of pixels within 1e-3 of the "
+          f"shipped one, mean rel diff {mean_fma:.3e} {tag}", flush=True)
+    spp_plain = 1  # keeps the plain version within a minute at 256^2
+    t_k2, k2 = _best_of_3(
+        lambda: sk.render_vspg_kernel(c, g, ftab, itab, spp_plain, 11))
+    counts = {}
+    t0 = time.perf_counter()
+    p2 = sk.render_vspg_plain(c, g, ftab, itab, spp_plain, 11, counts)
+    torch.cuda.synchronize()
+    t_p2 = time.perf_counter() - t0
+    max_ren = check_parity(
+        f"phase 7c parity vspg_render {res}x{res}x{spp_plain}", "vspg", k2,
+        p2)
+    print(f"phase 7c vspg_render kernel {res}x{res}x{n_frozen} "
+          f"{t_k64 * 1e3:.3f} ms ({npix * n_frozen / t_k64 / 1e6:.3f} "
+          f"Mpaths/s); at {spp_plain} spp kernel {t_k2 * 1e3:.3f} ms, plain "
+          f"{t_p2 * 1e3:.1f} ms; counted work at {spp_plain} spp {counts} "
+          f"{tag}", flush=True)
+    print(f"phase 7c vspg_record kernel {res}x{res}x1 {t_rk * 1e3:.3f} ms, "
+          f"plain {t_rp * 1e3:.1f} ms; counted work {counts_r} {tag}",
+          flush=True)
+
+    # the variance-criterion cell (bench_config4): its own 48-wave training,
+    # then its frozen render
+    vopt_v = vspg.VSPGOptions(vsp_criterion="variance")
+    field_v, isgb_v = trained(pyro, res, n_train, 5, vopt_v)
+    t_fv, img_v = _best_of_3(lambda: frozen(vopt_v, field_v, isgb_v))
+    assert field_v.iteration == n_train and isgb_v.ready
+    assert bool(torch.isfinite(img_v).all()) and img_v.mean().item() > 0
+    print(f"phase 7c frozen render {res}x{res}x{n_frozen} (variance): "
+          f"{npix * n_frozen / t_fv / 1e6:.3f} Mpaths/s "
+          f"({t_fv * 1e3:.2f} ms), mean {img_v.mean().item():.5f} {tag}",
+          flush=True)
+
+    src = "vspg_pbrt_v4_tpu_torch/csrc/vspg.cu"
+    rep = "vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241"
+    ins_bytes = _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
+                        c.majorant, ftab, itab)
+    b_ren, by_ren, p_ren = _bound_ms("vspg", counts, n_frozen / spp_plain,
+                                     ins_bytes + _nbytes(img))
+    b_rec, by_rec, p_rec = _bound_ms(
+        "vspg", counts_r, 1.0, ins_bytes + _nbytes(img)
+        + sk.REC_ROWS * gopt.record_depth * npix * 4)
+    print(f"phase 7c bounds: vspg_render {b_ren:.4f} ms ({by_ren}; ms by "
+          f"pipe {p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it; "
+          f"vspg_record {b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), "
+          f"kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}", flush=True)
+    return [
+        dict(name="vspg_render", route="cuda", source=src, replaces=rep,
+             launches=launches["vspg_render"], max_abs_err=max_ren,
+             ms=t_k64 * 1e3, plain_ms=t_p2 * 1e3, bound_ms=b_ren,
+             bound_by=by_ren, library_ms=None, plain_spp=spp_plain),
+        dict(name="vspg_record", route="cuda", source=src, replaces=rep,
+             launches=launches["vspg_record"], max_abs_err=max_rec,
+             ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
+             bound_by=by_rec, library_ms=None),
+    ]
 
 
 if __name__ == "__main__":

@@ -54,3 +54,88 @@ def test_wrapper_checks_inputs(dev):
         vk.render_grid(bad, 1, 0)
     with pytest.raises(ValueError):
         vk.render_grid(c, 0, 0)
+
+
+def _vspg_inputs(dev, res=48, waves=2, mode="ris"):
+    """VSPG kernel inputs on the bench's pyro cloud, the field and ISGB
+    trained by `waves` record waves, for direction mode `mode`."""
+    from vspg_pbrt_v4_tpu_torch.models.integrators import vspg
+    from vspg_pbrt_v4_tpu_torch.models.integrators.guided_volpath import (
+        GuidingOptions)
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    cfg = tv.VolPathConfig(max_depth=64, max_events=256, max_collisions=4096)
+    gopt = GuidingOptions(field_res=8, record_depth=6, min_train_weight=16.0,
+                          train_waves=waves)
+    vopt = vspg.VSPGOptions(vsp_criterion="contribution")
+    scene = sk.make_pyro64_scene(device=dev)
+    cam = vk.bench_camera(res, device=dev)
+    film = RGBFilm.make((res, res), device=dev)
+    _, field, isgb = vspg.render_vspg(scene, cam, film, spp=waves, cfg=cfg,
+                                      gopt=gopt, vopt=vopt, seed=2,
+                                      device=dev)
+    return sk.kernel_inputs(scene, cam, film, cfg,
+                            gopt._replace(mode=mode), vopt, field, isgb)
+
+
+@pytest.mark.parametrize("mode", ["ris", "mis"])
+@pytest.mark.parametrize("variant", ["render", "record"])
+def test_vspg_kernel_matches_plain(dev, variant, mode):
+    """B3a/B4a against their plain versions on a trained field, in both
+    direction modes: built without FMA contraction, the kernel rounds as
+    the plain version's separate ops do; 0.98 leaves room for a last-bit
+    difference of a transcendental flipping a branch."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, mode=mode)
+    assert g.ris == (mode == "ris")
+    name = "vspg_" + variant
+    before = sk.LAUNCHES[name]
+    if variant == "render":
+        k = sk.render_vspg_kernel(c, g, ftab, itab, 1, 7)
+        p = sk.render_vspg_plain(c, g, ftab, itab, 1, 7)
+    else:
+        k, rk = sk.train_wave_kernel(c, g, ftab, itab, 7, 6)
+        p, rp = sk.train_wave_plain(c, g, ftab, itab, 7, 6)
+        d = (rk - rp).abs()
+        ok = ((d <= 1e-3 * rp.abs()) | (d <= 1e-5)).all(0).all(0)
+        assert ok.float().mean().item() >= 0.98
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    diff = (k - p).abs()
+    ok = ((diff <= 1e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.98
+
+
+def test_vspg_launch_events(dev):
+    """While LAUNCH_EVENTS is a list, each launch adds its timed events;
+    with it None (the default) nothing is recorded."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, res=16, waves=1)
+    sk.LAUNCH_EVENTS = []
+    try:
+        sk.render_vspg_kernel(c, g, ftab, itab, 1, 0)
+        sk.train_wave_kernel(c, g, ftab, itab, 0, 2)
+        torch.cuda.synchronize()
+        events = sk.LAUNCH_EVENTS
+    finally:
+        sk.LAUNCH_EVENTS = None
+    assert [e[0] for e in events] == ["vspg_render", "vspg_record"]
+    assert all(start.elapsed_time(end) > 0 for _, start, end in events)
+    sk.render_vspg_kernel(c, g, ftab, itab, 1, 0)
+    assert sk.LAUNCH_EVENTS is None
+
+
+def test_vspg_wrapper_checks_inputs(dev):
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, res=16, waves=1)
+    with pytest.raises(ValueError):
+        sk.render_vspg_kernel(c, g, ftab.double(), itab, 1, 0)
+    with pytest.raises(ValueError):
+        sk.render_vspg_kernel(c, g, ftab[:, :-1].contiguous(), itab, 1, 0)
+    with pytest.raises(ValueError):
+        sk.render_vspg_kernel(c, g, ftab, itab, 0, 0)
+    with pytest.raises(ValueError):
+        sk.train_wave_kernel(c, g, ftab, itab, 0, 0)

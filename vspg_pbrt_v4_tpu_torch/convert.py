@@ -111,3 +111,58 @@ def from_jax(scene, camera, film, cfg, device):
                        _lights(scene.lights, device))
     return (port_scene, _camera(camera, device), _film(film, device),
             VolPathConfig(**cfg._asdict()))
+
+
+def _half_from_jax(h, device):
+    from .models.guiding.field import FieldHalf
+
+    return FieldHalf(*(_t(getattr(h, f), device, torch.float32)
+                       for f in FieldHalf.__dataclass_fields__))
+
+
+def field_from_jax(field, device="cuda"):
+    """This package's GuidingField holding the values of a JAX one (uniform
+    fields only: the adaptive field is not ported)."""
+    from .models.guiding.field import GuidingField
+
+    if int(field.n_extra):
+        raise NotImplementedError("the adaptive guiding field is not ported "
+                                  "yet")
+    return GuidingField(_t(field.b_min, device, torch.float32),
+                        _t(field.b_max, device, torch.float32),
+                        _half_from_jax(field.surface, device),
+                        _half_from_jax(field.volume, device),
+                        int(field.iteration), int(field.res),
+                        int(field.n_lobes))
+
+
+def isgb_from_jax(isgb, device="cuda"):
+    """This package's ISGB holding the values of a JAX one (à-trous
+    denoiser only)."""
+    from .models.guiding.isgb import ISGB
+
+    if isgb.denoiser != "atrous":
+        raise NotImplementedError(f"ISGB denoiser {isgb.denoiser!r} is not "
+                                  "ported yet")
+    names = ("contrib_sum", "albedo_sum", "normal_sum", "n", "c_vol",
+             "c_vol2", "c_surf", "c_surf2", "contrib_a", "n_a",
+             "contrib_est", "vsp_est")
+    return ISGB(*(_t(getattr(isgb, f), device, torch.float32)
+                  for f in names), bool(isgb.ready),
+                tuple(int(r) for r in isgb.resolution),
+                str(isgb.vsp_criterion), "atrous")
+
+
+def options_from_jax(gopt, vopt):
+    """(GuidingOptions, VSPGOptions) of this package with the values of the
+    JAX package's options tuples. The JAX fields this package lacks
+    (``surface_guiding``, ``refine_threshold``, ``calculate_tr_buffer``)
+    serve only routes that are not ported, which raise on their own."""
+    from .models.integrators.guided_volpath import GuidingOptions
+    from .models.integrators.vspg import VSPGOptions
+
+    def pick(cls, opt):
+        return cls(**{k: v for k, v in opt._asdict().items()
+                      if k in cls._fields})
+
+    return pick(GuidingOptions, gopt), pick(VSPGOptions, vopt)

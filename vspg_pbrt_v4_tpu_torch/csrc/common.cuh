@@ -86,6 +86,16 @@ static __device__ __forceinline__ V3 mul(V3 a, V3 b) {
 static __device__ __forceinline__ V3 scale(V3 a, float s) {
   return v3(a.x * s, a.y * s, a.z * s);
 }
+static __device__ __forceinline__ V3 add(V3 a, V3 b) {
+  return v3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+static __device__ __forceinline__ V3 sub(V3 a, V3 b) {
+  return v3(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+// the point o + t d
+static __device__ __forceinline__ V3 along(V3 o, float t, V3 d) {
+  return v3(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z);
+}
 static __device__ __forceinline__ V3 normalize(V3 v) {
   float inv = rsqrtf(fmaxf(dot(v, v), 1e-30f));
   return scale(v, inv);

@@ -1,0 +1,926 @@
+// B3a + B4a: the VSPG megakernel, frozen-field render and training-wave
+// record variants, for one density grid in a box (no triangles), a
+// uniform guiding field and the resampling distance route.
+//
+// Replaces pallas_vspg._make_vspg_kernel (vspg_pbrt_v4_tpu/ops/
+// pallas_vspg.py) with record=False (B3a) and record=True (B4a). One thread
+// renders all samples of one pixel and runs the Pallas kernel's per-lane
+// state machine: per iteration one event of its path (mode 0 transport, 2
+// reservoir-resampling walk, 3 delta walk, 4/5 ratio-tracked shadow walk
+// toward the point light / environment), the same eight uniform4 draws in
+// the same order, and the same iteration cap spp * max_events * 12. So it
+// agrees per pixel with ops/vspg_kernels.render_vspg_plain /
+// train_wave_plain, which agree per pixel with the interpret-mode Pallas
+// kernel where bf16 rounds nothing. The block-wide sharing of the Pallas
+// kernel (one field query and one majorant step per iteration for
+// disjoint lane sets) becomes per-thread branches: a thread queries the
+// field only at a scatter or a walk start.
+//
+// What bounds it on the H100: dependent loads and divergence. Each walk
+// step of a thread is one iteration with a majorant read (shared memory)
+// and an eight-corner density read (float32 grid, 1 MB at 64^3, read
+// through the read-only cache), and a scatter adds a field-table column
+// read (40 floats of an 80 KB float32 table) and the vMF mixture math of
+// four lobes; the threads of a warp sit in different modes and take
+// different numbers of iterations. Registers hold the ~80-value lane state
+// and the lobes, so occupancy is low. The design keeps the whole path in
+// registers (no device-memory traffic but the reads above, the image and
+// the record rows) and leaves the TPU's bf16 tables, one-hot MXU gathers,
+// chunk sweeps, stochastic trilerp, tiled lane map and spp chunking out.
+#include "common.cuh"
+#include "vspg.cuh"
+
+using namespace vp;
+
+namespace {
+
+constexpr int KMAX = 4;
+constexpr float MIN_KAPPA = 1e-2f;
+constexpr float MAX_KAPPA = 2e3f;
+constexpr float INV_4PI_F = 0.0795774715459476679f;
+
+struct Lobes {
+  float w[KMAX];
+  V3 mu[KMAX];
+  float kappa[KMAX];
+  float vlv[KMAX], vls[KMAX];  // directional VSP moments
+};
+
+struct Tables {
+  const float* __restrict__ density;
+  const float* maj;  // shared memory
+  const float* __restrict__ ftab;
+  int gx, gy, gz, mx, my, mz, fres, ncell, K;
+};
+
+static __device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// ---- vMF mixtures (pallas_vspg._make_vspg_kernel, in its op order) -------
+
+static __device__ __forceinline__ float vmf_pdf_e(const float* fc, float cw,
+                                                  float kappa) {
+  float k = fmaxf(kappa, MIN_KAPPA);
+  float cnorm = k / (fc[F_TWO_PI] * (1.0f - expf(-2.0f * k)));
+  float val = cnorm * expf(k * (cw - 1.0f));
+  return kappa < MIN_KAPPA ? INV_4PI_F : val;
+}
+
+static __device__ __forceinline__ float log_c(const float* gc, float kappa) {
+  float k = fmaxf(kappa, MIN_KAPPA);
+  return logf(k) - gc[G_LOG_2PI] - log1pf(-expf(-2.0f * k));
+}
+
+static __device__ float mixture_pdf(const float* fc, const Lobes& lb, int K,
+                                    V3 w) {
+  float p = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    float cw = w.x * lb.mu[k].x + w.y * lb.mu[k].y + w.z * lb.mu[k].z;
+    p = p + lb.w[k] * vmf_pdf_e(fc, cw, lb.kappa[k]);
+  }
+  return p;
+}
+
+// every lobe times the vMF of the HG lobe about d (vmf.product_with_vmf)
+static __device__ Lobes product_hg(const float* gc, const Lobes& lb, int K,
+                                   V3 d) {
+  Lobes out = lb;
+  const float kb = gc[G_KAPPA_H], sg = gc[G_HG_SIGN];
+  const V3 mb = v3(d.x * sg, d.y * sg, d.z * sg);
+  float tot_old = 0.0f, tot_new = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    float kap = lb.kappa[k];
+    V3 kmu = v3(kap * lb.mu[k].x + kb * mb.x, kap * lb.mu[k].y + kb * mb.y,
+                kap * lb.mu[k].z + kb * mb.z);
+    float k_new =
+        sqrtf(fmaxf(kmu.x * kmu.x + kmu.y * kmu.y + kmu.z * kmu.z, 1e-12f));
+    float inv = 1.0f / fmaxf(k_new, 1e-8f);
+    float log_s = log_c(gc, kap) + gc[G_LOG_C_H] - log_c(gc, k_new) +
+                  (k_new - kap - kb);
+    float w_new = lb.w[k] * expf(clampf(log_s, -60.0f, 60.0f));
+    tot_old = tot_old + lb.w[k];
+    tot_new = tot_new + w_new;
+    out.w[k] = w_new;
+    out.mu[k] = scale(kmu, inv);
+    out.kappa[k] = clampf(k_new, 0.0f, MAX_KAPPA);
+  }
+  float sc = tot_old / fmaxf(tot_new, 1e-20f);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    out.w[k] = out.w[k] * sc;
+  }
+  return out;
+}
+
+// CDF lobe select + vMF sample (vmf.mixture_sample); *pdf = mixture pdf
+static __device__ V3 mixture_sample(const float* fc, const Lobes& lb, int K,
+                                    float u_sel, float u0, float u1,
+                                    float* pdf) {
+  float tot = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    tot = tot + lb.w[k];
+  }
+  float inv_tot = 1.0f / fmaxf(tot, 1e-12f);
+  float cdf = 0.0f;
+  int k_idx = 0;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    cdf = cdf + lb.w[k] * inv_tot;
+    k_idx += u_sel >= cdf ? 1 : 0;
+  }
+  k_idx = min(max(k_idx, 0), K - 1);
+  V3 mu = lb.mu[0];
+  float kap = lb.kappa[0];
+#pragma unroll
+  for (int k = 1; k < KMAX; ++k) {
+    if (k == k_idx) {
+      mu = lb.mu[k];
+      kap = lb.kappa[k];
+    }
+  }
+  float sk = fmaxf(kap, MIN_KAPPA);
+  float ct = 1.0f + log1pf(-(1.0f - expf(-2.0f * sk)) * (1.0f - u0)) / sk;
+  ct = kap < MIN_KAPPA ? 1.0f - 2.0f * u0 : ct;
+  ct = clampf(ct, -1.0f, 1.0f);
+  float st = sqrtf(fmaxf(1.0f - ct * ct, 0.0f));
+  float phi = fc[F_TWO_PI] * u1;
+  float sign = mu.z >= 0.0f ? 1.0f : -1.0f;
+  float a = -1.0f / (sign + mu.z);
+  float b = mu.x * mu.y * a;
+  V3 t1 = v3(1.0f + sign * mu.x * mu.x * a, sign * b, -sign * mu.x);
+  V3 t2 = v3(b, sign + mu.y * mu.y * a, -mu.y);
+  float sc = st * cosf(phi), ss = st * sinf(phi);
+  V3 w = normalize(v3(sc * t1.x + ss * t2.x + ct * mu.x,
+                      sc * t1.y + ss * t2.y + ct * mu.y,
+                      sc * t1.z + ss * t2.z + ct * mu.z));
+  *pdf = mixture_pdf(fc, lb, K, w);
+  return w;
+}
+
+// directional VSP: the lobes' VSP moments blended by the posterior at d
+static __device__ float vsp_directional(const float* fc, const Lobes& lb,
+                                        int K, float vsp_cell, V3 d) {
+  float resp_sum = 0.0f, num = 0.0f, den = 0.0f, mass = 0.0f;
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    float cw = d.x * lb.mu[k].x + d.y * lb.mu[k].y + d.z * lb.mu[k].z;
+    float r = lb.w[k] * vmf_pdf_e(fc, cw, lb.kappa[k]);
+    resp_sum = resp_sum + r;
+    num = num + r * lb.vlv[k];
+    den = den + r * (lb.vlv[k] + lb.vls[k]);
+    mass = mass + lb.vlv[k] + lb.vls[k];
+  }
+  float inv = 1.0f / fmaxf(resp_sum, 1e-20f);
+  num = num * inv;
+  den = den * inv;
+  float vdir = den > 1e-12f ? num / fmaxf(den, 1e-20f) : -1.0f;
+  return (mass > 8.0f && vdir >= 0.0f) ? vdir : vsp_cell;
+}
+
+// the field cell at p: lobes (mu renormalized, parallax re-aimed), valid,
+// cell VSP and flux
+static __device__ void field_query(const float* gc, const Tables& T, V3 p,
+                                   Lobes* lb, bool* valid, float* vsp_cell,
+                                   V3* flux) {
+  const int fres = T.fres;
+  const float pc[3] = {p.x, p.y, p.z};
+  int ix[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float g = clampf((pc[k] - gc[G_FB0 + k]) / gc[G_FEXT + k] * (float)fres,
+                     0.0f, gc[G_FRES_HI]);
+    ix[k] = (int)g;
+  }
+  const int cid = (ix[0] * fres + ix[1]) * fres + ix[2];
+  const float* col = T.ftab + cid;
+  const int n = T.ncell, K = T.K;
+  auto row = [&](int r) { return __ldg(col + (size_t)r * n); };
+  *valid = row(8 * K) > 0.5f;
+  *vsp_cell = row(8 * K + 1);
+  *flux = v3(row(8 * K + 2), row(8 * K + 3), row(8 * K + 4));
+  V3 cc = v3(row(8 * K + 5), row(8 * K + 6), row(8 * K + 7));
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) {
+    if (k >= K) break;
+    lb->w[k] = row(8 * k);
+    V3 mu = normalize(v3(row(8 * k + 1), row(8 * k + 2), row(8 * k + 3)));
+    lb->kappa[k] = row(8 * k + 4);
+    float dist = row(8 * k + 5);
+    lb->vlv[k] = row(8 * k + 6);
+    lb->vls[k] = row(8 * k + 7);
+    V3 tgt = v3(cc.x + mu.x * dist - p.x, cc.y + mu.y * dist - p.y,
+                cc.z + mu.z * dist - p.z);
+    lb->mu[k] = (dist > 1e-6f && *valid) ? normalize(tgt) : mu;
+  }
+}
+
+// ---- medium -----------------------------------------------------------------
+
+// exact trilinear density, the eight corners summed in the Pallas kernel's
+// order, zero outside the box
+static __device__ float density8(const float* fc, const float* gc,
+                                 const Tables& T, V3 p) {
+  if (outside_box(fc, p)) return 0.0f;
+  const float pc[3] = {p.x, p.y, p.z};
+  const int n[3] = {T.gx, T.gy, T.gz};
+  int i0[3], i1[3];
+  float w[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float f = (pc[k] - fc[F_BMIN + k]) / gc[G_EXT + k] * (float)n[k] - 0.5f;
+    float f0 = floorf(f);
+    w[k] = f - f0;
+    i0[k] = min(max((int)f0, 0), n[k] - 1);
+    i1[k] = min(i0[k] + 1, n[k] - 1);
+  }
+  float d = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int cx = (c & 4) ? i1[0] : i0[0];
+    int cy = (c & 2) ? i1[1] : i0[1];
+    int cz = (c & 1) ? i1[2] : i0[2];
+    float wx = (c & 4) ? w[0] : 1.0f - w[0];
+    float wy = (c & 2) ? w[1] : 1.0f - w[1];
+    float wz = (c & 1) ? w[2] : 1.0f - w[2];
+    float v = __ldg(T.density + ((size_t)cx * T.gy + cy) * T.gz + cz);
+    float term = v * (wx * wy * wz);
+    d = c == 0 ? term : d + term;
+  }
+  return d;
+}
+
+static __device__ __forceinline__ float maj_at(const Tables& T, int x, int y,
+                                               int z) {
+  x = min(max(x, 0), T.mx - 1);
+  y = min(max(y, 0), T.my - 1);
+  z = min(max(z, 0), T.mz - 1);
+  return T.maj[(x * T.my + y) * T.mz + z];
+}
+
+}  // namespace
+
+template <bool RECORD, bool RIS>
+__global__ void __launch_bounds__(128)
+    vspg_kernel(const float* __restrict__ fc_g, const int* __restrict__ ic_g,
+                const float* __restrict__ gc_g, const int* __restrict__ gi_g,
+                const float* __restrict__ density,
+                const float* __restrict__ majorant,
+                const float* __restrict__ ftab,
+                const float* __restrict__ itab, float* __restrict__ out,
+                float* __restrict__ rec, int npix, int spp, uint32_t seed,
+                float out_scale, int nmaj, int rec_depth) {
+  __shared__ float fc[N_FCONST];
+  __shared__ int ic[N_ICONST];
+  __shared__ float gc[N_GCONST];
+  __shared__ int gi[N_GICONST];
+  extern __shared__ float smaj[];
+  load_consts(fc_g, ic_g, fc, ic);
+  for (int i = threadIdx.x; i < N_GCONST; i += blockDim.x) gc[i] = gc_g[i];
+  for (int i = threadIdx.x; i < N_GICONST; i += blockDim.x) gi[i] = gi_g[i];
+  for (int i = threadIdx.x; i < nmaj; i += blockDim.x) smaj[i] = majorant[i];
+  __syncthreads();
+  const int pix_i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix_i >= npix) return;
+  const uint32_t pix = (uint32_t)pix_i;
+  const Tables T = {density, smaj, ftab, ic[I_GX], ic[I_GY], ic[I_GZ],
+                    ic[I_MX], ic[I_MY], ic[I_MZ], gi[GI_FRES], gi[GI_NCELL],
+                    gi[GI_K]};
+  const int K = T.K;
+  const bool has_point = ic[I_HAS_POINT] != 0, has_env = ic[I_HAS_ENV] != 0;
+  const bool iso = ic[I_HG_ISO] != 0, gray = gi[GI_SIGMA_GRAY] != 0;
+  const bool guide_primary = gi[GI_GUIDE_PRIMARY] != 0;
+  const bool guide_secondary = gi[GI_GUIDE_SECONDARY] != 0;
+  const bool vol_guiding = gi[GI_VOL_GUIDING] != 0;
+  const bool apply_hg = gi[GI_APPLY_HG] != 0;
+  const bool guide_rr = gi[GI_GUIDE_RR] != 0;
+  const int min_rr_depth = gi[GI_MIN_RR_DEPTH];
+  const int max_depth = ic[I_MAX_DEPTH];
+  const V3 st = v3(fc + F_ST), ss = v3(fc + F_SS);
+  const V3 lp = v3(fc + F_LP), lI = v3(fc + F_LI), envL = v3(fc + F_ENV);
+  const float pmf = fc[F_PMF], penv = fc[F_PENV];
+  const V3 one3 = v3(1.f, 1.f, 1.f), zero3 = v3(0.f, 0.f, 0.f);
+  const float ivsp = itab[pix_i], ipel = itab[npix + pix_i],
+              ipem = itab[2 * npix + pix_i];
+
+  auto rec_put = [&](int row, int slot, float v) {
+    if (RECORD && slot >= 0 && slot < rec_depth)
+      rec[((size_t)row * rec_depth + slot) * npix + pix_i] = v;
+  };
+  auto rec_add = [&](int row, int slot, float v) {
+    if (RECORD && slot >= 0 && slot < rec_depth) {
+      size_t i = ((size_t)row * rec_depth + slot) * npix + pix_i;
+      rec[i] = rec[i] + v;
+    }
+  };
+
+  // lane state (the Pallas kernel's carry)
+  uint32_t samp = 0, dim = 1;
+  bool alive = true;
+  V3 o, d;
+  int hero;
+  start_path(fc, ic[I_NX], seed, pix, 0u, &o, &d, &hero);
+  V3 b = one3, ru = one3, rl = one3, L = zero3, acc = zero3;
+  int depth = 0, med = -1, mode = 0, rslot = 0;
+  float t_walk = 0.f, w_sum = 0.f, c_t = 0.f, c_wi = 0.f, c_ste = 0.f;
+  V3 wf = one3, wu = one3, wl = one3, wT = one3, wr = one3, cn = one3,
+     cd = one3;
+  bool has_c = false;
+  float maj_sc = 1.f, tau_acc = 0.f, vsp_c = 0.f;
+  V3 sh = zero3, sT = one3, sl = one3, su = one3;
+  float sh_t = 0.f, sh_end = 0.f, sh_pdf = 0.f, sh_d2 = 1.f, sh_f = 0.f,
+        sh_fl = 0.f, rr_srv = 1.f;
+
+  const long long max_iters = (long long)spp * ic[I_MAX_EVENTS] * 12;
+  for (long long it = 0; it < max_iters && alive; ++it) {
+    const bool walk_res = mode == 2, walk_del = mode == 3;
+    const float st_h = sel(st, hero);
+
+    // deferred Russian roulette (survival stored at the last scatter)
+    float4 u = uniform4(seed, pix, samp, dim);
+    dim += 1;
+    if (mode == 0 && rr_srv < 1.0f) {
+      if (u.x >= rr_srv) {
+        alive = false;
+      } else {
+        b = scale(b, 1.0f / fmaxf(rr_srv, 1e-3f));
+      }
+    }
+    if (alive && mode == 0) rr_srv = 1.0f;
+
+    // stuck-lane guard; transport lanes enter the box or escape
+    if (med == 0 && mode == 0 && outside_box(fc, o)) med = -1;
+    float t_wall;
+    bool entering;
+    const bool hit = box_hit(fc, o, d, &t_wall, &entering);
+    const bool outside = alive && mode == 0 && med != 0;
+    if (outside && !hit) {
+      if (has_env) {
+        float ru_avg = fmaxf(avg3(ru), 1e-30f);
+        float den = fmaxf(avg3(v3(ru.x + rl.x * penv, ru.y + rl.y * penv,
+                                  ru.z + rl.z * penv)),
+                          1e-30f);
+        float dv = depth == 0 ? ru_avg : den;
+        L = v3(L.x + b.x * envL.x / dv, L.y + b.y * envL.y / dv,
+               L.z + b.z * envL.z / dv);
+        if (RECORD) {
+          float w_mis = depth == 0 ? 1.0f : ru_avg / den;
+          rec_put(11, rslot - 1, envL.x * w_mis);
+          rec_put(12, rslot - 1, envL.y * w_mis);
+          rec_put(13, rslot - 1, envL.z * w_mis);
+        }
+      }
+      alive = false;
+    }
+    const bool enter = alive && outside && hit && entering;
+    if (enter) {
+      med = 0;
+      o = along(o, t_wall + 1e-4f, d);
+    }
+    if (alive && outside && hit && !entering) alive = false;
+    const bool in_med = alive && mode == 0 && med == 0 && !enter;
+    const float wall = hit ? t_wall : BIG;
+    const float plim = wall;
+
+    // ---- one majorant + density event of a walking lane ------------------
+    const bool is_sh = alive && mode >= 4;
+    const bool stepper = walk_res || walk_del || is_sh;
+    const V3 wd = is_sh ? sh : d;
+    const V3 ep = is_sh ? along(o, sh_t, sh) : along(o, t_walk, d);
+    const float t_lim = is_sh ? sh_end - sh_t : plim - t_walk;
+    u = uniform4(seed, pix, samp, dim);
+    dim += 1;
+    const float ub = u.y;
+    const float rate = walk_res ? maj_sc : 1.0f;
+    float S_raw = 0.f, t_cum = 0.f, m_last = 0.f;
+    bool coll = false;
+    if (stepper) {
+      float tau0 = -log1pf(-u.x);
+      const float epc[3] = {ep.x, ep.y, ep.z}, wdc[3] = {wd.x, wd.y, wd.z};
+      int ix[3];
+      float tx[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float u0 = (epc[k] - fc[F_BMIN + k]) * gc[G_KM + k];
+        float den = fabsf(wdc[k]) < 1e-12f ? (wdc[k] >= 0.f ? 1e-12f : -1e-12f)
+                                           : wdc[k];
+        float inv_du = gc[G_CELL + k] / den;
+        float eps = wdc[k] >= 0.f ? 3e-4f : -3e-4f;
+        ix[k] = (int)u0;
+        float cf = floorf(u0 + eps);
+        float bnd = wdc[k] >= 0.f ? cf + 1.0f : cf;
+        tx[k] = (bnd - u0) * inv_du;
+      }
+      float m_raw = maj_at(T, ix[0], ix[1], ix[2]);
+      float t_exit = fmaxf(fminf(fminf(tx[0], tx[1]), tx[2]), 1e-5f);
+      float end_c = fminf(t_exit, t_lim);
+      float r_i = m_raw * rate * st_h;
+      float dtau = r_i * fmaxf(end_c, 0.0f);
+      bool hit_c = tau0 < dtau;
+      bool at_lim = !hit_c && t_lim <= t_exit + 1e-6f;
+      float t_next = hit_c ? tau0 / fmaxf(r_i, 1e-30f) : end_c;
+      S_raw = m_raw * t_next;
+      t_cum = (hit_c || at_lim) ? t_next : t_exit + 1e-6f;
+      if (hit_c) m_last = m_raw;
+      coll = hit_c;
+    }
+    const float m_d = walk_res ? m_last * maj_sc : m_last;
+    const float maj_h = m_d * st_h;
+    const float step = t_cum;
+    const float S_eff = S_raw * rate;
+    const float od_raw = st_h * S_raw;
+    const float Tm_h = fmaxf(expf(-st_h * S_eff), 1e-30f);
+    const V3 Tm = gray ? v3(Tm_h, Tm_h, Tm_h)
+                       : v3(expf(-st.x * S_eff), expf(-st.y * S_eff),
+                            expf(-st.z * S_eff));
+    const V3 sc_tail = gray ? one3
+                            : v3(Tm.x / Tm_h, Tm.y / Tm_h, Tm.z / Tm_h);
+    const float un0 = uniform4(seed, pix, samp, dim).x;
+    dim += 1;
+    const float dloc = stepper ? density8(fc, gc, T, along(ep, step, wd)) : 0.f;
+    const float st_loc_h = dloc * st_h;
+    const V3 sn = v3(fmaxf((m_d - dloc) * st.x, 0.0f),
+                     fmaxf((m_d - dloc) * st.y, 0.0f),
+                     fmaxf((m_d - dloc) * st.z, 0.0f));
+    const float sn_h = fmaxf(m_d - dloc, 0.0f) * st_h;
+
+    // ---- modes 4/5: one ratio-tracking step of the shadow walk ----------
+    if (is_sh) {
+      if (!coll) {
+        if (!gray) {
+          sT = mul(sT, sc_tail);
+          sl = mul(sl, sc_tail);
+          su = mul(su, sc_tail);
+        }
+      } else {
+        float inv_spdf = 1.0f / fmaxf(Tm_h * maj_h, 1e-30f);
+        sT = v3(sT.x * Tm.x * sn.x * inv_spdf, sT.y * Tm.y * sn.y * inv_spdf,
+                sT.z * Tm.z * sn.z * inv_spdf);
+        sl = v3(sl.x * Tm.x * m_d * st.x * inv_spdf,
+                sl.y * Tm.y * m_d * st.y * inv_spdf,
+                sl.z * Tm.z * m_d * st.z * inv_spdf);
+        su = v3(su.x * Tm.x * sn.x * inv_spdf, su.y * Tm.y * sn.y * inv_spdf,
+                su.z * Tm.z * sn.z * inv_spdf);
+        // low-transmittance roulette (integrators.cpp:1404)
+        float trm = max3(sT) / fmaxf(avg3(add(sl, su)), 1e-30f);
+        if (trm < 0.05f)
+          sT = un0 < 0.75f ? zero3 : v3(sT.x / 0.25f, sT.y / 0.25f,
+                                        sT.z / 0.25f);
+      }
+      float sh_t_new = sh_t + step + 1e-6f;
+      sh_t = sh_t_new;
+      if (max3(sT) == 0.0f || sh_t_new >= sh_end) {
+        if (mode == 4 && has_point) {
+          float denom = fmaxf(avg3(v3(sl.x * ru.x * pmf, sl.y * ru.y * pmf,
+                                      sl.z * ru.z * pmf)),
+                              1e-30f);
+          float w = sh_f / (sh_d2 * denom);
+          L = v3(L.x + b.x * sT.x * lI.x * w, L.y + b.y * sT.y * lI.y * w,
+                 L.z + b.z * sT.z * lI.z * w);
+          if (RECORD) {
+            float den_lp = fmaxf(avg3(v3(sl.x * pmf, sl.y * pmf, sl.z * pmf)),
+                                 1e-30f);
+            float wl_ = sh_fl / (sh_d2 * den_lp);
+            rec_put(8, rslot - 1, sT.x * lI.x * wl_);
+            rec_put(9, rslot - 1, sT.y * lI.y * wl_);
+            rec_put(10, rslot - 1, sT.z * lI.z * wl_);
+          }
+        }
+        if (mode == 5 && has_env) {
+          float p_l = penv;
+          float denom =
+              fmaxf(avg3(v3(sl.x * ru.x * p_l + su.x * ru.x * sh_pdf,
+                            sl.y * ru.y * p_l + su.y * ru.y * sh_pdf,
+                            sl.z * ru.z * p_l + su.z * ru.z * sh_pdf)),
+                    1e-30f);
+          float w = sh_f / denom;
+          L = v3(L.x + b.x * sT.x * envL.x * w, L.y + b.y * sT.y * envL.y * w,
+                 L.z + b.z * sT.z * envL.z * w);
+          if (RECORD) {
+            float den_le = fmaxf(avg3(v3(sl.x * p_l + su.x * sh_pdf,
+                                         sl.y * p_l + su.y * sh_pdf,
+                                         sl.z * p_l + su.z * sh_pdf)),
+                                 1e-30f);
+            float wl_ = sh_fl / den_le;
+            rec_add(8, rslot - 1, sT.x * envL.x * wl_);
+            rec_add(9, rslot - 1, sT.y * envL.y * wl_);
+            rec_add(10, rslot - 1, sT.z * envL.z * wl_);
+          }
+        }
+        mode = 0;
+      }
+    }
+
+    // ---- mode 3: one delta-tracking step ---------------------------------
+    bool d_real = false, d_died = false, d_passed = false;
+    if (walk_del) {
+      if (!coll) {
+        if (!gray) {
+          wf = mul(wf, sc_tail);
+          wu = mul(wu, sc_tail);
+          wl = mul(wl, sc_tail);
+        }
+      } else if (ub < st_loc_h / fmaxf(maj_h, 1e-30f)) {
+        d_real = true;
+        float pdf_r = fmaxf(Tm_h * st_loc_h, 1e-30f);
+        wf = v3(wf.x * Tm.x * dloc * ss.x / pdf_r,
+                wf.y * Tm.y * dloc * ss.y / pdf_r,
+                wf.z * Tm.z * dloc * ss.z / pdf_r);
+        wu = v3(wu.x * Tm.x * dloc * st.x / pdf_r,
+                wu.y * Tm.y * dloc * st.y / pdf_r,
+                wu.z * Tm.z * dloc * st.z / pdf_r);
+      } else {
+        float pdf_dn = Tm_h * sn_h;
+        float inv_dn = 1.0f / fmaxf(pdf_dn, 1e-30f);
+        wf = v3(wf.x * Tm.x * sn.x * inv_dn, wf.y * Tm.y * sn.y * inv_dn,
+                wf.z * Tm.z * sn.z * inv_dn);
+        wu = v3(wu.x * Tm.x * sn.x * inv_dn, wu.y * Tm.y * sn.y * inv_dn,
+                wu.z * Tm.z * sn.z * inv_dn);
+        wl = v3(wl.x * Tm.x * m_d * st.x * inv_dn,
+                wl.y * Tm.y * m_d * st.y * inv_dn,
+                wl.z * Tm.z * m_d * st.z * inv_dn);
+        d_died = pdf_dn <= 0.0f || max3(wf) == 0.0f;
+      }
+      float del_t_new = t_walk + step + 1e-6f;
+      d_passed = !coll && del_t_new >= plim;
+      t_walk = del_t_new;
+    }
+
+    // ---- mode 2: one reservoir-resampling step ---------------------------
+    bool res_done = false;
+    if (walk_res) {
+      tau_acc = tau_acc + od_raw;
+      const V3 wTn = mul(wT, Tm);
+      const float T_h = fmaxf(sel(wTn, hero), 1e-30f);
+      const float t_c_r = t_walk + step;
+      if (coll) {
+        float wi_r = st_loc_h / fmaxf(maj_h, 1e-30f) * sel(wr, hero);
+        float w_sum_new = w_sum + wi_r;
+        if (wi_r > 0.0f && ub < wi_r / fmaxf(w_sum_new, 1e-30f)) {
+          float pdf_rr = fmaxf(T_h * st_loc_h, 1e-30f);
+          c_t = t_c_r;
+          c_wi = wi_r;
+          c_ste = wi_r;
+          cn = v3(wf.x * wTn.x * dloc * ss.x / pdf_rr,
+                  wf.y * wTn.y * dloc * ss.y / pdf_rr,
+                  wf.z * wTn.z * dloc * ss.z / pdf_rr);
+          cd = v3(wu.x * wTn.x * dloc * st.x / pdf_rr,
+                  wu.y * wTn.y * dloc * st.y / pdf_rr,
+                  wu.z * wTn.z * dloc * st.z / pdf_rr);
+          has_c = true;
+        }
+        w_sum = w_sum_new;
+        float pdf_rn = fmaxf(T_h * sn_h, 1e-30f);
+        wf = v3(wf.x * wTn.x * sn.x / pdf_rn, wf.y * wTn.y * sn.y / pdf_rn,
+                wf.z * wTn.z * sn.z / pdf_rn);
+        wu = v3(wu.x * wTn.x * sn.x / pdf_rn, wu.y * wTn.y * sn.y / pdf_rn,
+                wu.z * wTn.z * sn.z / pdf_rn);
+        wl = v3(wl.x * wTn.x * m_d * st.x / pdf_rn,
+                wl.y * wTn.y * m_d * st.y / pdf_rn,
+                wl.z * wTn.z * m_d * st.z / pdf_rn);
+        float nsc = fmaxf(m_d - dloc, 0.0f) * (1.0f / fmaxf(m_d, 1e-30f));
+        wr = scale(wr, nsc);
+        wT = one3;
+        t_walk = t_c_r;
+      } else {
+        wT = wTn;
+        t_walk = t_walk + step + 1e-6f;
+      }
+      res_done = t_walk >= plim;
+    }
+
+    // ---- reservoir conclusion: tail fold + candidate selection -----------
+    const float u_rc = uniform4(seed, pix, samp, dim).x;
+    dim += 1;
+    bool r_scat = false, r_dead = false, pick_surf = false;
+    V3 rfb = one3, rfu = one3, rfl = one3;
+    if (res_done) {
+      const float T_hf = fmaxf(sel(wT, hero), 1e-30f);
+      const float tr_hf = sel(wr, hero);
+      float vratio = fminf(
+          vsp_c / fmaxf(1.0f - expf(-maj_sc * tau_acc), 1e-6f), 1.0f);
+      float vol_ratio = vratio * gc[G_MIS] + (1.0f - tr_hf) * gc[G_1MMIS];
+      bool adj = tr_hf < 1.0f && tr_hf > 0.0f && w_sum > 0.0f;
+      float surf_wi = adj ? (1.0f - vol_ratio) / fmaxf(vol_ratio, 1e-6f) * w_sum
+                          : tr_hf;
+      float w_total = w_sum + surf_wi;
+      bool r_dead0 = w_total <= 0.0f;
+      pick_surf = !r_dead0 && u_rc < surf_wi / fmaxf(w_total, 1e-30f);
+      bool pick_vol = !r_dead0 && !pick_surf && has_c;
+      r_dead = r_dead0 || (!pick_surf && !has_c);
+      float sel_wi = pick_surf ? surf_wi : c_wi;
+      float sel_ste = pick_surf ? tr_hf : c_ste;
+      V3 sn_ = pick_surf ? v3(wf.x * wT.x / T_hf, wf.y * wT.y / T_hf,
+                              wf.z * wT.z / T_hf)
+                         : cn;
+      V3 sd_ = pick_surf ? v3(wu.x * wT.x / T_hf, wu.y * wT.y / T_hf,
+                              wu.z * wT.z / T_hf)
+                         : cd;
+      float factor = w_total * sel_ste / fmaxf(sel_wi, 1e-30f);
+      if (!r_dead) {
+        rfb = scale(sn_, factor);
+        rfu = sd_;
+      }
+      if (pick_surf)
+        rfl = v3(wl.x * wT.x / T_hf, wl.y * wT.y / T_hf, wl.z * wT.z / T_hf);
+      bool finite = isfinite(rfb.x) && isfinite(rfb.y) && isfinite(rfb.z) &&
+                    isfinite(rfu.x) && isfinite(rfu.y) && isfinite(rfu.z) &&
+                    isfinite(rfl.x) && isfinite(rfl.y) && isfinite(rfl.z);
+      bool r_bad = !r_dead && !finite;
+      r_dead = r_dead || r_bad;
+      r_scat = pick_vol && !r_bad;
+    }
+
+    // ---- walk conclusions -------------------------------------------------
+    if (d_real || d_died || d_passed) {
+      b = mul(b, wf);
+      ru = mul(ru, wu);
+      rl = mul(rl, wl);
+    } else if (res_done) {
+      b = mul(b, rfb);
+      ru = mul(ru, rfu);
+      rl = mul(rl, rfl);
+    }
+    const bool scat_w = d_real || r_scat;
+    const bool term_w = d_died || r_dead;
+    const bool passed = d_passed || pick_surf;
+    const float t_sc = d_real ? t_walk : c_t;
+    if (term_w) alive = false;
+    if (scat_w && depth >= max_depth) alive = false;
+    const bool scat = scat_w && depth < max_depth && alive;
+    if (scat) depth += 1;
+    if (passed) med = -1;
+    if (passed || term_w || scat_w) mode = 0;
+    if (passed) o = along(o, wall + 1e-4f, d);
+
+    // ---- field query: walk starts (secondary VSP), scatter vertices ------
+    const V3 s = along(o, t_sc, d);
+    Lobes lob;
+    bool valid_q = false;
+    float vsp_cell = -1.0f;
+    V3 flux_q = zero3;
+    if (scat || (in_med && guide_secondary && depth != 0))
+      field_query(gc, T, scat ? s : o, &lob, &valid_q, &vsp_cell, &flux_q);
+    bool guide = false;
+    if (in_med) {
+      float vsp = -1.0f;
+      if (guide_primary && depth == 0) vsp = ivsp;
+      if (guide_secondary && depth != 0)
+        vsp = vsp_directional(fc, lob, K, vsp_cell, d);
+      guide = vsp >= 0.0f;
+      vsp_c = clampf(vsp, 0.001f, 0.999f);
+      mode = guide ? 2 : 3;
+      t_walk = 0.f;
+      w_sum = 0.f;
+      tau_acc = 0.f;
+    }
+    // majorant scale of the guided walk from a one-point estimate of the
+    // segment's majorant optical depth
+    const float u_m0 = uniform4(seed, pix, samp, dim).x;
+    dim += 1;
+    if (in_med) {
+      V3 pm = along(o, u_m0 * plim, d);
+      float m_pt = maj_at(
+          T, (int)((pm.x - fc[F_BMIN]) / gc[G_EXT] * (float)T.mx),
+          (int)((pm.y - fc[F_BMIN + 1]) / gc[G_EXT + 1] * (float)T.my),
+          (int)((pm.z - fc[F_BMIN + 2]) / gc[G_EXT + 2] * (float)T.mz));
+      float tau_e = m_pt * st_h * plim;
+      float min_total =
+          -logf(fmaxf(1.0f - fminf(vsp_c, gc[G_SCALE_CAP]), 1e-6f));
+      maj_sc = guide ? clampf(min_total / fmaxf(tau_e, 1e-6f), 1.0f, 16.0f)
+                     : 1.0f;
+      wf = wu = wl = one3;
+      if (guide) {
+        wT = wr = cn = cd = one3;
+        c_t = c_wi = c_ste = 0.f;
+        has_c = false;
+      }
+    }
+
+    // ---- scatter vertices: guided RR, NEE light pick, direction ----------
+    const float4 up = uniform4(seed, pix, samp, dim);
+    dim += 1;
+    const float4 u_p = uniform4(seed, pix, samp, dim);
+    dim += 1;
+    const float4 u_c4 = uniform4(seed, pix, samp, dim);
+    dim += 1;
+    if (scat) {
+      const bool use_guide = valid_q && vol_guiding;
+      const Lobes prod = apply_hg ? product_hg(gc, lob, K, d) : lob;
+      const V3 wo = v3(-d.x, -d.y, -d.z);
+      float survival;
+      if (guide_rr) {
+        float num_rr = b.x * flux_q.x * 0.2126f + b.y * flux_q.y * 0.7152f +
+                       b.z * flux_q.z * 0.0722f;
+        survival = (valid_q && ipem > 0.0f)
+                       ? clampf(num_rr / fmaxf(ipel, 1e-6f), 0.1f, 1.0f)
+                       : 1.0f;
+      } else {
+        survival = clampf(max3(b) / fmaxf(avg3(ru), 1e-30f), 0.0f, 1.0f);
+      }
+      if (depth > min_rr_depth) rr_srv = survival;
+
+      // NEE: one light sample; its shadow walk runs in later iterations
+      const bool sel_pt = has_point && (!has_env || up.x < pmf);
+      const V3 pl = sub(s, lp);
+      const float dist2 = fmaxf(dot(pl, pl), 1e-12f);
+      const float dist = sqrtf(dist2);
+      V3 wi;
+      if (sel_pt) {
+        float inv_dist = 1.0f / dist;
+        wi = v3(-pl.x * inv_dist, -pl.y * inv_dist, -pl.z * inv_dist);
+      } else {
+        float ez = 1.0f - 2.0f * up.y;
+        float er = sqrtf(fmaxf(1.0f - ez * ez, 0.0f));
+        float ephi = fc[F_TWO_PI] * up.z;
+        wi = v3(er * cosf(ephi), er * sinf(ephi), ez);
+      }
+      const float f_hg = hg_value(fc, dot(wo, wi));
+      const float spdf_l =
+          use_guide ? gc[G_1MPG_NEE] * f_hg +
+                          gc[G_PG_NEE] * mixture_pdf(fc, prod, K, wi)
+                    : f_hg;
+      float t_exit_s;
+      bool ent_s;
+      box_hit(fc, s, wi, &t_exit_s, &ent_s);
+      const float t_med = sel_pt ? fminf(dist, t_exit_s) : t_exit_s;
+
+      // direction: one-sample MIS or RIS of the phase function and the
+      // guiding mixture
+      float hpdf;
+      const V3 hw = sample_hg(fc, iso, wo, u_p.x, u_p.y, &hpdf);
+      V3 wv;
+      float pdf_v, mis_pdf;
+      bool valid_v;
+      if (!RIS) {
+        const float u_c = u_c4.x;
+        const bool take_g = use_guide && u_c < gc[G_PG];
+        const float u_lobe = clampf(u_c / gc[G_PG_SAFE], 0.0f, 0.999999f);
+        float gpdf;
+        const V3 gw = mixture_sample(fc, prod, K, u_lobe, u_c4.y, u_c4.z,
+                                     &gpdf);
+        wv = take_g ? gw : hw;
+        const float base_pdf = take_g ? hg_value(fc, dot(wo, gw)) : hpdf;
+        const float guide_pdf = take_g ? gpdf : mixture_pdf(fc, prod, K, hw);
+        pdf_v = use_guide ? gc[G_1MPG] * base_pdf + gc[G_PG] * guide_pdf
+                          : hpdf;
+        mis_pdf = pdf_v;
+        valid_v = ((take_g && base_pdf > 0.0f) || (!take_g && hpdf > 0.0f)) &&
+                  pdf_v > 0.0f;
+      } else {
+        float gpdf;
+        const V3 gw =
+            mixture_sample(fc, prod, K, u_c4.y, u_p.w, u_p.z, &gpdf);
+        const float bpdf_g = hg_value(fc, dot(wo, gw));
+        const float gpdf_b = mixture_pdf(fc, prod, K, hw);
+        const float irp_b = valid_q ? mixture_pdf(fc, lob, K, hw) : INV_4PI_F;
+        const float irp_g = valid_q ? mixture_pdf(fc, lob, K, gw) : INV_4PI_F;
+        const float mis0 = 0.5f * (hpdf + gpdf_b);
+        const float mis1 = 0.5f * (bpdf_g + gpdf);
+        const float target0 = hpdf * (gc[G_RIS_C0] + gc[G_PG] * irp_b);
+        const float target1 = bpdf_g * (gc[G_RIS_C0] + gc[G_PG] * irp_g);
+        const float w0 = hpdf > 0.0f ? target0 / fmaxf(mis0, 1e-20f) : 0.0f;
+        const float w1 =
+            bpdf_g > 0.0f ? target1 / fmaxf(mis1, 1e-20f) : 0.0f;
+        const float sum_w = w0 + w1;
+        const bool pick1 = u_c4.x * fmaxf(sum_w, 1e-20f) > w0;
+        const float mis_sel = pick1 ? mis1 : mis0;
+        const float w_sel = pick1 ? w1 : w0;
+        const float pdf_ris = w_sel * mis_sel * 2.0f / fmaxf(sum_w, 1e-20f);
+        const bool ris_valid = sum_w > 0.0f && pdf_ris > 0.0f;
+        wv = use_guide ? (pick1 ? gw : hw) : hw;
+        pdf_v = use_guide ? pdf_ris : hpdf;
+        mis_pdf = use_guide ? mis_sel : hpdf;
+        valid_v = use_guide ? ris_valid : hpdf > 0.0f;
+      }
+      const float f_v = hg_value(fc, dot(wo, wv));
+      if (!valid_v) alive = false;
+      const float scale_v = f_v / fmaxf(pdf_v, 1e-30f);
+      b = scale(b, scale_v);
+      rl = scale(ru, 1.0f / fmaxf(mis_pdf, 1e-30f));
+      o = s;
+      d = wv;
+
+      if (RECORD) {
+        rec_put(0, rslot, s.x);
+        rec_put(1, rslot, s.y);
+        rec_put(2, rslot, s.z);
+        rec_put(3, rslot, wv.x);
+        rec_put(4, rslot, wv.y);
+        rec_put(5, rslot, wv.z);
+        rec_put(6, rslot, scale_v);
+        rec_put(22, rslot, scale_v);
+        rec_put(23, rslot, scale_v);
+        rec_put(7, rslot, pdf_v);
+        rec_put(18, rslot, 1.0f);
+        if (depth == 1) {  // ISGB first-event data
+          rec_put(14, 0, 1.0f);
+          rec_put(15, 0, wo.x);
+          rec_put(16, 0, wo.y);
+          rec_put(17, 0, wo.z);
+          rec_put(19, 0, gc[G_ALB]);
+          rec_put(20, 0, gc[G_ALB + 1]);
+          rec_put(21, 0, gc[G_ALB + 2]);
+        }
+        rslot += 1;
+      }
+
+      // arm the shadow walk of the pending NEE
+      if (f_hg > 0.0f && alive) {
+        mode = sel_pt ? 4 : 5;
+        sh = wi;
+        sh_t = 0.0f;
+        sh_end = t_med;
+        sh_pdf = spdf_l;
+        sh_d2 = dist2;
+        sh_f = f_hg / fmaxf(scale_v, 1e-30f);
+        sh_fl = f_hg;
+        sT = sl = su = one3;
+      }
+    }
+
+    // ---- commit a finished sample, start the next one ---------------------
+    if (!(isfinite(L.x) && isfinite(L.y) && isfinite(L.z))) L = zero3;
+    if (!alive) {
+      acc = add(acc, L);
+      samp += 1;
+      if (samp < (uint32_t)spp) {
+        start_path(fc, ic[I_NX], seed, pix, samp, &o, &d, &hero);
+        dim = 1;
+        b = ru = rl = one3;
+        L = zero3;
+        depth = 0;
+        med = -1;
+        mode = 0;
+        rr_srv = 1.0f;
+        rslot = 0;
+        alive = true;
+      }
+    }
+  }
+  out[3 * pix_i + 0] = acc.x * out_scale;
+  out[3 * pix_i + 1] = acc.y * out_scale;
+  out[3 * pix_i + 2] = acc.z * out_scale;
+}
+
+namespace {
+
+template <bool RECORD>
+int launch(const float* fconst, const int* iconst, const float* gconst,
+           const int* giconst, const float* density, const float* majorant,
+           const float* ftab, const float* itab, float* out, float* rec,
+           int npix, int spp, unsigned int seed, float out_scale, int nmaj,
+           int rec_depth, int ris, void* stream) {
+  const int threads = 128;
+  const int blocks = (npix + threads - 1) / threads;
+  const size_t smem = (size_t)nmaj * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ris)
+    vspg_kernel<RECORD, true><<<blocks, threads, smem, st>>>(
+        fconst, iconst, gconst, giconst, density, majorant, ftab, itab, out,
+        rec, npix, spp, seed, out_scale, nmaj, rec_depth);
+  else
+    vspg_kernel<RECORD, false><<<blocks, threads, smem, st>>>(
+        fconst, iconst, gconst, giconst, density, majorant, ftab, itab, out,
+        rec, npix, spp, seed, out_scale, nmaj, rec_depth);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B3a: frozen-field render of spp samples per pixel
+extern "C" int vspg_render_launch(const float* fconst, const int* iconst,
+                                  const float* gconst, const int* giconst,
+                                  const float* density, const float* majorant,
+                                  const float* ftab, const float* itab,
+                                  float* out, float* rec, int npix, int spp,
+                                  unsigned int seed, float out_scale,
+                                  int nmaj, int rec_depth, int ris,
+                                  void* stream) {
+  return launch<false>(fconst, iconst, gconst, giconst, density, majorant,
+                       ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
+                       rec_depth, ris, stream);
+}
+
+// B4a: one training sample per pixel plus its record rows
+extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
+                                  const float* gconst, const int* giconst,
+                                  const float* density, const float* majorant,
+                                  const float* ftab, const float* itab,
+                                  float* out, float* rec, int npix, int spp,
+                                  unsigned int seed, float out_scale,
+                                  int nmaj, int rec_depth, int ris,
+                                  void* stream) {
+  return launch<true>(fconst, iconst, gconst, giconst, density, majorant,
+                      ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
+                      rec_depth, ris, stream);
+}

@@ -607,7 +607,7 @@ def render_persistent_wavefront(scene, camera, film, cfg, spp, seed,
 
 def render_persistent(scene: Scene, camera, film, spp=16,
                       cfg=VolPathConfig(), seed=0, camera_medium=-1,
-                      lanes_per_pixel=2, backend="auto", *, device):
+                      lanes_per_pixel=2, backend="auto", *, device="cuda"):
     """Persistent render on `device` with the "independent" sampler;
     returns the (ny, nx, 3) image.
 

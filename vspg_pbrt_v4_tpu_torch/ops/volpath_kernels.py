@@ -205,9 +205,13 @@ class _Consts:
         self.lp, self.lI, self.envL = f[F_LP:F_LP + 3], f[F_LI:F_LI + 3], \
             f[F_ENV:F_ENV + 3]
         self.pmf, self.penv = fl[F_PMF], fl[F_PENV]
-        self.c1, self.c2, self.c3 = fl[F_HG_C1], fl[F_HG_C2], fl[F_HG_C3]
-        self.omg2, self.opg, self.two_pi = (fl[F_HG_1MG2], fl[F_HG_1PG],
-                                            fl[F_TWO_PI])
+        self.c1, self.c2 = fl[F_HG_C1], fl[F_HG_C2]
+        self.opg, self.two_pi = fl[F_HG_1PG], fl[F_TWO_PI]
+        # dividends and divisors as 0-dim tensors on the device: PyTorch
+        # divides by (or into) a Python number through its reciprocal,
+        # rounding twice where the kernels round once
+        self.c2_t, self.c3_t, self.omg2_t = (f[F_HG_C2], f[F_HG_C3],
+                                             f[F_HG_1MG2])
         self.nx, self.ny = il[I_NX], il[I_NY]
         self.has_point, self.has_env = bool(il[I_HAS_POINT]), \
             bool(il[I_HAS_ENV])
@@ -267,7 +271,7 @@ def _camera_ray(K, px, py):
 
 def _hg_value(K, cos_theta):
     denom = torch.clamp(K.c1 + K.c2 * cos_theta, min=1e-12)
-    return K.c3 / (denom * torch.sqrt(denom))
+    return K.c3_t / (denom * torch.sqrt(denom))
 
 
 def _sample_hg(K, wo, u0, u1):
@@ -275,8 +279,8 @@ def _sample_hg(K, wo, u0, u1):
     if K.iso:
         cos_t = 1.0 - 2.0 * u0
     else:
-        sq = K.omg2 / (K.opg - K.c2 * u0)
-        cos_t = -(K.c1 - sq * sq) / K.c2
+        sq = K.omg2_t / (K.opg - K.c2 * u0)
+        cos_t = -(K.c1 - sq * sq) / K.c2_t
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
     phi = K.two_pi * u1
     lx = sin_t * torch.cos(phi)
@@ -317,10 +321,17 @@ def _keep(S, mask):
             else v[mask] for k, v in S.items()}
 
 
-def _render_plain(c, spp, seed, event):
+def _count(counts, key, n):
+    """Add n to counts[key] when counting (counts is a dict or None)."""
+    if counts is not None:
+        counts[key] = counts.get(key, 0) + int(n)
+
+
+def _render_plain(c, spp, seed, event, counts=None):
     """Shared driver of the plain versions: lanes are (pixel, sample)
     pairs, chunked; `event` advances every live lane by one path event and
-    returns its alive mask; dead lanes commit their radiance and leave."""
+    returns its alive mask; dead lanes commit their radiance and leave.
+    `counts` (a dict), when given, gathers the lane-events run."""
     K = _Consts(c)
     seed = int(seed) & 0xFFFFFFFF
     npix = K.nx * K.ny
@@ -333,6 +344,7 @@ def _render_plain(c, spp, seed, event):
         for _ in range(K.max_events):
             if S["pix"].numel() == 0:
                 break
+            _count(counts, "events", S["pix"].numel())
             alive = event(K, seed, S)
             # NaN/Inf scrub (RayIntegrator, integrators.cpp:308)
             S["L"] = torch.where(torch.isfinite(S["L"]).all(-1)[:, None],
@@ -452,9 +464,10 @@ def _homog_event(K, seed, S):
     return alive
 
 
-def render_homog_plain(c: KernelConstants, spp, seed):
-    """Plain PyTorch version of ``csrc/volpath_homog.cu``: (ny, nx, 3)."""
-    return _render_plain(c, spp, seed, _homog_event)
+def render_homog_plain(c: KernelConstants, spp, seed, counts=None):
+    """Plain PyTorch version of ``csrc/volpath_homog.cu``: (ny, nx, 3).
+    `counts` gathers the lane-events run (key "events")."""
+    return _render_plain(c, spp, seed, _homog_event, counts)
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +522,7 @@ def _seg_advance(media, it, past):
     return it, it.done
 
 
-def _flight(K, media, seed, F):
+def _flight(K, media, seed, F, counts=None):
     """Delta tracking of the lanes of F along (o, d) over [0, seg]
     (``volpath.sample_medium_interaction`` per lane). Updates F's dim,
     beta, ru, rl, depth; adds scattered, terminated and t_scatter."""
@@ -539,6 +552,7 @@ def _flight(K, media, seed, F):
     for _ in range(K.max_coll):
         if W["i"].numel() == 0:
             break
+        _count(counts, "flight_steps", W["i"].numel())
         hero = W["hero"]
         ua, ub, _, _ = rng.uniform4(seed, W["pix"], W["samp"], W["dim"])
         W["dim"] = W["dim"] + 1
@@ -602,7 +616,7 @@ def _flight(K, media, seed, F):
            torch.ones_like(W["i"], dtype=torch.bool))
 
 
-def _ratio_track(K, media, seed, P):
+def _ratio_track(K, media, seed, P, counts=None):
     """Ratio-tracking transmittance of shadow rays (o, wi) over [0, seg]
     (``volpath.transmittance_ratio_tracking`` per lane, with its
     low-transmittance roulette). Updates P's dim; adds T_ray, tr_l, tr_u."""
@@ -627,6 +641,7 @@ def _ratio_track(K, media, seed, P):
     for _ in range(K.max_coll):
         if W["i"].numel() == 0:
             break
+        _count(counts, "shadow_steps", W["i"].numel())
         hero = W["hero"]
         ua, u_rr, _, _ = rng.uniform4(seed, W["pix"], W["samp"], W["dim"])
         W["dim"] = W["dim"] + 1
@@ -667,7 +682,7 @@ def _ratio_track(K, media, seed, P):
     finish(W, torch.ones_like(W["i"], dtype=torch.bool))
 
 
-def _grid_event(K, media, seed, S):
+def _grid_event(K, media, seed, S, counts=None):
     """One path event of ``csrc/volpath_grid.cu`` for every lane of S."""
     dev = K.dev
     n = S["pix"].numel()
@@ -686,7 +701,7 @@ def _grid_event(K, media, seed, S):
         F = {k: S[k][idx] for k in ("pix", "samp", "dim", "o", "d", "hero",
                                      "beta", "ru", "rl", "depth")}
         F["seg"] = torch.where(hit, t_wall, _BIG)[idx]
-        _flight(K, media, seed, F)
+        _flight(K, media, seed, F, counts)
         for k in ("dim", "beta", "ru", "rl", "depth"):
             S[k] = _put(S[k], idx, F[k])
         scattered = _put(scattered, idx, F["scattered"])
@@ -724,7 +739,7 @@ def _grid_event(K, media, seed, S):
         j = torch.nonzero(ok)[:, 0]
         if j.numel():
             Q = {k: v[j] for k, v in P.items()}
-            _ratio_track(K, media, seed, Q)
+            _ratio_track(K, media, seed, Q, counts)
             P["dim"] = _put(P["dim"], j, Q["dim"])
             T_ray = _put(T_ray, j, Q["T_ray"])
             tr_l = _put(tr_l, j, Q["tr_l"])
@@ -777,12 +792,15 @@ def _grid_event(K, media, seed, S):
     return alive
 
 
-def render_grid_plain(c: KernelConstants, spp, seed):
-    """Plain PyTorch version of ``csrc/volpath_grid.cu``: (ny, nx, 3)."""
+def render_grid_plain(c: KernelConstants, spp, seed, counts=None):
+    """Plain PyTorch version of ``csrc/volpath_grid.cu``: (ny, nx, 3).
+    `counts` gathers the lane-events, flight steps and shadow-walk steps
+    run (keys "events", "flight_steps", "shadow_steps")."""
     K = _Consts(c)
     media = _grid_media(K, c)
-    return _render_plain(c, spp, seed,
-                         lambda K, seed, S: _grid_event(K, media, seed, S))
+    return _render_plain(
+        c, spp, seed,
+        lambda K, seed, S: _grid_event(K, media, seed, S, counts), counts)
 
 
 # ---------------------------------------------------------------------------
