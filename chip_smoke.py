@@ -11,7 +11,11 @@ same shape, spp and seed. Phase 7 does the same for the VSP-guided path:
 the VSPG kernel's record and render variants (RIS and MIS) against their
 plain versions, a guided furnace, and ``render_vspg`` on the bench's pyro
 cloud at 256^2 (48 training waves, then 64 frozen spp), its time split by
-CUDA events around each kernel launch. Every line with a
+CUDA events around each kernel launch. Phase 8 does it for the NDS/NDS+
+arm: the NDS and NDS+ variants against their plain versions, an NDS
+furnace, ``render_vspg`` under NDS (record kernel, then render kernel) and
+under NDS+ (torch waves, then the render kernel with the TrBuffer), and
+the kernel's frozen render against the torch wave's. Every line with a
 number names the card and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -69,7 +73,11 @@ OPS = {
     # vertices (field query, HG product, NEE pick, RIS or MIS direction)
     # and walk-start field queries (secondary VSP); built with -fmad=false
     "vspg": {"fma": False, "iters": (60, 4), "steps": (180, 14),
-             "scatters": (740, 140), "queries": (225, 30)},
+             "scatters": (740, 140), "queries": (225, 30),
+             # NDS: majorant-OD prepass steps (cell exit, no density) and
+             # ODS candidate draws (truncated exponential, four expm1, two
+             # log1p, the renormalisations)
+             "pre_steps": (60, 4), "draws": (40, 9)},
 }
 
 
@@ -267,6 +275,7 @@ def main():
             bound_by=bound_by, library_ms=None))
 
     kernels += _phase7(dev, tag, check_parity, fma_lib)
+    kernels += _phase8(dev, tag, check_parity)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -497,6 +506,286 @@ def _phase7(dev, tag, check_parity, fma_lib):
              bound_by=by_ren, library_ms=None, plain_spp=spp_plain),
         dict(name="vspg_record", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_record"], max_abs_err=max_rec,
+             ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
+             bound_by=by_rec, library_ms=None),
+    ]
+
+
+def _phase8(dev, tag, check_parity):
+    """Phase 8, the NDS/NDS+ arm of the VSP-guided path: B4b and B3b
+    against their plain versions (NDS and NDS+, RIS and MIS; NDS+ with a
+    TrBuffer that varies per pixel), an NDS furnace, ``render_vspg`` on the
+    pyro cloud at 256^2 under NDS (record kernel, then render kernel) and
+    under NDS+ (torch waves, then the render kernel with the TrBuffer), and
+    the kernel's frozen render against the torch wave's at 128^2 x 64 spp.
+    Returns the kernels-line entries of B3b (NDS and NDS+, one each)
+    and B4b."""
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    cfg = volpath.VolPathConfig(max_depth=64, max_events=256,
+                                max_collisions=4096)
+    gopt = guided_volpath.GuidingOptions(field_res=8, record_depth=6,
+                                         min_train_weight=16.0,
+                                         train_waves=48)
+    v_res = vspg.VSPGOptions(vsp_criterion="contribution")
+    v_nds = v_res._replace(sampling_method="nds")
+    v_ndsp = v_res._replace(sampling_method="nds+")
+    pyro = sk.make_pyro64_scene(device=dev)
+
+    def view(res):
+        return (vk.bench_camera(res, device=dev),
+                RGBFilm.make((res, res), device=dev))
+
+    def trained(scene, res, waves, seed, vopt):
+        cam, film = view(res)
+        _, field, isgb = vspg.render_vspg(
+            scene, cam, film, spp=waves, cfg=cfg,
+            gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
+            device=dev)
+        return field, isgb
+
+    def inputs(scene, res, field, isgb, vopt, gopt=gopt, tr=None):
+        cam, film = view(res)
+        return sk.kernel_inputs(scene, cam, film, cfg, gopt, vopt, field,
+                                isgb, tr)
+
+    def tr_buffer(res):
+        """A TrBuffer varying per pixel in [0.3, 1], numpy-seeded."""
+        rng = np.random.default_rng(8)
+        return torch.as_tensor(rng.uniform(0.3, 1.0, (res * res, 3)).astype(
+            np.float32), device=dev)
+
+    # ---- 8a: parity at 64^2 on a field trained by 4 NDS kernel waves ------
+    field, isgb = trained(pyro, 64, 4, 1, v_nds)
+    for vopt in (v_nds, v_ndsp):
+        for mode in ("ris", "mis"):
+            name = f"{vopt.sampling_method} {mode}"
+            c, g, ftab, itab = inputs(pyro, 64, field, isgb, vopt,
+                                      gopt._replace(mode=mode), tr_buffer(64))
+            assert itab.shape[0] == (6 if vopt.sampling_method == "nds+"
+                                     else 3)
+            img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
+            img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
+            torch.cuda.synchronize()
+            check_parity(f"phase 8a parity vspg_record ({name}) image "
+                         "64x64x1", "vspg", img_k, img_p)
+            rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
+            diff = (rk - rp).abs().reshape(rk.shape[0], -1)
+            ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape))
+                  | (diff <= 1e-5))
+            frac_rec = ok.all(-1).float().mean().item()
+            print(f"phase 8a parity vspg_record ({name}) rows: "
+                  f"{frac_rec:.5f} of lanes with every record row within "
+                  f"1e-3, max abs diff {diff.max().item():.3e} "
+                  f"({int((rec_p[7] > 0).sum())} valid slots) {tag}",
+                  flush=True)
+            assert frac_rec >= 0.98, frac_rec
+            counts = {}
+            k4 = sk.render_vspg_kernel(c, g, ftab, itab, 4, 22)
+            p4 = sk.render_vspg_plain(c, g, ftab, itab, 4, 22, counts)
+            torch.cuda.synchronize()
+            check_parity(f"phase 8a parity vspg_render ({name}) 64x64x4",
+                         "vspg", k4, p4)
+            assert counts["pre_steps"] > 0 and counts["draws"] > 0, counts
+
+    # ---- 8b: furnace (albedo 1) under NDS ----------------------------------
+    x = np.linspace(-1, 1, 16)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
+        np.float32) * 3.0
+    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
+                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
+    furnace = volpath.Scene(
+        Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
+                                   mat=-1, light=-1, med_in=0, med_out=-1)],
+                       device=dev),
+        Materials.build([], device=dev), Media.make(grids=(gm,), device=dev),
+        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
+    f_field, f_isgb = trained(furnace, 64, 8, 3, v_nds)
+    assert f_field.iteration > 0 and f_isgb.ready
+    m_f = sk.render_vspg_kernel(*inputs(furnace, 64, f_field, f_isgb, v_nds),
+                                64, 9).mean().item()
+    print(f"phase 8b furnace: NDS render mean {m_f:.5f} (0.7 within 3%), "
+          f"field trained {f_field.iteration} waves {tag}", flush=True)
+    assert abs(m_f - 0.7) / 0.7 < 0.03, m_f
+
+    # ---- 8c: the NDS main path at bench size -------------------------------
+    res, n_train, n_frozen = 256, 48, 64
+    cam, film = view(res)
+    npix = res * res
+
+    def main_path(vopt, waves, seed):
+        """One render_vspg call from reset counters, split by CUDA events
+        around each kernel launch: (image, field, isgb, launches, seconds,
+        kernel ms by variant)."""
+        for counter in (vk.LAUNCHES, sk.LAUNCHES):
+            for key in counter:
+                counter[key] = 0
+        sk.LAUNCH_EVENTS = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, field, isgb = vspg.render_vspg(
+            pyro, cam, film, spp=waves + n_frozen, cfg=cfg,
+            gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
+            spp_per_pass=1, device=dev)
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+        events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+        launches = dict(sk.LAUNCHES)
+        assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+        assert len(events) == sum(launches.values()), (len(events), launches)
+        k_ms = {name: 0.0 for name in sk.LAUNCHES}
+        for name, start, end in events:
+            k_ms[name] += start.elapsed_time(end)
+        assert field.iteration == waves and isgb.ready
+        assert tuple(img.shape) == (res, res, 3)
+        assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+        return img, field, isgb, launches, t_call, k_ms
+
+    img, field_n, isgb_n, launches_n, t_n, k_n = main_path(v_nds, n_train, 5)
+    assert launches_n == {"vspg_record": n_train, "vspg_render": 1}, \
+        launches_n
+    rest = t_n * 1e3 - k_n["vspg_record"] - k_n["vspg_render"]
+    print(f"phase 8c render_vspg nds pyro64 {res}x{res} {n_train} training "
+          f"waves + {n_frozen} frozen spp: {t_n:.3f} s, mean "
+          f"{img.mean().item():.5f}, launches {launches_n}; split: record "
+          f"kernel {k_n['vspg_record']:.3f} ms "
+          f"({k_n['vspg_record'] / n_train:.3f} ms each), render kernel "
+          f"{k_n['vspg_render']:.3f} ms, the rest (tables, propagate, EM, "
+          f"ISGB, launch gaps) {rest:.3f} ms {tag}", flush=True)
+
+    # ---- 8d: the NDS+ main path: torch waves, then the render kernel -------
+    # the training waves are cut from 48 to a fixed 20, so that the call
+    # fits in ~120 s (a torch wave took 2.7-5.4 s at 256^2 on an H100)
+    n_plus = 20
+    print(f"phase 8d NDS+ training cut to {n_plus} torch waves (bench: "
+          f"{n_train}) {tag}", flush=True)
+    seen = {}
+    render_kernel = sk.render_vspg_kernel
+
+    def spy(c, g, ftab, itab, spp, seed):
+        seen["inputs"] = (c, g, ftab, itab)
+        return render_kernel(c, g, ftab, itab, spp, seed)
+
+    sk.render_vspg_kernel = spy
+    try:
+        img_p, _, _, launches_p, t_p, k_p = main_path(v_ndsp, n_plus, 6)
+    finally:
+        sk.render_vspg_kernel = render_kernel
+    assert launches_p == {"vspg_record": 0, "vspg_render": 1}, launches_p
+    inputs_p = seen["inputs"]
+    tr = inputs_p[3][3:]
+    assert inputs_p[3].shape[0] == 6 and bool(torch.isfinite(tr).all())
+    assert bool(((tr >= 0) & (tr <= 1)).all()) and bool((tr < 1).any())
+    rest_p = t_p * 1e3 - k_p["vspg_render"]
+    print(f"phase 8d render_vspg nds+ pyro64 {res}x{res} {n_plus} training "
+          f"waves + {n_frozen} frozen spp: {t_p:.3f} s, mean "
+          f"{img_p.mean().item():.5f}, launches {launches_p}, ISGB rows "
+          f"{inputs_p[3].shape[0]}, TrBuffer mean {tr.mean().item():.5f} min "
+          f"{tr.min().item():.5f}; split: render kernel "
+          f"{k_p['vspg_render']:.3f} ms, torch waves and the rest "
+          f"{rest_p:.3f} ms ({rest_p / n_plus:.1f} ms a wave) {tag}",
+          flush=True)
+
+    # ---- 8e: the kernel's frozen render against the torch wave's ----------
+    res_e, spp_e = 128, 64
+    cam_e, film_e = view(res_e)
+    field_e, isgb_e = trained(pyro, res_e, n_train, 7, v_res)
+    for vopt in (v_res, v_nds):
+        imgs = {}
+        for backend in ("auto", "torch"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[backend] = vspg.render_vspg(
+                pyro, cam_e, film_e, spp=spp_e, cfg=cfg, gopt=gopt,
+                vopt=vopt, seed=11 if backend == "auto" else 12,
+                spp_per_pass=spp_e, field=field_e, isgb=isgb_e, train=False,
+                backend=backend, device=dev)[0]
+            torch.cuda.synchronize()
+            imgs[backend + "_s"] = time.perf_counter() - t0
+        k_img, t_img = imgs["auto"], imgs["torch"]
+        assert bool(torch.isfinite(t_img).all())
+        diff = (k_img - t_img).mean(-1).reshape(-1).double()
+        err = (diff.std() / np.sqrt(diff.numel())).item()
+        m_k, m_t = k_img.mean().item(), t_img.mean().item()
+        print(f"phase 8e frozen {vopt.sampling_method} {res_e}x{res_e}x"
+              f"{spp_e}: kernel mean {m_k:.6f} ({imgs['auto_s']:.2f} s), "
+              f"torch wave mean {m_t:.6f} ({imgs['torch_s']:.2f} s), "
+              f"difference {m_k - m_t:+.6f} = "
+              f"{(m_k - m_t) / err:+.2f} standard errors of the per-pixel "
+              f"differences (bound 4) {tag}", flush=True)
+        assert abs(m_k - m_t) <= 4.0 * err, (m_k, m_t, err)
+
+    # ---- each NDS variant alone at the main path's shapes ------------------
+    c, g, ftab, itab = inputs(pyro, res, field_n, isgb_n, v_nds)
+    t_rk, (img_rk, _) = _best_of_3(
+        lambda: sk.train_wave_kernel(c, g, ftab, itab, 11, 6))
+    counts_r = {}
+    t0 = time.perf_counter()
+    img_rp, _ = sk.train_wave_plain(c, g, ftab, itab, 11, 6, counts_r)
+    torch.cuda.synchronize()
+    t_rp = time.perf_counter() - t0
+    max_rec = check_parity(f"phase 8 parity vspg_record (nds) {res}x{res}x1",
+                           "vspg", img_rk, img_rp)
+    src = "vspg_pbrt_v4_tpu_torch/csrc/vspg.cu"
+    rep = "vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241"
+
+    def render_alone(method, c, g, ftab, itab, launches):
+        """The render variant alone on one main path's inputs: 64 spp and
+        1 spp timed, held against its plain version at 1 spp, and bound
+        by the plain version's counted work; its kernels-line entry."""
+        t_k64, k64 = _best_of_3(
+            lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
+        t_k1, k1 = _best_of_3(
+            lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1, 11))
+        counts = {}
+        t0 = time.perf_counter()
+        p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 11, counts)
+        torch.cuda.synchronize()
+        t_p1 = time.perf_counter() - t0
+        max_ren = check_parity(f"phase 8 parity vspg_render ({method}) "
+                               f"{res}x{res}x1, {itab.shape[0]} ISGB rows",
+                               "vspg", k1, p1)
+        b_ren, by_ren, p_ren = _bound_ms(
+            "vspg", counts, n_frozen,
+            _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
+                    c.majorant, ftab, itab, k64))
+        print(f"phase 8 vspg_render ({method}) kernel {res}x{res}x{n_frozen} "
+              f"{t_k64 * 1e3:.3f} ms ({npix * n_frozen / t_k64 / 1e6:.3f} "
+              f"Mpaths/s); at 1 spp kernel {t_k1 * 1e3:.3f} ms, plain "
+              f"{t_p1 * 1e3:.1f} ms; counted work at 1 spp {counts}; bound "
+              f"{b_ren:.4f} ms ({by_ren}; ms by pipe {p_ren}), kernel at "
+              f"{b_ren / (t_k64 * 1e3):.5f} of it {tag}", flush=True)
+        return dict(name="vspg_render_" + method.replace("+", "p"),
+                    route="cuda", source=src, replaces=rep, launches=launches,
+                    max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1 * 1e3,
+                    bound_ms=b_ren, bound_by=by_ren, library_ms=None,
+                    plain_spp=1)
+
+    b_rec, by_rec, p_rec = _bound_ms(
+        "vspg", counts_r, 1.0,
+        _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density, c.majorant,
+                ftab, itab, img_rk)
+        + sk.REC_ROWS * gopt.record_depth * npix * 4)
+    print(f"phase 8 vspg_record (nds) kernel {res}x{res}x1 "
+          f"{t_rk * 1e3:.3f} ms, plain {t_rp * 1e3:.1f} ms; counted work "
+          f"{counts_r}; bound {b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), "
+          f"kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}", flush=True)
+    return [
+        render_alone("nds", c, g, ftab, itab, launches_n["vspg_render"]),
+        # NDS+ on the inputs its main path gave the kernel: the field its
+        # torch waves trained and the 6-row ISGB table with their TrBuffer
+        render_alone("nds+", *inputs_p, launches_p["vspg_render"]),
+        dict(name="vspg_record_nds", route="cuda", source=src, replaces=rep,
+             launches=launches_n["vspg_record"], max_abs_err=max_rec,
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_by=by_rec, library_ms=None),
     ]

@@ -3,6 +3,7 @@
 without JAX, skip tests/conftest.py (it configures JAX):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,9 +57,10 @@ def test_wrapper_checks_inputs(dev):
         vk.render_grid(c, 0, 0)
 
 
-def _vspg_inputs(dev, res=48, waves=2, mode="ris"):
+def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling"):
     """VSPG kernel inputs on the bench's pyro cloud, the field and ISGB
-    trained by `waves` record waves, for direction mode `mode`."""
+    trained by `waves` record waves, for direction mode `mode` and
+    distance route `method` (NDS+ with a TrBuffer varying per pixel)."""
     from vspg_pbrt_v4_tpu_torch.models.integrators import vspg
     from vspg_pbrt_v4_tpu_torch.models.integrators.guided_volpath import (
         GuidingOptions)
@@ -74,21 +76,30 @@ def _vspg_inputs(dev, res=48, waves=2, mode="ris"):
     _, field, isgb = vspg.render_vspg(scene, cam, film, spp=waves, cfg=cfg,
                                       gopt=gopt, vopt=vopt, seed=2,
                                       device=dev)
-    return sk.kernel_inputs(scene, cam, film, cfg,
-                            gopt._replace(mode=mode), vopt, field, isgb)
+    tr = None
+    if method == "nds+":
+        rng = np.random.default_rng(8)
+        tr = torch.as_tensor(rng.uniform(0.3, 1.0, (res * res, 3)).astype(
+            np.float32), device=dev)
+    return sk.kernel_inputs(scene, cam, film, cfg, gopt._replace(mode=mode),
+                            vopt._replace(sampling_method=method), field,
+                            isgb, tr)
 
 
+@pytest.mark.parametrize("method", ["resampling", "nds", "nds+"])
 @pytest.mark.parametrize("mode", ["ris", "mis"])
 @pytest.mark.parametrize("variant", ["render", "record"])
-def test_vspg_kernel_matches_plain(dev, variant, mode):
-    """B3a/B4a against their plain versions on a trained field, in both
-    direction modes: built without FMA contraction, the kernel rounds as
-    the plain version's separate ops do; 0.98 leaves room for a last-bit
+def test_vspg_kernel_matches_plain(dev, variant, mode, method):
+    """B3a/B4a (resampling) and B3b/B4b (NDS, NDS+ with its TrBuffer as
+    ISGB rows 3-5) against their plain versions on a trained field, in
+    both direction modes: built without FMA contraction, the kernel rounds
+    as the plain version's separate ops do; 0.98 leaves room for a last-bit
     difference of a transcendental flipping a branch."""
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
 
-    c, g, ftab, itab = _vspg_inputs(dev, mode=mode)
+    c, g, ftab, itab = _vspg_inputs(dev, mode=mode, method=method)
     assert g.ris == (mode == "ris")
+    assert itab.shape[0] == (6 if method == "nds+" else 3)
     name = "vspg_" + variant
     before = sk.LAUNCHES[name]
     if variant == "render":

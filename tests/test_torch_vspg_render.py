@@ -1,7 +1,8 @@
 """The port's ``render_vspg`` (kernel route: record-variant training
 waves, then the frozen render) against the JAX package's
-``render_vspg(..., interpret_pallas=True)`` on the same scene and seed, and
-the cases it refuses instead of taking another route."""
+``render_vspg(..., interpret_pallas=True)`` on the same scene and seed, the
+routes it takes, and the cases outside the port's scope that it
+refuses."""
 
 import numpy as np
 import pytest
@@ -57,37 +58,86 @@ def test_render_vspg_matches_jax():
 
 
 def _refusal(case):
-    """A call that only the XLA-style wave (not ported) could serve."""
+    """A call outside the port's scope."""
     scene, cam, film = jax_setup()
     ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, CFG, "cpu")
     tg, tv = convert.options_from_jax(GOPT, VOPT)
-    kw = dict(spp=2, cfg=tcfg, gopt=tg, vopt=tv, device="cpu")
-    if case == "nds":
-        kw["vopt"] = tv._replace(sampling_method="nds")
-    elif case == "nds+":
-        kw["vopt"] = tv._replace(sampling_method="nds+")
-    elif case == "spp_per_pass":
-        kw["spp_per_pass"] = 2
-    elif case == "fog box":
-        ts = vk.make_fog_box_scene(device="cpu")
-    elif case == "triangles":
+    if case == "triangles":
         g = ts.geometry
         ts = type(ts)(Geometry(g.box_min, g.box_max, g.box_mat, g.box_light,
                                g.box_med_in, g.box_med_out, n_tri=12),
                       ts.materials, ts.media, ts.lights)
-    elif case == "adaptive field":
+        return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
+                                         gopt=tg, vopt=tv, device="cpu")
+    if case == "adaptive field":
         return lambda: GuidingField.make((-1,) * 3, (1,) * 3, res=4,
                                          n_extra=64, device="cpu")
-    elif case == "unet":
-        return lambda: ISGB.make((4, 4), "variance", "unet", device="cpu")
-    return lambda: tvspg.render_vspg(ts, tc, tf, **kw)
+    return lambda: ISGB.make((4, 4), "variance", "unet", device="cpu")
 
 
-@pytest.mark.parametrize("case", ["nds", "nds+", "spp_per_pass", "fog box",
-                                  "triangles", "adaptive field", "unet"])
+@pytest.mark.parametrize("case", ["triangles", "adaptive field", "unet"])
 def test_unported_routes_raise(case):
     with pytest.raises(NotImplementedError):
         _refusal(case)()
+
+
+# case: (sampling method, spp_per_pass, scene) and the route the JAX
+# package takes: (record-kernel waves, torch waves, frozen-kernel renders)
+WAVE_ROUTES = {
+    "nds": (("nds", 1, "cloud"), (1, 0, 1)),
+    "nds+": (("nds+", 1, "cloud"), (0, 1, 1)),
+    "spp_per_pass": (("resampling", 2, "cloud"), (0, 1, 1)),
+    "fog box": (("resampling", 1, "fog"), (0, 4, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(WAVE_ROUTES))
+def test_wave_routes_render(case, monkeypatch):
+    """Calls that once raised now render, each by the JAX package's route:
+    NDS trains through the record kernel; NDS+ and spp_per_pass > 1 train
+    through the torch wave; both freeze into the render kernel (NDS+ with
+    its TrBuffer); the fog box, outside the kernel's class, takes the torch
+    wave for every sample."""
+    (method, per_pass, which), want = WAVE_ROUTES[case]
+    calls = {"train_wave": 0, "vspg_wave": 0, "render_frozen": []}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            if name == "render_frozen":
+                calls[name].append(kw.get("tr_buffer"))
+            else:
+                calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(tvspg.vk, "train_wave",
+                        spy("train_wave", tvspg.vk.train_wave))
+    monkeypatch.setattr(tvspg.vk, "render_frozen",
+                        spy("render_frozen", tvspg.vk.render_frozen))
+    monkeypatch.setattr(tvspg, "vspg_wave",
+                        spy("vspg_wave", tvspg.vspg_wave))
+    scene, cam, film = jax_setup()
+    ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, SHORT, "cpu")
+    if which == "fog":
+        ts = vk.make_fog_box_scene(device="cpu")
+    tg, tv = convert.options_from_jax(GOPT._replace(train_waves=1),
+                                      VOPT._replace(sampling_method=method))
+    img, field, isgb = tvspg.render_vspg(ts, tc, tf, 2 * per_pass + 2, tcfg,
+                                         tg, tv, seed=4,
+                                         spp_per_pass=per_pass, device="cpu")
+    assert tuple(img.shape) == (16, 16, 3)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    assert field.iteration == 1 and isgb.ready
+    got = (calls["train_wave"], calls["vspg_wave"],
+           len(calls["render_frozen"]))
+    assert got == want, (case, got)
+    for tr in calls["render_frozen"]:
+        # NDS+ hands the frozen kernel the waves' TrBuffer (all ones here:
+        # the one training wave ran before the ISGB guided a primary ray)
+        assert (tr is not None) == (method == "nds+")
+        if tr is not None:
+            assert tuple(tr.shape) == (256, 3)
+            assert bool(((tr >= 0) & (tr <= 1)).all())
 
 
 def test_frozen_only_takes_the_render_kernel():

@@ -1,13 +1,16 @@
-// B3a + B4a: the VSPG megakernel, frozen-field render and training-wave
-// record variants, for one density grid in a box (no triangles), a
-// uniform guiding field and the resampling distance route.
+// B3a/B3b + B4a/B4b: the VSPG megakernel, frozen-field render and
+// training-wave record variants, for one density grid in a box (no
+// triangles), a uniform guiding field and the three distance routes of
+// guided walks: resampling (B3a/B4a), NDS and NDS+ (B3b/B4b).
 //
 // Replaces pallas_vspg._make_vspg_kernel (vspg_pbrt_v4_tpu/ops/
-// pallas_vspg.py) with record=False (B3a) and record=True (B4a). One thread
+// pallas_vspg.py) with record=False (B3) and record=True (B4), for
+// sampling_method "resampling", "nds" and "nds+". One thread
 // renders all samples of one pixel and runs the Pallas kernel's per-lane
 // state machine: per iteration one event of its path (mode 0 transport, 2
 // reservoir-resampling walk, 3 delta walk, 4/5 ratio-tracked shadow walk
-// toward the point light / environment), the same eight uniform4 draws in
+// toward the point light / environment; under NDS 1 the majorant
+// optical-depth prepass and 2 the ODS walk), the same eight uniform4 draws in
 // the same order, and the same iteration cap spp * max_events * 12. So it
 // agrees per pixel with ops/vspg_kernels.render_vspg_plain /
 // train_wave_plain, which agree per pixel with the interpret-mode Pallas
@@ -27,6 +30,15 @@
 // registers (no device-memory traffic but the reads above, the image and
 // the record rows) and leaves the TPU's bf16 tables, one-hot MXU gathers,
 // chunk sweeps, stochastic trilerp, tiled lane map and spp chunking out.
+//
+// NDS and NDS+ are template switches: the ODS walk keeps its state in the
+// reservoir's registers, as the Pallas kernel aliases its carries (c_t the
+// candidate's remaining optical depth, -1 to draw one, BIG to pass; wT.x /
+// wT.y the running t_v / t_n, tau_acc / c_ste their totals; cn the
+// per-channel truncation renormalisations; c_wi the defensive-lane flag;
+// w_sum the NDS+ bias exponent), so the NDS instantiations hold no more
+// live state than the resampling ones. A prepass step reads the majorant
+// only. NDS+ reads its TrBuffer entry from ISGB rows 3-5 once per walk.
 #include "common.cuh"
 #include "vspg.cuh"
 
@@ -38,6 +50,8 @@ constexpr int KMAX = 4;
 constexpr float MIN_KAPPA = 1e-2f;
 constexpr float MAX_KAPPA = 2e3f;
 constexpr float INV_4PI_F = 0.0795774715459476679f;
+// float32(1 - 1e-7), the Pallas kernel's clip of truncated-exponential CDFs
+constexpr float ONE_M_1E7 = 0.99999988079071044921875f;
 
 struct Lobes {
   float w[KMAX];
@@ -269,7 +283,7 @@ static __device__ __forceinline__ float maj_at(const Tables& T, int x, int y,
 
 }  // namespace
 
-template <bool RECORD, bool RIS>
+template <bool RECORD, bool RIS, int METHOD>
 __global__ void __launch_bounds__(128)
     vspg_kernel(const float* __restrict__ fc_g, const int* __restrict__ ic_g,
                 const float* __restrict__ gc_g, const int* __restrict__ gi_g,
@@ -311,6 +325,8 @@ __global__ void __launch_bounds__(128)
   const V3 one3 = v3(1.f, 1.f, 1.f), zero3 = v3(0.f, 0.f, 0.f);
   const float ivsp = itab[pix_i], ipel = itab[npix + pix_i],
               ipem = itab[2 * npix + pix_i];
+  constexpr bool NDS = METHOD != M_RESAMPLING;
+  constexpr bool NDS_PLUS = METHOD == M_NDS_PLUS;
 
   auto rec_put = [&](int row, int slot, float v) {
     if (RECORD && slot >= 0 && slot < rec_depth)
@@ -342,7 +358,10 @@ __global__ void __launch_bounds__(128)
 
   const long long max_iters = (long long)spp * ic[I_MAX_EVENTS] * 12;
   for (long long it = 0; it < max_iters && alive; ++it) {
-    const bool walk_res = mode == 2, walk_del = mode == 3;
+    // mode 2: the reservoir walk, or under NDS the ODS walk; mode 1: the
+    // NDS majorant-OD prepass
+    const bool walk_res = !NDS && mode == 2, walk_nds = NDS && mode == 2;
+    const bool walk_pre = NDS && mode == 1, walk_del = mode == 3;
     const float st_h = sel(st, hero);
 
     // deferred Russian roulette (survival stored at the last scatter)
@@ -393,18 +412,40 @@ __global__ void __launch_bounds__(128)
 
     // ---- one majorant + density event of a walking lane ------------------
     const bool is_sh = alive && mode >= 4;
-    const bool stepper = walk_res || walk_del || is_sh;
+    const bool stepper = walk_res || walk_del || is_sh || walk_nds || walk_pre;
     const V3 wd = is_sh ? sh : d;
     const V3 ep = is_sh ? along(o, sh_t, sh) : along(o, t_walk, d);
     const float t_lim = is_sh ? sh_end - sh_t : plim - t_walk;
     u = uniform4(seed, pix, samp, dim);
     dim += 1;
     const float ub = u.y;
+    if (NDS && walk_nds && c_t < 0.0f) {
+      // ODS candidate: an optical depth on the truncated exponential over
+      // [0, t_n) (defensive lanes: the plain exponential); cn gathers the
+      // truncation renormalisations of every channel
+      const float tn_pos = fmaxf(wT.y, 0.0f);
+      const float step_tr = -expm1f(-tn_pos);
+      const float dist_g = -log1pf(-u.x * clampf(step_tr, 0.0f, ONE_M_1E7));
+      const float dist = c_wi > 0.5f ? -log1pf(-u.x) : dist_g;
+      const float inv_sth = 1.0f / fmaxf(st_h, 1e-30f);
+      cn = v3(cn.x * fmaxf(-expm1f(-tn_pos * st.x * inv_sth), 1e-30f),
+              cn.y * fmaxf(-expm1f(-tn_pos * st.y * inv_sth), 1e-30f),
+              cn.z * fmaxf(-expm1f(-tn_pos * st.z * inv_sth), 1e-30f));
+      const bool pass_n = wT.x - dist < 1e-5f;
+      if (pass_n) {
+        const float tailf =
+            fmaxf(-expm1f(-fmaxf(c_ste - tau_acc, 0.0f)), 1e-30f);
+        cn = v3(cn.x / tailf, cn.y / tailf, cn.z / tailf);
+      }
+      c_t = pass_n ? BIG : dist;
+    }
     const float rate = walk_res ? maj_sc : 1.0f;
     float S_raw = 0.f, t_cum = 0.f, m_last = 0.f;
     bool coll = false;
     if (stepper) {
       float tau0 = -log1pf(-u.x);
+      if (walk_nds) tau0 = fmaxf(c_t, 0.0f);  // fly to the candidate
+      if (walk_pre) tau0 = BIG;  // the prepass never collides
       const float epc[3] = {ep.x, ep.y, ep.z}, wdc[3] = {wd.x, wd.y, wd.z};
       int ix[3];
       float tx[3];
@@ -446,7 +487,9 @@ __global__ void __launch_bounds__(128)
                             : v3(Tm.x / Tm_h, Tm.y / Tm_h, Tm.z / Tm_h);
     const float un0 = uniform4(seed, pix, samp, dim).x;
     dim += 1;
-    const float dloc = stepper ? density8(fc, gc, T, along(ep, step, wd)) : 0.f;
+    const float dloc = stepper && !walk_pre
+                           ? density8(fc, gc, T, along(ep, step, wd))
+                           : 0.f;
     const float st_loc_h = dloc * st_h;
     const V3 sn = v3(fmaxf((m_d - dloc) * st.x, 0.0f),
                      fmaxf((m_d - dloc) * st.y, 0.0f),
@@ -520,16 +563,23 @@ __global__ void __launch_bounds__(128)
       }
     }
 
-    // ---- mode 3: one delta-tracking step ---------------------------------
-    bool d_real = false, d_died = false, d_passed = false;
-    if (walk_del) {
+    // ---- mode 3: one delta-tracking step (ODS lanes ride the same algebra
+    // on their optical-depth candidates) -----------------------------------
+    bool d_real = false, d_died = false, d_passed = false, d_null = false;
+    if (walk_del || walk_nds) {
+      // NDS+ raises a primary ray's real-collision probability to
+      // p^(1/(1+Tr)), w_sum holding 1/(1+Tr)
+      const bool prim_l = NDS_PLUS && walk_nds && depth == 0;
+      float p_cls = st_loc_h / fmaxf(maj_h, 1e-30f);
+      if (prim_l)
+        p_cls = powf(clampf(p_cls, 1e-30f, 1.0f), clampf(w_sum, 1e-3f, 1.0f));
       if (!coll) {
         if (!gray) {
           wf = mul(wf, sc_tail);
           wu = mul(wu, sc_tail);
           wl = mul(wl, sc_tail);
         }
-      } else if (ub < st_loc_h / fmaxf(maj_h, 1e-30f)) {
+      } else if (ub < p_cls) {
         d_real = true;
         float pdf_r = fmaxf(Tm_h * st_loc_h, 1e-30f);
         wf = v3(wf.x * Tm.x * dloc * ss.x / pdf_r,
@@ -549,10 +599,61 @@ __global__ void __launch_bounds__(128)
                 wl.y * Tm.y * m_d * st.y * inv_dn,
                 wl.z * Tm.z * m_d * st.z * inv_dn);
         d_died = pdf_dn <= 0.0f || max3(wf) == 0.0f;
+        d_null = true;
       }
       float del_t_new = t_walk + step + 1e-6f;
       d_passed = !coll && del_t_new >= plim;
       t_walk = del_t_new;
+      if (NDS && walk_nds) {
+        // ODS bookkeeping: the flight consumed od_raw of the running
+        // interval; a null collision draws anew next iteration
+        wT.x = wT.x - od_raw;
+        wT.y = wT.y - od_raw;
+        c_t = coll ? -1.0f : c_t - od_raw;
+        // one-sample MIS factor against plain delta tracking, on r_u at a
+        // real collision and on r_u and r_l at the pass exit
+        const V3 ruf = v3(gc[G_MIS] / fmaxf(cn.x, 1e-30f) + gc[G_1MMIS],
+                          gc[G_MIS] / fmaxf(cn.y, 1e-30f) + gc[G_1MMIS],
+                          gc[G_MIS] / fmaxf(cn.z, 1e-30f) + gc[G_1MMIS]);
+        if (d_real || d_passed) wu = mul(wu, ruf);
+        if (d_passed) wl = mul(wl, ruf);
+        if (NDS_PLUS && prim_l && (d_real || d_null)) {
+          // exact r_u compensation of the biased classification
+          const float comp =
+              d_real ? m_d * p_cls / fmaxf(dloc, 1e-30f)
+                     : m_d * (1.0f - p_cls) / fmaxf(m_d - dloc, 1e-30f);
+          wu = scale(wu, comp);
+        }
+      }
+    }
+
+    // ---- mode 1: the exact majorant-OD prepass to the chord end; then the
+    // ODS walk, or the delta walk where vsp < 1 - e^-t_v ------------------
+    if (NDS && walk_pre) {
+      tau_acc = tau_acc + od_raw;
+      const float pre_t_new = t_walk + step + 1e-6f;
+      const bool pre_done = pre_t_new >= plim;
+      t_walk = pre_done ? 0.0f : pre_t_new;
+      if (pre_done) {
+        const float one_m_e = -expm1f(-tau_acc);
+        const bool fb = vsp_c < one_m_e || tau_acc <= 1e-7f;
+        mode = fb ? 3 : 2;
+        if (!fb) {
+          const float t_n0 = -log1pf(
+              -fminf(one_m_e / fmaxf(vsp_c, 1e-4f), ONE_M_1E7));
+          wT.x = tau_acc;
+          wT.y = t_n0;
+          c_ste = t_n0;
+          c_t = -1.0f;
+          cn = one3;
+          c_wi = u.z > gc[G_MIS] ? 1.0f : 0.0f;  // defensive-MIS pick
+          w_sum = 1.0f;
+          if (NDS_PLUS && depth == 0) {
+            const float tr_h = itab[(size_t)(3 + hero) * npix + pix_i];
+            w_sum = 1.0f / (1.0f + clampf(tr_h, 0.0f, 1.0f));
+          }
+        }
+      }
     }
 
     // ---- mode 2: one reservoir-resampling step ---------------------------
@@ -653,7 +754,8 @@ __global__ void __launch_bounds__(128)
     const bool scat_w = d_real || r_scat;
     const bool term_w = d_died || r_dead;
     const bool passed = d_passed || pick_surf;
-    const float t_sc = d_real ? t_walk : c_t;
+    // under NDS c_t holds the ODS candidate: only a real collision scatters
+    const float t_sc = d_real ? t_walk : (NDS ? 0.0f : c_t);
     if (term_w) alive = false;
     if (scat_w && depth >= max_depth) alive = false;
     const bool scat = scat_w && depth < max_depth && alive;
@@ -678,7 +780,7 @@ __global__ void __launch_bounds__(128)
         vsp = vsp_directional(fc, lob, K, vsp_cell, d);
       guide = vsp >= 0.0f;
       vsp_c = clampf(vsp, 0.001f, 0.999f);
-      mode = guide ? 2 : 3;
+      mode = guide ? (NDS ? 1 : 2) : 3;  // NDS: the prepass first
       t_walk = 0.f;
       w_sum = 0.f;
       tau_acc = 0.f;
@@ -687,7 +789,9 @@ __global__ void __launch_bounds__(128)
     // segment's majorant optical depth
     const float u_m0 = uniform4(seed, pix, samp, dim).x;
     dim += 1;
-    if (in_med) {
+    if (in_med && NDS) {
+      maj_sc = 1.0f;  // optical-depth space: no majorant scaling
+    } else if (in_med) {
       V3 pm = along(o, u_m0 * plim, d);
       float m_pt = maj_at(
           T, (int)((pm.x - fc[F_BMIN]) / gc[G_EXT] * (float)T.mx),
@@ -698,6 +802,8 @@ __global__ void __launch_bounds__(128)
           -logf(fmaxf(1.0f - fminf(vsp_c, gc[G_SCALE_CAP]), 1e-6f));
       maj_sc = guide ? clampf(min_total / fmaxf(tau_e, 1e-6f), 1.0f, 16.0f)
                      : 1.0f;
+    }
+    if (in_med) {
       wf = wu = wl = one3;
       if (guide) {
         wT = wr = cn = cd = one3;
@@ -874,30 +980,46 @@ __global__ void __launch_bounds__(128)
 
 namespace {
 
+template <bool RECORD, bool RIS, int METHOD>
+void launch_one(int blocks, int threads, size_t smem, cudaStream_t st,
+                const float* fconst, const int* iconst, const float* gconst,
+                const int* giconst, const float* density,
+                const float* majorant, const float* ftab, const float* itab,
+                float* out, float* rec, int npix, int spp, unsigned int seed,
+                float out_scale, int nmaj, int rec_depth) {
+  vspg_kernel<RECORD, RIS, METHOD><<<blocks, threads, smem, st>>>(
+      fconst, iconst, gconst, giconst, density, majorant, ftab, itab, out,
+      rec, npix, spp, seed, out_scale, nmaj, rec_depth);
+}
+
+// one of the twelve instantiations, by direction mode and distance route
 template <bool RECORD>
 int launch(const float* fconst, const int* iconst, const float* gconst,
            const int* giconst, const float* density, const float* majorant,
            const float* ftab, const float* itab, float* out, float* rec,
            int npix, int spp, unsigned int seed, float out_scale, int nmaj,
-           int rec_depth, int ris, void* stream) {
+           int rec_depth, int ris, int method, void* stream) {
   const int threads = 128;
   const int blocks = (npix + threads - 1) / threads;
   const size_t smem = (size_t)nmaj * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (ris)
-    vspg_kernel<RECORD, true><<<blocks, threads, smem, st>>>(
-        fconst, iconst, gconst, giconst, density, majorant, ftab, itab, out,
-        rec, npix, spp, seed, out_scale, nmaj, rec_depth);
-  else
-    vspg_kernel<RECORD, false><<<blocks, threads, smem, st>>>(
-        fconst, iconst, gconst, giconst, density, majorant, ftab, itab, out,
-        rec, npix, spp, seed, out_scale, nmaj, rec_depth);
+  if (method < M_RESAMPLING || method > M_NDS_PLUS)
+    return (int)cudaErrorInvalidValue;
+  auto* fn = ris ? (method == M_NDS_PLUS ? launch_one<RECORD, true, M_NDS_PLUS>
+                    : method == M_NDS    ? launch_one<RECORD, true, M_NDS>
+                                         : launch_one<RECORD, true, M_RESAMPLING>)
+                 : (method == M_NDS_PLUS ? launch_one<RECORD, false, M_NDS_PLUS>
+                    : method == M_NDS    ? launch_one<RECORD, false, M_NDS>
+                                         : launch_one<RECORD, false, M_RESAMPLING>);
+  fn(blocks, threads, smem, st, fconst, iconst, gconst, giconst, density,
+     majorant, ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
+     rec_depth);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B3a: frozen-field render of spp samples per pixel
+// B3a/B3b: frozen-field render of spp samples per pixel
 extern "C" int vspg_render_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
@@ -905,13 +1027,13 @@ extern "C" int vspg_render_launch(const float* fconst, const int* iconst,
                                   float* out, float* rec, int npix, int spp,
                                   unsigned int seed, float out_scale,
                                   int nmaj, int rec_depth, int ris,
-                                  void* stream) {
+                                  int method, void* stream) {
   return launch<false>(fconst, iconst, gconst, giconst, density, majorant,
                        ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
-                       rec_depth, ris, stream);
+                       rec_depth, ris, method, stream);
 }
 
-// B4a: one training sample per pixel plus its record rows
+// B4a/B4b: one training sample per pixel plus its record rows
 extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
@@ -919,8 +1041,8 @@ extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
                                   float* out, float* rec, int npix, int spp,
                                   unsigned int seed, float out_scale,
                                   int nmaj, int rec_depth, int ris,
-                                  void* stream) {
+                                  int method, void* stream) {
   return launch<true>(fconst, iconst, gconst, giconst, density, majorant,
                       ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
-                      rec_depth, ris, stream);
+                      rec_depth, ris, method, stream);
 }

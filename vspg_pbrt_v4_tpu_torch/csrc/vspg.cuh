@@ -43,7 +43,12 @@ enum GIConst {
   GI_VOL_GUIDING = 8,     // directional guiding at volume vertices
   GI_APPLY_HG = 9,        // |g| > 1e-3: HG-lobe product
   GI_SIGMA_GRAY = 10,     // sigma_t equal in the three channels
-  N_GICONST = 11
+  GI_METHOD = 11,         // distance route (Method below)
+  N_GICONST = 12
 };
+
+// distance route of guided walks (ops/vspg_kernels.py METHODS); the kernel
+// is instantiated for each, the launcher picks by the table's GI_METHOD
+enum Method { M_RESAMPLING = 0, M_NDS = 1, M_NDS_PLUS = 2 };
 
 }  // namespace vp

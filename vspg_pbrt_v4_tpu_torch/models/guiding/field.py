@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...utils.device import OnDevice
+from ...utils.math import INV_4PI
 from ...utils.vecmath import normalize
 from . import vmf
 
@@ -177,6 +178,16 @@ def dist_sample(d: CellDistribution, u_sel, u2):
 
 def dist_pdf(d: CellDistribution, wi):
     return vmf.mixture_pdf(wi, d.weights, d.mu, d.kappa)
+
+
+def incoming_radiance_pdf(field: GuidingField, half_name, p, wi):
+    """The pdf at wi of the field's distribution at p without the product
+    (the RIS target's radiance term); 1/(4 pi) where the cell holds too
+    little data."""
+    half = field.surface if half_name == "surface" else field.volume
+    d = _gather_half(field, half, p)
+    pdf = vmf.mixture_pdf(wi, d.weights, d.mu, d.kappa)
+    return torch.where(d.valid, pdf, INV_4PI)
 
 
 def dist_vsp_directional(d: CellDistribution, wi):

@@ -7,9 +7,11 @@ training samples, walking the slots backwards:
 
     Li_k = emission_k + direct_{k+1} + w_{k+1} * Li_{k+1}
 
-The per-vertex recorders of the JAX package serve only its XLA wave, which
-is not ported; here the records come from the VSPG kernel's record variant
-(``ops/vspg_kernels.train_wave``).
+The records come from the VSPG kernel's record variant
+(``ops/vspg_kernels.train_wave``) or from the torch wave
+(``integrators/vspg.vspg_wave``), which fills them per event through the
+recorders below: ``record_vertex`` opens a slot at a scatter vertex,
+``record_direct`` and ``record_emission`` attach light to the newest one.
 """
 
 from __future__ import annotations
@@ -42,6 +44,80 @@ class SegmentRecord(NamedTuple):
         f = torch.zeros((R, D), dtype=torch.bool, device=device)
         return SegmentRecord(z3, z3, z3, z3, z3, z, z, f, f,
                              torch.zeros(R, dtype=torch.int32, device=device))
+
+
+def _at(buf, slot):
+    """buf[lane, slot[lane]] for every lane."""
+    return buf[torch.arange(buf.shape[0], device=buf.device), slot]
+
+
+def _set(buf, slot, mask, val):
+    """A copy of buf with buf[lane, slot[lane]] = val where mask."""
+    lanes = torch.arange(buf.shape[0], device=buf.device)
+    old = buf[lanes, slot]
+    m = mask if val.dim() == mask.dim() else mask[..., None]
+    out = buf.clone()
+    out[lanes, slot] = torch.where(m, val, old)
+    return out
+
+
+def _newest(rec):
+    """The slot of the most recent vertex, and which lanes have one."""
+    D = rec.pos.shape[1]
+    slot = torch.clamp(rec.count - 1, 0, D - 1).long()
+    return slot, (rec.count > 0) & (rec.count <= D)
+
+
+def record_vertex(rec: SegmentRecord, mask, pos, wi, scatter_w, pdf,
+                  is_volume):
+    """Open a vertex slot for the lanes of `mask` (at a real scatter, after
+    its direction is sampled), closing the previous vertex's edge with the
+    vertex-to-vertex distance."""
+    D = rec.pos.shape[1]
+    slot = torch.clamp(rec.count, max=D - 1).long()
+    in_range = mask & (rec.count < D)
+    prev_slot = torch.clamp(rec.count - 1, 0, D - 1).long()
+    has_prev = in_range & (rec.count > 0)
+    edge = torch.sqrt(torch.clamp(torch.sum(
+        (pos - _at(rec.pos, prev_slot)) ** 2, -1), min=0.0))
+    distance = _set(rec.distance, prev_slot, has_prev, edge)
+    return rec._replace(
+        pos=_set(rec.pos, slot, in_range, pos),
+        wi=_set(rec.wi, slot, in_range, wi),
+        scatter_w=_set(rec.scatter_w, slot, in_range, scatter_w),
+        pdf=_set(rec.pdf, slot, in_range, pdf),
+        is_volume=_set(rec.is_volume, slot, in_range, is_volume),
+        valid=_set(rec.valid, slot, in_range, torch.ones_like(mask)),
+        distance=distance,
+        count=torch.where(in_range, rec.count + 1, rec.count))
+
+
+def record_direct(rec: SegmentRecord, mask, contribution):
+    """Add an NEE contribution (without the path prefix) to the newest
+    vertex."""
+    slot, has = _newest(rec)
+    ok = mask & has
+    return rec._replace(direct=_set(rec.direct, slot, ok,
+                                    _at(rec.direct, slot) + contribution))
+
+
+def record_emission(rec: SegmentRecord, mask, contribution, distance):
+    """Add MIS-weighted emission seen along the edge leaving the newest
+    vertex; the edge length becomes at least `distance`."""
+    slot, has = _newest(rec)
+    ok = mask & has
+    return rec._replace(
+        emission=_set(rec.emission, slot, ok,
+                      _at(rec.emission, slot) + contribution),
+        distance=_set(rec.distance, slot, ok,
+                      torch.maximum(_at(rec.distance, slot), distance)))
+
+
+def record_edge_distance(rec: SegmentRecord, mask, distance):
+    """Set the edge length from the newest vertex to the next event."""
+    slot, has = _newest(rec)
+    return rec._replace(distance=_set(rec.distance, slot, mask & has,
+                                      distance))
 
 
 def propagate(rec: SegmentRecord) -> TrainBatch:

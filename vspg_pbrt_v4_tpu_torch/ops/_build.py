@@ -100,8 +100,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "volpath_homog_launch": [_P, _P, _P, _I, _I, _U, _F, _P],
     "volpath_grid_launch": [_P, _P, _P, _P, _P, _I, _I, _U, _F, _I, _P],
-    "vspg_render_launch": [_P] * 10 + [_I, _I, _U, _F, _I, _I, _I, _P],
-    "vspg_record_launch": [_P] * 10 + [_I, _I, _U, _F, _I, _I, _I, _P],
+    "vspg_render_launch": [_P] * 10 + [_I, _I, _U, _F, _I, _I, _I, _I, _P],
+    "vspg_record_launch": [_P] * 10 + [_I, _I, _U, _F, _I, _I, _I, _I, _P],
 }
 
 

@@ -4,10 +4,15 @@ support predicate that decides when ``render_vspg`` may use it.
 
 One kernel, ``csrc/vspg.cu``, replaces ``pallas_vspg._make_vspg_kernel``
 for the grid-cloud class without triangles, on a uniform guiding field,
-with the resampling distance route (B3a/B4a in ROADMAP.md). It has two
-variants: the render variant renders spp frozen-field samples per pixel;
-the record variant renders one training sample per pixel and writes the
-``REC_ROWS`` x ``rec_depth`` record rows of each lane.
+with each of the three distance routes: resampling (B3a/B4a in
+ROADMAP.md), NDS and NDS+ (B3b/B4b). It has two variants: the render
+variant renders spp frozen-field samples per pixel; the record variant
+renders one training sample per pixel and writes the ``REC_ROWS`` x
+``rec_depth`` record rows of each lane. Under NDS a guided walk first runs
+the exact majorant optical-depth prepass (mode 1), then either the ODS
+walk (mode 2: candidates drawn in optical-depth space on the delta step's
+algebra) or, where the target VSP is below 1 - e^-t_v, the delta walk
+(mode 3). NDS+ reads a per-pixel TrBuffer as ISGB rows 3-5.
 
 Each lane (one pixel) runs the per-lane state machine of the Pallas
 kernel: one event per iteration (transport, reservoir-resampling walk,
@@ -69,8 +74,10 @@ N_GCONST = 32
 # int32 guiding constant table
 (GI_FRES, GI_K, GI_NCELL, GI_RIS, GI_GUIDE_RR, GI_MIN_RR_DEPTH,
  GI_GUIDE_PRIMARY, GI_GUIDE_SECONDARY, GI_VOL_GUIDING, GI_APPLY_HG,
- GI_SIGMA_GRAY) = range(11)
-N_GICONST = 11
+ GI_SIGMA_GRAY, GI_METHOD) = range(12)
+N_GICONST = 12
+# GI_METHOD values: the distance route of guided walks
+METHODS = ("resampling", "nds", "nds+")
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +118,12 @@ class GuidingConstants:
     fconst: torch.Tensor  # (N_GCONST,) float32
     iconst: torch.Tensor  # (N_GICONST,) int32
     ris: bool
+    method: int  # index into METHODS
+
+    @property
+    def isgb_rows(self):
+        """Rows of the ISGB table: 6 under NDS+ (the TrBuffer), else 3."""
+        return 6 if METHODS[self.method] == "nds+" else 3
 
 
 def pack_guiding_constants(c, gc, device):
@@ -119,6 +132,9 @@ def pack_guiding_constants(c, gc, device):
     at trace time in double are folded here in double too."""
     if gc["mode"] not in ("mis", "ris"):
         raise ValueError(f"unknown guiding mode {gc['mode']!r}")
+    if gc["sampling_method"] not in METHODS:
+        raise ValueError(f"unknown sampling method {gc['sampling_method']!r}")
+    method = METHODS.index(gc["sampling_method"])
     f_np = c.fconst.cpu().numpy()
     i_np = c.iconst.cpu().numpy()
     sa = f_np[F_SA:F_SA + 3]
@@ -168,9 +184,10 @@ def pack_guiding_constants(c, gc, device):
     i[GI_VOL_GUIDING] = int(gc["volume_guiding"] and gc["trained"])
     i[GI_APPLY_HG] = int(abs(g_hg) > 1e-3)
     i[GI_SIGMA_GRAY] = int(float(st[0]) == float(st[1]) == float(st[2]))
+    i[GI_METHOD] = method
     return GuidingConstants(
         torch.as_tensor(f.astype(np.float32), device=device),
-        torch.as_tensor(i, device=device), ris)
+        torch.as_tensor(i, device=device), ris, method)
 
 
 def _grid_g(c):
@@ -245,20 +262,28 @@ def _pack_half_rows(field, vol, criterion):
     return rows
 
 
-def pack_isgb_table(isgb, npix):
+def pack_isgb_table(isgb, npix, tr_buffer=None):
     """(3, npix) float32: [primary VSP (-1 while not ready), pixel-estimate
-    luminance, pixel-estimate channel mean]."""
+    luminance, pixel-estimate channel mean]. With `tr_buffer` (the NDS+
+    per-pixel primary transmittance, (npix, 3)), rows 3-5 append it clipped
+    to [0, 1]: (6, npix)."""
     pid = torch.arange(npix, device=isgb.vsp_est.device)
     vsp = isgb_primary_vsp(isgb, pid)
     pe = isgb_contribution(isgb, pid)
     lum = pe[:, 0] * _LUM[0] + pe[:, 1] * _LUM[1] + pe[:, 2] * _LUM[2]
-    return torch.stack([vsp, lum, torch.mean(pe, -1)], 0).contiguous()
+    rows = [vsp, lum, torch.mean(pe, -1)]
+    if tr_buffer is not None:
+        tr = torch.clamp(tr_buffer.to(device=vsp.device, dtype=torch.float32),
+                         0.0, 1.0)
+        rows += [tr[:, 0], tr[:, 1], tr[:, 2]]
+    return torch.stack(rows, 0).contiguous()
 
 
 def supports(scene, camera, film, cfg, gopt, vopt, field):
     """True when the VSPG kernel serves this render: the grid-cloud class
     of ``volpath_kernels.extract_constants`` (one box holding one density
-    grid, no triangles), a uniform field and the resampling route."""
+    grid, no triangles), a uniform field and any of the three distance
+    routes."""
     c = extract_constants(scene, camera, film, cfg)
     if c is None or c.kind != "grid":
         return False
@@ -266,7 +291,7 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
         return False
     if int(getattr(gopt, "adaptive_extra", 0)) != 0:
         return False
-    return str(vopt.sampling_method) == "resampling"
+    return str(vopt.sampling_method) in METHODS
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +315,15 @@ class _G:
          self.cap, self.kappa_h, self.log_c_h, self.hg_sign,
          self.log_2pi) = fl[G_FRES_HI:G_LOG_2PI + 1]
         (self.fres, self.K, self.ncell, ris, guide_rr, self.min_rr_depth,
-         gp, gs, vg, ahg, gray) = il
+         gp, gs, vg, ahg, gray, method) = il
         self.ris, self.guide_rr = bool(ris), bool(guide_rr)
         self.guide_primary, self.guide_secondary = bool(gp), bool(gs)
         self.vol_guiding, self.apply_hg, self.gray = bool(vg), bool(ahg), \
             bool(gray)
-        self.pg_safe_t = f[G_PG_SAFE]  # a true divisor (see _Consts)
+        self.nds = METHODS[method] in ("nds", "nds+")
+        self.nds_plus = METHODS[method] == "nds+"
+        # true dividends and divisors (see _Consts)
+        self.pg_safe_t, self.mis_t = f[G_PG_SAFE], f[G_MIS]
 
 
 def _W(m, new, old):
@@ -549,7 +577,8 @@ def _init_lanes(K, seed, itab):
         tau_acc=z(), vsp_c=z(), sh=z3(), sh_t=z(), sh_end=z(), sh_pdf=z(),
         sh_d2=o1(), sT=o3(), sl=o3(), su=o3(), sh_f=z(), rr_srv=o1(),
         sh_fl=z(), rslot=zi.clone(), ivsp=itab[0].clone(),
-        ipel=itab[1].clone(), ipem=itab[2].clone())
+        ipel=itab[1].clone(), ipem=itab[2].clone(),
+        itr=itab[3:6].T.clone() if itab.shape[0] == 6 else o3())
 
 
 def _body(K, G, T, S, seed, spp, rec, counts):
@@ -582,7 +611,16 @@ def _body(K, G, T, S, seed, spp, rec, counts):
         S["sh_fl"]
     rslot, pix = S["rslot"], S["pix"]
 
-    walk_res = alive & (mode == 2)
+    # mode 2 is the reservoir walk of the resampling route and the ODS walk
+    # under NDS, whose state aliases the reservoir's (the Pallas kernel's
+    # carries): c_t the candidate's remaining optical depth (-1: draw one,
+    # _BIG: passing to the wall), wT[0] / wT[1] the running t_v / t_n,
+    # tau_acc / c_ste their totals, cn the per-channel truncation
+    # renormalisations tp, c_wi the defensive plain-exponential flag, w_sum
+    # the NDS+ bias exponent; mode 1 is the NDS majorant-OD prepass
+    walk_res = alive & (mode == 2) & (not G.nds)
+    walk_nds = alive & (mode == 2) & G.nds
+    walk_pre = alive & (mode == 1)
     walk_del = alive & (mode == 3)
     st_h = st[hero]
 
@@ -627,13 +665,38 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     ep = _W(is_sh, o + sh_t[:, None] * sh, o + t_walk[:, None] * d)
     wd = _W(is_sh, sh, d)
     t_lim = torch.where(is_sh, sh_end - sh_t, plim - t_walk)
-    ua, ub, _, _ = U()
-    stepper = walk_res | walk_del | is_sh
+    ua, ub, uc, _ = U()
+    if G.nds:
+        # ODS candidate draw: lanes without a pending candidate draw an
+        # optical depth on the truncated exponential over [0, t_n) (the
+        # defensive lanes: the plain exponential); tp gathers the
+        # truncation renormalisations of every channel
+        need_d = walk_nds & (c_t < 0)
+        tn_pos = torch.clamp(wT[:, 1], min=0.0)
+        step_tr = -torch.expm1(-tn_pos)
+        dist_g = -torch.log1p(-ua * torch.clamp(step_tr, 0.0, 1.0 - 1e-7))
+        dist = torch.where(c_wi > 0.5, -torch.log1p(-ua), dist_g)
+        inv_sth = 1.0 / torch.clamp(st_h, min=1e-30)
+        cn = _W(need_d, cn * torch.clamp(-torch.expm1(
+            (-tn_pos)[:, None] * st * inv_sth[:, None]), min=1e-30), cn)
+        pass_n = need_d & (wT[:, 0] - dist < 1e-5)
+        tailf = torch.clamp(-torch.expm1(-torch.clamp(c_ste - tau_acc,
+                                                      min=0.0)), min=1e-30)
+        cn = _W(pass_n, cn / tailf[:, None], cn)
+        c_t = torch.where(need_d, torch.where(pass_n, _BIG, dist), c_t)
+    stepper = walk_res | walk_del | is_sh | walk_nds | walk_pre
     if counts is not None:
         _count(counts, "iters", alive.numel())
-        _count(counts, "steps", stepper.sum())
+        _count(counts, "steps", (stepper & ~walk_pre).sum())
+        _count(counts, "pre_steps", walk_pre.sum())
+        if G.nds:
+            _count(counts, "draws", need_d.sum())
     rate = torch.where(walk_res, maj_sc, 1.0)
     tau0 = -torch.log1p(-ua)
+    if G.nds:
+        # ODS lanes fly to their candidate; the prepass never collides
+        tau0 = torch.where(walk_nds, torch.clamp(c_t, min=0.0), tau0)
+        tau0 = torch.where(walk_pre, _BIG, tau0)
     u0 = (ep - K.bmin_t) * G.km
     den_w = torch.where(torch.abs(wd) < 1e-12,
                         torch.where(wd >= 0, 1e-12, -1e-12), wd)
@@ -716,15 +779,24 @@ def _body(K, G, T, S, seed, spp, rec, counts):
                     pix, add=True)
     mode = torch.where(s_dead, 0, mode)
 
-    # ---- mode 3: one delta-tracking step ---------------------------------
-    d_coll = walk_del & coll
+    # ---- mode 3: one delta-tracking step (ODS lanes ride the same algebra
+    # on their optical-depth candidates) -----------------------------------
+    wd_m = walk_del | walk_nds
+    d_coll = wd_m & coll
     if sc_tail is not None:
-        d_tail = walk_del & ~coll
+        d_tail = wd_m & ~coll
         wf = _W(d_tail, wf * sc_tail, wf)
         wu = _W(d_tail, wu * sc_tail, wu)
         wl = _W(d_tail, wl * sc_tail, wl)
     p_real = st_loc_h / torch.clamp(maj_h, min=1e-30)
-    d_real = d_coll & (ub < p_real)
+    p_cls = p_real
+    if G.nds_plus:
+        # NDS+ raises a primary ray's real-collision probability to
+        # p^(1/(1+Tr)), Tr the pixel's TrBuffer entry
+        prim_l = walk_nds & (depth == 0)
+        p_cls = torch.where(prim_l, torch.clamp(p_real, 1e-30, 1.0)
+                            ** torch.clamp(w_sum, 1e-3, 1.0), p_real)
+    d_real = d_coll & (ub < p_cls)
     d_null = d_coll & ~d_real
     pdf_r = torch.clamp(Tm_h * st_loc_h, min=1e-30)[:, None]
     dl = dloc[:, None]
@@ -737,8 +809,53 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     wl = _W(d_null, wl * Tm * m_d[:, None] * st * inv_dn, wl)
     d_died = d_null & ((pdf_dn <= 0) | (_max3(wf) == 0))
     del_t_new = t_walk + step + 1e-6
-    d_passed = walk_del & ~coll & (del_t_new >= plim)
-    t_walk = torch.where(walk_del, del_t_new, t_walk)
+    d_passed = wd_m & ~coll & (del_t_new >= plim)
+    t_walk = torch.where(wd_m, del_t_new, t_walk)
+    if G.nds:
+        # ODS bookkeeping: the flight consumed od_raw of the running
+        # interval; a null collision draws anew next iteration
+        wT = _W(walk_nds, torch.stack([wT[:, 0] - od_raw, wT[:, 1] - od_raw,
+                                       wT[:, 2]], -1), wT)
+        c_t = torch.where(walk_nds & coll, -1.0,
+                          torch.where(walk_nds, c_t - od_raw, c_t))
+        # one-sample MIS factor against plain delta tracking, on r_u at a
+        # real collision and on r_u and r_l at the pass exit
+        ruf = G.mis_t / torch.clamp(cn, min=1e-30) + G.one_m_mis
+        nreal = d_real & walk_nds
+        npass = d_passed & walk_nds
+        wu = _W(nreal | npass, wu * ruf, wu)
+        wl = _W(npass, wl * ruf, wl)
+        if G.nds_plus:
+            # exact r_u compensation of the biased classification
+            comp_r = m_d * p_cls / torch.clamp(dloc, min=1e-30)
+            comp_n = m_d * (1.0 - p_cls) / torch.clamp(m_d - dloc, min=1e-30)
+            wu = _W(nreal & prim_l, wu * comp_r[:, None],
+                    _W(d_null & prim_l, wu * comp_n[:, None], wu))
+
+        # ---- mode 1: the exact majorant-OD prepass to the chord end; then
+        # the ODS walk, or the delta walk where vsp < 1 - e^-t_v -----------
+        tau_acc = torch.where(walk_pre, tau_acc + od_raw, tau_acc)
+        pre_t_new = t_walk + step + 1e-6
+        pre_done = walk_pre & (pre_t_new >= plim)
+        t_walk = torch.where(walk_pre, torch.where(pre_done, 0.0, pre_t_new),
+                             t_walk)
+        one_m_e = -torch.expm1(-tau_acc)
+        fb = pre_done & ((vsp_c < one_m_e) | (tau_acc <= 1e-7))
+        go = pre_done & ~fb
+        mode = torch.where(pre_done, torch.where(fb, 3, 2), mode)
+        t_n0 = -torch.log1p(-torch.clamp(
+            one_m_e / torch.clamp(vsp_c, min=1e-4), max=1.0 - 1e-7))
+        wT = _W(go, torch.stack([tau_acc, t_n0, wT[:, 2]], -1), wT)
+        c_ste = torch.where(go, t_n0, c_ste)
+        c_t = torch.where(go, -1.0, c_t)
+        cn = _W(go, torch.ones_like(cn), cn)
+        # the defensive-MIS technique pick
+        c_wi = torch.where(go, (uc > G.mis).to(torch.float32), c_wi)
+        inv_gamma = 1.0
+        if G.nds_plus:
+            inv_gamma = torch.where(depth == 0, 1.0 / (1.0 + torch.clamp(
+                _sel(S["itr"], hero), 0.0, 1.0)), 1.0)
+        w_sum = torch.where(go, inv_gamma, w_sum)
 
     # ---- mode 2: one reservoir-resampling step ---------------------------
     tau_acc = torch.where(walk_res, tau_acc + od_raw, tau_acc)
@@ -812,7 +929,8 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     scat_w = d_real | r_scat
     term_w = d_died | r_dead
     passed = d_passed | pick_surf
-    t_sc = torch.where(d_real, t_walk, c_t)
+    # under NDS c_t holds the ODS candidate: only a real collision scatters
+    t_sc = torch.where(d_real, t_walk, 0.0 if G.nds else c_t)
     alive = alive & ~term_w
     alive = alive & ~(scat_w & (depth >= K.max_depth))
     scat = scat_w & (depth < K.max_depth) & alive
@@ -838,7 +956,9 @@ def _body(K, G, T, S, seed, spp, rec, counts):
                           vsp)
     guide = in_med & (vsp >= 0.0)
     vsp_c = torch.where(in_med, torch.clamp(vsp, 0.001, 0.999), vsp_c)
-    mode = torch.where(in_med, torch.where(guide, 2, 3), mode)
+    # NDS: a guided walk starts with the majorant-OD prepass (mode 1)
+    mode = torch.where(in_med, torch.where(guide, 1 if G.nds else 2, 3),
+                       mode)
     t_walk = torch.where(in_med, 0.0, t_walk)
     w_sum = torch.where(in_med, 0.0, w_sum)
     tau_acc = torch.where(in_med, 0.0, tau_acc)
@@ -851,9 +971,12 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     tau_e = m_pt * st_h * plim
     min_total = -torch.log(torch.clamp(
         1.0 - torch.clamp(vsp_c, max=G.cap), min=1e-6))
-    maj_sc = torch.where(guide, torch.clamp(
-        min_total / torch.clamp(tau_e, min=1e-6), 1.0, 16.0),
-        torch.where(in_med, 1.0, maj_sc))
+    if G.nds:  # optical-depth space: no majorant scaling
+        maj_sc = torch.where(in_med, 1.0, maj_sc)
+    else:
+        maj_sc = torch.where(guide, torch.clamp(
+            min_total / torch.clamp(tau_e, min=1e-6), 1.0, 16.0),
+            torch.where(in_med, 1.0, maj_sc))
     wf = _W(in_med, one3, wf)
     wu = _W(in_med, one3, wu)
     wl = _W(in_med, one3, wl)
@@ -1018,6 +1141,9 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None):
     seed = int(seed) & 0xFFFFFFFF
     spp = int(spp)
     npix = K.nx * K.ny
+    if tuple(itab.shape) != (gconst.isgb_rows, npix):
+        raise ValueError(f"ISGB table of shape {tuple(itab.shape)}, want "
+                         f"{(gconst.isgb_rows, npix)}")
     T = (c.density.reshape(-1), c.majorant.reshape(-1), ftab)
     rec = None if rec_depth is None else _Rec(int(rec_depth), npix, K.dev)
     S = _init_lanes(K, seed, itab)
@@ -1040,7 +1166,8 @@ def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None):
     """Plain PyTorch version of the render variant of ``csrc/vspg.cu``:
     the (ny, nx, 3) image of `spp` frozen-field samples per pixel.
     `counts` (a dict) gathers the work run: lane-iterations ("iters"),
-    walk and shadow steps ("steps"), scatters, walk-start field queries."""
+    walk and shadow steps ("steps"), NDS prepass steps ("pre_steps") and
+    ODS candidate draws ("draws"), scatters, walk-start field queries."""
     return _plain(c, gconst, ftab, itab, spp, seed, None, counts)
 
 
@@ -1081,7 +1208,7 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
     P = 8 * gi[GI_K] + 8
     _check(ftab, torch.float32, (P, gi[GI_NCELL]), dev, "ftab")
     npix = c.nx * c.ny
-    _check(itab, torch.float32, (3, npix), dev, "itab")
+    _check(itab, torch.float32, (g.isgb_rows, npix), dev, "itab")
     nmaj = mres[0] * mres[1] * mres[2]
     from .volpath_kernels import MAX_MAJ_VOX
 
@@ -1108,7 +1235,7 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
                  ftab.data_ptr(), itab.data_ptr(), out.data_ptr(),
                  0 if rec is None else rec.data_ptr(), npix, int(spp),
                  int(seed) & 0xFFFFFFFF, c.imaging_ratio / int(spp), nmaj, D,
-                 int(g.ris), stream.cuda_stream)
+                 int(g.ris), int(g.method), stream.cuda_stream)
         if events is not None:
             events[1].record(stream)
             LAUNCH_EVENTS.append((name, *events))
@@ -1119,15 +1246,15 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
 
 
 def render_vspg_kernel(c, gconst, ftab, itab, spp, seed):
-    """B3a: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3); the CUDA
-    kernel on a card, the plain version for tensors on the CPU."""
+    """B3a/B3b: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3);
+    the CUDA kernel on a card, the plain version for tensors on the CPU."""
     if c.fconst.device.type == "cpu":
         return render_vspg_plain(c, gconst, ftab, itab, spp, seed)
     return _launch(c, gconst, ftab, itab, spp, seed, None)
 
 
 def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
-    """B4a: one training sample per pixel; (image, record (REC_ROWS,
+    """B4a/B4b: one training sample per pixel; (image, record (REC_ROWS,
     rec_depth, npix)). The CUDA kernel on a card, the plain version for
     tensors on the CPU."""
     if c.fconst.device.type == "cpu":
@@ -1142,9 +1269,12 @@ def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(scene, camera, film, cfg, gopt, vopt, field, isgb):
+def kernel_inputs(scene, camera, film, cfg, gopt, vopt, field, isgb,
+                  tr_buffer=None):
     """(constants, guiding constants, field table, ISGB table) of a render
-    through the VSPG kernel, on the film's device."""
+    through the VSPG kernel, on the film's device. Under NDS+ the ISGB
+    table carries `tr_buffer` ((npix, 3); all ones when None) as rows
+    3-5."""
     if not supports(scene, camera, film, cfg, gopt, vopt, field):
         raise NotImplementedError(
             "scene outside the VSPG kernel's class (ROADMAP.md §B: the XLA "
@@ -1155,7 +1285,11 @@ def kernel_inputs(scene, camera, film, cfg, gopt, vopt, field, isgb):
     g = pack_guiding_constants(c, gc, dev)
     ftab = torch.as_tensor(pack_field_table(field, vopt.vsp_criterion),
                            device=dev)
-    return c, g, ftab, pack_isgb_table(isgb, c.nx * c.ny)
+    npix = c.nx * c.ny
+    if g.isgb_rows == 6 and tr_buffer is None:
+        tr_buffer = torch.ones((npix, 3), device=dev)
+    return c, g, ftab, pack_isgb_table(
+        isgb, npix, tr_buffer if g.isgb_rows == 6 else None)
 
 
 def records_to_segments(rec):
@@ -1186,7 +1320,8 @@ def records_to_segments(rec):
 def train_wave(scene, camera, film, cfg, gopt, vopt, field, isgb, seed):
     """One 1-spp training wave through the record variant; returns (image,
     SegmentRecord, first_albedo, first_normal, first_vol, L_raw), as
-    ``pallas_vspg.train_wave_pallas``."""
+    ``pallas_vspg.train_wave_pallas`` (under NDS+ the kernel reads a
+    TrBuffer of ones, as there)."""
     c, g, ftab, itab = kernel_inputs(scene, camera, film, cfg, gopt, vopt,
                                      field, isgb)
     img, rec = train_wave_kernel(c, g, ftab, itab, seed,
@@ -1198,11 +1333,12 @@ def train_wave(scene, camera, film, cfg, gopt, vopt, field, isgb, seed):
 
 
 def render_frozen(scene, camera, film, spp, cfg, gopt, vopt, field, isgb,
-                  seed):
+                  seed, tr_buffer=None):
     """`spp` frozen-field samples per pixel through the render variant,
-    all in one launch; the (ny, nx, 3) mean image."""
+    all in one launch; the (ny, nx, 3) mean image. `tr_buffer` is the NDS+
+    TrBuffer ((npix, 3); ones when None)."""
     c, g, ftab, itab = kernel_inputs(scene, camera, film, cfg, gopt, vopt,
-                                     field, isgb)
+                                     field, isgb, tr_buffer)
     return render_vspg_kernel(c, g, ftab, itab, spp, seed)
 
 
