@@ -15,8 +15,14 @@ CUDA events around each kernel launch. Phase 8 does it for the NDS/NDS+
 arm: the NDS and NDS+ variants against their plain versions, an NDS
 furnace, ``render_vspg`` under NDS (record kernel, then render kernel) and
 under NDS+ (torch waves, then the render kernel with the TrBuffer), and
-the kernel's frozen render against the torch wave's. Every line with a
-number names the card and its power limit. Any failure raises and exits
+the kernel's frozen render against the torch wave's. Phase 9 does it for
+the teaser class (the bench's 48 machine triangles of glass, metal and
+diffuse parts in the pyro cloud): the grid kernel's and the VSPG kernel's
+triangle instantiations against their plain versions, a teaser furnace,
+``render_persistent`` at 1920x1088 and ``render_vspg`` at 128^2 on the
+machines, and the VSPG kernel's frozen render against the torch wave's,
+also with rough surfaces. Every line with a number names the card and its
+power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -68,6 +74,12 @@ OPS = {
     "volpath_homog": {"fma": True, "events": (220, 30)},
     "volpath_grid": {"fma": True, "events": (170, 30),
                      "flight_steps": (90, 13), "shadow_steps": (100, 20)},
+    # with triangles: a ray-triangle test (the Moller-Trumbore sweep, one
+    # division) and a surface event (frame, BSDF value, pdf and sample,
+    # light pick, Fresnel)
+    "volpath_grid_tris": {"fma": True, "events": (170, 30),
+                          "flight_steps": (90, 13), "shadow_steps": (100, 20),
+                          "tri_tests": (30, 1), "surface_events": (400, 40)},
     # lane-iterations (box test, deferred roulette, eight draws), walk and
     # shadow steps (cell exit, eight-corner trilerp, mode update), scatter
     # vertices (field query, HG product, NEE pick, RIS or MIS direction)
@@ -77,7 +89,11 @@ OPS = {
              # NDS: majorant-OD prepass steps (cell exit, no density) and
              # ODS candidate draws (truncated exponential, four expm1, two
              # log1p, the renormalisations)
-             "pre_steps": (60, 4), "draws": (40, 9)},
+             "pre_steps": (60, 4), "draws": (40, 9),
+             # with triangles: a ray-triangle test and a surface event
+             # (classification, frame, field query of the surface half,
+             # cosine product, guided draw, Fresnel or VNDF lobe)
+             "tri_tests": (30, 1), "surface_events": (900, 150)},
 }
 
 
@@ -95,6 +111,14 @@ def _bound_ms(name, counts, scale, nbytes):
     binds = max(t, key=t.get)
     return (t[binds] * 1e3, "bytes" if binds == "bytes" else "operations",
             {k: round(v * 1e3, 4) for k, v in t.items()})
+
+
+_T0 = time.perf_counter()
+
+
+def _at():
+    """Seconds since the script started, for the phase lines."""
+    return f"at {time.perf_counter() - _T0:.1f} s"
 
 
 def _nbytes(*tensors):
@@ -274,8 +298,19 @@ def main():
             ms=t_kernel * 1e3, plain_ms=t_plain * 1e3, bound_ms=bound,
             bound_by=bound_by, library_ms=None))
 
+    print(f"phase 6 done {_at()}", flush=True)
+    # each plain VSPG version steps every lane in lockstep (10-50 s a call
+    # at 64^2 and more at 256^2), so the parity renders are cut to fit the
+    # script in its 1200 s
+    print("cuts: parity renders 7a/8a 64x64x2 spp, 9a 64x64x1 spp (was "
+          "64x64x4); 8a NDS-RIS and NDS+-MIS only (was all four); NDS+ "
+          "training 5 torch waves (bench: 48)", flush=True)
     kernels += _phase7(dev, tag, check_parity, fma_lib)
+    print(f"phase 7 done {_at()}", flush=True)
     kernels += _phase8(dev, tag, check_parity)
+    print(f"phase 8 done {_at()}", flush=True)
+    kernels += _phase9(dev, tag, check_parity)
+    print(f"phase 9 done {_at()}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -349,11 +384,11 @@ def _phase7(dev, tag, check_parity, fma_lib):
               f"lanes with every record row within 1e-3 ({n_valid} valid "
               f"slots) {tag}", flush=True)
         assert frac_rec >= 0.98, frac_rec
-        k4 = sk.render_vspg_kernel(c, g, ftab, itab, 4, 22)
-        p4 = sk.render_vspg_plain(c, g, ftab, itab, 4, 22)
+        k2 = sk.render_vspg_kernel(c, g, ftab, itab, 2, 22)
+        p2 = sk.render_vspg_plain(c, g, ftab, itab, 2, 22)
         torch.cuda.synchronize()
-        check_parity(f"phase 7a parity vspg_render ({mode}) 64x64x4", "vspg",
-                     k4, p4)
+        check_parity(f"phase 7a parity vspg_render ({mode}) 64x64x2", "vspg",
+                     k2, p2)
 
     # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
     x = np.linspace(-1, 1, 16)
@@ -564,37 +599,38 @@ def _phase8(dev, tag, check_parity):
             np.float32), device=dev)
 
     # ---- 8a: parity at 64^2 on a field trained by 4 NDS kernel waves ------
+    # NDS under RIS and NDS+ under MIS (both pairings run in
+    # tests/test_torch_cuda.py)
     field, isgb = trained(pyro, 64, 4, 1, v_nds)
-    for vopt in (v_nds, v_ndsp):
-        for mode in ("ris", "mis"):
-            name = f"{vopt.sampling_method} {mode}"
-            c, g, ftab, itab = inputs(pyro, 64, field, isgb, vopt,
-                                      gopt._replace(mode=mode), tr_buffer(64))
-            assert itab.shape[0] == (6 if vopt.sampling_method == "nds+"
-                                     else 3)
-            img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
-            img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
-            torch.cuda.synchronize()
-            check_parity(f"phase 8a parity vspg_record ({name}) image "
-                         "64x64x1", "vspg", img_k, img_p)
-            rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
-            diff = (rk - rp).abs().reshape(rk.shape[0], -1)
-            ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape))
-                  | (diff <= 1e-5))
-            frac_rec = ok.all(-1).float().mean().item()
-            print(f"phase 8a parity vspg_record ({name}) rows: "
-                  f"{frac_rec:.5f} of lanes with every record row within "
-                  f"1e-3, max abs diff {diff.max().item():.3e} "
-                  f"({int((rec_p[7] > 0).sum())} valid slots) {tag}",
-                  flush=True)
-            assert frac_rec >= 0.98, frac_rec
-            counts = {}
-            k4 = sk.render_vspg_kernel(c, g, ftab, itab, 4, 22)
-            p4 = sk.render_vspg_plain(c, g, ftab, itab, 4, 22, counts)
-            torch.cuda.synchronize()
-            check_parity(f"phase 8a parity vspg_render ({name}) 64x64x4",
-                         "vspg", k4, p4)
-            assert counts["pre_steps"] > 0 and counts["draws"] > 0, counts
+    for vopt, mode in ((v_nds, "ris"), (v_ndsp, "mis")):
+        name = f"{vopt.sampling_method} {mode}"
+        c, g, ftab, itab = inputs(pyro, 64, field, isgb, vopt,
+                                  gopt._replace(mode=mode), tr_buffer(64))
+        assert itab.shape[0] == (6 if vopt.sampling_method == "nds+"
+                                 else 3)
+        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
+        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
+        torch.cuda.synchronize()
+        check_parity(f"phase 8a parity vspg_record ({name}) image "
+                     "64x64x1", "vspg", img_k, img_p)
+        rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
+        diff = (rk - rp).abs().reshape(rk.shape[0], -1)
+        ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape))
+              | (diff <= 1e-5))
+        frac_rec = ok.all(-1).float().mean().item()
+        print(f"phase 8a parity vspg_record ({name}) rows: "
+              f"{frac_rec:.5f} of lanes with every record row within "
+              f"1e-3, max abs diff {diff.max().item():.3e} "
+              f"({int((rec_p[7] > 0).sum())} valid slots) {tag}",
+              flush=True)
+        assert frac_rec >= 0.98, frac_rec
+        counts = {}
+        k2 = sk.render_vspg_kernel(c, g, ftab, itab, 2, 22)
+        p2 = sk.render_vspg_plain(c, g, ftab, itab, 2, 22, counts)
+        torch.cuda.synchronize()
+        check_parity(f"phase 8a parity vspg_render ({name}) 64x64x2",
+                     "vspg", k2, p2)
+        assert counts["pre_steps"] > 0 and counts["draws"] > 0, counts
 
     # ---- 8b: furnace (albedo 1) under NDS ----------------------------------
     x = np.linspace(-1, 1, 16)
@@ -651,8 +687,8 @@ def _phase8(dev, tag, check_parity):
         return img, field, isgb, launches, t_call, k_ms
 
     img, field_n, isgb_n, launches_n, t_n, k_n = main_path(v_nds, n_train, 5)
-    assert launches_n == {"vspg_record": n_train, "vspg_render": 1}, \
-        launches_n
+    assert launches_n == dict({k: 0 for k in sk.LAUNCHES},
+                              vspg_record=n_train, vspg_render=1), launches_n
     rest = t_n * 1e3 - k_n["vspg_record"] - k_n["vspg_render"]
     print(f"phase 8c render_vspg nds pyro64 {res}x{res} {n_train} training "
           f"waves + {n_frozen} frozen spp: {t_n:.3f} s, mean "
@@ -663,9 +699,10 @@ def _phase8(dev, tag, check_parity):
           f"ISGB, launch gaps) {rest:.3f} ms {tag}", flush=True)
 
     # ---- 8d: the NDS+ main path: torch waves, then the render kernel -------
-    # the training waves are cut from 48 to a fixed 20, so that the call
-    # fits in ~120 s (a torch wave took 2.7-5.4 s at 256^2 on an H100)
-    n_plus = 20
+    # the training waves are cut from 48 to a fixed 5, so that the call
+    # fits in ~40 s (a torch wave took 2.7-7.2 s at 256^2 on an H100) and
+    # the script, phase 9 included, well inside its 1200 s
+    n_plus = 5
     print(f"phase 8d NDS+ training cut to {n_plus} torch waves (bench: "
           f"{n_train}) {tag}", flush=True)
     seen = {}
@@ -680,7 +717,8 @@ def _phase8(dev, tag, check_parity):
         img_p, _, _, launches_p, t_p, k_p = main_path(v_ndsp, n_plus, 6)
     finally:
         sk.render_vspg_kernel = render_kernel
-    assert launches_p == {"vspg_record": 0, "vspg_render": 1}, launches_p
+    assert launches_p == dict({k: 0 for k in sk.LAUNCHES},
+                              vspg_render=1), launches_p
     inputs_p = seen["inputs"]
     tr = inputs_p[3][3:]
     assert inputs_p[3].shape[0] == 6 and bool(torch.isfinite(tr).all())
@@ -788,6 +826,332 @@ def _phase8(dev, tag, check_parity):
              launches=launches_n["vspg_record"], max_abs_err=max_rec,
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_by=by_rec, library_ms=None),
+    ]
+
+
+def _phase9(dev, tag, check_parity):
+    """Phase 9, the teaser class: the bench's 48 machine triangles (glass,
+    metal, diffuse) in the pyro cloud. 9a holds B2b (volpath_grid_tris)
+    and B3c/B4c (vspg_render_tris, vspg_record_tris) against their plain
+    versions; 9b is a teaser furnace; 9c renders the volpath teaser cell
+    through render_persistent at 1920x1088 x 8 spp, 9d the VSPG teaser cell
+    through render_vspg at 128^2 (48 training waves, 64 frozen spp); 9e
+    holds the frozen B3c render against the torch wave. Returns the three
+    kernels' entries of the kernels line."""
+    from vspg_pbrt_v4_tpu_torch.models.cameras import PerspectiveCamera
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.utils import transform as tr
+
+    # the configurations of bench.py's teaser lines: bench_config5m (the
+    # volpath arm) and bench_config5v (the VSPG arm, its round-5 options)
+    cfg_m = volpath.VolPathConfig(max_depth=24, max_events=128)
+    cfg_v = volpath.VolPathConfig(max_depth=48, max_events=256,
+                                  max_collisions=4096)
+    gopt = guided_volpath.GuidingOptions(mode="mis", field_res=8,
+                                         record_depth=6,
+                                         min_train_weight=16.0,
+                                         train_waves=48)
+    vopt = vspg.VSPGOptions(vsp_criterion="contribution")
+    machines = {m: vk.make_machines_scene(materials=m, device=dev)
+                for m in ("smooth", "rough", "checker")}
+    src_g = "vspg_pbrt_v4_tpu_torch/csrc/volpath_grid_tris.cu"
+    src_v = "vspg_pbrt_v4_tpu_torch/csrc/vspg.cu"
+
+    def view(res):
+        return (vk.bench_camera(res, device=dev),
+                RGBFilm.make((res, res), device=dev))
+
+    def trained(scene, res, waves, seed, gopt=gopt):
+        cam, film = view(res)
+        _, field, isgb = vspg.render_vspg(
+            scene, cam, film, spp=waves, cfg=cfg_v,
+            gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
+            device=dev)
+        return field, isgb
+
+    def inputs(scene, res, field, isgb, vopt=vopt, gopt=gopt):
+        cam, film = view(res)
+        return sk.kernel_inputs(scene, cam, film, cfg_v, gopt, vopt, field,
+                                isgb)
+
+    def rows_parity(label, rec_k, rec_p):
+        """Fraction of lanes with every record row within 1e-3 (or 1e-5
+        absolute), and the max abs difference."""
+        rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
+        diff = (rk - rp).abs().reshape(rk.shape[0], -1)
+        ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape)) | (diff <= 1e-5))
+        frac = ok.all(-1).float().mean().item()
+        surf = int(((rec_p[7] > 0) & (rec_p[18] < 0.5)).sum())
+        print(f"{label}: {frac:.5f} of lanes with every record row within "
+              f"1e-3, max abs diff {diff.max().item():.3e} "
+              f"({int((rec_p[7] > 0).sum())} valid slots, {surf} at "
+              f"surfaces) {tag}", flush=True)
+        assert frac >= 0.98, (label, frac)
+        return diff.max().item()
+
+    # ---- 9a: parity ---------------------------------------------------------
+    # B2b at 128^2 x 4 on the machines, with each material variant
+    cam, film = view(128)
+    for name, scene in machines.items():
+        c = vk.extract_constants(scene, cam, film, cfg_m)
+        assert c.n_tri == 48
+        k = vk.render(c, 4, 13)
+        p = vk.render_grid_plain(c, 4, 13)
+        torch.cuda.synchronize()
+        check_parity(f"phase 9a parity volpath_grid_tris ({name}) 128x128x4",
+                     "grid", k, p)
+    # B4c and B3c at 64^2 on a field trained by 8 kernel waves. Each plain
+    # version takes 15-40 s here (it steps every lane in lockstep), so three
+    # variants cover RIS and MIS, resampling and NDS, smooth and rough
+    # surfaces; 9d holds the fourth pairing (smooth, MIS, resampling) at
+    # the main path's shape
+    fields = {name: trained(machines[name], 64, 8, 1)
+              for name in ("smooth", "rough")}
+    for name, mode, method in (("smooth", "ris", "nds"),
+                               ("rough", "ris", "resampling"),
+                               ("rough", "mis", "nds")):
+        label = f"{name} {mode} {method}"
+        c, g, ftab, itab = inputs(
+            machines[name], 64, *fields[name],
+            vopt._replace(sampling_method=method), gopt._replace(mode=mode))
+        assert c.n_tri == 48 and g.n_tri == 48
+        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
+        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
+        torch.cuda.synchronize()
+        check_parity(f"phase 9a parity vspg_record_tris ({label}) image "
+                     "64x64x1", "vspg", img_k, img_p)
+        rows_parity(f"phase 9a parity vspg_record_tris ({label}) rows",
+                    rec_k, rec_p)
+        counts = {}
+        k1 = sk.render_vspg_kernel(c, g, ftab, itab, 1, 22)
+        p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 22, counts)
+        torch.cuda.synchronize()
+        check_parity(f"phase 9a parity vspg_render_tris ({label}) 64x64x1",
+                     "vspg", k1, p1)
+        assert counts["surface_events"] > 0, counts
+    print(f"phase 9a done {_at()} {tag}", flush=True)
+
+    # ---- 9b: teaser furnace -------------------------------------------------
+    # energy-conserving surfaces (albedo-1 diffuse and mirror, glass) in a
+    # scattering-only medium under a constant env of 0.7: the image is 0.7
+    # but for the energy of paths deeper than max_depth 64
+    x = np.linspace(-1, 1, 16)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
+        np.float32) * 3.0
+    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
+                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
+    furnace = volpath.Scene(
+        Geometry.build(
+            [dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1, light=-1,
+                  med_in=0, med_out=-1)], vk.machine_tris(), device=dev),
+        Materials.build([dict(type=0, albedo=(1.0,) * 3),
+                         dict(type=2, eta=1.5),
+                         dict(type=1, albedo=(1.0,) * 3)], device=dev),
+        Media.make(grids=(gm,), device=dev),
+        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
+    cfg_f = volpath.VolPathConfig(max_depth=64, max_events=256)
+    cam, film = view(64)
+    m_g = vk.render(vk.extract_constants(furnace, cam, film, cfg_f), 64,
+                    3).mean().item()
+    f_field, f_isgb = trained(furnace, 64, 8, 3)
+    c, g, ftab, itab = inputs(furnace, 64, f_field, f_isgb)
+    m_v = sk.render_vspg_kernel(c, g, ftab, itab, 64, 9).mean().item()
+    print(f"phase 9b teaser furnace: volpath_grid_tris mean {m_g:.5f}, "
+          f"vspg_render_tris mean {m_v:.5f} (0.7 within 3%), field trained "
+          f"{f_field.iteration} waves, {_at()} {tag}", flush=True)
+    assert abs(m_g - 0.7) / 0.7 < 0.03 and abs(m_v - 0.7) / 0.7 < 0.03, \
+        (m_g, m_v)
+
+    # ---- 9c: the volpath teaser cell ----------------------------------------
+    # bench_config5m with the 48-triangle proxy in place of the PLY mesh
+    # (the mesh class needs the BVH, ROADMAP.md §B): 1920x1088 x 8 spp
+    nx, ny, spp_m = 1920, 1088, 8
+    cam_m = PerspectiveCamera.make(
+        tr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=dev), 35.0,
+        (nx, ny), device=dev)
+    film_m = RGBFilm.make((nx, ny), device=dev)
+    scene = machines["smooth"]
+
+    def teaser_call():
+        return volpath.render_persistent(scene, cam_m, film_m, spp=spp_m,
+                                         cfg=cfg_m, seed=5, backend="auto",
+                                         device=dev)
+
+    for counter in (vk.LAUNCHES, sk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    img = teaser_call()
+    torch.cuda.synchronize()
+    launches_m = dict(vk.LAUNCHES)
+    assert launches_m == dict({k: 0 for k in vk.LAUNCHES}, grid_tris=1), \
+        launches_m
+    t_call, _ = _best_of_3(teaser_call)
+    c = vk.extract_constants(scene, cam_m, film_m, cfg_m)
+    t_k, k_img = _best_of_3(lambda: vk.render(c, spp_m, 5))
+    assert torch.equal(img, k_img)
+    assert tuple(img.shape) == (ny, nx, 3) and bool(torch.isfinite(img).all())
+    # the plain version at 1 spp on the same inputs (a minute at 8)
+    k1 = vk.render(c, 1, 5)
+    counts_m = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1 = vk.render_grid_plain(c, 1, 5, counts_m)
+    torch.cuda.synchronize()
+    t_p1 = time.perf_counter() - t0
+    max_m = check_parity(f"phase 9c parity volpath_grid_tris {nx}x{ny}x1",
+                         "grid", k1, p1)
+    b_m, by_m, pipes_m = _bound_ms(
+        "volpath_grid_tris", counts_m, spp_m,
+        _nbytes(c.fconst, c.iconst, c.density, c.majorant, c.tris, c.mats,
+                k_img))
+    mpaths = nx * ny * spp_m / t_call / 1e6
+    print(f"phase 9c volpath teaser machines pyro64 {nx}x{ny}x{spp_m} via "
+          f"render_persistent: call {t_call * 1e3:.3f} ms ({mpaths:.3f} "
+          f"Mpaths/s), kernel {t_k * 1e3:.3f} ms, mean "
+          f"{img.mean().item():.5f}, launches {launches_m['grid_tris']}; "
+          f"plain at 1 spp {t_p1 * 1e3:.1f} ms, counted work at 1 spp "
+          f"{counts_m}; bound {b_m:.4f} ms ({by_m}; ms by pipe {pipes_m}), "
+          f"kernel at {b_m / (t_k * 1e3):.5f} of it, {_at()} {tag}",
+          flush=True)
+
+    # ---- 9d: the VSPG teaser cell -------------------------------------------
+    # bench_config5v: 128^2, 48 training waves through B4c, 64 frozen spp
+    # through B3c, MIS and the contribution criterion
+    res, n_train, n_frozen = 128, 48, 64
+    cam, film = view(res)
+    npix = res * res
+    for counter in (vk.LAUNCHES, sk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    sk.LAUNCH_EVENTS = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, field, isgb = vspg.render_vspg(
+        scene, cam, film, spp=n_train + n_frozen, cfg=cfg_v, gopt=gopt,
+        vopt=vopt, seed=5, spp_per_pass=1, device=dev)
+    torch.cuda.synchronize()
+    t_v = time.perf_counter() - t0
+    events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+    launches_v = dict(sk.LAUNCHES)
+    assert launches_v == dict({k: 0 for k in sk.LAUNCHES},
+                              vspg_record_tris=n_train,
+                              vspg_render_tris=1), launches_v
+    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+    assert field.iteration == n_train and isgb.ready
+    assert tuple(img.shape) == (res, res, 3)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    assert len(events) == n_train + 1
+    k_ms = {name: 0.0 for name in sk.LAUNCHES}
+    for name, start, end in events:
+        k_ms[name] += start.elapsed_time(end)
+    rest = t_v * 1e3 - k_ms["vspg_record_tris"] - k_ms["vspg_render_tris"]
+    n_surf = int((field.surface.stats_w.sum(-1) > 8.0).sum())
+    print(f"phase 9d render_vspg teaser machines pyro64 {res}x{res} "
+          f"{n_train} training waves + {n_frozen} frozen spp: {t_v:.3f} s, "
+          f"mean {img.mean().item():.5f}, launches {launches_v}, surface "
+          f"cells with data {n_surf}; split: record kernel "
+          f"{k_ms['vspg_record_tris']:.3f} ms "
+          f"({k_ms['vspg_record_tris'] / n_train:.3f} ms each), render kernel "
+          f"{k_ms['vspg_render_tris']:.3f} ms, the rest (tables, propagate, "
+          f"EM, ISGB, launch gaps) {rest:.3f} ms {tag}", flush=True)
+    # each variant alone on the main path's inputs, and its plain version
+    c, g, ftab, itab = inputs(scene, res, field, isgb)
+    t_rk, (img_rk, rec_rk) = _best_of_3(
+        lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
+    counts_r = {}
+    t0 = time.perf_counter()
+    img_rp, rec_rp = sk.train_wave_plain(c, g, ftab, itab, 31, 6, counts_r)
+    torch.cuda.synchronize()
+    t_rp = time.perf_counter() - t0
+    check_parity(f"phase 9d parity vspg_record_tris {res}x{res}x1 image",
+                 "vspg", img_rk, img_rp)
+    max_rec = rows_parity(f"phase 9d parity vspg_record_tris {res}x{res}x1 "
+                          "rows", rec_rk, rec_rp)
+    t_k64, k64 = _best_of_3(
+        lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
+    k1 = sk.render_vspg_kernel(c, g, ftab, itab, 1, 11)
+    counts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 11, counts)
+    torch.cuda.synchronize()
+    t_p1v = time.perf_counter() - t0
+    max_ren = check_parity(f"phase 9d parity vspg_render_tris {res}x{res}x1",
+                           "vspg", k1, p1)
+    ins = _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
+                  c.majorant, ftab, itab, c.tris, c.mats)
+    b_ren, by_ren, p_ren = _bound_ms("vspg", counts, n_frozen,
+                                     ins + _nbytes(k64))
+    b_rec, by_rec, p_rec = _bound_ms(
+        "vspg", counts_r, 1.0,
+        ins + _nbytes(img_rk) + sk.REC_ROWS * gopt.record_depth * npix * 4)
+    print(f"phase 9d vspg_render_tris kernel {res}x{res}x{n_frozen} "
+          f"{t_k64 * 1e3:.3f} ms ({npix * n_frozen / t_k64 / 1e6:.3f} "
+          f"Mpaths/s), plain at 1 spp {t_p1v * 1e3:.1f} ms, counted work at 1 "
+          f"spp {counts}, bound {b_ren:.4f} ms ({by_ren}; ms by pipe "
+          f"{p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it; "
+          f"vspg_record_tris kernel {res}x{res}x1 {t_rk * 1e3:.3f} ms, plain "
+          f"{t_rp * 1e3:.1f} ms, counted work {counts_r}, bound "
+          f"{b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), kernel at "
+          f"{b_rec / (t_rk * 1e3):.5f} of it, {_at()} {tag}", flush=True)
+
+    # ---- 9e: the kernel's frozen render against the torch wave's ----------
+    # both unbiased on the same field: their means agree within Monte Carlo
+    # error; with rough surfaces too (guided in the torch wave, unguided in
+    # the kernel: means only)
+    res_e, spp_e = 64, 64
+    cam_e, film_e = view(res_e)
+    for name in ("smooth", "rough"):
+        scene_e = machines[name]
+        field_e, isgb_e = trained(scene_e, res_e, n_train, 7)
+        imgs = {}
+        for backend in ("auto", "torch"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs[backend] = vspg.render_vspg(
+                scene_e, cam_e, film_e, spp=spp_e, cfg=cfg_v, gopt=gopt,
+                vopt=vopt, seed=11 if backend == "auto" else 12,
+                spp_per_pass=spp_e, field=field_e, isgb=isgb_e, train=False,
+                backend=backend, device=dev)[0]
+            torch.cuda.synchronize()
+            imgs[backend + "_s"] = time.perf_counter() - t0
+        k_img, t_img = imgs["auto"], imgs["torch"]
+        assert bool(torch.isfinite(t_img).all())
+        diff = (k_img - t_img).mean(-1).reshape(-1).double()
+        err = (diff.std() / np.sqrt(diff.numel())).item()
+        m_k, m_t = k_img.mean().item(), t_img.mean().item()
+        print(f"phase 9e frozen teaser ({name}) {res_e}x{res_e}x{spp_e}: "
+              f"kernel mean {m_k:.6f} ({imgs['auto_s']:.2f} s), torch wave "
+              f"mean {m_t:.6f} ({imgs['torch_s']:.2f} s), difference "
+              f"{m_k - m_t:+.6f} = {(m_k - m_t) / err:+.2f} standard errors "
+              f"of the per-pixel differences (bound 4), {_at()} {tag}",
+              flush=True)
+        assert abs(m_k - m_t) <= 4.0 * err, (name, m_k, m_t, err)
+
+    rep_g = "vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380"
+    rep_v = "vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241"
+    return [
+        dict(name="volpath_grid_tris", route="cuda", source=src_g,
+             replaces=rep_g, launches=launches_m["grid_tris"],
+             max_abs_err=max_m, ms=t_k * 1e3, plain_ms=t_p1 * 1e3,
+             bound_ms=b_m, bound_by=by_m, library_ms=None, plain_spp=1),
+        dict(name="vspg_render_tris", route="cuda", source=src_v,
+             replaces=rep_v, launches=launches_v["vspg_render_tris"],
+             max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1v * 1e3,
+             bound_ms=b_ren, bound_by=by_ren, library_ms=None, plain_spp=1),
+        dict(name="vspg_record_tris", route="cuda", source=src_v,
+             replaces=rep_v, launches=launches_v["vspg_record_tris"],
+             max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
+             bound_ms=b_rec, bound_by=by_rec, library_ms=None),
     ]
 
 

@@ -47,6 +47,65 @@ def test_kernel_matches_plain(dev, make, spp, min_frac):
     assert ok.float().mean().item() >= min_frac
 
 
+@pytest.mark.parametrize("materials", ["smooth", "rough", "checker"])
+def test_grid_tris_kernel_matches_plain(dev, materials):
+    """B2b: the machines in the pyroclastic cloud, with each material
+    variant, against the plain version on the same random stream (2e-3,
+    the bar of PERF.md §2)."""
+    c = vk.extract_constants(vk.make_machines_scene(materials=materials,
+                                                    device=dev),
+                             vk.bench_camera(48, device=dev),
+                             RGBFilm.make((48, 48), device=dev), CFG)
+    assert c.n_tri == 48
+    before = vk.LAUNCHES["grid_tris"]
+    k = vk.render(c, 4, 3)
+    p = vk.render_grid_plain(c, 4, 3)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES["grid_tris"] == before + 1
+    diff = (k - p).abs()
+    ok = ((diff <= 2e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.98
+
+
+def test_grid_tris_kernel_relabel_quad(dev):
+    """The medium-relabel regression on the card: a mirror quad at 45
+    degrees wound inward (its normal away from the camera, vacuum labelled
+    on the camera's side), reflecting into an absorbing slab; B2b against
+    its plain version (the scene and the torch half are
+    tests/test_torch_volpath_teaser.py's relabel_scene)."""
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+
+    c, u, v = np.array([-0.2, 0, 0]), np.array([0.3, 0, 0.3]), np.array(
+        [0, 0.4, 0])
+    p = [c - u - v, c + u - v, c + u + v, c - u + v]
+    quad = [dict(p0=tuple(p[a]), p1=tuple(p[b]), p2=tuple(p[cc]), mat=0,
+                 med_in=-1, med_out=0)
+            for (a, b, cc) in ((0, 1, 2), (0, 2, 3))]
+    box = dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1, light=-1,
+               med_in=0, med_out=-1)
+    x = np.linspace(-1, 1, 16)
+    X = np.meshgrid(x, x, x, indexing="ij")[0]
+    slab = GridMedium.make(np.where(X > 0.2, 4.0, 0.0).astype(np.float32),
+                           [1.0] * 3, [1.0] * 3, (-1, -1, -1), (1, 1, 1),
+                           g=0.3, maj_res=8, device=dev)
+    scene = tv.Scene(Geometry.build([box], quad, device=dev),
+                     Materials.build([dict(type=1, albedo=(0.95,) * 3)],
+                                     device=dev),
+                     Media.make(grids=(slab,), device=dev),
+                     vk.make_cloud64_scene(device=dev).lights)
+    c = vk.extract_constants(scene, vk.bench_camera(48, device=dev),
+                             RGBFilm.make((48, 48), device=dev), CFG)
+    counts = {}
+    k = vk.render(c, 8, 5)
+    p = vk.render_grid_plain(c, 8, 5, counts)
+    assert counts["surface_events"] > 0
+    diff = (k - p).abs()
+    ok = ((diff <= 2e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.98
+
+
 def test_wrapper_checks_inputs(dev):
     c = _consts(vk.make_cloud64_scene, 16, dev)
     bad = vk.KernelConstants(c.kind, c.nx, c.ny, c.imaging_ratio, c.fconst,
@@ -57,10 +116,12 @@ def test_wrapper_checks_inputs(dev):
         vk.render_grid(c, 0, 0)
 
 
-def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling"):
-    """VSPG kernel inputs on the bench's pyro cloud, the field and ISGB
-    trained by `waves` record waves, for direction mode `mode` and
-    distance route `method` (NDS+ with a TrBuffer varying per pixel)."""
+def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling",
+                 scene="cloud"):
+    """VSPG kernel inputs on the bench's pyro cloud (or the teaser
+    machines in it), the field and ISGB trained by `waves` record waves,
+    for direction mode `mode` and distance route `method` (NDS+ with a
+    TrBuffer varying per pixel)."""
     from vspg_pbrt_v4_tpu_torch.models.integrators import vspg
     from vspg_pbrt_v4_tpu_torch.models.integrators.guided_volpath import (
         GuidingOptions)
@@ -70,7 +131,8 @@ def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling"):
     gopt = GuidingOptions(field_res=8, record_depth=6, min_train_weight=16.0,
                           train_waves=waves)
     vopt = vspg.VSPGOptions(vsp_criterion="contribution")
-    scene = sk.make_pyro64_scene(device=dev)
+    scene = (sk.make_pyro64_scene(device=dev) if scene == "cloud"
+             else vk.make_machines_scene(device=dev))
     cam = vk.bench_camera(res, device=dev)
     film = RGBFilm.make((res, res), device=dev)
     _, field, isgb = vspg.render_vspg(scene, cam, film, spp=waves, cfg=cfg,
@@ -86,10 +148,11 @@ def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling"):
                             isgb, tr)
 
 
+@pytest.mark.parametrize("scene", ["cloud", "machines"])
 @pytest.mark.parametrize("method", ["resampling", "nds", "nds+"])
 @pytest.mark.parametrize("mode", ["ris", "mis"])
 @pytest.mark.parametrize("variant", ["render", "record"])
-def test_vspg_kernel_matches_plain(dev, variant, mode, method):
+def test_vspg_kernel_matches_plain(dev, variant, mode, method, scene):
     """B3a/B4a (resampling) and B3b/B4b (NDS, NDS+ with its TrBuffer as
     ISGB rows 3-5) against their plain versions on a trained field, in
     both direction modes: built without FMA contraction, the kernel rounds
@@ -97,10 +160,12 @@ def test_vspg_kernel_matches_plain(dev, variant, mode, method):
     difference of a transcendental flipping a branch."""
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
 
-    c, g, ftab, itab = _vspg_inputs(dev, mode=mode, method=method)
+    c, g, ftab, itab = _vspg_inputs(dev, mode=mode, method=method,
+                                    scene=scene)
     assert g.ris == (mode == "ris")
     assert itab.shape[0] == (6 if method == "nds+" else 3)
-    name = "vspg_" + variant
+    # B3c/B4c, the TRIS instantiations, count apart
+    name = "vspg_" + variant + ("_tris" if scene == "machines" else "")
     before = sk.LAUNCHES[name]
     if variant == "render":
         k = sk.render_vspg_kernel(c, g, ftab, itab, 1, 7)

@@ -325,7 +325,6 @@ def test_guiding_constants_match_jax():
     j = jpk.guiding_constants(jf, jg, jv)
     t = sk.guiding_constants(field_from_jax(jf, "cpu"), tg, tv)
     j.pop("field_mxu")  # the TPU's one-hot fetch switch
-    j.pop("surface_guiding")  # the surface half: triangles, not ported
     assert t == j
 
 
@@ -335,6 +334,6 @@ def test_constant_layout_matches_header():
     decl = {m[0]: int(m[1]) for m in re.findall(
         r"\b(GI?_\w+|N_GI?CONST)\s*=\s*(\d+)", src)}
     names = [n for n in dir(sk) if re.fullmatch(r"GI?_\w+|N_GI?CONST", n)]
-    assert len(names) == len(decl) == 20 + 1 + 12 + 1
+    assert len(names) == len(decl) == 22 + 1 + 14 + 1
     for n in names:
         assert decl[n] == getattr(sk, n), n

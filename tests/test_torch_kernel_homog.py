@@ -157,7 +157,8 @@ def test_extract_constants_rejects_config_film_and_triangles():
               RGBFilm.make((RES, RES), sensor_matrix=np.diag([1, 2, 1]),
                            device="cpu")):
         assert vk.extract_constants(scene, cam, f, CFG) is None
-    # a JAX scene with triangles converts with its triangle count only
+    # a triangle in the fog box: fused surfaces live only in the grid
+    # kernel, so the scene renders through the torch wavefront
     js, jc, jf = _jax_setup([0.1] * 3, None)
     tri = JGeometry.build(
         triangles=[dict(p0=(0, 0, 0), p1=(1, 0, 0), p2=(0, 1, 0), mat=0)],
@@ -166,5 +167,18 @@ def test_extract_constants_rejects_config_film_and_triangles():
     ts, tc, tf, tcfg = from_jax(js._replace(geometry=tri), jc, jf, CFG, "cpu")
     assert ts.geometry.n_tri == 1
     assert vk.extract_constants(ts, tc, tf, tcfg) is None
+    img = tv.render_persistent(ts, tc, tf, spp=1, cfg=tcfg, device="cpu")
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    # the mesh class in the grid cloud (more than 64 triangles) is refused
+    # by the kernel, and by the torch path, which has no BVH yet
+    cloud = vk.make_cloud64_scene(device="cpu")
+    tris = [dict(p0=(0.02 * i - 0.5, 0, 0), p1=(0.02 * i - 0.48, 0, 0),
+                 p2=(0.02 * i - 0.5, 0.1, 0), mat=0, med_in=-1, med_out=0)
+            for i in range(65)]
+    mesh = type(cloud)(Geometry.build(
+        [dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1, light=-1, med_in=0,
+              med_out=-1)], tris, device="cpu"), cloud.materials,
+        cloud.media, cloud.lights)
+    assert vk.extract_constants(mesh, cam, film, CFG) is None
     with pytest.raises(NotImplementedError):
-        tv.render_persistent(ts, tc, tf, spp=1, cfg=tcfg, device="cpu")
+        tv.render_persistent(mesh, cam, film, spp=1, cfg=CFG, device="cpu")

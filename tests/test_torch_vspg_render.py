@@ -63,9 +63,14 @@ def _refusal(case):
     ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, CFG, "cpu")
     tg, tv = convert.options_from_jax(GOPT, VOPT)
     if case == "triangles":
+        # the mesh class: more triangles than brute force serves (the BVH
+        # is not ported)
+        tris = [dict(p0=(0.1 * i - 0.5, 0, 0), p1=(0.1 * i - 0.4, 0, 0),
+                     p2=(0.1 * i - 0.5, 0.1, 0), mat=0) for i in range(65)]
         g = ts.geometry
-        ts = type(ts)(Geometry(g.box_min, g.box_max, g.box_mat, g.box_light,
-                               g.box_med_in, g.box_med_out, n_tri=12),
+        boxes = [dict(bmin=g.box_min[0].tolist(), bmax=g.box_max[0].tolist(),
+                      mat=-1, light=-1, med_in=0, med_out=-1)]
+        ts = type(ts)(Geometry.build(boxes, tris, device="cpu"),
                       ts.materials, ts.media, ts.lights)
         return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
                                          gopt=tg, vopt=tv, device="cpu")

@@ -20,6 +20,7 @@ from .models.lights import Lights
 from .models.materials import Materials
 from .models.media import GridMedium, Media
 from .models.shapes import Geometry
+from .models.textures import Textures
 from .utils.transform import Transform
 
 
@@ -38,12 +39,48 @@ def _geometry(g, device):
     others = (_count(g.sph_c) + _count(g.dsk_c) + _count(g.cyl_c)
               + _count(g.blp_p00) + _count(g.crv_p0))
     if others or getattr(g, "inst", None) is not None:
-        raise NotImplementedError("only boxes (and a triangle count) are "
-                                  "ported")
-    return Geometry(_t(g.box_min, device), _t(g.box_max, device),
-                    _t(g.box_mat, device), _t(g.box_light, device),
-                    _t(g.box_med_in, device), _t(g.box_med_out, device),
-                    n_tri=_count(g.tri_p0))
+        raise NotImplementedError("only boxes and triangles are ported")
+    T = _count(g.tri_p0)
+
+    def uv(x, default):
+        # a JAX geometry without uv arrays maps the hit to barycentrics
+        if x is None or _count(x) == 0:
+            return np.tile(np.float32(default), (T, 1))
+        return x
+
+    return Geometry(
+        _t(g.box_min, device), _t(g.box_max, device), _t(g.box_mat, device),
+        _t(g.box_light, device), _t(g.box_med_in, device),
+        _t(g.box_med_out, device), _t(g.tri_p0, device),
+        _t(g.tri_p1, device), _t(g.tri_p2, device), _t(g.tri_n0, device),
+        _t(g.tri_n1, device), _t(g.tri_n2, device),
+        _t(uv(g.tri_uv0, (1, 0)), device, torch.float32),
+        _t(uv(g.tri_uv1, (0, 1)), device, torch.float32),
+        _t(uv(g.tri_uv2, (0, 0)), device, torch.float32),
+        _t(g.tri_mat, device, torch.int32),
+        _t(g.tri_light, device, torch.int32),
+        _t(g.tri_med_in, device, torch.int32),
+        _t(g.tri_med_out, device, torch.int32))
+
+
+def _materials(m, device):
+    out = Materials(_t(m.mat_type, device, torch.int32),
+                    _t(m.albedo, device, torch.float32),
+                    _t(m.eta, device, torch.float32),
+                    _t(m.roughness, device, torch.float32),
+                    _t(m.albedo_tex, device, torch.int32))
+    out.check_ported()
+    return out
+
+
+def _textures(tex, device):
+    if tex is None:
+        return None
+    Textures.check_kinds(np.asarray(tex.kind).tolist())
+    return Textures(_t(tex.kind, device, torch.int32),
+                    _t(tex.c0, device, torch.float32),
+                    _t(tex.c1, device, torch.float32),
+                    _t(tex.uvscale, device, torch.float32))
 
 
 def _media(m, device):
@@ -106,9 +143,10 @@ def from_jax(scene, camera, film, cfg, device):
     """(Scene, PerspectiveCamera, RGBFilm, VolPathConfig) of this package
     holding the values of the given JAX objects, on `device`."""
     port_scene = Scene(_geometry(scene.geometry, device),
-                       Materials(_t(scene.materials.mat_type, device)),
+                       _materials(scene.materials, device),
                        _media(scene.media, device),
-                       _lights(scene.lights, device))
+                       _lights(scene.lights, device),
+                       _textures(getattr(scene, "textures", None), device))
     return (port_scene, _camera(camera, device), _film(film, device),
             VolPathConfig(**cfg._asdict()))
 

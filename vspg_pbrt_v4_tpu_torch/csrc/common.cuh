@@ -57,6 +57,23 @@ enum IConst {
 
 constexpr float BIG = 3e37f;
 
+// triangle table, one row of TRI_COLS floats per triangle
+// (ops/volpath_kernels.py T_*; pallas_volpath.pack_tri_table's layout)
+enum TriCol {
+  T_P0 = 0,       // first corner (3)
+  T_E1 = 3,       // p1 - p0 (3)
+  T_E2 = 6,       // p2 - p0 (3)
+  T_NG = 9,       // unit normal (3)
+  T_MAT = 12,     // material id
+  T_MED_IN = 13,  // medium behind the normal
+  T_MED_OUT = 14, // medium on the normal side
+  T_UV0 = 16,     // corner uvs (2 each)
+  T_UV1 = 18,
+  T_UV2 = 20,
+  TRI_COLS = 24
+};
+constexpr int MAX_TRIS = 64;
+
 struct V3 {
   float x, y, z;
 };
@@ -204,6 +221,45 @@ static __device__ __forceinline__ bool outside_box(const float* fc, V3 o) {
   return o.x < fc[F_BMIN] || o.x > fc[F_BMAX] || o.y < fc[F_BMIN + 1] ||
          o.y > fc[F_BMAX + 1] || o.z < fc[F_BMIN + 2] ||
          o.z > fc[F_BMAX + 2];
+}
+
+// Closest triangle of the shared-memory table along (o, d) nearer than
+// t_max: a Moller-Trumbore sweep in table order, keeping the first of equal
+// distances (pallas_vspg closest_hit). Returns the index, -1 on a miss.
+struct TriHit {
+  int k;
+  float t, b1, b2;
+};
+static __device__ __forceinline__ TriHit closest_tri(const float* tris,
+                                                     int n_tri, V3 o, V3 d,
+                                                     float t_max) {
+  TriHit h = {-1, t_max, 0.f, 0.f};
+  for (int i = 0; i < n_tri; ++i) {
+    const float* r = tris + i * TRI_COLS;
+    float pvx = d.y * r[T_E2 + 2] - d.z * r[T_E2 + 1];
+    float pvy = d.z * r[T_E2] - d.x * r[T_E2 + 2];
+    float pvz = d.x * r[T_E2 + 1] - d.y * r[T_E2];
+    float det = r[T_E1] * pvx + r[T_E1 + 1] * pvy + r[T_E1 + 2] * pvz;
+    bool big = fabsf(det) > 1e-12f;
+    float inv_det = big ? 1.0f / det : 0.0f;
+    float tvx = o.x - r[T_P0], tvy = o.y - r[T_P0 + 1],
+          tvz = o.z - r[T_P0 + 2];
+    float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+    float qvx = tvy * r[T_E1 + 2] - tvz * r[T_E1 + 1];
+    float qvy = tvz * r[T_E1] - tvx * r[T_E1 + 2];
+    float qvz = tvx * r[T_E1 + 1] - tvy * r[T_E1];
+    float b2 = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
+    float tt = (r[T_E2] * qvx + r[T_E2 + 1] * qvy + r[T_E2 + 2] * qvz) *
+               inv_det;
+    if (big && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > 1e-4f &&
+        tt < h.t) {
+      h.k = i;
+      h.t = tt;
+      h.b1 = b1;
+      h.b2 = b2;
+    }
+  }
+  return h;
 }
 
 // continuous raster coordinates -> normalized world direction

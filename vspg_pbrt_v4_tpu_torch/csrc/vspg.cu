@@ -1,7 +1,8 @@
-// B3a/B3b + B4a/B4b: the VSPG megakernel, frozen-field render and
-// training-wave record variants, for one density grid in a box (no
-// triangles), a uniform guiding field and the three distance routes of
-// guided walks: resampling (B3a/B4a), NDS and NDS+ (B3b/B4b).
+// B3a/B3b/B3c + B4a/B4b/B4c: the VSPG megakernel, frozen-field render and
+// training-wave record variants, for one density grid in a box, a uniform
+// guiding field and the three distance routes of guided walks: resampling
+// (B3a/B4a), NDS and NDS+ (B3b/B4b); the TRIS instantiations add at most
+// 64 flat triangles of the teaser materials inside the cloud (B3c/B4c).
 //
 // Replaces pallas_vspg._make_vspg_kernel (vspg_pbrt_v4_tpu/ops/
 // pallas_vspg.py) with record=False (B3) and record=True (B4), for
@@ -39,6 +40,21 @@
 // w_sum the NDS+ bias exponent), so the NDS instantiations hold no more
 // live state than the resampling ones. A prepass step reads the majorant
 // only. NDS+ reads its TrBuffer entry from ISGB rows 3-5 once per walk.
+//
+// TRIS is a template switch too (the teaser class). The triangle and
+// material tables ride in shared memory. A lane sweeps the triangles when
+// its path ray changed or its shadow walk starts (and stalls that
+// iteration); walks stop at the nearer of the wall and the next surface.
+// At a surface: the diffuse lobe with the guided BSDF of the field's
+// surface half (one-sample MIS or RIS over cosine x the cosine-product
+// mixture), the Trowbridge-Reitz glossy lobes sampled unguided, the mirror
+// and the Fresnel pick of the dielectric (with its medium switch); a
+// non-delta surface shares the light sample of the iteration, and its NEE
+// folds at the end of the shadow walk as a volume NEE does; guided RR from
+// the surface half's flux; record rows at non-delta surface vertices. Two
+// faults of the Pallas kernel are not carried (ROADMAP.md §C): a surface
+// NEE walk starts from unit transmittance, and a glossy surface's light
+// sample is taken at the surface.
 #include "common.cuh"
 #include "vspg.cuh"
 
@@ -98,12 +114,10 @@ static __device__ float mixture_pdf(const float* fc, const Lobes& lb, int K,
   return p;
 }
 
-// every lobe times the vMF of the HG lobe about d (vmf.product_with_vmf)
-static __device__ Lobes product_hg(const float* gc, const Lobes& lb, int K,
-                                   V3 d) {
+// every lobe times one vMF about mb with kappa kb (vmf.product_with_vmf)
+static __device__ Lobes product_vmf(const float* gc, const Lobes& lb, int K,
+                                    V3 mb, float kb, float log_c_b) {
   Lobes out = lb;
-  const float kb = gc[G_KAPPA_H], sg = gc[G_HG_SIGN];
-  const V3 mb = v3(d.x * sg, d.y * sg, d.z * sg);
   float tot_old = 0.0f, tot_new = 0.0f;
 #pragma unroll
   for (int k = 0; k < KMAX; ++k) {
@@ -114,7 +128,7 @@ static __device__ Lobes product_hg(const float* gc, const Lobes& lb, int K,
     float k_new =
         sqrtf(fmaxf(kmu.x * kmu.x + kmu.y * kmu.y + kmu.z * kmu.z, 1e-12f));
     float inv = 1.0f / fmaxf(k_new, 1e-8f);
-    float log_s = log_c(gc, kap) + gc[G_LOG_C_H] - log_c(gc, k_new) +
+    float log_s = log_c(gc, kap) + log_c_b - log_c(gc, k_new) +
                   (k_new - kap - kb);
     float w_new = lb.w[k] * expf(clampf(log_s, -60.0f, 60.0f));
     tot_old = tot_old + lb.w[k];
@@ -130,6 +144,14 @@ static __device__ Lobes product_hg(const float* gc, const Lobes& lb, int K,
     out.w[k] = out.w[k] * sc;
   }
   return out;
+}
+
+// every lobe times the vMF of the HG lobe about d
+static __device__ Lobes product_hg(const float* gc, const Lobes& lb, int K,
+                                   V3 d) {
+  const float sg = gc[G_HG_SIGN];
+  return product_vmf(gc, lb, K, v3(d.x * sg, d.y * sg, d.z * sg),
+                     gc[G_KAPPA_H], gc[G_LOG_C_H]);
 }
 
 // CDF lobe select + vMF sample (vmf.mixture_sample); *pdf = mixture pdf
@@ -202,10 +224,10 @@ static __device__ float vsp_directional(const float* fc, const Lobes& lb,
 }
 
 // the field cell at p: lobes (mu renormalized, parallax re-aimed), valid,
-// cell VSP and flux
+// cell VSP and flux, of the half whose rows start at `base`
 static __device__ void field_query(const float* gc, const Tables& T, V3 p,
                                    Lobes* lb, bool* valid, float* vsp_cell,
-                                   V3* flux) {
+                                   V3* flux, int base = 0) {
   const int fres = T.fres;
   const float pc[3] = {p.x, p.y, p.z};
   int ix[3];
@@ -216,7 +238,7 @@ static __device__ void field_query(const float* gc, const Tables& T, V3 p,
     ix[k] = (int)g;
   }
   const int cid = (ix[0] * fres + ix[1]) * fres + ix[2];
-  const float* col = T.ftab + cid;
+  const float* col = T.ftab + cid + (size_t)base * T.ncell;
   const int n = T.ncell, K = T.K;
   auto row = [&](int r) { return __ldg(col + (size_t)r * n); };
   *valid = row(8 * K) > 0.5f;
@@ -281,27 +303,120 @@ static __device__ __forceinline__ float maj_at(const Tables& T, int x, int y,
   return T.maj[(x * T.my + y) * T.mz + z];
 }
 
+// ---- surfaces (TRIS) ---------------------------------------------------------
+
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float INV_PI_F = (float)(1.0 / 3.14159265358979323846);
+constexpr float TINY_G = 1e-18f;
+// material table columns (ops/volpath_kernels.py M_*)
+constexpr int M_KIND = 0, M_ALB = 1, M_ETA = 4, M_ROUGH = 5, MAT_COLS = 16;
+
+static __device__ __forceinline__ void coord_system(V3 v, V3* t1, V3* t2) {
+  float sign = v.z >= 0.0f ? 1.0f : -1.0f;
+  float a = -1.0f / (sign + v.z);
+  float b = v.x * v.y * a;
+  *t1 = v3(1.0f + sign * v.x * v.x * a, sign * b, -sign * v.x);
+  *t2 = v3(b, sign + v.y * v.y * a, -v.y);
+}
+
+static __device__ __forceinline__ float pow5(float x) {
+  return x * x * x * x * x;
+}
+
+// Trowbridge-Reitz D of a half vector with squared cosine mz2
+static __device__ __forceinline__ float tr_d_z(float alpha, float mz2) {
+  float c2 = fmaxf(mz2, 1e-8f);
+  float t2 = (1.0f - c2) / c2;
+  float a2 = alpha * alpha;
+  float e = 1.0f + t2 / a2;
+  return 1.0f / (PI_F * a2 * c2 * c2 * e * e);
+}
+
+static __device__ __forceinline__ float tr_lam(float alpha, float wz) {
+  float c2 = clampf(wz * wz, 1e-8f, 1.0f);
+  float t2 = (1.0f - c2) / c2;
+  return 0.5f * (sqrtf(1.0f + alpha * alpha * t2) - 1.0f);
+}
+
+// dielectric Fresnel reflectance at cosine ci of the outer side
+static __device__ __forceinline__ float frd(float ci, float eta) {
+  ci = clampf(ci, 0.0f, 1.0f);
+  float s2 = (1.0f - ci * ci) / fmaxf(eta * eta, 1e-12f);
+  float ct = sqrtf(fmaxf(1.0f - s2, 0.0f));
+  float rp = (eta * ci - ct) / fmaxf(eta * ci + ct, 1e-12f);
+  float rq = (ci - eta * ct) / fmaxf(ci + eta * ct, 1e-12f);
+  return s2 >= 1.0f ? 1.0f : 0.5f * (rp * rp + rq * rq);
+}
+
+// a surface lane: its material, frame and glossy terms
+struct Surf {
+  V3 ns, alb, g1, g2, wo_l;
+  float eta, alpha, lam_o, G1o, zo_s;
+  bool front, df, co, dl, cr, ct;
+};
+
+// per-channel glossy f at local wo_l, wi_l (rough conductor: the Schlick-
+// tinted microfacet lobe; CookTorrance: Fresnel-weighted microfacet over a
+// Lambertian base) and the specular pdf
+static __device__ V3 glossy_f(const Surf& S, V3 wo_l, V3 wi_l,
+                              float* pdf_spec) {
+  V3 h = normalize(add(wo_l, wi_l));
+  float sg = h.z < 0.0f ? -1.0f : 1.0f;
+  h = v3(h.x * sg, h.y * sg, h.z * sg);
+  float Dm = tr_d_z(S.alpha, h.z * h.z);
+  float G2 = 1.0f / (1.0f + S.lam_o + tr_lam(S.alpha, wi_l.z));
+  float zi = fmaxf(fabsf(wi_l.z), 1e-6f);
+  float c_owm = fabsf(dot(wo_l, h));
+  float omc5 = pow5(clampf(1.0f - c_owm, 0.0f, 1.0f));
+  float spec = Dm * G2 / (4.0f * S.zo_s * zi);
+  float F = frd(c_owm, S.eta);
+  *pdf_spec = S.G1o * Dm / (4.0f * S.zo_s);
+  if (S.ct)
+    return v3(spec * F + S.alb.x * INV_PI_F * (1.0f - F),
+              spec * F + S.alb.y * INV_PI_F * (1.0f - F),
+              spec * F + S.alb.z * INV_PI_F * (1.0f - F));
+  return v3(spec * (S.alb.x + (1.0f - S.alb.x) * omc5),
+            spec * (S.alb.y + (1.0f - S.alb.y) * omc5),
+            spec * (S.alb.z + (1.0f - S.alb.z) * omc5));
+}
+
+static __device__ __forceinline__ V3 to_loc(const Surf& S, V3 v) {
+  return v3(dot(v, S.g1), dot(v, S.g2), dot(v, S.ns));
+}
+
 }  // namespace
 
-template <bool RECORD, bool RIS, int METHOD>
+template <bool RECORD, bool RIS, int METHOD, bool TRIS>
 __global__ void __launch_bounds__(128)
     vspg_kernel(const float* __restrict__ fc_g, const int* __restrict__ ic_g,
                 const float* __restrict__ gc_g, const int* __restrict__ gi_g,
                 const float* __restrict__ density,
                 const float* __restrict__ majorant,
                 const float* __restrict__ ftab,
-                const float* __restrict__ itab, float* __restrict__ out,
+                const float* __restrict__ itab,
+                const float* __restrict__ tris_g,
+                const float* __restrict__ mats_g, float* __restrict__ out,
                 float* __restrict__ rec, int npix, int spp, uint32_t seed,
-                float out_scale, int nmaj, int rec_depth) {
+                float out_scale, int nmaj, int rec_depth, int n_tri,
+                int n_mat) {
   __shared__ float fc[N_FCONST];
   __shared__ int ic[N_ICONST];
   __shared__ float gc[N_GCONST];
   __shared__ int gi[N_GICONST];
-  extern __shared__ float smaj[];
+  extern __shared__ float smem[];
+  float* smaj = smem;
+  float* stris = smem + nmaj;
+  float* smats = stris + n_tri * TRI_COLS;
   load_consts(fc_g, ic_g, fc, ic);
   for (int i = threadIdx.x; i < N_GCONST; i += blockDim.x) gc[i] = gc_g[i];
   for (int i = threadIdx.x; i < N_GICONST; i += blockDim.x) gi[i] = gi_g[i];
   for (int i = threadIdx.x; i < nmaj; i += blockDim.x) smaj[i] = majorant[i];
+  if constexpr (TRIS) {
+    for (int i = threadIdx.x; i < n_tri * TRI_COLS; i += blockDim.x)
+      stris[i] = tris_g[i];
+    for (int i = threadIdx.x; i < n_mat * MAT_COLS; i += blockDim.x)
+      smats[i] = mats_g[i];
+  }
   __syncthreads();
   const int pix_i = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix_i >= npix) return;
@@ -327,6 +442,9 @@ __global__ void __launch_bounds__(128)
               ipem = itab[2 * npix + pix_i];
   constexpr bool NDS = METHOD != M_RESAMPLING;
   constexpr bool NDS_PLUS = METHOD == M_NDS_PLUS;
+  const bool surf_guide = TRIS && gi[GI_SURF_GUIDE] != 0;
+  const bool any_rough = TRIS && gi[GI_ANY_ROUGH] != 0;
+  const int P_HALF = 8 * K + 8;
 
   auto rec_put = [&](int row, int slot, float v) {
     if (RECORD && slot >= 0 && slot < rec_depth)
@@ -355,6 +473,13 @@ __global__ void __launch_bounds__(128)
   V3 sh = zero3, sT = one3, sl = one3, su = one3;
   float sh_t = 0.f, sh_end = 0.f, sh_pdf = 0.f, sh_d2 = 1.f, sh_f = 0.f,
         sh_fl = 0.f, rr_srv = 1.f;
+  // the surface machine (TRIS): the pending closest hit, the sweep and
+  // occlusion requests, the delta-bounce flag, a surface NEE record's
+  // albedo tint and the per-channel glossy NEE folds
+  float t_surf = BIG, sh_f1 = 0.f, sh_f2 = 0.f;
+  V3 hng = zero3, ra = one3;
+  int hmat = -1, hmi = -1, hmo = -1;
+  bool needs_i = true, sh_occ = false, spec_last = false;
 
   const long long max_iters = (long long)spp * ic[I_MAX_EVENTS] * 12;
   for (long long it = 0; it < max_iters && alive; ++it) {
@@ -376,23 +501,62 @@ __global__ void __launch_bounds__(128)
     }
     if (alive && mode == 0) rr_srv = 1.0f;
 
+    bool stall = false;
+    if constexpr (TRIS) {
+      // one triangle sweep serves the lane's pending query: the closest hit
+      // of its path ray after a direction change, or the occlusion of its
+      // shadow ray at walk start; a swept lane stalls this iteration, and
+      // so does a lane whose shadow walk was just blocked
+      const bool do_is = alive && mode == 0 && needs_i;
+      const bool do_oc = alive && mode >= 4 && sh_occ;
+      if (do_is || do_oc) {
+        const TriHit th = closest_tri(stris, n_tri, o, do_oc ? sh : d, BIG);
+        const float t_h = th.k >= 0 ? th.t : BIG;
+        if (do_is) {
+          t_surf = t_h;
+          if (th.k >= 0) {
+            const float* r = stris + th.k * TRI_COLS;
+            hng = v3(r + T_NG);
+            hmat = (int)r[T_MAT];
+            hmi = (int)r[T_MED_IN];
+            hmo = (int)r[T_MED_OUT];
+          } else {
+            hng = zero3;
+            hmat = hmi = hmo = -1;
+          }
+          needs_i = false;
+        }
+        if (do_oc) {
+          // point lights occlude up to the light, the env to infinity
+          const float occ_t = mode == 4 ? sqrtf(sh_d2) : BIG;
+          if (t_h < occ_t - 1e-4f) mode = 0;
+          sh_occ = false;
+        }
+      }
+      stall = do_is || (alive && mode == 0 && needs_i);
+    }
+
     // stuck-lane guard; transport lanes enter the box or escape
-    if (med == 0 && mode == 0 && outside_box(fc, o)) med = -1;
+    if (med == 0 && mode == 0 && !stall && outside_box(fc, o)) med = -1;
     float t_wall;
     bool entering;
     const bool hit = box_hit(fc, o, d, &t_wall, &entering);
-    const bool outside = alive && mode == 0 && med != 0;
-    if (outside && !hit) {
+    const bool outside = alive && mode == 0 && med != 0 && !stall;
+    const bool no_surf = !TRIS || t_surf >= BIG * 0.5f;
+    const bool escaped = outside && !hit && no_surf;
+    if (escaped) {
       if (has_env) {
+        // a delta bounce has no light-sampling competitor
+        const bool first = depth == 0 || (TRIS && spec_last);
         float ru_avg = fmaxf(avg3(ru), 1e-30f);
         float den = fmaxf(avg3(v3(ru.x + rl.x * penv, ru.y + rl.y * penv,
                                   ru.z + rl.z * penv)),
                           1e-30f);
-        float dv = depth == 0 ? ru_avg : den;
+        float dv = first ? ru_avg : den;
         L = v3(L.x + b.x * envL.x / dv, L.y + b.y * envL.y / dv,
                L.z + b.z * envL.z / dv);
         if (RECORD) {
-          float w_mis = depth == 0 ? 1.0f : ru_avg / den;
+          float w_mis = first ? 1.0f : ru_avg / den;
           rec_put(11, rslot - 1, envL.x * w_mis);
           rec_put(12, rslot - 1, envL.y * w_mis);
           rec_put(13, rslot - 1, envL.z * w_mis);
@@ -400,15 +564,31 @@ __global__ void __launch_bounds__(128)
       }
       alive = false;
     }
-    const bool enter = alive && outside && hit && entering;
-    if (enter) {
-      med = 0;
-      o = along(o, t_wall + 1e-4f, d);
+    bool enter = false, at_surf_nm = false;
+    if constexpr (TRIS) {
+      // a surface before the box wall: a flight outside the medium reaches
+      // a triangle; otherwise a wall crossing sets the medium by the side
+      // entered
+      const float wall_o = hit ? t_wall : BIG;
+      at_surf_nm = outside && !escaped && !no_surf && t_surf < wall_o;
+      if (outside && !escaped && !at_surf_nm && hit) {
+        med = entering ? 0 : -1;
+        o = along(o, t_wall + 1e-4f, d);
+        t_surf = t_surf - (t_wall + 1e-4f);
+        enter = entering;
+      }
+    } else {
+      enter = alive && outside && hit && entering;
+      if (enter) {
+        med = 0;
+        o = along(o, t_wall + 1e-4f, d);
+      }
+      if (alive && outside && hit && !entering) alive = false;
     }
-    if (alive && outside && hit && !entering) alive = false;
-    const bool in_med = alive && mode == 0 && med == 0 && !enter;
+    const bool in_med = alive && mode == 0 && med == 0 && !enter && !stall;
     const float wall = hit ? t_wall : BIG;
-    const float plim = wall;
+    // walks end at the nearer of the wall and the next surface
+    const float plim = TRIS ? fminf(wall, t_surf) : wall;
 
     // ---- one majorant + density event of a walking lane ------------------
     const bool is_sh = alive && mode >= 4;
@@ -527,15 +707,18 @@ __global__ void __launch_bounds__(128)
                                       sl.z * ru.z * pmf)),
                               1e-30f);
           float w = sh_f / (sh_d2 * denom);
-          L = v3(L.x + b.x * sT.x * lI.x * w, L.y + b.y * sT.y * lI.y * w,
-                 L.z + b.z * sT.z * lI.z * w);
+          // a glossy surface's fold is per channel
+          float w1 = any_rough ? sh_f1 / (sh_d2 * denom) : w;
+          float w2 = any_rough ? sh_f2 / (sh_d2 * denom) : w;
+          L = v3(L.x + b.x * sT.x * lI.x * w, L.y + b.y * sT.y * lI.y * w1,
+                 L.z + b.z * sT.z * lI.z * w2);
           if (RECORD) {
             float den_lp = fmaxf(avg3(v3(sl.x * pmf, sl.y * pmf, sl.z * pmf)),
                                  1e-30f);
             float wl_ = sh_fl / (sh_d2 * den_lp);
-            rec_put(8, rslot - 1, sT.x * lI.x * wl_);
-            rec_put(9, rslot - 1, sT.y * lI.y * wl_);
-            rec_put(10, rslot - 1, sT.z * lI.z * wl_);
+            rec_put(8, rslot - 1, sT.x * lI.x * wl_ * ra.x);
+            rec_put(9, rslot - 1, sT.y * lI.y * wl_ * ra.y);
+            rec_put(10, rslot - 1, sT.z * lI.z * wl_ * ra.z);
           }
         }
         if (mode == 5 && has_env) {
@@ -546,17 +729,19 @@ __global__ void __launch_bounds__(128)
                             sl.z * ru.z * p_l + su.z * ru.z * sh_pdf)),
                     1e-30f);
           float w = sh_f / denom;
-          L = v3(L.x + b.x * sT.x * envL.x * w, L.y + b.y * sT.y * envL.y * w,
-                 L.z + b.z * sT.z * envL.z * w);
+          float w1 = any_rough ? sh_f1 / denom : w;
+          float w2 = any_rough ? sh_f2 / denom : w;
+          L = v3(L.x + b.x * sT.x * envL.x * w, L.y + b.y * sT.y * envL.y * w1,
+                 L.z + b.z * sT.z * envL.z * w2);
           if (RECORD) {
             float den_le = fmaxf(avg3(v3(sl.x * p_l + su.x * sh_pdf,
                                          sl.y * p_l + su.y * sh_pdf,
                                          sl.z * p_l + su.z * sh_pdf)),
                                  1e-30f);
             float wl_ = sh_fl / den_le;
-            rec_add(8, rslot - 1, sT.x * envL.x * wl_);
-            rec_add(9, rslot - 1, sT.y * envL.y * wl_);
-            rec_add(10, rslot - 1, sT.z * envL.z * wl_);
+            rec_add(8, rslot - 1, sT.x * envL.x * wl_ * ra.x);
+            rec_add(9, rslot - 1, sT.y * envL.y * wl_ * ra.y);
+            rec_add(10, rslot - 1, sT.z * envL.z * wl_ * ra.z);
           }
         }
         mode = 0;
@@ -760,9 +945,15 @@ __global__ void __launch_bounds__(128)
     if (scat_w && depth >= max_depth) alive = false;
     const bool scat = scat_w && depth < max_depth && alive;
     if (scat) depth += 1;
-    if (passed) med = -1;
+    // a walk that passes ends at the box wall (the lane leaves the medium)
+    // or, with triangles, at the next surface (the medium unchanged)
+    const bool at_surf_m = TRIS && passed && t_surf < wall - 1e-6f;
+    if (passed && !at_surf_m) {
+      med = -1;
+      o = along(o, wall + 1e-4f, d);
+      if (TRIS) t_surf = t_surf - (wall + 1e-4f);
+    }
     if (passed || term_w || scat_w) mode = 0;
-    if (passed) o = along(o, wall + 1e-4f, d);
 
     // ---- field query: walk starts (secondary VSP), scatter vertices ------
     const V3 s = along(o, t_sc, d);
@@ -772,6 +963,44 @@ __global__ void __launch_bounds__(128)
     V3 flux_q = zero3;
     if (scat || (in_med && guide_secondary && depth != 0))
       field_query(gc, T, scat ? s : o, &lob, &valid_q, &vsp_cell, &flux_q);
+    // surface interactions (the depth cap holds for surfaces too): the
+    // surface half of the field at the hit
+    bool hit_s = false;
+    V3 hpos = zero3;
+    Surf S;
+    Lobes slob;
+    bool svalid = false;
+    V3 sflux = zero3;
+    if constexpr (TRIS) {
+      const bool hit_s0 = (at_surf_m || at_surf_nm) && hmat >= 0;
+      if (hit_s0 && depth >= max_depth) alive = false;
+      hit_s = hit_s0 && alive;
+      if (hit_s) {
+        depth += 1;
+        hpos = along(o, t_surf, d);
+        float svsp;
+        field_query(gc, T, hpos, &slob, &svalid, &svsp, &sflux, P_HALF);
+        // material, a normal facing the ray, and the glossy frame
+        const float* m = smats + hmat * MAT_COLS;
+        const int kind = (int)m[M_KIND];
+        S.front = dot(hng, d) < 0.0f;
+        S.ns = S.front ? hng : v3(-hng.x, -hng.y, -hng.z);
+        S.alb = v3(m + M_ALB);
+        S.eta = fmaxf(m[M_ETA], 1e-3f);
+        S.alpha = fmaxf(m[M_ROUGH], 1e-4f);
+        const bool smooth = S.alpha < 1e-3f;
+        S.df = kind == 0;
+        S.co = kind == 1 && smooth;
+        S.dl = kind == 2;
+        S.cr = kind == 1 && !smooth;
+        S.ct = kind == 11;
+        coord_system(S.ns, &S.g1, &S.g2);
+        S.wo_l = to_loc(S, v3(-d.x, -d.y, -d.z));
+        S.lam_o = tr_lam(S.alpha, S.wo_l.z);
+        S.G1o = 1.0f / (1.0f + S.lam_o);
+        S.zo_s = fmaxf(fabsf(S.wo_l.z), 1e-6f);
+      }
+    }
     bool guide = false;
     if (in_med) {
       float vsp = -1.0f;
@@ -819,6 +1048,16 @@ __global__ void __launch_bounds__(128)
     dim += 1;
     const float4 u_c4 = uniform4(seed, pix, samp, dim);
     dim += 1;
+    float4 u_s = make_float4(0.f, 0.f, 0.f, 0.f), u_r = u_s;
+    if (TRIS) {
+      u_s = uniform4(seed, pix, samp, dim);  // the surface bounce
+      dim += 1;
+      if (any_rough) {
+        u_r = uniform4(seed, pix, samp, dim);  // the glossy lobe
+        dim += 1;
+      }
+    }
+    const bool sel_pt = has_point && (!has_env || up.x < pmf);
     if (scat) {
       const bool use_guide = valid_q && vol_guiding;
       const Lobes prod = apply_hg ? product_hg(gc, lob, K, d) : lob;
@@ -836,7 +1075,6 @@ __global__ void __launch_bounds__(128)
       if (depth > min_rr_depth) rr_srv = survival;
 
       // NEE: one light sample; its shadow walk runs in later iterations
-      const bool sel_pt = has_point && (!has_env || up.x < pmf);
       const V3 pl = sub(s, lp);
       const float dist2 = fmaxf(dot(pl, pl), 1e-12f);
       const float dist = sqrtf(dist2);
@@ -951,6 +1189,297 @@ __global__ void __launch_bounds__(128)
         sh_f = f_hg / fmaxf(scale_v, 1e-30f);
         sh_fl = f_hg;
         sT = sl = su = one3;
+        if (TRIS) {
+          sh_occ = true;
+          sh_f1 = sh_f2 = sh_f;
+          if (RECORD) ra = one3;
+        }
+      }
+      if (TRIS) {
+        spec_last = false;
+        t_surf = BIG;
+        needs_i = true;
+      }
+    }
+
+    if (TRIS && hit_s) {
+      // ---- surface: the shared light sample (non-delta lobes) ------------
+      const bool glossy = S.cr || S.ct;
+      const V3 pl = sub(hpos, lp);
+      const float dist2 = fmaxf(dot(pl, pl), 1e-12f);
+      const float dist = sqrtf(dist2);
+      V3 wi;
+      if (sel_pt) {
+        float inv_dist = 1.0f / dist;
+        wi = v3(-pl.x * inv_dist, -pl.y * inv_dist, -pl.z * inv_dist);
+      } else {
+        float ez = 1.0f - 2.0f * up.y;
+        float er = sqrtf(fmaxf(1.0f - ez * ez, 0.0f));
+        float ephi = fc[F_TWO_PI] * up.z;
+        wi = v3(er * cosf(ephi), er * sinf(ephi), ez);
+      }
+      float t_exit_s;
+      bool ent_s;
+      box_hit(fc, hpos, wi, &t_exit_s, &ent_s);
+      const float t_med = sel_pt ? fminf(dist, t_exit_s) : t_exit_s;
+      const bool use_gs = surf_guide && S.df && svalid;
+      Lobes sprod;
+      if (surf_guide)
+        sprod = product_vmf(gc, slob, K, S.ns, gc[G_KAPPA_COS],
+                            gc[G_LOG_C_COS]);
+      const float cosn = dot(wi, S.ns);
+      const float bpdf = fmaxf(cosn, 0.0f) * INV_PI_F;
+      float spdf_srf = use_gs ? gc[G_1MPG] * bpdf +
+                                    gc[G_PG] * mixture_pdf(fc, sprod, K, wi)
+                              : bpdf;
+      const float f_srf_nee = cosn * INV_PI_F;
+      V3 fne = zero3;
+      if (glossy && cosn > 0.0f) {
+        const V3 wi_l = to_loc(S, wi);
+        float pdf_spec;
+        fne = glossy_f(S, S.wo_l, wi_l, &pdf_spec);
+        const float pr_ct = frd(fabsf(S.wo_l.z), S.eta);
+        spdf_srf = S.ct ? pr_ct * pdf_spec +
+                              (1.0f - pr_ct) * fmaxf(cosn, 0.0f) * INV_PI_F
+                        : pdf_spec;
+      }
+
+      // ---- the continuation: guided diffuse, glossy VNDF, mirror,
+      // dielectric -------------------------------------------------------
+      V3 t1, t2;
+      coord_system(S.ns, &t1, &t2);
+      const float r_cs = sqrtf(u_s.x);
+      const float phi_cs = fc[F_TWO_PI] * u_s.y;
+      const float lx = r_cs * cosf(phi_cs), ly = r_cs * sinf(phi_cs);
+      const float lz = sqrtf(fmaxf(1.0f - u_s.x, 0.0f));
+      const V3 wdf = v3(lx * t1.x + ly * t2.x + lz * S.ns.x,
+                        lx * t1.y + ly * t2.y + lz * S.ns.y,
+                        lx * t1.z + ly * t2.z + lz * S.ns.z);
+      const float pdf_df = fmaxf(lz, 1e-6f) * INV_PI_F;
+      V3 ws = wdf;
+      float pdf_sv = pdf_df, mis_pdf_s = pdf_df;
+      bool valid_sv = pdf_df > 0.0f;
+      if (surf_guide) {
+        if (!RIS) {
+          const float u_c = u_c4.x;
+          const bool take = use_gs && u_c < gc[G_PG];
+          const float u_lob = clampf(u_c / gc[G_PG_SAFE], 0.0f, 0.999999f);
+          float gpdf;
+          const V3 gw = mixture_sample(fc, sprod, K, u_lob, u_c4.y, u_c4.z,
+                                       &gpdf);
+          ws = take ? gw : wdf;
+          const float base =
+              take ? fmaxf(dot(gw, S.ns), 0.0f) * INV_PI_F : pdf_df;
+          const float guide_ = take ? gpdf : mixture_pdf(fc, sprod, K, wdf);
+          pdf_sv = use_gs ? gc[G_1MPG] * base + gc[G_PG] * guide_ : pdf_df;
+          mis_pdf_s = pdf_sv;
+          valid_sv = ((take && base > 0.0f) || (!take && pdf_df > 0.0f)) &&
+                     pdf_sv > 0.0f;
+        } else {
+          float gpdf;
+          const V3 gw =
+              mixture_sample(fc, sprod, K, u_c4.y, u_p.w, u_p.z, &gpdf);
+          const float bpdf_g = fmaxf(dot(gw, S.ns), 0.0f) * INV_PI_F;
+          const float gpdf_b = mixture_pdf(fc, sprod, K, wdf);
+          const float irp_b =
+              svalid ? mixture_pdf(fc, slob, K, wdf) : INV_4PI_F;
+          const float irp_g = svalid ? mixture_pdf(fc, slob, K, gw) : INV_4PI_F;
+          const float mis0 = 0.5f * (pdf_df + gpdf_b);
+          const float mis1 = 0.5f * (bpdf_g + gpdf);
+          const float w0 =
+              pdf_df > 0.0f ? pdf_df * (gc[G_RIS_C0] + gc[G_PG] * irp_b) /
+                                  fmaxf(mis0, 1e-20f)
+                            : 0.0f;
+          const float w1 =
+              bpdf_g > 0.0f ? bpdf_g * (gc[G_RIS_C0] + gc[G_PG] * irp_g) /
+                                  fmaxf(mis1, 1e-20f)
+                            : 0.0f;
+          const float sum_w = w0 + w1;
+          const bool pick1 = u_c4.x * fmaxf(sum_w, 1e-20f) > w0;
+          const float mis_sel = pick1 ? mis1 : mis0;
+          const float pdf_ris =
+              (pick1 ? w1 : w0) * mis_sel * 2.0f / fmaxf(sum_w, 1e-20f);
+          ws = use_gs ? (pick1 ? gw : wdf) : wdf;
+          pdf_sv = use_gs ? pdf_ris : pdf_df;
+          mis_pdf_s = use_gs ? mis_sel : pdf_df;
+          valid_sv = use_gs ? (sum_w > 0.0f && pdf_ris > 0.0f) : pdf_df > 0.0f;
+        }
+      }
+      const float cos_out = fmaxf(dot(ws, S.ns), 0.0f);
+      float s_df = cos_out * INV_PI_F / fmaxf(pdf_sv, 1e-30f);
+      // an invalid guided draw keeps the lane with a vanishing weight, so
+      // that the pending surface NEE folds the exact product
+      if (S.df && !valid_sv) s_df = TINY_G;
+      V3 n_d, w_b;
+      float inv_mis_s = 1.0f / fmaxf(mis_pdf_s, 1e-30f);
+      float pdf_gs = 0.0f;
+      if (glossy) {
+        // Trowbridge-Reitz visible-normal draw (unguided); CookTorrance
+        // picks its glossy or diffuse lobe by Fresnel
+        const V3 wo_l = S.wo_l;
+        const float a = S.alpha;
+        V3 wh = normalize(v3(a * wo_l.x, a * wo_l.y, wo_l.z));
+        const float sgh = wh.z < 0.0f ? -1.0f : 1.0f;
+        wh = v3(wh.x * sgh, wh.y * sgh, wh.z * sgh);
+        const float tlen = sqrtf(fmaxf(wh.x * wh.x + wh.y * wh.y, 1e-18f));
+        const bool big_z = wh.z > 0.999999f;
+        const float t1hx = big_z ? 1.0f : -wh.y / tlen;
+        const float t1hy = big_z ? 0.0f : wh.x / tlen;
+        const float t2hx = -wh.z * t1hy, t2hy = wh.z * t1hx;
+        const float t2hz = wh.x * t1hy - wh.y * t1hx;
+        const float r_d = sqrtf(u_r.x);
+        const float ph_d = fc[F_TWO_PI] * u_r.y;
+        const float px_d = r_d * cosf(ph_d);
+        float py_d = r_d * sinf(ph_d);
+        const float h_d = sqrtf(fmaxf(1.0f - px_d * px_d, 0.0f));
+        const float mixz = (1.0f + wh.z) * 0.5f;
+        py_d = mixz * py_d + (1.0f - mixz) * h_d;
+        const float pz_d = sqrtf(fmaxf(1.0f - px_d * px_d - py_d * py_d, 0.0f));
+        const float nhx = px_d * t1hx + py_d * t2hx + pz_d * wh.x;
+        const float nhy = px_d * t1hy + py_d * t2hy + pz_d * wh.y;
+        const float nhz = px_d * 0.0f + py_d * t2hz + pz_d * wh.z;
+        const V3 wm = normalize(v3(a * nhx, a * nhy, fmaxf(nhz, 1e-6f)));
+        const float owm = dot(wo_l, wm);
+        const float pr_s = frd(fabsf(wo_l.z), S.eta);
+        const bool take_spec = S.cr || (S.ct && u_r.z < pr_s);
+        const V3 wi_gl = take_spec ? v3(2.0f * owm * wm.x - wo_l.x,
+                                        2.0f * owm * wm.y - wo_l.y,
+                                        2.0f * owm * wm.z - wo_l.z)
+                                   : v3(lx, ly, lz);
+        const float ziL = wi_gl.z;
+        float pdf_spec;
+        const V3 fg = glossy_f(S, wo_l, wi_gl, &pdf_spec);
+        const float zi_c = fmaxf(fabsf(ziL), 1e-6f);
+        pdf_gs = S.ct ? pr_s * pdf_spec + (1.0f - pr_s) * zi_c * INV_PI_F
+                      : pdf_spec;
+        const bool valid_g = ziL > 1e-6f && pdf_gs > 1e-12f;
+        pdf_gs = fmaxf(pdf_gs, 1e-12f);
+        const float inv_pgs = 1.0f / pdf_gs;
+        w_b = valid_g ? v3(fg.x * ziL * inv_pgs, fg.y * ziL * inv_pgs,
+                           fg.z * ziL * inv_pgs)
+                      : v3(TINY_G, TINY_G, TINY_G);
+        n_d = v3(wi_gl.x * S.g1.x + wi_gl.y * S.g2.x + wi_gl.z * S.ns.x,
+                 wi_gl.x * S.g1.y + wi_gl.y * S.g2.y + wi_gl.z * S.ns.y,
+                 wi_gl.x * S.g1.z + wi_gl.y * S.g2.z + wi_gl.z * S.ns.z);
+        inv_mis_s = inv_pgs;
+      } else if (S.df) {
+        n_d = ws;
+        w_b = v3(S.alb.x * s_df, S.alb.y * s_df, S.alb.z * s_df);
+      } else {
+        // conductor: mirror about ns, Schlick tint; dielectric: the Fresnel
+        // pick of reflection or refraction
+        const float dnd = dot(d, S.ns);
+        const float cos_o = clampf(-dnd, 0.0f, 1.0f);
+        const float eta_rel = S.front ? S.eta : 1.0f / S.eta;
+        const float sin2_t = fmaxf(1.0f - cos_o * cos_o, 0.0f) /
+                             fmaxf(eta_rel * eta_rel, 1e-12f);
+        const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+        const float r_par = (eta_rel * cos_o - cos_t) /
+                            fmaxf(eta_rel * cos_o + cos_t, 1e-12f);
+        const float r_per = (cos_o - eta_rel * cos_t) /
+                            fmaxf(cos_o + eta_rel * cos_t, 1e-12f);
+        const float F_dl =
+            sin2_t >= 1.0f ? 1.0f : 0.5f * (r_par * r_par + r_per * r_per);
+        const bool refl_dl = u_s.z < F_dl;
+        const float inv_er = 1.0f / fmaxf(eta_rel, 1e-12f);
+        if (S.co || refl_dl) {
+          const float c2 = 2.0f * dnd;
+          n_d = v3(d.x - c2 * S.ns.x, d.y - c2 * S.ns.y, d.z - c2 * S.ns.z);
+        } else {
+          const float k = cos_o * inv_er - cos_t;
+          n_d = normalize(v3(d.x * inv_er + k * S.ns.x,
+                             d.y * inv_er + k * S.ns.y,
+                             d.z * inv_er + k * S.ns.z));
+        }
+        if (S.co) {
+          const float omc5 = pow5(1.0f - cos_o);
+          w_b = v3(S.alb.x + (1.0f - S.alb.x) * omc5,
+                   S.alb.y + (1.0f - S.alb.y) * omc5,
+                   S.alb.z + (1.0f - S.alb.z) * omc5);
+        } else {
+          const float wt = refl_dl ? 1.0f : inv_er * inv_er;
+          w_b = v3(wt, wt, wt);
+          // a transmission switches to the far side's medium
+          if (!refl_dl) med = S.front ? hmi : hmo;
+        }
+      }
+      const bool nondelta = S.df || glossy;
+      b = mul(b, w_b);
+      rl = nondelta ? scale(ru, inv_mis_s) : ru;
+      const float out_sgn = dot(n_d, S.ns) >= 0.0f ? 1.0f : -1.0f;
+      o = v3(hpos.x + out_sgn * 1e-4f * S.ns.x,
+             hpos.y + out_sgn * 1e-4f * S.ns.y,
+             hpos.z + out_sgn * 1e-4f * S.ns.z);
+      d = n_d;
+      spec_last = !nondelta;
+      t_surf = BIG;
+      needs_i = true;
+      // guided RR from the surface half's flux; delta lanes survive at 0.95
+      float surv_s;
+      if (guide_rr) {
+        float num_rs = b.x * sflux.x * 0.2126f + b.y * sflux.y * 0.7152f +
+                       b.z * sflux.z * 0.0722f;
+        surv_s = (svalid && ipem > 0.0f)
+                     ? clampf(num_rs / fmaxf(ipel, 1e-6f), 0.1f, 1.0f)
+                     : 1.0f;
+        if (S.co || S.dl) surv_s = 0.95f;
+      } else {
+        surv_s = clampf(max3(b) / fmaxf(avg3(ru), 1e-30f), 0.0f, 1.0f);
+      }
+      if (depth > min_rr_depth) rr_srv = surv_s;
+
+      if (RECORD) {
+        if (nondelta) {  // delta bounces are not recorded
+          const V3 rw = glossy ? n_d : ws;
+          rec_put(0, rslot, hpos.x);
+          rec_put(1, rslot, hpos.y);
+          rec_put(2, rslot, hpos.z);
+          rec_put(3, rslot, rw.x);
+          rec_put(4, rslot, rw.y);
+          rec_put(5, rslot, rw.z);
+          rec_put(6, rslot, w_b.x);
+          rec_put(22, rslot, w_b.y);
+          rec_put(23, rslot, w_b.z);
+          rec_put(7, rslot, glossy ? pdf_gs : pdf_sv);
+          rec_put(18, rslot, 0.0f);
+        }
+        if (depth == 1) {  // ISGB first-event data
+          rec_put(15, 0, S.ns.x);
+          rec_put(16, 0, S.ns.y);
+          rec_put(17, 0, S.ns.z);
+          rec_put(19, 0, S.alb.x);
+          rec_put(20, 0, S.alb.y);
+          rec_put(21, 0, S.alb.z);
+        }
+        if (nondelta) rslot += 1;
+      }
+
+      // arm the shadow walk of the surface NEE: it folds with the continued
+      // beta, so a diffuse fold is (cos/pi) / s_df and a glossy one f cos /
+      // w_b per channel
+      const bool nee_gs = S.df && cosn > 0.0f && alive;
+      const bool nee_gl = glossy && cosn > 0.0f && alive;
+      if (nee_gs || nee_gl) {
+        mode = sel_pt ? 4 : 5;
+        sh = wi;
+        sh_t = 0.0f;
+        sh_end = t_med;
+        sh_pdf = spdf_srf;
+        sh_d2 = dist2;
+        sh_occ = true;
+        if (nee_gs) {
+          sh_f = f_srf_nee / fmaxf(s_df, 1e-30f);
+          sh_f1 = sh_f2 = sh_f;
+          sh_fl = f_srf_nee;
+          if (RECORD) ra = S.alb;
+        } else {
+          sh_f = fne.x * cosn / fmaxf(w_b.x, 1e-30f);
+          sh_f1 = fne.y * cosn / fmaxf(w_b.y, 1e-30f);
+          sh_f2 = fne.z * cosn / fmaxf(w_b.z, 1e-30f);
+          sh_fl = cosn;
+          if (RECORD) ra = fne;
+        }
+        sT = sl = su = one3;
       }
     }
 
@@ -969,6 +1498,12 @@ __global__ void __launch_bounds__(128)
         mode = 0;
         rr_srv = 1.0f;
         rslot = 0;
+        if (TRIS) {
+          t_surf = BIG;
+          needs_i = true;
+          sh_occ = false;
+          spec_last = false;
+        }
         alive = true;
       }
     }
@@ -980,69 +1515,97 @@ __global__ void __launch_bounds__(128)
 
 namespace {
 
-template <bool RECORD, bool RIS, int METHOD>
+template <bool RECORD, bool RIS, int METHOD, bool TRIS>
 void launch_one(int blocks, int threads, size_t smem, cudaStream_t st,
                 const float* fconst, const int* iconst, const float* gconst,
                 const int* giconst, const float* density,
                 const float* majorant, const float* ftab, const float* itab,
-                float* out, float* rec, int npix, int spp, unsigned int seed,
-                float out_scale, int nmaj, int rec_depth) {
-  vspg_kernel<RECORD, RIS, METHOD><<<blocks, threads, smem, st>>>(
-      fconst, iconst, gconst, giconst, density, majorant, ftab, itab, out,
-      rec, npix, spp, seed, out_scale, nmaj, rec_depth);
+                const float* tris, const float* mats, float* out, float* rec,
+                int npix, int spp, unsigned int seed, float out_scale,
+                int nmaj, int rec_depth, int n_tri, int n_mat) {
+  vspg_kernel<RECORD, RIS, METHOD, TRIS><<<blocks, threads, smem, st>>>(
+      fconst, iconst, gconst, giconst, density, majorant, ftab, itab, tris,
+      mats, out, rec, npix, spp, seed, out_scale, nmaj, rec_depth, n_tri,
+      n_mat);
 }
 
-// one of the twelve instantiations, by direction mode and distance route
+template <bool RECORD, bool TRIS>
+using LaunchFn = decltype(&launch_one<RECORD, false, M_RESAMPLING, TRIS>);
+
+template <bool RECORD, bool TRIS>
+LaunchFn<RECORD, TRIS> pick(int ris, int method) {
+  return ris ? (method == M_NDS_PLUS ? launch_one<RECORD, true, M_NDS_PLUS, TRIS>
+                : method == M_NDS    ? launch_one<RECORD, true, M_NDS, TRIS>
+                                     : launch_one<RECORD, true, M_RESAMPLING, TRIS>)
+             : (method == M_NDS_PLUS ? launch_one<RECORD, false, M_NDS_PLUS, TRIS>
+                : method == M_NDS    ? launch_one<RECORD, false, M_NDS, TRIS>
+                                     : launch_one<RECORD, false, M_RESAMPLING, TRIS>);
+}
+
+// one of the 24 instantiations, by direction mode, distance route and
+// whether the scene has triangles
 template <bool RECORD>
 int launch(const float* fconst, const int* iconst, const float* gconst,
            const int* giconst, const float* density, const float* majorant,
-           const float* ftab, const float* itab, float* out, float* rec,
-           int npix, int spp, unsigned int seed, float out_scale, int nmaj,
-           int rec_depth, int ris, int method, void* stream) {
+           const float* ftab, const float* itab, const float* tris,
+           const float* mats, float* out, float* rec, int npix, int spp,
+           unsigned int seed, float out_scale, int nmaj, int rec_depth,
+           int ris, int method, int n_tri, int n_mat, void* stream) {
   const int threads = 128;
   const int blocks = (npix + threads - 1) / threads;
-  const size_t smem = (size_t)nmaj * sizeof(float);
+  const size_t smem =
+      (size_t)(nmaj + n_tri * TRI_COLS + n_mat * MAT_COLS) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-  if (method < M_RESAMPLING || method > M_NDS_PLUS)
+  if (method < M_RESAMPLING || method > M_NDS_PLUS || n_tri < 0 ||
+      n_tri > MAX_TRIS || (n_tri > 0 && (n_mat < 1 || n_mat > 16)))
     return (int)cudaErrorInvalidValue;
-  auto* fn = ris ? (method == M_NDS_PLUS ? launch_one<RECORD, true, M_NDS_PLUS>
-                    : method == M_NDS    ? launch_one<RECORD, true, M_NDS>
-                                         : launch_one<RECORD, true, M_RESAMPLING>)
-                 : (method == M_NDS_PLUS ? launch_one<RECORD, false, M_NDS_PLUS>
-                    : method == M_NDS    ? launch_one<RECORD, false, M_NDS>
-                                         : launch_one<RECORD, false, M_RESAMPLING>);
-  fn(blocks, threads, smem, st, fconst, iconst, gconst, giconst, density,
-     majorant, ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
-     rec_depth);
+  if (n_tri > 0)
+    pick<RECORD, true>(ris, method)(blocks, threads, smem, st, fconst, iconst,
+                                    gconst, giconst, density, majorant, ftab,
+                                    itab, tris, mats, out, rec, npix, spp,
+                                    seed, out_scale, nmaj, rec_depth, n_tri,
+                                    n_mat);
+  else
+    pick<RECORD, false>(ris, method)(blocks, threads, smem, st, fconst,
+                                     iconst, gconst, giconst, density,
+                                     majorant, ftab, itab, tris, mats, out,
+                                     rec, npix, spp, seed, out_scale, nmaj,
+                                     rec_depth, 0, 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B3a/B3b: frozen-field render of spp samples per pixel
+// B3a/B3b/B3c: frozen-field render of spp samples per pixel
 extern "C" int vspg_render_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
                                   const float* ftab, const float* itab,
+                                  const float* tris, const float* mats,
                                   float* out, float* rec, int npix, int spp,
                                   unsigned int seed, float out_scale,
                                   int nmaj, int rec_depth, int ris,
-                                  int method, void* stream) {
+                                  int method, int n_tri, int n_mat,
+                                  void* stream) {
   return launch<false>(fconst, iconst, gconst, giconst, density, majorant,
-                       ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
-                       rec_depth, ris, method, stream);
+                       ftab, itab, tris, mats, out, rec, npix, spp, seed,
+                       out_scale, nmaj, rec_depth, ris, method, n_tri, n_mat,
+                       stream);
 }
 
-// B4a/B4b: one training sample per pixel plus its record rows
+// B4a/B4b/B4c: one training sample per pixel plus its record rows
 extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
                                   const float* ftab, const float* itab,
+                                  const float* tris, const float* mats,
                                   float* out, float* rec, int npix, int spp,
                                   unsigned int seed, float out_scale,
                                   int nmaj, int rec_depth, int ris,
-                                  int method, void* stream) {
+                                  int method, int n_tri, int n_mat,
+                                  void* stream) {
   return launch<true>(fconst, iconst, gconst, giconst, density, majorant,
-                      ftab, itab, out, rec, npix, spp, seed, out_scale, nmaj,
-                      rec_depth, ris, method, stream);
+                      ftab, itab, tris, mats, out, rec, npix, spp, seed,
+                      out_scale, nmaj, rec_depth, ris, method, n_tri, n_mat,
+                      stream);
 }

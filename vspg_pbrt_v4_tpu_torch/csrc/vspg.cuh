@@ -27,7 +27,9 @@ enum GConst {
   G_LOG_C_H = 29,     // its log normalizer
   G_HG_SIGN = 30,     // sign(g)
   G_LOG_2PI = 31,     // log(2 pi)
-  N_GCONST = 32
+  G_KAPPA_COS = 32,   // kappa of the clamped-cosine lobe's vMF
+  G_LOG_C_COS = 33,   // its log normalizer
+  N_GCONST = 34
 };
 
 // int32 guiding constant table (ops/vspg_kernels.py GI_*)
@@ -44,7 +46,9 @@ enum GIConst {
   GI_APPLY_HG = 9,        // |g| > 1e-3: HG-lobe product
   GI_SIGMA_GRAY = 10,     // sigma_t equal in the three channels
   GI_METHOD = 11,         // distance route (Method below)
-  N_GICONST = 12
+  GI_SURF_GUIDE = 12,     // guided BSDF draws at diffuse surfaces (trained)
+  GI_ANY_ROUGH = 13,      // a material is glossy: the extra lobe draw
+  N_GICONST = 14
 };
 
 // distance route of guided walks (ops/vspg_kernels.py METHODS); the kernel

@@ -157,6 +157,18 @@ def _gather_half(field: GuidingField, half: FieldHalf, p, vsp_variance=True):
                             half.vsp_lobe_vol[cid], half.vsp_lobe_surf[cid])
 
 
+def surface_distribution(field: GuidingField, p, ns, apply_cosine=True):
+    """The surface half at p, with the clamped-cosine product about ns for
+    opaque surfaces (guiding.h:83-109)."""
+    d = _gather_half(field, field.surface, p)
+    if not apply_cosine:
+        return d
+    w, mu, kap = vmf.product_with_vmf(
+        d.weights, d.mu, d.kappa, ns,
+        torch.full(ns.shape[:-1], vmf.COSINE_KAPPA, device=ns.device))
+    return d._replace(weights=w, mu=mu, kappa=kap)
+
+
 def volume_distribution(field: GuidingField, p, wo, g, apply_hg=True):
     """The volume half at p with the single-lobe HG product applied where
     the medium is anisotropic."""

@@ -21,13 +21,13 @@ from ..guiding import field as gfield
 
 class GuidingOptions(NamedTuple):
     """Static guiding configuration (the integrator's scene-file
-    parameters). The JAX package's ``surface_guiding`` (the surface half,
-    triangles only) and ``refine_threshold`` (the adaptive field) wait for
-    the routes they serve (ROADMAP.md §B)."""
+    parameters). The JAX package's ``refine_threshold`` (the adaptive
+    field) waits for the route it serves (ROADMAP.md §B)."""
 
     mode: str = "ris"  # "mis" | "ris"
     guiding_prob: float = 0.5
     volume_guiding: bool = True
+    surface_guiding: bool = True  # guided BSDF draws at non-delta surfaces
     record_depth: int = 8
     train_waves: int = 128
     min_train_weight: float = 128.0

@@ -9,9 +9,10 @@ EVERY lane. A lane's random stream therefore depends on its batch; keeping
 the same lane pool and the same regeneration order is what lets this
 module match the JAX wavefront lane for lane.
 
-Scope of this slice: homogeneous and grid media inside box interfaces,
-point lights and a constant environment, a pinhole camera, RGB hero-channel
-mode. A surface hit with a material raises ``NotImplementedError``.
+Scope: homogeneous and grid media inside box interfaces, flat triangles
+with the materials of ``models/materials.py`` (at most 64, intersected by
+brute force), point lights and a constant environment, a pinhole camera,
+RGB hero-channel mode.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ import torch
 from ...utils.sampling import (henyey_greenstein, sample_exponential,
                                sample_henyey_greenstein)
 from ...utils.spectrum import average, hero, sample_hero_channel
-from ...utils.vecmath import dot
+from ...ops.intersect import offset_ray_origin
+from ...utils.vecmath import coordinate_system, dot, face_forward, normalize
 from ..film import pixel_coords
 from ..lights import Lights
-from ..materials import Materials
+from ..materials import Materials, bsdf_f, bsdf_pdf, bsdf_sample
 from ..media import HomogeneousMedia, Media, seg_init, seg_next
 from ..samplers import LaneSampler
 from ..shapes import Geometry
@@ -56,16 +58,25 @@ class VolPathConfig(NamedTuple):
     sss: bool = False  # subsurface scattering is not ported
 
 
+def shading_frame(ns):
+    """Orthonormal (t1, t2) of the shading frame about ns (the JAX
+    package's, without the fiber tangents of curve hits)."""
+    return coordinate_system(ns)
+
+
 @dataclass(frozen=True)
 class Scene:
     geometry: Geometry
     materials: Materials
     media: Media
     lights: Lights
+    textures: object = None  # models.textures.Textures or None
 
     def to(self, device):
         return Scene(self.geometry.to(device), self.materials.to(device),
-                     self.media.to(device), self.lights.to(device))
+                     self.media.to(device), self.lights.to(device),
+                     None if self.textures is None
+                     else self.textures.to(device))
 
 
 class MediumResult(NamedTuple):
@@ -388,6 +399,32 @@ def sample_ld_volume(scene, cfg, p, wo, g, medium_id, hero_idx, sampler,
                                 beta, ok)
 
 
+def sample_ld_surface(scene, cfg, p, n_g, ns, wo_world, lanes, medium_id,
+                      hero_idx, sampler, beta, r_p, active):
+    """NEE from a surface vertex (SampleLd with the BSDF, evaluated in the
+    shading frame)."""
+    p_offset = offset_ray_origin(p, n_g, wo_world)
+    sampler, u_sel = sampler.get_1d()
+    sampler, u2 = sampler.get_2d()
+    ls = scene.lights.sample(p_offset, u_sel, u2)
+    ok = active & ls.valid & (average(ls.L) > 0)
+    t1, t2 = shading_frame(ns)
+
+    def to_local(w):
+        return torch.stack([dot(w, t1), dot(w, t2), dot(w, ns)], -1)
+
+    wo_l = to_local(wo_world)
+    wi_l = to_local(ls.wi)
+    f_hat = bsdf_f(lanes, wo_l, wi_l) * torch.abs(dot(ls.wi, ns))[..., None]
+    scatter_pdf = bsdf_pdf(lanes, wo_l, wi_l)
+    ok = ok & (_max3(f_hat) > 0)
+    sampler, T_ray, tr_l, tr_u = transmittance_ratio_tracking(
+        scene, cfg, p_offset, ls.wi, ls.t_shadow, medium_id, hero_idx,
+        sampler, ok)
+    return sampler, _combine_ld(ls, f_hat, scatter_pdf, T_ray, tr_l, tr_u,
+                                r_p, beta, ok)
+
+
 # ---------------------------------------------------------------------------
 # Path state + bounce
 # ---------------------------------------------------------------------------
@@ -481,20 +518,64 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
     medium_id = torch.where(iface, new_med_skip, s.medium_id)
     o_new = _m(iface, h.p + 1e-4 * s.d, o_new)
 
+    # ---- surface shading: NEE + BSDF sampling -----------------------------
     shade = surf & (h.mat_id >= 0)
-    if bool(shade.any()):
-        raise NotImplementedError("surface shading is not ported yet")
-    # The JAX bounce always draws the surface NEE (u_sel 1D + u2 2D) and
-    # the BSDF sample (u_lobe 1D + u2 2D) for every lane; with no shaded
-    # lane those draws only advance the dimension counter.
-    sampler = sampler.advance(4)
+    depth_hit = shade & (s.depth >= cfg.max_depth)
+    alive = alive & ~depth_hit
+    shade = shade & ~depth_hit
+    eta_scale = s.eta_scale
+    if not bool(shade.any()):
+        # the JAX bounce draws the surface NEE (1D + 2D) and the BSDF
+        # sample (1D + 2D) for every lane; with no shaded lane they only
+        # advance the dimension counter
+        sampler = sampler.advance(4)
+    else:
+        depth = torch.where(shade, depth + 1, depth)
+        lanes = scene.materials.gather_textured(scene.textures, h.mat_id,
+                                                h.uv)
+        ns = face_forward(h.ns, h.n)  # shading normal on the geometric side
+        can_nee = shade & ~lanes.is_specular
+        sampler, Ld_s = sample_ld_surface(scene, cfg, h.p, h.n, ns, -s.d,
+                                          lanes, medium_id, s.hero_idx,
+                                          sampler, beta, r_u, can_nee)
+        L = _m(can_nee, L + Ld_s, L)
+
+        t1, t2 = shading_frame(ns)
+        wo_l = torch.stack([dot(-s.d, t1), dot(-s.d, t2), dot(-s.d, ns)], -1)
+        sampler, u_lobe = sampler.get_1d()
+        sampler, u2b = sampler.get_2d()
+        bs = bsdf_sample(lanes, wo_l, u_lobe, u2b)
+        bs_ok = shade & bs.valid & (bs.pdf > 0)
+        alive = alive & ~(shade & ~bs_ok)
+        wi_world = normalize(bs.wi[..., 0:1] * t1 + bs.wi[..., 1:2] * t2
+                             + bs.wi[..., 2:3] * ns)
+        cos_wi = torch.abs(dot(wi_world, ns))
+        scale_b = (bs.f * cos_wi[..., None]
+                   / torch.clamp(bs.pdf, min=1e-30)[..., None])
+        beta = _m(bs_ok, beta * scale_b, beta)
+        r_l = _m(bs_ok, r_u / torch.clamp(bs.pdf, min=1e-30)[..., None], r_l)
+        specular = torch.where(bs_ok, bs.is_specular, specular)
+        eta_scale = torch.where(bs_ok & bs.is_transmission,
+                                s.eta_scale * bs.eta * bs.eta, s.eta_scale)
+        # a reflected ray keeps its medium: only a true crossing (wi on the
+        # far side of the arrival direction) adopts the far side's label, so
+        # that a reflection off an inward-wound face cannot tunnel into the
+        # medium behind it (interaction.h SpawnRay)
+        wi_front = dot(wi_world, h.n) > 0
+        crossed = bs_ok & (wi_front != (dot(s.d, h.n) < 0))
+        medium_id = torch.where(crossed, torch.where(wi_front, h.med_out,
+                                                     h.med_in), medium_id)
+        o_new = _m(bs_ok, offset_ray_origin(h.p, h.n, wi_world), o_new)
+        d_new = _m(bs_ok, wi_world, d_new)
+        prev_p = _m(bs_ok, h.p, prev_p)
 
     # ---- Russian roulette (integrators.cpp:1301-1312) ----------------------
-    rr_beta = (beta * s.eta_scale[..., None]
+    alive = alive & ~(shade & (_max3(beta) == 0))
+    rr_beta = (beta * eta_scale[..., None]
                / torch.clamp(average(r_u), min=1e-30)[..., None])
     rr_max = _max3(rr_beta)
     sampler, u_rr = sampler.get_1d()
-    do_rr = scat & (rr_max < 1.0) & (depth >= cfg.rr_start_depth)
+    do_rr = (shade | scat) & (rr_max < 1.0) & (depth >= cfg.rr_start_depth)
     q = torch.clamp(1.0 - rr_max, min=0.0)
     rr_kill = do_rr & (u_rr < q)
     alive = alive & ~rr_kill
@@ -502,7 +583,7 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
               beta / torch.clamp(1.0 - q, min=1e-6)[..., None], beta)
 
     return PathState(sampler, o_new, d_new, beta, r_u, r_l, L, depth, alive,
-                     specular, s.hero_idx, medium_id, s.eta_scale, prev_p)
+                     specular, s.hero_idx, medium_id, eta_scale, prev_p)
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,10 @@ one of two routes, where the JAX package takes the same:
 
 The distance samplers of the wave (``sample_distance_vspg``) cover the
 homogeneous closed form (VSP-warped or plain), delta tracking, the
-resampling route and NDS/NDS+ optical-depth-space sampling. A surface hit
-with a material raises ``NotImplementedError``: surface shading arrives
-with the teaser class (ROADMAP.md §A item 8).
+resampling route and NDS/NDS+ optical-depth-space sampling. At a surface
+with a material the wave takes NEE with the BSDF, the guided BSDF draw
+from the field's surface half and guided surface roulette (the teaser
+class: the materials of ``models/materials.py``).
 """
 
 from __future__ import annotations
@@ -35,16 +36,18 @@ import numpy as np
 import torch
 
 from ...ops import vspg_kernels as vk
+from ...ops.intersect import offset_ray_origin
 from ...utils.sampling import (henyey_greenstein, sample_exponential,
                                sample_henyey_greenstein)
 from ...utils.spectrum import average, hero
-from ...utils.vecmath import dot
+from ...utils.vecmath import coordinate_system, dot, face_forward, normalize
 from ..guiding import field as gfield
 from ..guiding import isgb as gisgb
 from ..guiding import recording as grec
 from ..guiding.field import GuidingField
 from ..guiding.isgb import ISGB
 from ..guiding.recording import SegmentRecord
+from ..materials import bsdf_f, bsdf_pdf, bsdf_sample
 from ..media import seg_init, seg_next
 from . import guided_volpath as gv
 from .guided_volpath import GuidingOptions, _guided_sample, _to3
@@ -709,8 +712,8 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
                 train: bool, gs: VState) -> VState:
     """One path event for every lane: VSP-guided distance sampling, then at
     a volume vertex NEE, guided RR and the guided phase-function draw;
-    escape with env MIS; interface crossings. A surface with a material
-    raises NotImplementedError; its draws are skipped in the JAX order."""
+    escape with env MIS; interface crossings; at a surface NEE with the
+    BSDF, the guided BSDF draw and guided RR."""
     s = gs.s
     rec = gs.rec
     h = scene.geometry.intersect(s.o, s.d, torch.full_like(s.o[..., 0], INF))
@@ -844,16 +847,143 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
     new_med_skip = torch.where(dot(s.d, h.n) < 0, h.med_in, h.med_out)
     medium_id = torch.where(iface, new_med_skip, s.medium_id)
     o_new = _m(iface, h.p + 1e-4 * s.d, o_new)
-    if bool((surf & (h.mat_id >= 0)).any()):
-        raise NotImplementedError("surface shading is not ported yet")
-    # the JAX bounce draws the surface NEE (1D + 2D), the guided BSDF
-    # sample (MIS: 1D + 2D + the BSDF's 1D + 2D; RIS: one more 1D) and the
-    # surface roulette (1D) for every lane; with no shaded lane they only
-    # advance the dimension counter
-    sampler = sampler.advance(7 if gopt.mode == "mis" else 8)
+
+    shade = surf & (h.mat_id >= 0)
+    depth_hit = shade & (s.depth >= cfg.max_depth)
+    alive = alive & ~depth_hit
+    shade = shade & ~depth_hit
+    if not bool(shade.any()):
+        # the JAX bounce draws the surface NEE (1D + 2D), the guided BSDF
+        # sample (MIS: 1D + 2D + the BSDF's 1D + 2D; RIS: one more 1D) and
+        # the surface roulette (1D) for every lane; with no shaded lane
+        # they only advance the dimension counter
+        sampler = sampler.advance(7 if gopt.mode == "mis" else 8)
+        s2 = PathState(sampler, o_new, d_new, beta, r_u, r_l, L, depth,
+                       alive, specular, s.hero_idx, medium_id, s.eta_scale,
+                       prev_p)
+        return VState(s2, rec, gs.pixel_id, last_vol, first_set, first_vol,
+                      first_albedo, first_normal, tr_est, gs.tr_prev)
+    depth = torch.where(shade, depth + 1, depth)
+    lanes = scene.materials.gather_textured(scene.textures, h.mat_id, h.uv)
+    ns = face_forward(h.ns, h.n)
+
+    # ISGB first-event data (surface)
+    first_now_s = shade & ~first_set & (s.depth == 0)
+    first_set = first_set | first_now_s
+    first_vol = torch.where(first_now_s, False, first_vol)
+    first_albedo = _m(first_now_s, _to3(lanes.albedo), first_albedo)
+    first_normal = _m(first_now_s, ns, first_normal)
+
+    # the surface half: cosine product for opaque surfaces only
+    is_transmissive = lanes.mat_type == 2
+    ns_cos = torch.where((dot(-s.d, ns) < 0)[..., None], -ns, ns)
+    dist_cos = gfield.surface_distribution(field, h.p, ns_cos, True)
+    dist_flat = gfield.surface_distribution(field, h.p, ns_cos, False)
+    dist_s = gfield.CellDistribution(*(
+        None if a is None else torch.where(
+            is_transmissive.reshape(is_transmissive.shape
+                                    + (1,) * (a.dim() - 1)), b, a)
+        for a, b in zip(dist_cos, dist_flat)))
+    use_guide_s = (shade & dist_s.valid & field.trained & ~lanes.is_specular
+                   & bool(gopt.surface_guiding))
+    t1, t2 = coordinate_system(ns)
+
+    def to_local(w):
+        return torch.stack([dot(w, t1), dot(w, t2), dot(w, ns)], -1)
+
+    wo_l = to_local(-s.d)
+    p_off = offset_ray_origin(h.p, h.n, -s.d)
+    sampler, u_sel2 = sampler.get_1d()
+    sampler, u2l2 = sampler.get_2d()
+    ls2 = scene.lights.sample(p_off, u_sel2, u2l2)
+    can_nee = shade & ~lanes.is_specular
+    ok2 = can_nee & ls2.valid & (average(ls2.L) > 0)
+    wi_l2 = to_local(ls2.wi)
+    f_hat2 = (bsdf_f(lanes, wo_l, wi_l2)
+              * torch.abs(dot(ls2.wi, ns))[..., None])
+    bpdf2 = bsdf_pdf(lanes, wo_l, wi_l2)
+    scatter_pdf2 = torch.where(
+        use_guide_s, (1 - pg) * bpdf2 + pg * gfield.dist_pdf(dist_s, ls2.wi),
+        bpdf2)
+    ok2 = ok2 & (_max3(f_hat2) > 0)
+    sampler, T_ray2, tr_l2, tr_u2 = transmittance_ratio_tracking(
+        scene, cfg, p_off, ls2.wi, ls2.t_shadow, medium_id, s.hero_idx,
+        sampler, ok2)
+    Ld2 = _combine_ld(ls2, f_hat2, scatter_pdf2, T_ray2, tr_l2, tr_u2, r_u,
+                      beta, ok2)
+    L = _m(can_nee, L + Ld2, L)
+
+    def bsdf_base(sampler):
+        sampler, u_lobe = sampler.get_1d()
+        sampler, u2b = sampler.get_2d()
+        bs = bsdf_sample(lanes, wo_l, u_lobe, u2b)
+        wi_w = normalize(bs.wi[..., 0:1] * t1 + bs.wi[..., 1:2] * t2
+                         + bs.wi[..., 2:3] * ns)
+        return (sampler, wi_w, bs.f * torch.abs(dot(wi_w, ns))[..., None],
+                bs.pdf, bs)
+
+    def bsdf_pdf_at(wi_w):
+        return bsdf_pdf(lanes, wo_l, to_local(wi_w))
+
+    def inc_rad_pdf_s(wi_w):
+        return gfield.incoming_radiance_pdf(field, "surface", h.p, wi_w)
+
+    (sampler, wi_s, f_s, pdf_s, mis_pdf_s, _, bs_aux, valid_s,
+     took_guide_s) = _guided_sample(sampler, use_guide_s, gopt, dist_s,
+                                    bsdf_base, bsdf_pdf_at, inc_rad_pdf_s)
+    f_guide = (bsdf_f(lanes, wo_l, to_local(wi_s))
+               * torch.abs(dot(wi_s, ns))[..., None])
+    f_s = torch.where(took_guide_s[..., None], f_guide, f_s)
+    bs_ok = shade & valid_s & (pdf_s > 0) & bs_aux.valid
+    spec_lane = lanes.is_specular
+    bs_ok = torch.where(spec_lane, shade & bs_aux.valid & (bs_aux.pdf > 0),
+                        bs_ok)
+    alive = alive & ~(shade & ~bs_ok)
+    scale_b = f_s / torch.clamp(pdf_s, min=1e-30)[..., None]
+    beta = _m(bs_ok, beta * scale_b, beta)
+    r_l = _m(bs_ok, r_u / torch.clamp(mis_pdf_s, min=1e-30)[..., None], r_l)
+    specular = torch.where(bs_ok, bs_aux.is_specular & ~took_guide_s,
+                           specular)
+    eta_scale = torch.where(bs_ok & bs_aux.is_transmission & ~took_guide_s,
+                            s.eta_scale * (bs_aux.eta * bs_aux.eta),
+                            s.eta_scale)
+    # a reflection keeps the medium; only a true crossing adopts the far
+    # side's label (volpath_bounce)
+    wi_front_s = dot(wi_s, h.n) > 0
+    crossed_s = bs_ok & (wi_front_s != (dot(s.d, h.n) < 0))
+    medium_id = torch.where(crossed_s, torch.where(wi_front_s, h.med_out,
+                                                   h.med_in), medium_id)
+    o_new = _m(bs_ok, offset_ray_origin(h.p, h.n, wi_s), o_new)
+    d_new = _m(bs_ok, wi_s, d_new)
+    prev_p = _m(bs_ok, h.p, prev_p)
+    last_vol = torch.where(bs_ok, False, last_vol)
+
+    if train:
+        rec = grec.record_vertex(rec, bs_ok & ~spec_lane, h.p, wi_s,
+                                 _to3(scale_b), pdf_s,
+                                 torch.zeros_like(bs_ok))
+        rec = grec.record_direct(rec, ok2, _to3(_local_ld(
+            ls2, f_hat2, scatter_pdf2, T_ray2, tr_l2, tr_u2, ok2)))
+
+    # surface roulette (guided or throughput)
+    alive = alive & ~(shade & (_max3(beta) == 0))
+    dist_srr = gfield._gather_half(field, field.surface, h.p)
+    if vopt.guide_rr:
+        survival_s = torch.where(
+            dist_srr.valid & (torch.mean(pixel_est, -1) > 0),
+            guided_rr_survival(_to3(beta), dist_srr.flux, pixel_est), 1.0)
+        survival_s = torch.where(specular, 0.95, survival_s)
+    else:
+        survival_s = throughput_rr_survival(beta, r_u)
+    do_rr_s = shade & (depth > vopt.min_rr_depth) & (survival_s < 1.0)
+    sampler, u_rrs = sampler.get_1d()
+    kill_s = do_rr_s & (u_rrs >= survival_s)
+    alive = alive & ~kill_s
+    beta = _m(do_rr_s & ~kill_s,
+              beta / torch.clamp(survival_s, min=1e-3)[..., None], beta)
 
     s2 = PathState(sampler, o_new, d_new, beta, r_u, r_l, L, depth, alive,
-                   specular, s.hero_idx, medium_id, s.eta_scale, prev_p)
+                   specular, s.hero_idx, medium_id, eta_scale, prev_p)
     return VState(s2, rec, gs.pixel_id, last_vol, first_set, first_vol,
                   first_albedo, first_normal, tr_est, gs.tr_prev)
 
@@ -901,8 +1031,8 @@ def vspg_wave(scene, camera, film, film_state, field, isgb, cfg, gopt, vopt,
 def _scene_field(scene, gopt, device):
     """A fresh field over the scene's box bounds, padded by 1e-3."""
     g = scene.geometry
-    pts = np.concatenate([g.box_min.cpu().numpy(), g.box_max.cpu().numpy()],
-                         0)
+    pts = np.concatenate([a.cpu().numpy() for a in (
+        g.tri_p0, g.tri_p1, g.tri_p2, g.box_min, g.box_max)], 0)
     return GuidingField.make(pts.min(0) - 1e-3, pts.max(0) + 1e-3,
                              res=gopt.field_res, n_lobes=gopt.n_lobes,
                              n_extra=gopt.adaptive_extra, device=device)

@@ -27,8 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 # Per-source flags. The VSPG kernel rounds as its plain version's separate
 # PyTorch ops do: contracting a*b+c into one FMA changes the rounding, and
-# its long branchy walks then diverge on about 1% of pixels.
-SOURCE_FLAGS = {"vspg.cu": ["-fmad=false"]}
+# its long branchy walks then diverge on about 1% of pixels. The grid
+# kernel with triangles is built with ptxas optimisation off: at -O1 to -O3
+# (CUDA 12.9) whole warps of it lost their later samples on an H100, where
+# its plain version, the same source built with g++ and the -O0 build agree
+# (chip_smoke phase 9a holds it); -O0 costs about 6.7 times the kernel time.
+SOURCE_FLAGS = {"vspg.cu": ["-fmad=false"],
+                "volpath_grid_tris.cu": ["-Xptxas", "-O0"]}
 
 _lib = None
 # seconds the last build of this process took (0.0 before any), and what
@@ -100,8 +105,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 SIGNATURES = {
     "volpath_homog_launch": [_P, _P, _P, _I, _I, _U, _F, _P],
     "volpath_grid_launch": [_P, _P, _P, _P, _P, _I, _I, _U, _F, _I, _P],
-    "vspg_render_launch": [_P] * 10 + [_I, _I, _U, _F, _I, _I, _I, _I, _P],
-    "vspg_record_launch": [_P] * 10 + [_I, _I, _U, _F, _I, _I, _I, _I, _P],
+    "volpath_grid_tris_launch": [_P] * 7 + [_I, _I, _U, _F, _I, _I, _I, _P],
+    "vspg_render_launch": [_P] * 12 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
+    "vspg_record_launch": [_P] * 12 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
 }
 
 

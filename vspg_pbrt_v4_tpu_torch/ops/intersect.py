@@ -1,13 +1,14 @@
-"""Ray-box helpers (counterpart of ``ops/intersect.py``: ``ray_aabb``,
-``aabb_normal`` and ``offset_ray_origin``). Misses are encoded as t = inf
-and every function broadcasts over leading ray dims."""
+"""Ray-primitive helpers (counterpart of ``ops/intersect.py``:
+``ray_aabb``, ``aabb_normal``, ``ray_triangle`` and ``offset_ray_origin``).
+Misses are encoded as t = inf and every function broadcasts over leading
+ray dims."""
 
 from __future__ import annotations
 
 import torch
 
 from ..utils.math import nanmax, nanmin, safe_div
-from ..utils.vecmath import dot
+from ..utils.vecmath import cross, dot, normalize
 
 
 def ray_aabb(o, d, t_max, b_min, b_max):
@@ -35,6 +36,25 @@ def aabb_normal(p, b_min, b_max):
     sign = torch.sign(torch.gather(rel, -1, amax[..., None]))[..., 0]
     one_hot = torch.arange(3, device=p.device) == amax[..., None]
     return torch.where(one_hot, sign[..., None], torch.zeros_like(rel))
+
+
+def ray_triangle(o, d, t_max, p0, p1, p2):
+    """Möller-Trumbore: (hit, t, b0, b1, n_geom), the barycentric
+    parameterization of pbrt's TriangleIntersect (b0 weighs p0)."""
+    e1 = p1 - p0
+    e2 = p2 - p0
+    pvec = cross(d, e2)
+    det = dot(e1, pvec)
+    inv_det = safe_div(1.0, det, fill=0.0)
+    tvec = o - p0
+    b1 = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    b2 = dot(d, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
+    hit = ((torch.abs(det) > 1e-9) & (b1 >= 0.0) & (b2 >= 0.0)
+           & (b1 + b2 <= 1.0) & (t > 1e-5) & (t < t_max))
+    ng = normalize(cross(e1, e2))
+    return hit, torch.where(hit, t, torch.inf), 1.0 - b1 - b2, b1, ng
 
 
 def offset_ray_origin(p, n, w):

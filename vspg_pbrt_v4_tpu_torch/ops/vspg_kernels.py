@@ -3,9 +3,12 @@ render path, its host-side tables, its plain PyTorch versions and the
 support predicate that decides when ``render_vspg`` may use it.
 
 One kernel, ``csrc/vspg.cu``, replaces ``pallas_vspg._make_vspg_kernel``
-for the grid-cloud class without triangles, on a uniform guiding field,
-with each of the three distance routes: resampling (B3a/B4a in
-ROADMAP.md), NDS and NDS+ (B3b/B4b). It has two variants: the render
+for the grid-cloud class on a uniform guiding field, with each of the
+three distance routes: resampling (B3a/B4a in ROADMAP.md), NDS and NDS+
+(B3b/B4b), and with at most 64 triangles of the teaser materials in the
+cloud (B3c/B4c: the field table then holds the surface half's rows after
+the volume half's, and diffuse hits draw from the guided BSDF). It has two
+variants: the render
 variant renders spp frozen-field samples per pixel; the record variant
 renders one training sample per pixel and writes the ``REC_ROWS`` x
 ``rec_depth`` record rows of each lane. Under NDS a guided walk first runs
@@ -17,7 +20,8 @@ algebra) or, where the target VSP is below 1 - e^-t_v, the delta walk
 Each lane (one pixel) runs the per-lane state machine of the Pallas
 kernel: one event per iteration (transport, reservoir-resampling walk,
 delta walk, point/env shadow walk), the same eight ``uniform4`` draws per
-iteration in the same order, and the same iteration cap. So the plain
+iteration in the same order (nine with triangles, ten with a glossy
+material), and the same iteration cap. So the plain
 versions here, and through them the kernel, agree per pixel with the
 Pallas kernel run in interpret mode wherever bf16 rounds nothing. What the
 Pallas kernel does only for the TPU is not carried over: bf16 packing of
@@ -43,13 +47,17 @@ import torch
 from ..models.guiding.isgb import isgb_contribution, isgb_primary_vsp
 from ..models.guiding.recording import SegmentRecord
 from ..utils import rng
-from ..utils.math import INV_4PI
-from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX, I_MX, _BIG,
-                              _box_hit, _camera_ray,
-                              _check, _Consts, _count, _dot, _hg_value, _keep,
-                              _normalize, _sample_hg, extract_constants)
+from ..utils.math import INV_4PI, INV_PI, PI
+from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX, I_MX,
+                              M_ALB, M_ETA, M_KIND, M_ROUGH, MAT_COLS,
+                              T_MAT, T_MED_IN, T_MED_OUT, T_NG, TRI_COLS,
+                              _BIG, _box_hit, _camera_ray, _check, _Consts,
+                              _count, _dot, _hg_value, _keep, _normalize,
+                              _sample_hg, _tri_hit, extract_constants)
 
-LAUNCHES = {"vspg_render": 0, "vspg_record": 0}
+# the TRIS instantiations (scenes with triangles) count apart
+LAUNCHES = {"vspg_render": 0, "vspg_record": 0, "vspg_render_tris": 0,
+            "vspg_record_tris": 0}
 LAUNCH_EVENTS = None
 
 MIN_KAPPA = 1e-2
@@ -69,13 +77,17 @@ REC_ROWS = 24
 (G_FB0, G_FEXT, G_EXT, G_KM, G_CELL, G_ALB) = (0, 3, 6, 9, 12, 15)
 (G_FRES_HI, G_PG, G_1MPG, G_PG_SAFE, G_PG_NEE, G_1MPG_NEE, G_RIS_C0,
  G_MIS, G_1MMIS, G_SCALE_CAP, G_KAPPA_H, G_LOG_C_H, G_HG_SIGN,
- G_LOG_2PI) = range(18, 32)
-N_GCONST = 32
+ G_LOG_2PI, G_KAPPA_COS, G_LOG_C_COS) = range(18, 34)
+N_GCONST = 34
 # int32 guiding constant table
 (GI_FRES, GI_K, GI_NCELL, GI_RIS, GI_GUIDE_RR, GI_MIN_RR_DEPTH,
  GI_GUIDE_PRIMARY, GI_GUIDE_SECONDARY, GI_VOL_GUIDING, GI_APPLY_HG,
- GI_SIGMA_GRAY, GI_METHOD) = range(12)
-N_GICONST = 12
+ GI_SIGMA_GRAY, GI_METHOD, GI_SURF_GUIDE, GI_ANY_ROUGH) = range(14)
+N_GICONST = 14
+# vMF approximation of the clamped-cosine lobe (vmf.COSINE_KAPPA), the
+# product the surface half takes at diffuse hits
+KAPPA_COS = 2.18853
+TINY_G = 1e-18
 # GI_METHOD values: the distance route of guided walks
 METHODS = ("resampling", "nds", "nds+")
 
@@ -87,8 +99,7 @@ METHODS = ("resampling", "nds", "nds+")
 
 def guiding_constants(field, gopt, vopt):
     """The guiding configuration the kernel is built for, as a dict (the
-    keys of ``pallas_vspg.guiding_constants`` but its TPU fetch switch and
-    the surface half's ``surface_guiding``: no triangles here)."""
+    keys of ``pallas_vspg.guiding_constants`` but its TPU fetch switch)."""
     b0 = field.b_min.cpu().numpy()
     b1 = field.b_max.cpu().numpy()
     return dict(
@@ -105,6 +116,7 @@ def guiding_constants(field, gopt, vopt):
         guide_primary=bool(vopt.guide_vsp and vopt.guide_primary_vsp),
         guide_secondary=bool(vopt.guide_vsp and vopt.guide_secondary_vsp),
         volume_guiding=bool(gopt.volume_guiding),
+        surface_guiding=bool(gopt.surface_guiding),
         scale_vsp_cap=float(vopt.scale_vsp_cap),
         trained=int(field.iteration) > 0,
         max_collisions=256,
@@ -119,6 +131,7 @@ class GuidingConstants:
     iconst: torch.Tensor  # (N_GICONST,) int32
     ris: bool
     method: int  # index into METHODS
+    n_tri: int = 0  # triangles of the scene: the field table holds both halves
 
     @property
     def isgb_rows(self):
@@ -172,6 +185,9 @@ def pack_guiding_constants(c, gc, device):
                     - np.log1p(-np.exp(-2.0 * kh)))
     f[G_HG_SIGN] = 1.0 if g_hg >= 0 else -1.0
     f[G_LOG_2PI] = np.float32(np.log(2.0 * np.pi))
+    f[G_KAPPA_COS] = KAPPA_COS
+    f[G_LOG_C_COS] = (np.log(KAPPA_COS) - np.log(2.0 * np.pi)
+                      - np.log1p(-np.exp(-2.0 * KAPPA_COS)))
     i = np.zeros(N_GICONST, np.int32)
     i[GI_FRES] = gc["fres"]
     i[GI_K] = gc["K"]
@@ -185,9 +201,19 @@ def pack_guiding_constants(c, gc, device):
     i[GI_APPLY_HG] = int(abs(g_hg) > 1e-3)
     i[GI_SIGMA_GRAY] = int(float(st[0]) == float(st[1]) == float(st[2]))
     i[GI_METHOD] = method
+    n_tri = c.n_tri
+    i[GI_SURF_GUIDE] = int(n_tri > 0 and gc["surface_guiding"]
+                           and gc["trained"])
+    if n_tri:
+        from .volpath_kernels import M_KIND, M_ROUGH
+
+        m = c.mats.cpu().numpy()
+        i[GI_ANY_ROUGH] = int(bool(np.any(
+            ((m[:, M_KIND] == 1) & (m[:, M_ROUGH] >= 1e-3))
+            | (m[:, M_KIND] == 11))))
     return GuidingConstants(
         torch.as_tensor(f.astype(np.float32), device=device),
-        torch.as_tensor(i, device=device), ris, method)
+        torch.as_tensor(i, device=device), ris, method, n_tri)
 
 
 def _grid_g(c):
@@ -198,15 +224,18 @@ def _grid_g(c):
     return float(c.fconst[F_HG_C2]) / 2.0
 
 
-def pack_field_table(field, criterion="variance"):
+def pack_field_table(field, criterion="variance", with_surface=False):
     """The volume half of `field` as a float32 (P, C) numpy table over its
     C = res^3 cells, P = 8K + 8 with K = min(n_lobes, K_PACK): per lobe [w,
     mux, muy, muz, kappa, mean_dist, vsp_lobe_vol, vsp_lobe_surf], then
     [valid, vsp, flux_r, flux_g, flux_b, cx, cy, cz], vsp with the criterion
     applied (``pallas_vspg.pack_field_table(k_top=K_PACK)`` before its bf16
-    rounding)."""
-    return np.stack(_pack_half_rows(field, field.volume, criterion),
-                    0).astype(np.float32)
+    rounding). with_surface (scenes with triangles) appends the surface
+    half's rows in the same layout: P = 2 (8K + 8)."""
+    rows = _pack_half_rows(field, field.volume, criterion)
+    if with_surface:
+        rows += _pack_half_rows(field, field.surface, criterion)
+    return np.stack(rows, 0).astype(np.float32)
 
 
 def _pack_half_rows(field, vol, criterion):
@@ -282,11 +311,20 @@ def pack_isgb_table(isgb, npix, tr_buffer=None):
 def supports(scene, camera, film, cfg, gopt, vopt, field):
     """True when the VSPG kernel serves this render: the grid-cloud class
     of ``volpath_kernels.extract_constants`` (one box holding one density
-    grid, no triangles), a uniform field and any of the three distance
-    routes."""
+    grid, with at most 64 triangles of untextured diffuse, conductor,
+    smooth dielectric or CookTorrance materials: ``pallas_vspg.supports``'
+    gate), a uniform field and any of the three distance routes."""
     c = extract_constants(scene, camera, film, cfg)
     if c is None or c.kind != "grid":
         return False
+    if c.n_tri:
+        from .volpath_kernels import M_KIND, M_ROUGH, M_TEX
+
+        m = c.mats.cpu().numpy()
+        if not (np.isin(m[:, M_KIND], (0, 1, 2, 11)).all()
+                and not ((m[:, M_KIND] == 2) & (m[:, M_ROUGH] >= 1e-3)).any()
+                and (m[:, M_TEX] < 0).all()):
+            return False
     if field is not None and int(getattr(field, "n_extra", 0)) != 0:
         return False
     if int(getattr(gopt, "adaptive_extra", 0)) != 0:
@@ -315,7 +353,9 @@ class _G:
          self.cap, self.kappa_h, self.log_c_h, self.hg_sign,
          self.log_2pi) = fl[G_FRES_HI:G_LOG_2PI + 1]
         (self.fres, self.K, self.ncell, ris, guide_rr, self.min_rr_depth,
-         gp, gs, vg, ahg, gray, method) = il
+         gp, gs, vg, ahg, gray, method, sgd, rough) = il
+        self.kappa_cos, self.log_c_cos = fl[G_KAPPA_COS], fl[G_LOG_C_COS]
+        self.surf_guide, self.any_rough = bool(sgd), bool(rough)
         self.ris, self.guide_rr = bool(ris), bool(guide_rr)
         self.guide_primary, self.guide_secondary = bool(gp), bool(gs)
         self.vol_guiding, self.apply_hg, self.gray = bool(vg), bool(ahg), \
@@ -373,14 +413,10 @@ def _mixture_pdf(K, lob, w):
     return p
 
 
-def _product_hg(K, G, lob, d):
-    """Every lobe times the HG lobe's vMF about d (static kappa)."""
-    if not G.apply_hg:
-        return lob
-    mb = d * G.hg_sign
-    kb = G.kappa_h
-    tot_old = torch.zeros_like(d[:, 0])
-    tot_new = torch.zeros_like(d[:, 0])
+def _product_vmf(lob, mb, kb, log_c_b, G):
+    """Every lobe times one vMF about mb with static kappa kb."""
+    tot_old = torch.zeros_like(mb[:, 0])
+    tot_new = torch.zeros_like(mb[:, 0])
     out = {"w": [], "mu": [], "kappa": []}
     for k in range(len(lob["w"])):
         kap, mu, w = lob["kappa"][k], lob["mu"][k], lob["w"][k]
@@ -389,7 +425,7 @@ def _product_hg(K, G, lob, d):
             kmu[:, 0] * kmu[:, 0] + kmu[:, 1] * kmu[:, 1]
             + kmu[:, 2] * kmu[:, 2], min=1e-12))
         inv = 1.0 / torch.clamp(k_new, min=1e-8)
-        log_s = (_log_c(G, kap) + G.log_c_h - _log_c(G, k_new)
+        log_s = (_log_c(G, kap) + log_c_b - _log_c(G, k_new)
                  + (k_new - kap - kb))
         w_new = w * torch.exp(torch.clamp(log_s, -60.0, 60.0))
         tot_old = tot_old + w
@@ -400,6 +436,13 @@ def _product_hg(K, G, lob, d):
     scale = tot_old / torch.clamp(tot_new, min=1e-20)
     out["w"] = [w * scale for w in out["w"]]
     return out
+
+
+def _product_hg(K, G, lob, d):
+    """Every lobe times the HG lobe's vMF about d (static kappa)."""
+    if not G.apply_hg:
+        return lob
+    return _product_vmf(lob, d * G.hg_sign, G.kappa_h, G.log_c_h, G)
 
 
 def _coord_system(v):
@@ -462,28 +505,37 @@ def _vsp_directional(K, lob, vsp_cell, d):
 
 def _field_query(G, ftab, p):
     """The lobes (parallax re-aimed, mu renormalized), valid, vsp and flux
-    of the field cell at p."""
+    of the field cell at p: of the volume half, then, when the table holds
+    both halves, of the surface half."""
     gf = torch.clamp((p - G.fb0) / G.fext * G.fres, 0.0, G.fres_hi)
     ix = gf.to(torch.int64)
     cid = (ix[:, 0] * G.fres + ix[:, 1]) * G.fres + ix[:, 2]
     v = ftab[:, cid]  # (P, N)
     K = G.K
-    valid = v[8 * K] > 0.5
-    cc = torch.stack([v[8 * K + 5], v[8 * K + 6], v[8 * K + 7]], -1)
-    lob = {"w": [], "mu": [], "kappa": [], "vlv": [], "vls": []}
-    for k in range(K):
-        r = v[8 * k:8 * k + 8]
-        mu = _normalize(torch.stack([r[1], r[2], r[3]], -1))
-        dist = r[5]
-        tgt = cc + mu * dist[:, None] - p
-        use = (dist > 1e-6) & valid
-        lob["w"].append(r[0])
-        lob["mu"].append(_W(use, _normalize(tgt), mu))
-        lob["kappa"].append(r[4])
-        lob["vlv"].append(r[6])
-        lob["vls"].append(r[7])
-    flux = torch.stack([v[8 * K + 2], v[8 * K + 3], v[8 * K + 4]], -1)
-    return lob, valid, v[8 * K + 1], flux
+    half = 8 * K + 8
+
+    def parse(v):
+        valid = v[8 * K] > 0.5
+        cc = torch.stack([v[8 * K + 5], v[8 * K + 6], v[8 * K + 7]], -1)
+        lob = {"w": [], "mu": [], "kappa": [], "vlv": [], "vls": []}
+        for k in range(K):
+            r = v[8 * k:8 * k + 8]
+            mu = _normalize(torch.stack([r[1], r[2], r[3]], -1))
+            dist = r[5]
+            tgt = cc + mu * dist[:, None] - p
+            use = (dist > 1e-6) & valid
+            lob["w"].append(r[0])
+            lob["mu"].append(_W(use, _normalize(tgt), mu))
+            lob["kappa"].append(r[4])
+            lob["vlv"].append(r[6])
+            lob["vls"].append(r[7])
+        flux = torch.stack([v[8 * K + 2], v[8 * K + 3], v[8 * K + 4]], -1)
+        return lob, valid, v[8 * K + 1], flux
+
+    out = parse(v[:half])
+    if v.shape[0] == 2 * half:
+        out = out + parse(v[half:])
+    return out
 
 
 def _density8(K, G, dens, p):
@@ -578,18 +630,302 @@ def _init_lanes(K, seed, itab):
         sh_d2=o1(), sT=o3(), sl=o3(), su=o3(), sh_f=z(), rr_srv=o1(),
         sh_fl=z(), rslot=zi.clone(), ivsp=itab[0].clone(),
         ipel=itab[1].clone(), ipem=itab[2].clone(),
-        itr=itab[3:6].T.clone() if itab.shape[0] == 6 else o3())
+        itr=itab[3:6].T.clone() if itab.shape[0] == 6 else o3(),
+        # the surface machine (scenes with triangles): the pending closest
+        # hit (distance, normal, material, interface ids), the sweep and
+        # occlusion requests, the delta-bounce flag, the albedo tint of a
+        # surface NEE's record and the per-channel glossy NEE folds
+        t_surf=z() + _BIG, hng=z3(), hmat=zi - 1, hmi=zi - 1, hmo=zi - 1,
+        needs_i=torch.ones(npix, dtype=torch.bool, device=dev),
+        sh_occ=torch.zeros(npix, dtype=torch.bool, device=dev),
+        spec_last=torch.zeros(npix, dtype=torch.bool, device=dev), ra=o3(),
+        sh_f1=z(), sh_f2=z())
+
+
+# ---------------------------------------------------------------------------
+# The surface machine of the plain versions (scenes with triangles): the
+# Pallas kernel's teaser blocks, in its operation order
+# ---------------------------------------------------------------------------
+
+
+def _tr_d_z(alpha, mz2):
+    """Trowbridge-Reitz D of a half vector with squared cosine mz2."""
+    c2 = torch.clamp(mz2, min=1e-8)
+    t2 = (1.0 - c2) / c2
+    a2 = alpha * alpha
+    e = 1.0 + t2 / a2
+    return 1.0 / (PI * a2 * c2 * c2 * e * e)
+
+
+def _tr_lam(alpha, wz):
+    c2 = torch.clamp(wz * wz, 1e-8, 1.0)
+    t2 = (1.0 - c2) / c2
+    return 0.5 * (torch.sqrt(1.0 + alpha * alpha * t2) - 1.0)
+
+
+def _frd(ci, eta):
+    """Dielectric Fresnel reflectance at cosine ci of the outer side."""
+    ci = torch.clamp(ci, 0.0, 1.0)
+    s2 = (1.0 - ci * ci) / torch.clamp(eta * eta, min=1e-12)
+    ct = torch.sqrt(torch.clamp(1.0 - s2, min=0.0))
+    rp = (eta * ci - ct) / torch.clamp(eta * ci + ct, min=1e-12)
+    rq = (ci - eta * ct) / torch.clamp(ci + eta * ct, min=1e-12)
+    return torch.where(s2 >= 1.0, 1.0, 0.5 * (rp * rp + rq * rq))
+
+
+def _pow5(x):
+    return x * x * x * x * x
+
+
+def _to_loc(SF, v):
+    return torch.stack([_dot(v, SF["g1"]), _dot(v, SF["g2"]),
+                        _dot(v, SF["ns"])], -1)
+
+
+def _glossy_f(SF, wo_l, wi_l):
+    """Per-channel glossy f (rough conductor: Schlick-tinted microfacet;
+    CookTorrance: Fresnel-weighted microfacet over a Lambertian base) at
+    local directions wo_l, wi_l, and its microfacet terms."""
+    h = _normalize(wo_l + wi_l)
+    h = h * torch.where(h[:, 2] < 0, -1.0, 1.0)[:, None]
+    alpha = SF["alpha"]
+    Dm = _tr_d_z(alpha, h[:, 2] * h[:, 2])
+    G2 = 1.0 / (1.0 + SF["lam_o"] + _tr_lam(alpha, wi_l[:, 2]))
+    zi = torch.clamp(torch.abs(wi_l[:, 2]), min=1e-6)
+    c_owm = torch.abs(_dot(wo_l, h))
+    omc5 = _pow5(torch.clamp(1.0 - c_owm, 0.0, 1.0))
+    spec = Dm * G2 / (4.0 * SF["zo_s"] * zi)
+    F_ct = _frd(c_owm, SF["eta"])
+    alb = SF["alb"]
+    f = torch.where(SF["shade_ct"][:, None],
+                    spec[:, None] * F_ct[:, None]
+                    + alb * INV_PI * (1.0 - F_ct)[:, None],
+                    spec[:, None] * (alb + (1.0 - alb) * omc5[:, None]))
+    pdf_spec = SF["G1o"] * Dm / (4.0 * SF["zo_s"])
+    return f, pdf_spec
+
+
+def _surface_frame(K, G, sfq, hit_s, hng, hmat, d, mats):
+    """Classify the surface lanes by material, face the normal against the
+    ray, and build the glossy frame and the guided surface distribution."""
+    slob, svalid, _, sflux = sfq
+    front = _dot(hng, d) < 0
+    ns = _W(front, hng, -hng)
+    has = hmat >= 0
+    m = mats[torch.clamp(hmat, min=0)]
+    kind = torch.where(has, m[:, M_KIND].long(), -1)
+    rough = torch.where(has, torch.clamp(m[:, M_ROUGH], min=1e-4), 0.0)
+    smooth = rough < 1e-3
+    SF = dict(ns=ns, front=front, alpha=rough, slob=slob, svalid=svalid,
+              sflux=sflux, alb=_W(has, m[:, M_ALB:M_ALB + 3], 0.0),
+              eta=torch.where(has, torch.clamp(m[:, M_ETA], min=1e-3), 1.0),
+              shade_df=hit_s & (kind == 0),
+              shade_co=hit_s & (kind == 1) & smooth,
+              shade_dl=hit_s & (kind == 2),
+              glossy=torch.zeros_like(hit_s))
+    if G.any_rough:
+        SF["shade_cr"] = hit_s & (kind == 1) & ~smooth
+        SF["shade_ct"] = hit_s & (kind == 11)
+        SF["glossy"] = SF["shade_cr"] | SF["shade_ct"]
+        SF["g1"], SF["g2"] = _coord_system(ns)
+        wo_l = _to_loc(SF, -d)
+        SF["wo_l"] = wo_l
+        SF["lam_o"] = _tr_lam(rough, wo_l[:, 2])
+        SF["G1o"] = 1.0 / (1.0 + SF["lam_o"])
+        SF["zo_s"] = torch.clamp(torch.abs(wo_l[:, 2]), min=1e-6)
+    SF["use_gs"] = SF["shade_df"] & svalid if G.surf_guide else \
+        torch.zeros_like(hit_s)
+    if G.surf_guide:
+        SF["sprod"] = _product_vmf(slob, ns, G.kappa_cos, G.log_c_cos, G)
+    return SF
+
+
+def _surface_nee(K, G, SF, wi):
+    """The surface half of the shared NEE sample toward wi: the cosine,
+    the pdf of the MIS competitor and the glossy f."""
+    ns = SF["ns"]
+    cosn = _dot(wi, ns)
+    SF["cosn"] = cosn
+    SF["nee_srf"] = SF["shade_df"] & (cosn > 0)
+    bpdf = torch.clamp(cosn, min=0.0) * INV_PI
+    spdf = bpdf
+    if G.surf_guide:
+        spdf = torch.where(SF["use_gs"], G.one_m_pg * bpdf + G.pg
+                           * _mixture_pdf(K, SF["sprod"], wi), bpdf)
+    SF["f_srf_nee"] = cosn * INV_PI
+    SF["nee_glo"] = SF["glossy"] & (cosn > 0)
+    if G.any_rough:
+        wi_l = _to_loc(SF, wi)
+        fne, pdf_spec = _glossy_f(SF, SF["wo_l"], wi_l)
+        pr_ct = _frd(torch.abs(SF["wo_l"][:, 2]), SF["eta"])
+        pdf_glo = torch.where(
+            SF["shade_ct"], pr_ct * pdf_spec + (1.0 - pr_ct)
+            * torch.clamp(cosn, min=0.0) * INV_PI, pdf_spec)
+        spdf = torch.where(SF["nee_glo"], pdf_glo, spdf)
+        SF["fne"] = fne
+    SF["spdf_srf"] = spdf
+
+
+def _surface_bounce(K, G, SF, d, u_s, u_dir, U):
+    """The continuation of every surface lane: the cosine (or guided)
+    diffuse draw, the unguided glossy VNDF draw, the mirror and the
+    Fresnel pick of the dielectric. Returns the lanes, their new
+    direction, throughput factor and MIS pdf, and what the records take."""
+    u_s0, u_s1, u_s2 = u_s
+    u_c, u_g0, u_g1, u_pk, u_sel = u_dir
+    ns = SF["ns"]
+    t1, t2 = _coord_system(ns)
+    r_cs = torch.sqrt(u_s0)
+    phi = K.two_pi * u_s1
+    lx, ly = r_cs * torch.cos(phi), r_cs * torch.sin(phi)
+    lz = torch.sqrt(torch.clamp(1.0 - u_s0, min=0.0))
+    wdf = lx[:, None] * t1 + ly[:, None] * t2 + lz[:, None] * ns
+    pdf_df = torch.clamp(lz, min=1e-6) * INV_PI
+    ws, pdf_sv, mis_pdf_s, valid_sv = wdf, pdf_df, pdf_df, pdf_df > 0
+    use_gs = SF["use_gs"]
+    if G.surf_guide:
+        sprod, svalid = SF["sprod"], SF["svalid"]
+        if not G.ris:
+            take = use_gs & (u_c < G.pg)
+            u_lob = torch.clamp(u_c / G.pg_safe_t, 0.0, 0.999999)
+            gw, gpdf = _mixture_sample(K, sprod, u_lob, u_g0, u_g1)
+            ws = _W(take, gw, wdf)
+            base = torch.where(take, torch.clamp(_dot(gw, ns), min=0.0)
+                               * INV_PI, pdf_df)
+            guide = torch.where(take, gpdf, _mixture_pdf(K, sprod, wdf))
+            pdf_sv = torch.where(use_gs, G.one_m_pg * base + G.pg * guide,
+                                 pdf_df)
+            mis_pdf_s = pdf_sv
+            valid_sv = (((take & (base > 0)) | (~take & (pdf_df > 0)))
+                        & (pdf_sv > 0))
+        else:
+            gw, gpdf = _mixture_sample(K, sprod, u_g0, u_pk, u_sel)
+            bpdf_g = torch.clamp(_dot(gw, ns), min=0.0) * INV_PI
+            gpdf_b = _mixture_pdf(K, sprod, wdf)
+            irp_b = torch.where(svalid, _mixture_pdf(K, SF["slob"], wdf),
+                                INV_4PI)
+            irp_g = torch.where(svalid, _mixture_pdf(K, SF["slob"], gw),
+                                INV_4PI)
+            mis0 = 0.5 * (pdf_df + gpdf_b)
+            mis1 = 0.5 * (bpdf_g + gpdf)
+            w0 = torch.where(pdf_df > 0, pdf_df * (G.ris_c0 + G.pg * irp_b)
+                             / torch.clamp(mis0, min=1e-20), 0.0)
+            w1 = torch.where(bpdf_g > 0, bpdf_g * (G.ris_c0 + G.pg * irp_g)
+                             / torch.clamp(mis1, min=1e-20), 0.0)
+            sum_w = w0 + w1
+            pick1 = u_c * torch.clamp(sum_w, min=1e-20) > w0
+            mis_sel = torch.where(pick1, mis1, mis0)
+            pdf_ris = (torch.where(pick1, w1, w0) * mis_sel * 2.0
+                       / torch.clamp(sum_w, min=1e-20))
+            ws = _W(use_gs, _W(pick1, gw, wdf), wdf)
+            pdf_sv = torch.where(use_gs, pdf_ris, pdf_df)
+            mis_pdf_s = torch.where(use_gs, mis_sel, pdf_df)
+            valid_sv = ((use_gs & (sum_w > 0) & (pdf_ris > 0))
+                        | (~use_gs & (pdf_df > 0)))
+    cos_out = torch.clamp(_dot(ws, ns), min=0.0)
+    s_df = cos_out * INV_PI / torch.clamp(pdf_sv, min=1e-30)
+    # an invalid guided draw (below the hemisphere) keeps the lane alive
+    # with a vanishing weight, so that the pending surface NEE still folds
+    # the exact product (the Pallas kernel's TINY_G continuation)
+    s_df = torch.where(SF["shade_df"] & ~valid_sv, TINY_G, s_df)
+    out = dict(ws=ws, pdf_sv=pdf_sv, s_df=s_df)
+    glossy = SF["glossy"]
+    if G.any_rough:
+        u_r0, u_r1, u_r2, _ = U()
+        wo_l, alpha = SF["wo_l"], SF["alpha"]
+        wh = _normalize(torch.stack([alpha * wo_l[:, 0], alpha * wo_l[:, 1],
+                                     wo_l[:, 2]], -1))
+        wh = wh * torch.where(wh[:, 2] < 0, -1.0, 1.0)[:, None]
+        whx, why, whz = wh[:, 0], wh[:, 1], wh[:, 2]
+        tlen = torch.sqrt(torch.clamp(whx * whx + why * why, min=1e-18))
+        big_z = whz > 0.999999
+        t1hx = torch.where(big_z, 1.0, -why / tlen)
+        t1hy = torch.where(big_z, 0.0, whx / tlen)
+        t2hx, t2hy = -whz * t1hy, whz * t1hx
+        t2hz = whx * t1hy - why * t1hx
+        r_d = torch.sqrt(u_r0)
+        ph_d = K.two_pi * u_r1
+        px_d, py_d = r_d * torch.cos(ph_d), r_d * torch.sin(ph_d)
+        h_d = torch.sqrt(torch.clamp(1.0 - px_d * px_d, min=0.0))
+        mixz = (1.0 + whz) * 0.5
+        py_d = mixz * py_d + (1.0 - mixz) * h_d
+        pz_d = torch.sqrt(torch.clamp(1.0 - px_d * px_d - py_d * py_d,
+                                      min=0.0))
+        nhx = px_d * t1hx + py_d * t2hx + pz_d * whx
+        nhy = px_d * t1hy + py_d * t2hy + pz_d * why
+        nhz = px_d * 0.0 + py_d * t2hz + pz_d * whz
+        wm = _normalize(torch.stack([alpha * nhx, alpha * nhy,
+                                     torch.clamp(nhz, min=1e-6)], -1))
+        owm = _dot(wo_l, wm)
+        ri = 2.0 * owm[:, None] * wm - wo_l
+        pr_s = _frd(torch.abs(wo_l[:, 2]), SF["eta"])
+        take_spec = SF["shade_cr"] | (SF["shade_ct"] & (u_r2 < pr_s))
+        wi_gl = _W(take_spec, ri, torch.stack([lx, ly, lz], -1))
+        ziL = wi_gl[:, 2]
+        fg, pdf_spec = _glossy_f(SF, wo_l, wi_gl)
+        zi_c = torch.clamp(torch.abs(ziL), min=1e-6)
+        pdf_gs = torch.where(SF["shade_ct"], pr_s * pdf_spec
+                             + (1.0 - pr_s) * zi_c * INV_PI, pdf_spec)
+        valid_g = (ziL > 1e-6) & (pdf_gs > 1e-12)
+        pdf_gs = torch.clamp(pdf_gs, min=1e-12)
+        inv_pgs = 1.0 / pdf_gs
+        wg = _W(valid_g, fg * ziL[:, None] * inv_pgs[:, None], TINY_G)
+        wi_w = (wi_gl[:, 0:1] * SF["g1"] + wi_gl[:, 1:2] * SF["g2"]
+                + wi_gl[:, 2:3] * ns)
+        out.update(wg=wg, wi_w=wi_w, pdf_gs=pdf_gs, inv_pgs=inv_pgs)
+    shade_df, shade_co, shade_dl = (SF["shade_df"], SF["shade_co"],
+                                    SF["shade_dl"])
+    hit_s = shade_df | shade_co | shade_dl | glossy
+    # conductor: mirror about ns with the Schlick tint; dielectric: the
+    # Fresnel pick of reflection or refraction
+    dnd = _dot(d, ns)
+    wr = d - (2.0 * dnd)[:, None] * ns
+    cos_o = torch.clamp(-dnd, 0.0, 1.0)
+    eta_rel = torch.where(SF["front"], SF["eta"], 1.0 / SF["eta"])
+    sin2_t = (torch.clamp(1.0 - cos_o * cos_o, min=0.0)
+              / torch.clamp(eta_rel * eta_rel, min=1e-12))
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+    r_par = ((eta_rel * cos_o - cos_t)
+             / torch.clamp(eta_rel * cos_o + cos_t, min=1e-12))
+    r_per = ((cos_o - eta_rel * cos_t)
+             / torch.clamp(cos_o + eta_rel * cos_t, min=1e-12))
+    F_dl = torch.where(sin2_t >= 1.0, 1.0,
+                       0.5 * (r_par * r_par + r_per * r_per))
+    refl_dl = u_s2 < F_dl
+    inv_er = 1.0 / torch.clamp(eta_rel, min=1e-12)
+    wt = _normalize(d * inv_er[:, None]
+                    + (cos_o * inv_er - cos_t)[:, None] * ns)
+    go_refl = shade_co | (shade_dl & refl_dl)
+    n_d = _W(shade_df, ws, _W(go_refl, wr, wt))
+    omc5 = _pow5(1.0 - cos_o)
+    alb = SF["alb"]
+    fs = alb + (1.0 - alb) * omc5[:, None]
+    trans = inv_er * inv_er
+    w_b = _W(shade_df, alb * s_df[:, None],
+             _W(shade_co, fs, torch.where(refl_dl, 1.0, trans)[:, None]
+                .expand_as(fs)))
+    inv_mis = 1.0 / torch.clamp(mis_pdf_s, min=1e-30)
+    if G.any_rough:
+        n_d = _W(glossy, out["wi_w"], n_d)
+        w_b = _W(glossy, out["wg"], w_b)
+        inv_mis = torch.where(glossy, out["inv_pgs"], inv_mis)
+    out.update(hit_s=hit_s, n_d=n_d, w_b=w_b, inv_mis=inv_mis,
+               nondelta=shade_df | glossy,
+               went_t=shade_dl & ~refl_dl)
+    return out
 
 
 def _body(K, G, T, S, seed, spp, rec, counts):
     """One iteration of ``pallas_vspg._make_vspg_kernel``'s loop body for
-    every lane of S (resampling route, no triangles), updating S in place.
-    The eight draws per iteration: deferred RR, walk step, walk event,
-    reservoir conclusion, majorant probe, NEE, direction (two). `counts`
-    gathers the lane-iterations, walk/shadow steps, scatters and
-    walk-start field queries run."""
+    every lane of S, updating S in place. The eight draws per iteration:
+    deferred RR, walk step, walk event, reservoir conclusion, majorant
+    probe, NEE, direction (two); with triangles a ninth for the surface
+    bounce and, when a material is glossy, a tenth for its lobe. `counts`
+    gathers the lane-iterations, walk/shadow steps, scatters, walk-start
+    field queries, surface events and ray-triangle tests run."""
     dev = K.dev
-    dens, maj, ftab = T
+    dens, maj, ftab, tris, mats = T
+    TR = tris is not None
     st, ss, envL, lI = K.st, K.ss, K.envL, K.lI
 
     def U():
@@ -633,14 +969,65 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     b = _W(do_rr & ~rr_kill, b * inv_srv[:, None], b)
     rr_srv = torch.where(alive & (mode == 0), 1.0, rr_srv)
 
+    stall = torch.zeros_like(alive)
+    if TR:
+        # one triangle sweep per iteration serves each lane's pending
+        # query: the closest hit of its path ray after a direction change,
+        # or the occlusion of its shadow ray at walk start. A lane stalls
+        # the iteration it is swept, and so does a lane whose shadow walk
+        # was just blocked: its path ray was not swept yet
+        t_surf, hng, hmat = S["t_surf"], S["hng"], S["hmat"]
+        hmi, hmo, needs_i = S["hmi"], S["hmo"], S["needs_i"]
+        sh_occ = S["sh_occ"]
+        do_is = alive & (mode == 0) & needs_i
+        do_oc = alive & (mode >= 4) & sh_occ
+        query = do_is | do_oc
+        j = torch.nonzero(query)[:, 0]
+        if j.numel():
+            _count(counts, "tri_tests", j.numel() * tris.shape[0])
+            qd = _W(do_oc, sh, d)[j]
+            hit_j, t_j, k_j, _, _ = _tri_hit(tris, o[j], qd, torch.full_like(
+                qd[:, 0], _BIG))
+            row = tris[k_j]
+            neg = torch.full_like(k_j, -1)
+            t_h = torch.full_like(t_surf, _BIG).index_put((j,), t_j)
+            nh = torch.zeros_like(hng).index_put(
+                (j,), _W(hit_j, row[:, T_NG:T_NG + 3], 0.0))
+            m_h, mi_h, mo_h = (neg.new_full(t_surf.shape, -1).index_put(
+                (j,), torch.where(hit_j, row[:, col].long(), neg))
+                for col in (T_MAT, T_MED_IN, T_MED_OUT))
+        else:
+            t_h = torch.full_like(t_surf, _BIG)
+            nh = torch.zeros_like(hng)
+            m_h = mi_h = mo_h = torch.full_like(hmat, -1)
+        t_surf = torch.where(do_is, t_h, t_surf)
+        hng = _W(do_is, nh, hng)
+        hmat = torch.where(do_is, m_h, hmat)
+        hmi = torch.where(do_is, mi_h, hmi)
+        hmo = torch.where(do_is, mo_h, hmo)
+        needs_i = needs_i & ~do_is
+        # point lights occlude up to the light, the environment to infinity
+        occ_t = torch.where(mode == 4, torch.sqrt(S["sh_d2"]), _BIG)
+        blocked = do_oc & (t_h < occ_t - 1e-4)
+        mode = torch.where(blocked, 0, mode)
+        sh_occ = sh_occ & ~do_oc
+        stall = do_is | (alive & (mode == 0) & needs_i)
+
     # stuck-lane guard, then transport lanes enter the box or escape
     oob = ((o < K.bmin_t) | (o > K.bmax_t)).any(-1)
-    med = torch.where((med == 0) & oob & (mode == 0), -1, med)
+    med = torch.where((med == 0) & oob & (mode == 0) & ~stall, -1, med)
     hit, t_wall, entering = _box_hit(o, d, K.bmin, K.bmax)
-    outside = alive & (mode == 0) & (med != 0)
-    escaped = outside & ~hit
+    outside = alive & (mode == 0) & (med != 0) & ~stall
+    if TR:
+        no_surf = t_surf >= _BIG * 0.5
+        escaped = outside & ~hit & no_surf
+    else:
+        escaped = outside & ~hit
     if K.has_env:
         first = depth == 0
+        if TR:
+            # a delta bounce has no light-sampling competitor
+            first = first | S["spec_last"]
         ru_avg = torch.clamp(_avg3(ru), min=1e-30)
         L = _W(escaped & first, L + b * envL / ru_avg[:, None], L)
         den = torch.clamp(_avg3(ru + rl * K.penv), min=1e-30)
@@ -650,14 +1037,27 @@ def _body(K, G, T, S, seed, spp, rec, counts):
             rec.put((11, 12, 13), rslot - 1, escaped,
                     envL * w_mis[:, None], pix)
     alive = alive & ~escaped
-    enter = alive & outside & hit & entering
-    med = torch.where(enter, 0, med)
-    o = _W(enter, o + (t_wall + 1e-4)[:, None] * d, o)
-    stuck = alive & outside & hit & ~entering
-    alive = alive & ~stuck
-    in_med = alive & (mode == 0) & (med == 0) & ~enter
+    if TR:
+        # a surface before the box wall: a flight outside the medium
+        # reaches a triangle (inside the glass too); otherwise a wall
+        # crossing sets the medium by the side entered
+        wall_o = torch.where(hit, t_wall, _BIG)
+        at_surf_nm = outside & ~escaped & ~no_surf & (t_surf < wall_o)
+        iface = outside & ~escaped & ~at_surf_nm & hit
+        med = torch.where(iface, torch.where(entering, 0, -1), med)
+        o = _W(iface, o + (t_wall + 1e-4)[:, None] * d, o)
+        t_surf = torch.where(iface, t_surf - (t_wall + 1e-4), t_surf)
+        enter = iface & entering
+    else:
+        enter = alive & outside & hit & entering
+        med = torch.where(enter, 0, med)
+        o = _W(enter, o + (t_wall + 1e-4)[:, None] * d, o)
+        stuck = alive & outside & hit & ~entering
+        alive = alive & ~stuck
+    in_med = alive & (mode == 0) & (med == 0) & ~enter & ~stall
     wall = torch.where(hit, t_wall, _BIG)
-    plim = wall
+    # walks are bounded by the nearer of the wall and the next surface
+    plim = torch.minimum(wall, t_surf) if TR else wall
     has_c = S["has_c"]
 
     # ---- one shared majorant + density event of every walking lane ------
@@ -755,28 +1155,33 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     sh_t_new = sh_t + step + 1e-6
     sh_t = torch.where(is_sh, sh_t_new, sh_t)
     s_dead = is_sh & ((_max3(sT) == 0) | (sh_t_new >= sh_end))
+    # the fold value per channel: a glossy surface's f is tinted
+    f3 = (torch.stack([sh_f, S["sh_f1"], S["sh_f2"]], -1)
+          if TR and G.any_rough else sh_f[:, None])
+    ra = S["ra"]  # a surface NEE record's albedo tint (1 elsewhere)
     if K.has_point:
         okp = s_dead & (mode == 4)
         denom = torch.clamp(_avg3(sl * ru * K.pmf), min=1e-30)
-        w = sh_f / (sh_d2 * denom)
-        L = _W(okp, L + b * sT * lI * w[:, None], L)
+        w = f3 / (sh_d2 * denom)[:, None]
+        L = _W(okp, L + b * sT * lI * w, L)
         if rec is not None:
             den_lp = torch.clamp(_avg3(sl * K.pmf), min=1e-30)
             wl_ = sh_fl / (sh_d2 * den_lp)
-            rec.put((8, 9, 10), rslot - 1, okp, sT * lI * wl_[:, None], pix)
+            rec.put((8, 9, 10), rslot - 1, okp,
+                    sT * lI * wl_[:, None] * ra, pix)
     if K.has_env:
         oke = s_dead & (mode == 5)
         p_l = K.penv
         denom = torch.clamp(_avg3(sl * ru * p_l + su * ru * sh_pdf[:, None]),
                             min=1e-30)
-        w = sh_f / denom
-        L = _W(oke, L + b * sT * envL * w[:, None], L)
+        w = f3 / denom[:, None]
+        L = _W(oke, L + b * sT * envL * w, L)
         if rec is not None:
             den_le = torch.clamp(_avg3(sl * p_l + su * sh_pdf[:, None]),
                                  min=1e-30)
             wl_ = sh_fl / den_le
-            rec.put((8, 9, 10), rslot - 1, oke, sT * envL * wl_[:, None],
-                    pix, add=True)
+            rec.put((8, 9, 10), rslot - 1, oke,
+                    sT * envL * wl_[:, None] * ra, pix, add=True)
     mode = torch.where(s_dead, 0, mode)
 
     # ---- mode 3: one delta-tracking step (ODS lanes ride the same algebra
@@ -935,9 +1340,18 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     alive = alive & ~(scat_w & (depth >= K.max_depth))
     scat = scat_w & (depth < K.max_depth) & alive
     depth = torch.where(scat, depth + 1, depth)
-    med = torch.where(passed, -1, med)
+    # a walk that passes ends at the box wall (the lane leaves the medium)
+    # or, with triangles, at the next surface (the medium unchanged)
+    if TR:
+        at_surf_m = passed & (t_surf < wall - 1e-6)
+        leave = passed & ~at_surf_m
+    else:
+        leave = passed
+    med = torch.where(leave, -1, med)
     mode = torch.where(passed | term_w | scat_w, 0, mode)
-    o = _W(passed, o + (wall + 1e-4)[:, None] * d, o)
+    o = _W(leave, o + (wall + 1e-4)[:, None] * d, o)
+    if TR:
+        t_surf = torch.where(leave, t_surf - (wall + 1e-4), t_surf)
 
     # ---- field query: walk starts (secondary VSP) and scatter vertices ---
     s = o + t_sc[:, None] * d
@@ -946,7 +1360,17 @@ def _body(K, G, T, S, seed, spp, rec, counts):
         if G.guide_secondary:
             _count(counts, "queries", (in_med & (depth != 0)).sum())
     q = _W(scat, s, o)
-    lob, valid_q, vsp_cell_q, flux_q = _field_query(G, ftab, q)
+    if TR:
+        # surface interactions (the depth cap holds for surfaces too)
+        hit_s0 = (at_surf_m | at_surf_nm) & (hmat >= 0)
+        alive = alive & ~(hit_s0 & (depth >= K.max_depth))
+        hit_s = hit_s0 & alive
+        depth = torch.where(hit_s, depth + 1, depth)
+        hpos = o + t_surf[:, None] * d
+        q = _W(hit_s, hpos, q)
+        _count(counts, "surface_events", hit_s.sum())
+    fq = _field_query(G, ftab, q)
+    lob, valid_q, vsp_cell_q, flux_q = fq[:4]
     primary = depth == 0
     vsp = torch.full_like(vsp_c, -1.0)
     if G.guide_primary:
@@ -993,6 +1417,8 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     use_guide = scat & valid_q & G.vol_guiding
     prod = _product_hg(K, G, lob, d)
     wo = -d
+    if TR:
+        SF = _surface_frame(K, G, fq[4:], hit_s, hng, hmat, d, mats)
     if G.guide_rr:
         bf = b * flux_q
         num_rr = bf[:, 0] * _LUM[0] + bf[:, 1] * _LUM[1] + bf[:, 2] * _LUM[2]
@@ -1010,7 +1436,11 @@ def _body(K, G, T, S, seed, spp, rec, counts):
         sel_pt = (up0 < K.pmf) if K.has_env else torch.ones_like(scat)
     else:
         sel_pt = torch.zeros_like(scat)
-    pl = s - K.lp
+    # volume scatters and non-delta surfaces share one light sample (the
+    # Pallas kernel takes glossy surfaces' from the volume vertex's
+    # position, a fault the port does not copy: ROADMAP.md §C)
+    sp = _W(SF["shade_df"] | SF["glossy"], hpos, s) if TR else s
+    pl = sp - K.lp
     dist2 = torch.clamp(_dot(pl, pl), min=1e-12)
     dist = torch.sqrt(dist2)
     ez = 1.0 - 2.0 * up1
@@ -1021,9 +1451,11 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     f_hg = _hg_value(K, _dot(wo, wi))
     spdf_l = torch.where(use_guide, G.one_m_pg_nee * f_hg
                          + G.pg_nee * _mixture_pdf(K, prod, wi), f_hg)
-    _, t_exit_s, _ = _box_hit(s, wi, K.bmin, K.bmax)
+    _, t_exit_s, _ = _box_hit(sp, wi, K.bmin, K.bmax)
     t_med = torch.where(sel_pt, torch.minimum(dist, t_exit_s), t_exit_s)
     nee_act = scat & (f_hg > 0)
+    if TR:
+        _surface_nee(K, G, SF, wi)
 
     u_p0, u_p1, u_sel, u_pk = U()
     u_c, u_g0, u_g1, _ = U()
@@ -1072,32 +1504,124 @@ def _body(K, G, T, S, seed, spp, rec, counts):
     o = _W(scat, s, o)
     d = _W(scat, wv, d)
 
+    if TR:
+        # ---- surface bounces ---------------------------------------------
+        u_s0, u_s1, u_s2, _ = U()
+        spec_lane = SF["shade_co"] | SF["shade_dl"]
+        SB = _surface_bounce(K, G, SF, d, (u_s0, u_s1, u_s2),
+                             (u_c, u_g0, u_g1, u_pk, u_sel), U)
+        hit_s = SB["hit_s"]
+        b = _W(hit_s, b * SB["w_b"], b)
+        rl = _W(hit_s, _W(SB["nondelta"], ru * SB["inv_mis"][:, None], ru),
+                rl)
+        # dielectric transmission switches to the far side's medium
+        med = torch.where(SB["went_t"], torch.where(SF["front"], hmi, hmo),
+                          med)
+        ns = SF["ns"]
+        out_sgn = torch.where(_dot(SB["n_d"], ns) >= 0, 1.0, -1.0)
+        o = _W(hit_s, hpos + (out_sgn * 1e-4)[:, None] * ns, o)
+        d = _W(hit_s, SB["n_d"], d)
+        spec_last = torch.where(hit_s, ~SB["nondelta"],
+                                S["spec_last"] & ~scat)
+        t_surf = torch.where(hit_s | scat, _BIG, t_surf)
+        needs_i = needs_i | hit_s | scat
+        # guided RR at surfaces: the surface half's flux and the
+        # continued beta; delta lanes survive at 0.95
+        if G.guide_rr:
+            bf = b * SF["sflux"]
+            num_rs = (bf[:, 0] * _LUM[0] + bf[:, 1] * _LUM[1]
+                      + bf[:, 2] * _LUM[2])
+            surv_s = torch.where(
+                SF["svalid"] & (S["ipem"] > 0),
+                torch.clamp(num_rs / torch.clamp(S["ipel"], min=1e-6), 0.1,
+                            1.0), 1.0)
+            surv_s = torch.where(spec_lane, 0.95, surv_s)
+        else:
+            surv_s = torch.clamp(_max3(b) / torch.clamp(_avg3(ru),
+                                                        min=1e-30), 0.0, 1.0)
+        rr_srv = torch.where(hit_s & (depth > G.min_rr_depth), surv_s,
+                             rr_srv)
+
     if rec is not None:
+        # a new vertex slot per recorded vertex: volume scatters and, with
+        # triangles, non-delta surface bounces (delta bounces are not
+        # recorded); vertices past the record depth are dropped
         ones = torch.ones_like(scale_v)
-        rec.put((0, 1, 2), rslot, scat, s, pix)
-        rec.put((3, 4, 5), rslot, scat, wv, pix)
-        rec.put((6, 22, 23, 7, 18), rslot, scat,
-                torch.stack([scale_v, scale_v, scale_v, pdf_v, ones], -1),
-                pix)
+        rec_v, rp, rw, rpdf = scat, s, wv, pdf_v
+        rsw = torch.stack([scale_v, scale_v, scale_v], -1)
+        is_vol = ones
+        if TR:
+            rec_nd = SB["nondelta"]
+            rec_v = scat | rec_nd
+            rp = _W(rec_nd, hpos, s)
+            rw = _W(SF["shade_df"], SB["ws"], wv)
+            rsw = _W(SF["shade_df"], SF["alb"] * SB["s_df"][:, None], rsw)
+            rpdf = torch.where(SF["shade_df"], SB["pdf_sv"], pdf_v)
+            if G.any_rough:
+                glossy = SF["glossy"]
+                rw = _W(glossy, SB["wi_w"], rw)
+                rsw = _W(glossy, SB["wg"], rsw)
+                rpdf = torch.where(glossy, SB["pdf_gs"], rpdf)
+            is_vol = scat.to(torch.float32)
+        rec.put((0, 1, 2), rslot, rec_v, rp, pix)
+        rec.put((3, 4, 5), rslot, rec_v, rw, pix)
+        rec.put((6, 22, 23, 7, 18), rslot, rec_v, torch.cat(
+            [rsw, rpdf[:, None], is_vol[:, None]], -1), pix)
         f1 = scat & (depth == 1)
         zs = torch.zeros_like(rslot)
         rec.put((14, 15, 16, 17, 19, 20, 21), zs, f1, torch.cat(
             [ones[:, None], wo, ones[:, None] * G.alb], -1), pix)
-        rslot = torch.where(scat, rslot + 1, rslot)
+        if TR:
+            fs1 = hit_s & (depth == 1)
+            rec.put((15, 16, 17, 19, 20, 21), zs, fs1,
+                    torch.cat([SF["ns"], SF["alb"]], -1), pix)
+        rslot = torch.where(rec_v, rslot + 1, rslot)
 
     # ---- arm the shadow walk of the pending NEE ---------------------------
     nee_go = nee_act & alive
-    mode = torch.where(nee_go, torch.where(sel_pt, 4, 5), mode)
-    sh = _W(nee_go, wi, sh)
-    sh_t = torch.where(nee_go, 0.0, sh_t)
-    sh_end = torch.where(nee_go, t_med, sh_end)
+    nee_all = nee_go
+    if TR:
+        nee_gs = SF["nee_srf"] & alive & SF["shade_df"]
+        nee_gl = SF["nee_glo"] & alive
+        nee_all = nee_go | nee_gs | nee_gl
+    mode = torch.where(nee_all, torch.where(sel_pt, 4, 5), mode)
+    sh = _W(nee_all, wi, sh)
+    sh_t = torch.where(nee_all, 0.0, sh_t)
+    sh_end = torch.where(nee_all, t_med, sh_end)
     sh_pdf = torch.where(nee_go, spdf_l, sh_pdf)
-    sh_d2 = torch.where(nee_go, dist2, sh_d2)
+    sh_d2 = torch.where(nee_all, dist2, sh_d2)
     sh_f = torch.where(nee_go, f_hg / torch.clamp(scale_v, min=1e-30), sh_f)
     sh_fl = torch.where(nee_go, f_hg, sh_fl)
-    sT = _W(nee_go, one3, sT)
-    sl = _W(nee_go, one3, sl)
-    su = _W(nee_go, one3, su)
+    sh_f1, sh_f2, ra = S["sh_f1"], S["sh_f2"], S["ra"]
+    if TR:
+        # the surface NEE folds with the continued beta: at a diffuse
+        # surface f = cos/pi and beta carries alb * s_df, so the fold is
+        # (cos/pi) / s_df; a glossy fold is per channel
+        sh_pdf = torch.where(nee_gs | nee_gl, SF["spdf_srf"], sh_pdf)
+        sh_f = torch.where(nee_gs, SF["f_srf_nee"]
+                           / torch.clamp(SB["s_df"], min=1e-30), sh_f)
+        sh_fl = torch.where(nee_gs, SF["f_srf_nee"], sh_fl)
+        sh_occ = sh_occ | nee_all
+        if G.any_rough:
+            sh_f1 = torch.where(nee_go | nee_gs, sh_f, sh_f1)
+            sh_f2 = torch.where(nee_go | nee_gs, sh_f, sh_f2)
+            fold = (SF["fne"] * SF["cosn"][:, None]
+                    / torch.clamp(SB["wg"], min=1e-30))
+            sh_f = torch.where(nee_gl, fold[:, 0], sh_f)
+            sh_f1 = torch.where(nee_gl, fold[:, 1], sh_f1)
+            sh_f2 = torch.where(nee_gl, fold[:, 2], sh_f2)
+            sh_fl = torch.where(nee_gl, SF["cosn"], sh_fl)
+        if rec is not None:
+            # surface NEE records carry the material's albedo tint
+            ra = _W(nee_all, _W(nee_gs, SF["alb"], one3), ra)
+            if G.any_rough:
+                ra = _W(nee_gl, SF["fne"], ra)
+    # every armed walk starts from unit transmittance (the Pallas kernel
+    # resets it for volume NEE only, so that a surface NEE there folds the
+    # previous walk's: a fault the port does not copy, ROADMAP.md §C)
+    sT = _W(nee_all, one3, sT)
+    sl = _W(nee_all, one3, sl)
+    su = _W(nee_all, one3, su)
 
     # ---- commit finished samples, start the next ones ---------------------
     samp = S["samp"]
@@ -1122,6 +1646,13 @@ def _body(K, G, T, S, seed, spp, rec, counts):
         mode = mode.index_put((j,), zero_j)
         rr_srv = rr_srv.index_put((j,), torch.ones(j.numel(), device=dev))
         rslot = rslot.index_put((j,), zero_j)
+        if TR:
+            t_surf = t_surf.index_put((j,), torch.full(
+                (j.numel(),), _BIG, device=dev))
+            true_j = torch.ones_like(j, dtype=torch.bool)
+            needs_i = needs_i.index_put((j,), true_j)
+            sh_occ = sh_occ.index_put((j,), ~true_j)
+            spec_last = spec_last.index_put((j,), ~true_j)
     alive = alive | has_budget
     S.update(alive=alive, mode=mode, o=o, d=d, b=b, ru=ru, rl=rl, L=L,
              hero=hero, depth=depth, med=med, rr_srv=rr_srv, maj_sc=maj_sc,
@@ -1129,7 +1660,11 @@ def _body(K, G, T, S, seed, spp, rec, counts):
              wu=wu, wl=wl, wT=wT, wr=wr, c_t=c_t, c_wi=c_wi, c_ste=c_ste,
              cn=cn, cd=cd, has_c=has_c, sh=sh, sh_t=sh_t, sh_end=sh_end,
              sh_pdf=sh_pdf, sh_d2=sh_d2, sT=sT, sl=sl, su=su, sh_f=sh_f,
-             sh_fl=sh_fl, rslot=rslot, samp=samp, acc=acc, dim=dim)
+             sh_fl=sh_fl, rslot=rslot, samp=samp, acc=acc, dim=dim, ra=ra,
+             sh_f1=sh_f1, sh_f2=sh_f2)
+    if TR:
+        S.update(t_surf=t_surf, hng=hng, hmat=hmat, hmi=hmi, hmo=hmo,
+                 needs_i=needs_i, sh_occ=sh_occ, spec_last=spec_last)
 
 
 def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None):
@@ -1144,7 +1679,8 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None):
     if tuple(itab.shape) != (gconst.isgb_rows, npix):
         raise ValueError(f"ISGB table of shape {tuple(itab.shape)}, want "
                          f"{(gconst.isgb_rows, npix)}")
-    T = (c.density.reshape(-1), c.majorant.reshape(-1), ftab)
+    T = (c.density.reshape(-1), c.majorant.reshape(-1), ftab, c.tris,
+         c.mats)
     rec = None if rec_depth is None else _Rec(int(rec_depth), npix, K.dev)
     S = _init_lanes(K, seed, itab)
     out = torch.zeros((npix, 3), device=K.dev)
@@ -1205,8 +1741,19 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
     _check(c.density, torch.float32, res, dev, "density")
     _check(c.majorant, torch.float32, mres, dev, "majorant")
     gi = g.iconst.tolist()
-    P = 8 * gi[GI_K] + 8
+    P = (8 * gi[GI_K] + 8) * (2 if c.n_tri else 1)
     _check(ftab, torch.float32, (P, gi[GI_NCELL]), dev, "ftab")
+    n_tri = c.n_tri
+    n_mat = 0 if c.mats is None else int(c.mats.shape[0])
+    if n_tri:
+        from .volpath_kernels import MAX_MATS, MAX_TRIS_GRID
+
+        if not (n_tri <= MAX_TRIS_GRID and 1 <= n_mat <= MAX_MATS):
+            raise ValueError(f"{n_tri} triangles / {n_mat} materials: the "
+                             f"kernel takes 1-{MAX_TRIS_GRID} and "
+                             f"1-{MAX_MATS}")
+        _check(c.tris, torch.float32, (n_tri, TRI_COLS), dev, "tris")
+        _check(c.mats, torch.float32, (n_mat, MAT_COLS), dev, "mats")
     npix = c.nx * c.ny
     _check(itab, torch.float32, (g.isgb_rows, npix), dev, "itab")
     nmaj = mres[0] * mres[1] * mres[2]
@@ -1229,13 +1776,18 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record(stream)
         fn = getattr(lib, f"{name}_launch")
+        if n_tri:
+            name += "_tris"
         err = fn(c.fconst.data_ptr(), c.iconst.data_ptr(),
                  g.fconst.data_ptr(), g.iconst.data_ptr(),
                  c.density.data_ptr(), c.majorant.data_ptr(),
-                 ftab.data_ptr(), itab.data_ptr(), out.data_ptr(),
+                 ftab.data_ptr(), itab.data_ptr(),
+                 c.tris.data_ptr() if n_tri else 0,
+                 c.mats.data_ptr() if n_tri else 0, out.data_ptr(),
                  0 if rec is None else rec.data_ptr(), npix, int(spp),
                  int(seed) & 0xFFFFFFFF, c.imaging_ratio / int(spp), nmaj, D,
-                 int(g.ris), int(g.method), stream.cuda_stream)
+                 int(g.ris), int(g.method), n_tri, n_mat,
+                 stream.cuda_stream)
         if events is not None:
             events[1].record(stream)
             LAUNCH_EVENTS.append((name, *events))
@@ -1283,7 +1835,8 @@ def kernel_inputs(scene, camera, film, cfg, gopt, vopt, field, isgb,
     dev = c.fconst.device
     gc = guiding_constants(field, gopt, vopt)
     g = pack_guiding_constants(c, gc, dev)
-    ftab = torch.as_tensor(pack_field_table(field, vopt.vsp_criterion),
+    ftab = torch.as_tensor(pack_field_table(field, vopt.vsp_criterion,
+                                            with_surface=c.n_tri > 0),
                            device=dev)
     npix = c.nx * c.ny
     if g.isgb_rows == 6 and tr_buffer is None:

@@ -1,6 +1,6 @@
 """Scalar math helpers (counterpart of ``vspg_pbrt_v4_tpu/utils/math.py``).
 
-Only the constants and ``safe_*`` helpers the volpath slice uses.
+Only the constants and ``safe_*`` helpers the ported integrators use.
 """
 
 from __future__ import annotations
@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 PI = 3.14159265358979323846
+INV_PI = 1.0 / PI
 INV_4PI = 1.0 / (4.0 * PI)
 
 

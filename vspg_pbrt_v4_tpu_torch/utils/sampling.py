@@ -1,11 +1,11 @@
 """Sampling warps and the Henyey-Greenstein phase function (counterpart
-of ``utils/sampling.py``, only what volpath uses)."""
+of ``utils/sampling.py``, only what the ported integrators use)."""
 
 from __future__ import annotations
 
 import torch
 
-from .math import INV_4PI, PI, safe_div, safe_sqrt, sqr
+from .math import INV_4PI, INV_PI, PI, safe_div, safe_sqrt, sqr
 from .vecmath import coordinate_system, spherical_direction
 
 
@@ -19,6 +19,35 @@ def sample_uniform_sphere(u2):
     r = safe_sqrt(1.0 - sqr(z))
     phi = 2.0 * PI * u2[..., 1]
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def sample_uniform_disk_concentric(u2):
+    """Shirley's concentric square-to-disk map."""
+    ox = 2.0 * u2[..., 0] - 1.0
+    oy = 2.0 * u2[..., 1] - 1.0
+    zero = (ox == 0) & (oy == 0)
+    use_x = torch.abs(ox) > torch.abs(oy)
+    r = torch.where(use_x, ox, oy)
+    theta = torch.where(use_x, (PI / 4.0) * safe_div(oy, ox),
+                        (PI / 2.0) - (PI / 4.0) * safe_div(ox, oy))
+    p = r[..., None] * torch.stack([torch.cos(theta), torch.sin(theta)], -1)
+    return torch.where(zero[..., None], 0.0, p)
+
+
+def sample_uniform_disk_polar(u2):
+    r = torch.sqrt(u2[..., 0])
+    theta = 2.0 * PI * u2[..., 1]
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+
+
+def sample_cosine_hemisphere(u2):
+    d = sample_uniform_disk_concentric(u2)
+    z = safe_sqrt(1.0 - sqr(d[..., 0]) - sqr(d[..., 1]))
+    return torch.stack([d[..., 0], d[..., 1], z], -1)
+
+
+def cosine_hemisphere_pdf(cos_theta):
+    return cos_theta * INV_PI
 
 
 def henyey_greenstein(cos_theta, g):

@@ -1,5 +1,5 @@
 """Vector geometry over ``(..., 3)`` tensors (counterpart of
-``utils/vecmath.py``, only what volpath uses)."""
+``utils/vecmath.py``, only what the ported integrators use)."""
 
 from __future__ import annotations
 
@@ -10,6 +10,13 @@ from .math import safe_div, sqr
 
 def dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def cross(a, b):
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
 
 
 def normalize(v):
@@ -31,6 +38,20 @@ def coordinate_system(v):
         [1.0 + sign * sqr(v[..., 0]) * a, sign * b, -sign * v[..., 0]], dim=-1)
     t2 = torch.stack([b, sign + sqr(v[..., 1]) * a, -v[..., 1]], dim=-1)
     return t1, t2
+
+
+def abs_cos_theta(w):
+    return torch.abs(w[..., 2])
+
+
+def tan2_theta(w):
+    """tan^2 of the local-frame polar angle; inf at cos = 0."""
+    c2 = sqr(w[..., 2])
+    return safe_div(torch.clamp(1.0 - c2, min=0.0), c2, fill=torch.inf)
+
+
+def same_hemisphere(w, wp):
+    return w[..., 2] * wp[..., 2] > 0
 
 
 def spherical_direction(sin_theta, cos_theta, phi):
