@@ -21,8 +21,11 @@ diffuse parts in the pyro cloud): the grid kernel's and the VSPG kernel's
 triangle instantiations against their plain versions, a teaser furnace,
 ``render_persistent`` at 1920x1088 and ``render_vspg`` at 128^2 on the
 machines, and the VSPG kernel's frozen render against the torch wave's,
-also with rough surfaces. Every line with a number names the card and its
-power limit. Any failure raises and exits
+also with rough surfaces. Phase 10 does it for the mesh class (the bench's
+3072-triangle PLY machines in the pyro cloud, walked through their BVH):
+the grid kernel's mesh build against its plain version, a mesh furnace and
+``render_persistent`` at 1920x1088. Every line with a number names the card
+and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -80,6 +83,14 @@ OPS = {
     "volpath_grid_tris": {"fma": True, "events": (170, 30),
                           "flight_steps": (90, 13), "shadow_steps": (100, 20),
                           "tri_tests": (30, 1), "surface_events": (400, 40)},
+    # the mesh class: each closest-hit or shadow query (three reciprocals)
+    # walks the BVH: a node visit (the slab test: six subtractions and
+    # multiplies, min/max per axis and across, the widening, three
+    # compares) and a leaf triangle test (the ray-triangle test)
+    "volpath_grid_mesh": {"fma": True, "events": (170, 30),
+                          "flight_steps": (90, 13), "shadow_steps": (100, 20),
+                          "surface_events": (400, 40), "queries": (6, 3),
+                          "node_visits": (25, 0), "leaf_tests": (30, 1)},
     # lane-iterations (box test, deferred roulette, eight draws), walk and
     # shadow steps (cell exit, eight-corner trilerp, mode update), scatter
     # vertices (field query, HG product, NEE pick, RIS or MIS direction)
@@ -123,6 +134,21 @@ def _at():
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _events_best_of_3(fn):
+    """Best device time in ms of 3 warm runs of `fn`, by CUDA events."""
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
 
 
 def _best_of_3(fn):
@@ -194,7 +220,10 @@ def main():
     # kernel against its plain version: least fraction of pixels within 1e-3
     # relative (or 1e-5 absolute), largest relative difference of the means;
     # the grid walk branches on more float compares, so it flips more pixels
-    tol = {"homog": (0.99, 1e-3), "grid": (0.98, 2e-3), "vspg": (0.98, 2e-3)}
+    # (the mesh class: 0.9999 and 1e-5, the parity the header's -O0 builds
+    # hold)
+    tol = {"homog": (0.99, 1e-3), "grid": (0.98, 2e-3), "vspg": (0.98, 2e-3),
+           "mesh": (0.9999, 1e-5)}
 
     def check_parity(label, kind, k, p):
         frac, mean_rel, max_abs = _parity(k, p)
@@ -264,7 +293,13 @@ def main():
         counts = {}
         ref8 = plain[kind](c, 8, 5, counts)
         t_kernel, k_img = _best_of_3(lambda: vk.render(c, spp, 5))
-        t_plain, p_img = _best_of_3(lambda: plain[kind](c, spp, 5))
+        # the plain version timed once (it repeats the kernel's arithmetic
+        # lane by lane and is no yardstick of speed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_img = plain[kind](c, spp, 5)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
         # the main path's image is the kernel's (deterministic, same seed)
         assert torch.equal(img, k_img), name
         max_abs = check_parity(f"phase 6 parity {name} {res}x{res}x{spp}",
@@ -296,6 +331,7 @@ def main():
                       "vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380"),
             launches=launches[kind], max_abs_err=max_abs,
             ms=t_kernel * 1e3, plain_ms=t_plain * 1e3, bound_ms=bound,
+            bound_pipe=max(pipes, key=pipes.get),
             bound_by=bound_by, library_ms=None))
 
     print(f"phase 6 done {_at()}", flush=True)
@@ -304,13 +340,18 @@ def main():
     # script in its 1200 s
     print("cuts: parity renders 7a/8a 64x64x2 spp, 9a 64x64x1 spp (was "
           "64x64x4); 8a NDS-RIS and NDS+-MIS only (was all four); NDS+ "
-          "training 5 torch waves (bench: 48)", flush=True)
+          "training 5 torch waves (bench: 48); phase 6 plain versions timed "
+          "once (was best of 3); 10c's plain version on a 256x128 crop of "
+          "the 1920x1088x8 main path", flush=True)
     kernels += _phase7(dev, tag, check_parity, fma_lib)
     print(f"phase 7 done {_at()}", flush=True)
     kernels += _phase8(dev, tag, check_parity)
     print(f"phase 8 done {_at()}", flush=True)
     kernels += _phase9(dev, tag, check_parity)
     print(f"phase 9 done {_at()}", flush=True)
+    b2b_ms = next(k["ms"] for k in kernels if k["name"] == "volpath_grid_tris")
+    kernels += _phase10(dev, tag, check_parity, b2b_ms)
+    print(f"phase 10 done {_at()}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -538,10 +579,12 @@ def _phase7(dev, tag, check_parity, fma_lib):
         dict(name="vspg_render", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_render"], max_abs_err=max_ren,
              ms=t_k64 * 1e3, plain_ms=t_p2 * 1e3, bound_ms=b_ren,
+             bound_pipe=max(p_ren, key=p_ren.get),
              bound_by=by_ren, library_ms=None, plain_spp=spp_plain),
         dict(name="vspg_record", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_record"], max_abs_err=max_rec,
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
+             bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None),
     ]
 
@@ -805,6 +848,7 @@ def _phase8(dev, tag, check_parity):
         return dict(name="vspg_render_" + method.replace("+", "p"),
                     route="cuda", source=src, replaces=rep, launches=launches,
                     max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1 * 1e3,
+                    bound_pipe=max(p_ren, key=p_ren.get),
                     bound_ms=b_ren, bound_by=by_ren, library_ms=None,
                     plain_spp=1)
 
@@ -825,6 +869,7 @@ def _phase8(dev, tag, check_parity):
         dict(name="vspg_record_nds", route="cuda", source=src, replaces=rep,
              launches=launches_n["vspg_record"], max_abs_err=max_rec,
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
+             bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None),
     ]
 
@@ -973,7 +1018,7 @@ def _phase9(dev, tag, check_parity):
 
     # ---- 9c: the volpath teaser cell ----------------------------------------
     # bench_config5m with the 48-triangle proxy in place of the PLY mesh
-    # (the mesh class needs the BVH, ROADMAP.md §B): 1920x1088 x 8 spp
+    # (phase 10c renders the mesh): 1920x1088 x 8 spp
     nx, ny, spp_m = 1920, 1088, 8
     cam_m = PerspectiveCamera.make(
         tr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=dev), 35.0,
@@ -1143,16 +1188,223 @@ def _phase9(dev, tag, check_parity):
         dict(name="volpath_grid_tris", route="cuda", source=src_g,
              replaces=rep_g, launches=launches_m["grid_tris"],
              max_abs_err=max_m, ms=t_k * 1e3, plain_ms=t_p1 * 1e3,
+             bound_pipe=max(pipes_m, key=pipes_m.get),
              bound_ms=b_m, bound_by=by_m, library_ms=None, plain_spp=1),
         dict(name="vspg_render_tris", route="cuda", source=src_v,
              replaces=rep_v, launches=launches_v["vspg_render_tris"],
              max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1v * 1e3,
+             bound_pipe=max(p_ren, key=p_ren.get),
              bound_ms=b_ren, bound_by=by_ren, library_ms=None, plain_spp=1),
         dict(name="vspg_record_tris", route="cuda", source=src_v,
              replaces=rep_v, launches=launches_v["vspg_record_tris"],
              max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
+             bound_pipe=max(p_rec, key=p_rec.get),
              bound_ms=b_rec, bound_by=by_rec, library_ms=None),
     ]
+
+
+def _phase10(dev, tag, check_parity, b2b_ms):
+    """Phase 10, the mesh class: the bench's 3072-triangle PLY machines in
+    the pyro cloud (bench_config5m). 10a holds B2c (volpath_grid_mesh)
+    against its plain version, whose closest hit is a brute-force sweep of
+    every triangle; 10b is a mesh furnace; 10c renders the cell through
+    render_persistent at 1920x1088 x 8 spp, with the BVH's host build time
+    and B2c's bound. `b2b_ms` is phase 9c's 48-triangle B2b time. Returns
+    B2c's entry of the kernels line."""
+    from vspg_pbrt_v4_tpu_torch.models.cameras import PerspectiveCamera
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry, build_tri_bvh
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops.bvh import bvh_traverse
+    from vspg_pbrt_v4_tpu_torch.ops.intersect import ray_triangle
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.utils import transform as tr
+
+    cfg = volpath.VolPathConfig(max_depth=24, max_events=128)
+    nx, ny, spp = 1920, 1088, 8
+
+    def view(w, h, fov):
+        cam = PerspectiveCamera.make(
+            tr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=dev), fov,
+            (w, h), device=dev)
+        return cam, RGBFilm.make((w, h), device=dev)
+
+    t0 = time.perf_counter()
+    mesh = vk.make_machines_scene(mesh=True, device=dev)
+    t_scene = time.perf_counter() - t0
+    g = mesh.geometry
+    assert g.n_tri == 3072 and g.tri_bvh is not None
+
+    # ---- 10a: parity at the bench camera's aspect, and at 4 spp: the -O3
+    # builds of B2b and B2c lost warps' samples from the third on (ROADMAP
+    # C 1) -----------------------------------------------------------------
+    # The 480x272x1 run also keeps the query rays of its plain version
+    # (closest hits cut at the wall; shadow rays of the lanes with a light
+    # sample, cut at the light) for 10c's bound.
+    counts, rays = {}, {"_grid_event": [], "_nee": []}
+    tri_hit = vk._tri_hit
+
+    def keep_rays(tab, o, d, t_max):
+        caller = sys._getframe(1)
+        who = caller.f_code.co_name
+        live = caller.f_locals["ok"] if who == "_nee" else slice(None)
+        rays[who].append((o[live], d[live], t_max[live]))
+        return tri_hit(tab, o, d, t_max)
+
+    for name, (w, h), spp_a, fov in (("smooth", (480, 272), 1, 35.0),
+                                     ("smooth", (128, 128), 4, 30.0),
+                                     ("rough", (64, 64), 4, 30.0)):
+        scene = (mesh if name == "smooth" else
+                 vk.make_machines_scene(mesh=True, materials=name,
+                                        device=dev))
+        c = vk.extract_constants(scene, *view(w, h, fov), cfg)
+        assert c.n_tri == 3072 and c.nodes is not None
+        k = vk.render(c, spp_a, 5)
+        first = not counts
+        vk._tri_hit = keep_rays if first else tri_hit
+        try:
+            p = vk.render_grid_plain(c, spp_a, 5, counts if first else None)
+        finally:
+            vk._tri_hit = tri_hit
+        torch.cuda.synchronize()
+        max_abs = check_parity(f"phase 10a parity volpath_grid_mesh ({name}) "
+                               f"{w}x{h}x{spp_a}", "mesh", k, p)
+        if first:
+            c_a, max_a = c, max_abs
+    print(f"phase 10a plain version (brute force over 3072 triangles) "
+          f"{c_a.nx}x{c_a.ny}x1 counted work {counts}, {_at()} {tag}",
+          flush=True)
+
+    # ---- 10b: mesh furnace: a white diffuse mesh in a scattering-only
+    # cloud under a constant env of 0.7 -------------------------------------
+    x = np.linspace(-1, 1, 16)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
+        np.float32) * 3.0
+    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
+                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
+    white = [dict(t, mat=0) for t in vk.machine_mesh_tris()]
+    furnace = volpath.Scene(
+        Geometry.build([dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1,
+                             light=-1, med_in=0, med_out=-1)], white,
+                       device=dev),
+        Materials.build([dict(type=0, albedo=(1.0,) * 3)], device=dev),
+        Media.make(grids=(gm,), device=dev),
+        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
+    cfg_f = volpath.VolPathConfig(max_depth=64, max_events=256)
+    c_f = vk.extract_constants(furnace, vk.bench_camera(64, device=dev),
+                               RGBFilm.make((64, 64), device=dev), cfg_f)
+    assert c_f.nodes is not None
+    m_f = vk.render(c_f, 64, 3).mean().item()
+    print(f"phase 10b mesh furnace: volpath_grid_mesh mean {m_f:.5f} (0.7 "
+          f"within 3%) {tag}", flush=True)
+    assert abs(m_f - 0.7) / 0.7 < 0.03, m_f
+
+    # ---- 10c: the volpath mesh cell (bench_config5m) ------------------------
+    p0, p1, p2 = (t.cpu().numpy() for t in (g.tri_p0, g.tri_p1, g.tri_p2))
+    t_bvh = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bvh, builder = build_tri_bvh(p0, p1, p2, device="cpu")
+        t_bvh = min(t_bvh, time.perf_counter() - t0)
+    cam, film = view(nx, ny, 35.0)
+
+    def call():
+        return volpath.render_persistent(mesh, cam, film, spp=spp, cfg=cfg,
+                                         seed=5, backend="auto", device=dev)
+
+    for counter in (vk.LAUNCHES, sk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    img = call()
+    torch.cuda.synchronize()
+    launches = dict(vk.LAUNCHES)
+    assert launches == dict({k: 0 for k in vk.LAUNCHES}, grid_mesh=1), \
+        launches
+    assert all(v == 0 for v in sk.LAUNCHES.values()), sk.LAUNCHES
+    assert tuple(img.shape) == (ny, nx, 3) and bool(torch.isfinite(img).all())
+    assert img.mean().item() > 0
+    t_call, _ = _best_of_3(call)
+    c = vk.extract_constants(mesh, cam, film, cfg)
+    k_ms = _events_best_of_3(lambda: vk.render(c, spp, 5))
+    assert torch.equal(img, vk.render(c, spp, 5))
+    # B2c at the main path's 8 spp on its own inputs, against its plain
+    # version on a crop over the machines (whole warps of 32 pixels)
+    x0, y0, cw, ch = 832, 480, 256, 128
+    yy, xx = torch.meshgrid(torch.arange(y0, y0 + ch, device=dev),
+                            torch.arange(x0, x0 + cw, device=dev),
+                            indexing="ij")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = vk.render_grid_plain(c, spp, 5, pixels=(yy * nx + xx).reshape(-1))
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    crop = (slice(y0, y0 + ch), slice(x0, x0 + cw))
+    max_c = check_parity(f"phase 10c parity volpath_grid_mesh {cw}x{ch} "
+                         f"crop of {nx}x{ny}x{spp}", "mesh", img[crop],
+                         p[crop])
+    # the bound: the plain version's counted work at 480x272x1 scaled to
+    # the cell's paths; the BVH work is that of the very queries that run
+    # made (closest hit cut at the wall, shadow rays cut at the light),
+    # walked by the torch traversal, closest-hit and first-hit as the
+    # kernel walks them (an estimate: another shape and spp)
+    def closest_walk(o, d, t_max, walk):
+        def leaf(pid, m, t_best, k):
+            hit, t = ray_triangle(o, d, t_best, g.tri_p0[pid],
+                                  g.tri_p1[pid], g.tri_p2[pid])[:2]
+            return torch.where(m & hit, t, t_best), k
+        bvh_traverse(g.tri_bvh, o, d, t_max, leaf, None, counts=walk)
+
+    walks = {"_grid_event": {}, "_nee": {}}
+    for who, walk in walks.items():
+        o, d, t_max = (torch.cat(x) for x in zip(*rays[who]))
+        if who == "_nee":
+            g.intersect_p(o, d, t_max, counts=walk)
+        else:
+            closest_walk(o, d, t_max, walk)
+    n_q = {"_grid_event": counts["tri_queries"],
+           "_nee": counts["shadow_queries"]}
+    assert all(sum(x[0].shape[0] for x in rays[w]) == n_q[w] for w in n_q)
+    per_q = {w: {k: v / n_q[w] for k, v in walks[w].items()} for w in walks}
+    work = dict(counts, queries=n_q["_grid_event"] + n_q["_nee"],
+                **{k: walks["_grid_event"].get(k, 0) + walks["_nee"].get(k, 0)
+                   for k in ("node_visits", "leaf_tests")})
+    scale = nx * ny * spp / (c_a.nx * c_a.ny)
+    bound, bound_by, pipes = _bound_ms(
+        "volpath_grid_mesh", work, scale,
+        _nbytes(c.fconst, c.iconst, c.density, c.majorant, c.tris, c.nodes,
+                c.mats, img))
+    print(f"phase 10c volpath mesh machines pyro64 {nx}x{ny}x{spp} via "
+          f"render_persistent: call {t_call * 1e3:.3f} ms "
+          f"({nx * ny * spp / t_call / 1e6:.3f} Mpaths/s), kernel "
+          f"{k_ms:.3f} ms by CUDA events ({nx * ny * spp / k_ms / 1e3:.3f} "
+          f"Mpaths/s), mean {img.mean().item():.5f}, launches "
+          f"{launches['grid_mesh']}; 3072 triangles, BVH of "
+          f"{bvh.n_nodes} nodes built on the host by the {builder} builder "
+          f"in {t_bvh * 1e3:.3f} ms (the scene in {t_scene * 1e3:.1f} ms); "
+          f"a closest-hit query walks "
+          f"{per_q['_grid_event'].get('node_visits', 0):.2f} nodes and tests "
+          f"{per_q['_grid_event'].get('leaf_tests', 0):.2f} triangles, a "
+          f"shadow query {per_q['_nee'].get('node_visits', 0):.2f} and "
+          f"{per_q['_nee'].get('leaf_tests', 0):.2f}, on average; plain "
+          f"version on the crop {t_plain * 1e3:.1f} ms; "
+          f"bound {bound:.4f} ms ({bound_by}; ms by pipe {pipes}, an "
+          f"estimate), kernel at {bound / k_ms:.5f} of it; phase 9c's "
+          f"48-triangle B2b {b2b_ms:.3f} ms at the same shape, {_at()} {tag}",
+          flush=True)
+    return [dict(name="volpath_grid_mesh", route="cuda",
+                 source="vspg_pbrt_v4_tpu_torch/csrc/volpath_grid_mesh.cu",
+                 replaces="vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380",
+                 launches=launches["grid_mesh"],
+                 max_abs_err=max(max_a, max_c),
+                 ms=k_ms, plain_ms=t_plain * 1e3, bound_ms=bound,
+                 bound_pipe=max(pipes, key=pipes.get),
+                 bound_by=bound_by, library_ms=None, plain_spp=spp,
+                 plain_shape=f"{cw}x{ch} crop of {nx}x{ny}")]
 
 
 if __name__ == "__main__":

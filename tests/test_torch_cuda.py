@@ -3,6 +3,8 @@
 without JAX, skip tests/conftest.py (it configures JAX):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -65,6 +67,38 @@ def test_grid_tris_kernel_matches_plain(dev, materials):
     diff = (k - p).abs()
     ok = ((diff <= 2e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
     assert ok.float().mean().item() >= 0.98
+
+
+@pytest.mark.parametrize("materials", ["smooth", "rough"])
+def test_grid_mesh_kernel_matches_plain(dev, materials):
+    """B2c: the 3072-triangle PLY machines in the pyroclastic cloud,
+    walked through their BVH, against the plain version's brute-force
+    sweep on the same random stream (2e-3, the bar of PERF.md §2), at 4
+    spp: B2b's -O3 build lost a warp's samples from the third on; the main
+    path's entry point takes the kernel."""
+    scene = vk.make_machines_scene(mesh=True, materials=materials,
+                                   device=dev)
+    cam = vk.bench_camera(48, device=dev)
+    film = RGBFilm.make((48, 48), device=dev)
+    c = vk.extract_constants(scene, cam, film, CFG)
+    assert c.n_tri == 3072 and c.nodes is not None
+    before = vk.LAUNCHES["grid_mesh"]
+    k = vk.render(c, 4, 3)
+    p = vk.render_grid_plain(c, 4, 3)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES["grid_mesh"] == before + 1
+    diff = (k - p).abs()
+    ok = ((diff <= 2e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.98
+    img = tv.render_persistent(scene, cam, film, spp=4, cfg=CFG, seed=3,
+                               device=dev)
+    assert vk.LAUNCHES["grid_mesh"] == before + 2
+    assert torch.equal(img, k)
+    # the kernel reads the tables as float4s: a view one float in raises
+    shifted = torch.empty(c.tris.numel() + 1, device=dev)[1:].view_as(c.tris)
+    shifted.copy_(c.tris)
+    with pytest.raises(ValueError):
+        vk.render_grid(dataclasses.replace(c, tris=shifted), 1, 3)
 
 
 def test_grid_tris_kernel_relabel_quad(dev):

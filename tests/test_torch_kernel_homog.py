@@ -20,6 +20,7 @@ from vspg_pbrt_v4_tpu_torch.convert import from_jax
 from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
 from vspg_pbrt_v4_tpu_torch.models.integrators import volpath as tv
 from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+from vspg_pbrt_v4_tpu_torch.models.materials import Materials
 from vspg_pbrt_v4_tpu_torch.models.media import HomogeneousMedia
 from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
 from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
@@ -169,16 +170,24 @@ def test_extract_constants_rejects_config_film_and_triangles():
     assert vk.extract_constants(ts, tc, tf, tcfg) is None
     img = tv.render_persistent(ts, tc, tf, spp=1, cfg=tcfg, device="cpu")
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
-    # the mesh class in the grid cloud (more than 64 triangles) is refused
-    # by the kernel, and by the torch path, which has no BVH yet
+    # the mesh class in the grid cloud (more than 64 triangles) takes B2c's
+    # constants (the triangle table in the BVH's leaf order and its node
+    # table) and renders through the torch path, which walks the BVH
     cloud = vk.make_cloud64_scene(device="cpu")
     tris = [dict(p0=(0.02 * i - 0.5, 0, 0), p1=(0.02 * i - 0.48, 0, 0),
                  p2=(0.02 * i - 0.5, 0.1, 0), mat=0, med_in=-1, med_out=0)
             for i in range(65)]
     mesh = type(cloud)(Geometry.build(
         [dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1, light=-1, med_in=0,
-              med_out=-1)], tris, device="cpu"), cloud.materials,
-        cloud.media, cloud.lights)
-    assert vk.extract_constants(mesh, cam, film, CFG) is None
-    with pytest.raises(NotImplementedError):
-        tv.render_persistent(mesh, cam, film, spp=1, cfg=CFG, device="cpu")
+              med_out=-1)], tris, device="cpu"),
+        Materials.build([dict(type=0, albedo=(0.7, 0.7, 0.7))],
+                        device="cpu"), cloud.media, cloud.lights)
+    c = vk.extract_constants(mesh, cam, film, CFG)
+    bvh = mesh.geometry.tri_bvh
+    assert c.kind == "grid" and c.n_tri == 65
+    assert c.nodes.shape == (bvh.n_nodes, vk.NODE_COLS)
+    assert torch.equal(c.tris, torch.as_tensor(
+        vk.pack_tri_table(mesh.geometry))[bvh.prim_ids.long()])
+    img = tv.render_persistent(mesh, cam, film, spp=1, cfg=CFG,
+                               backend="torch", device="cpu")
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0

@@ -11,6 +11,7 @@ interpolated uv by up to 8e-6); BSDF values 1e-5 relative, BSDF samples
 1e-4; the guiding product 2e-5, as
 for ``product_with_vmf`` in tests/test_torch_guiding.py."""
 
+import dataclasses
 import zlib
 
 import jax.numpy as jnp
@@ -113,12 +114,38 @@ def test_intersect_matches_jax():
         np.asarray(jg.intersect_p(o, d, t_max)))
 
 
-def test_more_than_64_triangles_raise():
+def test_more_than_64_triangles_raise(monkeypatch):
+    """65 triangles, one past brute force's limit: the geometry builds a
+    BVH, whose closest hit and occlusion equal brute force's exactly (and
+    the JAX package's, which builds the same tree); without the tree the
+    brute force raises."""
+    from vspg_pbrt_v4_tpu_torch.models import shapes as tshapes
+
     rng = np.random.default_rng(3)
-    tg = TGeometry.build(BOX, _tris(rng, 65), device="cpu")
-    o, d = _rays(rng)
+    tris = _tris(rng, 65)
+    tg = TGeometry.build(BOX, tris, device="cpu")
+    jg = JGeometry.build(triangles=tris, boxes=BOX)
+    assert tg.tri_bvh is not None and jg.tri_bvh is not None
+    o, d = _rays(rng, tris)
+    th = tg.intersect(_t(o), _t(d))
+    jh = jg.intersect(jnp.asarray(o), jnp.asarray(d), jnp.full(N, jnp.inf))
+    brute = dataclasses.replace(tg, tri_bvh=None)
     with pytest.raises(NotImplementedError):
-        tg.intersect(_t(o), _t(d))
+        brute.intersect(_t(o), _t(d))
+    monkeypatch.setattr(tshapes, "MAX_BRUTE_TRIS", 65)
+    bh = brute.intersect(_t(o), _t(d))
+    assert ((th.prim_id >= 0) & (th.prim_id < 65)).sum() > N // 4
+    for f in ("hit", "t", "p", "n", "ns", "uv", "mat_id", "med_in",
+              "med_out", "prim_id"):
+        assert torch.equal(getattr(th, f), getattr(bh, f)), f
+    for f in ("hit", "prim_id", "mat_id"):
+        np.testing.assert_array_equal(getattr(th, f).numpy(),
+                                      np.asarray(getattr(jh, f)))
+    t_max = rng.uniform(0.5, 4.0, N).astype(np.float32)
+    occ = tg.intersect_p(_t(o), _t(d), _t(t_max))
+    assert torch.equal(occ, brute.intersect_p(_t(o), _t(d), _t(t_max)))
+    np.testing.assert_array_equal(occ.numpy(),
+                                  np.asarray(jg.intersect_p(o, d, t_max)))
 
 
 MATS = {

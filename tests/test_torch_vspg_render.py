@@ -57,30 +57,47 @@ def test_render_vspg_matches_jax():
         assert abs(diff.mean()) <= 4.0 * err + 1e-6, (diff.mean(), err)
 
 
+def _mesh_tris():
+    """65 triangles in the cloud: one more than brute force serves."""
+    return [dict(p0=(0.1 * i - 0.5, 0, 0), p1=(0.1 * i - 0.4, 0, 0),
+                 p2=(0.1 * i - 0.5, 0.1, 0), mat=0) for i in range(65)]
+
+
+def _box(ts):
+    g = ts.geometry
+    return dict(bmin=g.box_min[0].tolist(), bmax=g.box_max[0].tolist(),
+                mat=-1, light=-1, med_in=0, med_out=-1)
+
+
 def _refusal(case):
     """A call outside the port's scope."""
     scene, cam, film = jax_setup()
     ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, CFG, "cpu")
     tg, tv = convert.options_from_jax(GOPT, VOPT)
     if case == "triangles":
-        # the mesh class: more triangles than brute force serves (the BVH
-        # is not ported)
-        tris = [dict(p0=(0.1 * i - 0.5, 0, 0), p1=(0.1 * i - 0.4, 0, 0),
-                     p2=(0.1 * i - 0.5, 0.1, 0), mat=0) for i in range(65)]
-        g = ts.geometry
-        boxes = [dict(bmin=g.box_min[0].tolist(), bmax=g.box_max[0].tolist(),
-                      mat=-1, light=-1, med_in=0, med_out=-1)]
-        ts = type(ts)(Geometry.build(boxes, tris, device="cpu"),
+        # the mesh class: more triangles than brute force serves; the VSPG
+        # arm does not take their BVH yet
+        ts = type(ts)(Geometry.build([_box(ts)], _mesh_tris(), device="cpu"),
                       ts.materials, ts.media, ts.lights)
         return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
                                          gopt=tg, vopt=tv, device="cpu")
+    if case == "kd-tree":
+        # the mesh class under a kd-tree (Accelerator "kdtree"): only the
+        # BVH is ported
+        from vspg_pbrt_v4_tpu.models.shapes import Geometry as JGeometry
+
+        jg = JGeometry.build(triangles=_mesh_tris(), boxes=[_box(ts)],
+                             accelerator="kdtree")
+        return lambda: convert.from_jax(scene._replace(geometry=jg), cam,
+                                        film, CFG, "cpu")
     if case == "adaptive field":
         return lambda: GuidingField.make((-1,) * 3, (1,) * 3, res=4,
                                          n_extra=64, device="cpu")
     return lambda: ISGB.make((4, 4), "variance", "unet", device="cpu")
 
 
-@pytest.mark.parametrize("case", ["triangles", "adaptive field", "unet"])
+@pytest.mark.parametrize("case", ["triangles", "kd-tree", "adaptive field",
+                                  "unet"])
 def test_unported_routes_raise(case):
     with pytest.raises(NotImplementedError):
         _refusal(case)()

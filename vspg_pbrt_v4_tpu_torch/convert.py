@@ -21,6 +21,7 @@ from .models.materials import Materials
 from .models.media import GridMedium, Media
 from .models.shapes import Geometry
 from .models.textures import Textures
+from .ops.bvh import bvh_from_arrays
 from .utils.transform import Transform
 
 
@@ -60,7 +61,17 @@ def _geometry(g, device):
         _t(g.tri_mat, device, torch.int32),
         _t(g.tri_light, device, torch.int32),
         _t(g.tri_med_in, device, torch.int32),
-        _t(g.tri_med_out, device, torch.int32))
+        _t(g.tri_med_out, device, torch.int32), _tri_bvh(g.tri_bvh, device))
+
+
+def _tri_bvh(bvh, device):
+    """The JAX geometry's triangle BVH, the very same tree, or None."""
+    if bvh is None:
+        return None
+    if type(bvh).__name__ != "BVH":
+        raise NotImplementedError(f"the {type(bvh).__name__} aggregate is "
+                                  "not ported (only the BVH)")
+    return bvh_from_arrays(bvh, device=device)
 
 
 def _materials(m, device):

@@ -223,6 +223,30 @@ static __device__ __forceinline__ bool outside_box(const float* fc, V3 o) {
          o.z > fc[F_BMAX + 2];
 }
 
+// Moller-Trumbore test of the ray (o, d) against the triangle with corner
+// p0 and edges e1 = p1 - p0, e2 = p2 - p0: true when it meets it at tt >
+// 1e-4 nearer than t_best (pallas_vspg closest_hit's formula), with the
+// barycentrics (b1, b2) of p1 and p2.
+static __device__ __forceinline__ bool tri_test(V3 p0, V3 e1, V3 e2, V3 o,
+                                                V3 d, float t_best, float* tt,
+                                                float* b1, float* b2) {
+  float pvx = d.y * e2.z - d.z * e2.y;
+  float pvy = d.z * e2.x - d.x * e2.z;
+  float pvz = d.x * e2.y - d.y * e2.x;
+  float det = e1.x * pvx + e1.y * pvy + e1.z * pvz;
+  bool big = fabsf(det) > 1e-12f;
+  float inv_det = big ? 1.0f / det : 0.0f;
+  float tvx = o.x - p0.x, tvy = o.y - p0.y, tvz = o.z - p0.z;
+  *b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  float qvx = tvy * e1.z - tvz * e1.y;
+  float qvy = tvz * e1.x - tvx * e1.z;
+  float qvz = tvx * e1.y - tvy * e1.x;
+  *b2 = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
+  *tt = (e2.x * qvx + e2.y * qvy + e2.z * qvz) * inv_det;
+  return big && *b1 >= 0.0f && *b2 >= 0.0f && *b1 + *b2 <= 1.0f &&
+         *tt > 1e-4f && *tt < t_best;
+}
+
 // Closest triangle of the shared-memory table along (o, d) nearer than
 // t_max: a Moller-Trumbore sweep in table order, keeping the first of equal
 // distances (pallas_vspg closest_hit). Returns the index, -1 on a miss.
@@ -236,23 +260,9 @@ static __device__ __forceinline__ TriHit closest_tri(const float* tris,
   TriHit h = {-1, t_max, 0.f, 0.f};
   for (int i = 0; i < n_tri; ++i) {
     const float* r = tris + i * TRI_COLS;
-    float pvx = d.y * r[T_E2 + 2] - d.z * r[T_E2 + 1];
-    float pvy = d.z * r[T_E2] - d.x * r[T_E2 + 2];
-    float pvz = d.x * r[T_E2 + 1] - d.y * r[T_E2];
-    float det = r[T_E1] * pvx + r[T_E1 + 1] * pvy + r[T_E1 + 2] * pvz;
-    bool big = fabsf(det) > 1e-12f;
-    float inv_det = big ? 1.0f / det : 0.0f;
-    float tvx = o.x - r[T_P0], tvy = o.y - r[T_P0 + 1],
-          tvz = o.z - r[T_P0 + 2];
-    float b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-    float qvx = tvy * r[T_E1 + 2] - tvz * r[T_E1 + 1];
-    float qvy = tvz * r[T_E1] - tvx * r[T_E1 + 2];
-    float qvz = tvx * r[T_E1 + 1] - tvy * r[T_E1];
-    float b2 = (d.x * qvx + d.y * qvy + d.z * qvz) * inv_det;
-    float tt = (r[T_E2] * qvx + r[T_E2 + 1] * qvy + r[T_E2 + 2] * qvz) *
-               inv_det;
-    if (big && b1 >= 0.0f && b2 >= 0.0f && b1 + b2 <= 1.0f && tt > 1e-4f &&
-        tt < h.t) {
+    float tt, b1, b2;
+    if (tri_test(v3(r + T_P0), v3(r + T_E1), v3(r + T_E2), o, d, h.t, &tt,
+                 &b1, &b2)) {
       h.k = i;
       h.t = tt;
       h.b1 = b1;

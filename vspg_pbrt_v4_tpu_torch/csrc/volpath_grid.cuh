@@ -1,12 +1,16 @@
-// B2a/B2b: persistent volumetric path tracing of one density grid in a box,
-// with or without flat triangles inside it.
+// B2a/B2b/B2c: persistent volumetric path tracing of one density grid in a
+// box, with or without flat triangles inside it.
 //
 // Replaces pallas_volpath._make_grid_kernel (vspg_pbrt_v4_tpu/ops/
-// pallas_volpath.py): the instantiation TRIS=false for scenes without
-// triangles (B2a), TRIS=true for the teaser class (B2b: at most 64
-// triangles of the materials of csrc/surface.cuh, their table and the
-// material table in shared memory). Per sample: pinhole ray; box
-// entry/exit; the closest triangle (a Moller-Trumbore sweep of the table);
+// pallas_volpath.py) in three geometry modes: GEOM_NONE for scenes without
+// triangles (B2a, volpath_grid.cu), GEOM_SWEEP for the teaser class (B2b,
+// volpath_grid_tris.cu: at most 64 triangles of the materials of
+// csrc/surface.cuh, their table and the material table in shared memory)
+// and GEOM_BVH for the mesh class (B2c, volpath_grid_mesh.cu: at most
+// 16384 triangles, the triangle and BVH node tables in global memory, each
+// query a walk of the tree, csrc/bvh.cuh; the material table in shared
+// memory). Per sample: pinhole ray; box entry/exit; the closest triangle
+// (a Moller-Trumbore sweep of the table, or the BVH walk);
 // delta tracking against the majorant DDA up to the nearer of the wall and
 // the triangle (media.py seg_init/seg_next,
 // volpath.sample_medium_interaction); at a real scatter, point or env NEE
@@ -39,14 +43,22 @@
 // majorant grid sits in shared memory. The TPU's bf16/i8 tables, one-hot
 // MXU gathers, stochastic trilerp, multi-cell walk, shadow state machine,
 // deferred surface NEE, tiling, spp chunking and empty-space skip are not
-// carried over. One thread renders all samples of one pixel; a sample runs
-// at most max_events path events.
+// carried over, nor the mesh class's Morton-ordered chunk sweep
+// (pallas_volpath pack_tri_chunks / make_mesh_closest_hit), the TPU's
+// stand-in for a BVH. In the mesh class each closest-hit and shadow query
+// adds a tree walk of dependent node and triangle loads from L2. One
+// thread renders all samples of one pixel; a sample runs at most
+// max_events path events.
 #pragma once
 
+#include "bvh.cuh"
 #include "common.cuh"
 #include "surface.cuh"
 
 using namespace vp;
+
+// the kernel's geometry modes (template argument GEOM)
+enum Geom { GEOM_NONE = 0, GEOM_SWEEP = 1, GEOM_BVH = 2 };
 
 namespace {
 
@@ -303,9 +315,9 @@ static __device__ void ratio_track(const float* fc, const int* ic,
 }
 
 // The lights' constants, read once from the constant table into registers.
-// Read from shared memory at each NEE instead, the TRIS=false build from
+// Read from shared memory at each NEE instead, the GEOM_NONE build from
 // ptxas -O3 (CUDA 12.9) lost whole warps' later samples on an H100; see
-// SOURCE_FLAGS in ops/_build.py for the TRIS=true build.
+// SOURCE_FLAGS in ops/_build.py for the other builds.
 struct LightC {
   V3 lp, lI, env;
   float pmf, penv, two_pi;
@@ -313,19 +325,22 @@ struct LightC {
 
 // NEE contribution from p toward wi: f_hat is the BSDF or phase value
 // (times the cosine), spdf its sampling pdf for MIS against env hits. Any
-// triangle nearer than the light blocks; a lane in the medium ratio-tracks
-// the rest of the shadow ray to the box exit.
-template <bool TRIS>
+// triangle nearer than the light blocks (all are opaque); a lane in the
+// medium ratio-tracks the rest of the shadow ray to the box exit.
+template <int GEOM>
 static __device__ V3 nee(const float* fc, const int* ic, const Grid& G,
-                         const LightC& lc, const float* tris, int n_tri,
-                         uint32_t seed,
+                         const LightC& lc, const float* tris,
+                         const float* nodes, int n_tri, uint32_t seed,
                          uint32_t pix, uint32_t samp, V3 p, V3 wi,
                          bool use_point, float dist, float dist2, V3 f_hat,
                          float spdf, bool in_med, int hero, uint32_t* dim,
                          V3 beta, V3 ru) {
   float seg = use_point ? dist : BIG;
-  if constexpr (TRIS) {
+  if constexpr (GEOM == GEOM_SWEEP) {
     if (closest_tri(tris, n_tri, p, wi, seg).k >= 0) return v3(0.f, 0.f, 0.f);
+  } else if constexpr (GEOM == GEOM_BVH) {
+    if (bvh_hit<true>(nodes, tris, p, wi, seg).k >= 0)
+      return v3(0.f, 0.f, 0.f);
   }
   float t_exit;
   bool ent;
@@ -385,13 +400,16 @@ static __device__ __forceinline__ bool roulette(const int* ic, Path& P,
 
 }  // namespace
 
-template <bool TRIS>
+// nodes_g: the BVH node table (GEOM_BVH only); tris_g is then read in
+// place, 16-byte aligned
+template <int GEOM>
 __global__ void __launch_bounds__(128)
     volpath_grid_kernel(const float* __restrict__ fc_g,
                         const int* __restrict__ ic_g,
                         const float* __restrict__ density,
                         const float* __restrict__ majorant,
                         const float* __restrict__ tris_g,
+                        const float* __restrict__ nodes_g,
                         const float* __restrict__ mats_g,
                         float* __restrict__ out, int npix, int spp,
                         uint32_t seed, float out_scale, int nmaj, int n_tri,
@@ -401,15 +419,19 @@ __global__ void __launch_bounds__(128)
   extern __shared__ float smem[];
   float* smaj = smem;
   float* stris = smem + nmaj;
-  float* smats = stris + n_tri * TRI_COLS;
+  float* smats = stris + (GEOM == GEOM_SWEEP ? n_tri * TRI_COLS : 0);
   load_consts(fc_g, ic_g, fc, ic);
   for (int i = threadIdx.x; i < nmaj; i += blockDim.x) smaj[i] = majorant[i];
-  if constexpr (TRIS) {
+  if constexpr (GEOM == GEOM_SWEEP) {
     for (int i = threadIdx.x; i < n_tri * TRI_COLS; i += blockDim.x)
       stris[i] = tris_g[i];
+  }
+  if constexpr (GEOM != GEOM_NONE) {
     for (int i = threadIdx.x; i < n_mat * MAT_COLS; i += blockDim.x)
       smats[i] = mats_g[i];
   }
+  // the triangle rows surface hits read
+  const float* tab = GEOM == GEOM_BVH ? tris_g : stris;
   __syncthreads();
   int pix_i = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix_i >= npix) return;
@@ -442,7 +464,10 @@ __global__ void __launch_bounds__(128)
       bool hit = box_hit(fc, P.o, P.d, &t_wall, &entering);
       float wall = hit ? t_wall : BIG;
       TriHit th = {-1, wall, 0.f, 0.f};
-      if constexpr (TRIS) th = closest_tri(stris, n_tri, P.o, P.d, wall);
+      if constexpr (GEOM == GEOM_SWEEP)
+        th = closest_tri(stris, n_tri, P.o, P.d, wall);
+      else if constexpr (GEOM == GEOM_BVH)
+        th = bvh_hit<false>(nodes_g, tris_g, P.o, P.d, wall);
       float t_sc = 0.f;
       int outcome = RAN;
       if (med == 0)
@@ -460,8 +485,8 @@ __global__ void __launch_bounds__(128)
                            &dist2);
         float f = hg_value(fc, dot(wo, wi));
         if (f > 0.f)
-          P.L = add(P.L, nee<TRIS>(fc, ic, G, lc, stris, n_tri, seed, pix,
-                                   samp, p, wi, use_point, dist, dist2,
+          P.L = add(P.L, nee<GEOM>(fc, ic, G, lc, tab, nodes_g, n_tri, seed,
+                                   pix, samp, p, wi, use_point, dist, dist2,
                                    v3(f, f, f), f, true, P.hero, &P.dim,
                                    P.beta, P.ru));
         // phase sampling, then volume Russian roulette
@@ -477,12 +502,13 @@ __global__ void __launch_bounds__(128)
         P.d = wi_p;
         specular = false;
       } else if (alive && th.k >= 0) {
-        // surface hit (TRIS only): NEE with the BSDF, then BSDF sampling
+        // surface hit (with triangles): NEE with the BSDF, then BSDF
+        // sampling
         if (P.depth >= ic[I_MAX_DEPTH]) {
           alive = false;
         } else {
           P.depth += 1;
-          const float* r = stris + th.k * TRI_COLS;
+          const float* r = tab + th.k * TRI_COLS;
           V3 p = along(P.o, th.t, P.d);
           V3 ng = v3(r + T_NG);
           Mat m = surface_mat(smats, r, th.b1, th.b2);
@@ -503,10 +529,10 @@ __global__ void __launch_bounds__(128)
           V3 wi_l = v3(dot(wi, t1), dot(wi, t2), dot(wi, ng));
           V3 f_hat = scale(bsdf_f(m, wo_l, wi_l), fabsf(dot(wi, ng)));
           if (!is_specular(m) && max3(f_hat) > 0.f)
-            P.L = add(P.L, nee<TRIS>(fc, ic, G, lc, stris, n_tri, seed, pix,
-                                     samp, p_off, wi, use_point, dist, dist2,
-                                     f_hat, bsdf_pdf(m, wo_l, wi_l), med == 0,
-                                     P.hero, &P.dim, P.beta, P.ru));
+            P.L = add(P.L, nee<GEOM>(fc, ic, G, lc, tab, nodes_g, n_tri, seed,
+                                     pix, samp, p_off, wi, use_point, dist,
+                                     dist2, f_hat, bsdf_pdf(m, wo_l, wi_l),
+                                     med == 0, P.hero, &P.dim, P.beta, P.ru));
           float4 ub = uniform4(seed, pix, samp, P.dim);
           P.dim += 1;
           BSample bs = bsdf_sample(m, wo_l, ub.x, ub.y, ub.z);

@@ -1,5 +1,5 @@
 // B2b: the grid kernel of volpath_grid.cuh with at most 64 triangles
-// (TRIS=true). Its own translation unit, so that ops/_build.py can build it
+// (GEOM_SWEEP). Its own translation unit, so that ops/_build.py can build it
 // with ptxas optimisation off (see SOURCE_FLAGS there).
 #include "volpath_grid.cuh"
 
@@ -13,8 +13,9 @@ extern "C" int volpath_grid_tris_launch(
   const int threads = 128;
   const int blocks = (npix + threads - 1) / threads;
   size_t shmem = (nmaj + n_tri * TRI_COLS + n_mat * MAT_COLS) * sizeof(float);
-  volpath_grid_kernel<true><<<blocks, threads, shmem, (cudaStream_t)stream>>>(
-      fconst, iconst, density, majorant, tris, mats, out, npix, spp, seed,
-      out_scale, nmaj, n_tri, n_mat);
+  volpath_grid_kernel<GEOM_SWEEP><<<blocks, threads, shmem,
+                                    (cudaStream_t)stream>>>(
+      fconst, iconst, density, majorant, tris, nullptr, mats, out, npix, spp,
+      seed, out_scale, nmaj, n_tri, n_mat);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,9 @@ the same lane pool and the same regeneration order is what lets this
 module match the JAX wavefront lane for lane.
 
 Scope: homogeneous and grid media inside box interfaces, flat triangles
-with the materials of ``models/materials.py`` (at most 64, intersected by
-brute force), point lights and a constant environment, a pinhole camera,
-RGB hero-channel mode.
+with the materials of ``models/materials.py`` (by brute force up to 64,
+through the geometry's BVH above), point lights and a constant
+environment, a pinhole camera, RGB hero-channel mode.
 """
 
 from __future__ import annotations
@@ -694,8 +694,10 @@ def render_persistent(scene: Scene, camera, film, spp=16,
 
     backend "auto" renders with the kernel of ``ops/volpath_kernels`` when
     the scene is of its class (one box of homogeneous fog or of one density
-    grid, a pinhole camera, point/env lights) and the camera starts in
-    vacuum; otherwise, and with backend "torch", it runs the lockstep
+    grid, with the teaser's triangles or a mesh of up to 16384, a pinhole
+    camera, point/env lights) and the camera starts in vacuum; on a card
+    a kernel that fails to build or launch raises. Otherwise, and with
+    backend "torch", it runs the lockstep
     wavefront of this module with a pool of npix * lanes_per_pixel lanes.
     `lanes_per_pixel` sizes that pool only: a kernel runs one thread per
     pixel."""

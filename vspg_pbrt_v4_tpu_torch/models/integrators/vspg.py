@@ -1054,6 +1054,10 @@ def render_vspg(scene, camera, film, spp=16, cfg=VolPathConfig(),
     if cfg.spectral or cfg.sss:
         raise NotImplementedError("spectral and subsurface modes are not "
                                   "ported yet")
+    if scene.geometry.tri_bvh is not None:
+        raise NotImplementedError("the VSPG arm on the mesh class (more than "
+                                  "64 triangles, through a BVH) is not "
+                                  "ported yet")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     field = (_scene_field(scene, gopt, device) if field is None
              else field.to(device))

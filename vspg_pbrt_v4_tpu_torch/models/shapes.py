@@ -1,10 +1,13 @@
 """Scene geometry (counterpart of ``models/shapes.py``): flat triangles and
-axis-aligned boxes, the shapes of the medium-container and teaser scenes.
+axis-aligned boxes, the shapes of the medium-container, teaser and mesh
+scenes.
 
 Triangles are intersected by brute force, as the JAX package does for
-scenes of at most ``MAX_BRUTE_TRIS`` triangles; larger meshes need the BVH
-(``ops/bvh.py``), which is not ported, so ``intersect`` raises for them.
-Spheres and the other shapes of the JAX package are not ported yet.
+scenes of at most ``MAX_BRUTE_TRIS`` triangles; above that
+``Geometry.build`` builds a BVH over them (``ops/bvh.py``, the native
+builder above 512 triangles when it loads, as in the JAX package), which
+``intersect`` and ``intersect_p`` traverse. Spheres, the kd-tree, the
+two-level BVH and the other shapes of the JAX package are not ported yet.
 
 Primitive ids are global, as in the JAX package: [0, T) triangles, then
 [T, T + B) boxes.
@@ -18,14 +21,32 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.bvh import BVH, build_bvh, bvh_from_arrays, bvh_traverse
 from ..ops.intersect import aabb_normal, ray_aabb, ray_triangle
 from ..utils.device import OnDevice
 from ..utils.math import nanmax, nanmin
-from ..utils.vecmath import normalize
+from ..utils.vecmath import cross, normalize
 
 # the JAX package intersects up to this many triangles by brute force and
-# builds a BVH above it
+# builds a BVH above it, natively above NATIVE_BVH_TRIS when it can
 MAX_BRUTE_TRIS = 64
+NATIVE_BVH_TRIS = 512
+
+
+def build_tri_bvh(p0, p1, p2, *, device):
+    """(BVH, builder name) over triangles (T, 3) numpy float32 corners,
+    each box padded by 1e-5: the native builder above NATIVE_BVH_TRIS
+    triangles when the library loads, else numpy (the JAX package's
+    choice)."""
+    from .. import native
+
+    lo = np.minimum(np.minimum(p0, p1), p2) - 1e-5
+    hi = np.maximum(np.maximum(p0, p1), p2) + 1e-5
+    if p0.shape[0] > NATIVE_BVH_TRIS:
+        arrays = native.build_bvh_native(lo, hi)
+        if arrays is not None:
+            return bvh_from_arrays(arrays, device=device), "native"
+    return build_bvh(lo, hi, device=device), "numpy"
 
 
 class HitRecord(NamedTuple):
@@ -40,6 +61,20 @@ class HitRecord(NamedTuple):
     med_in: torch.Tensor  # (R,) int32 medium opposite the normal
     med_out: torch.Tensor  # (R,) int32 medium on the normal side
     prim_id: torch.Tensor  # (R,) int32 global primitive id
+
+
+def _merge(best, closer, t, p, n, ns, uv, mat, light, mi, mo, pid):
+    """`best` with the lanes of `closer` taking the given hit."""
+    c1, c3 = closer, closer[..., None]
+    return HitRecord(
+        best.hit | c1, torch.where(c1, t, best.t),
+        torch.where(c3, p, best.p), torch.where(c3, n, best.n),
+        torch.where(c3, ns, best.ns), torch.where(c3, uv, best.uv),
+        torch.where(c1, mat, best.mat_id),
+        torch.where(c1, light, best.light_id),
+        torch.where(c1, mi, best.med_in),
+        torch.where(c1, mo, best.med_out),
+        torch.where(c1, pid, best.prim_id))
 
 
 @dataclass(frozen=True)
@@ -63,6 +98,7 @@ class Geometry(OnDevice):
     tri_light: torch.Tensor  # (T,) int32
     tri_med_in: torch.Tensor  # (T,) int32
     tri_med_out: torch.Tensor  # (T,) int32
+    tri_bvh: BVH = None  # over the triangles; None = brute force
 
     @staticmethod
     def build(boxes=(), triangles=(), *, device):
@@ -70,7 +106,8 @@ class Geometry(OnDevice):
         [med_out]}; triangles: list of dicts {p0, p1, p2, [n0, n1, n2],
         [uv0, uv1, uv2], [mat], [light], [med_in], [med_out]}. Ids default
         to -1, uvs to the barycentric map, shading normals to the
-        geometric normal, as in the JAX package."""
+        geometric normal, as in the JAX package; more than MAX_BRUTE_TRIS
+        triangles get a BVH (``build_tri_bvh``)."""
         b, t = list(boxes), list(triangles)
 
         def stack(items, key, default, width):
@@ -105,7 +142,9 @@ class Geometry(OnDevice):
             ids(b, "med_out"), f(p0), f(p1), f(p2), *(f(n) for n in ns),
             f(stack(t, "uv0", (1, 0), 2)), f(stack(t, "uv1", (0, 1), 2)),
             f(stack(t, "uv2", (0, 0), 2)), ids(t, "mat"), ids(t, "light"),
-            ids(t, "med_in"), ids(t, "med_out"))
+            ids(t, "med_in"), ids(t, "med_out"),
+            (build_tri_bvh(p0, p1, p2, device=device)[0]
+             if len(t) > MAX_BRUTE_TRIS else None))
 
     @property
     def n_box(self):
@@ -116,18 +155,20 @@ class Geometry(OnDevice):
         return self.tri_p0.shape[0]
 
     def _check_brute_force(self):
-        if self.n_tri > MAX_BRUTE_TRIS:
+        if self.n_tri > MAX_BRUTE_TRIS and self.tri_bvh is None:
             raise NotImplementedError(
-                f"{self.n_tri} triangles need the BVH, which is not ported "
-                f"yet (brute force serves at most {MAX_BRUTE_TRIS})")
+                f"{self.n_tri} triangles without a BVH (brute force serves "
+                f"at most {MAX_BRUTE_TRIS})")
 
-    def intersect(self, o, d, t_max=None, time=None):
-        """Closest hit of every lane against every triangle, then every
-        box (brute force, in the JAX package's order).
+    def intersect(self, o, d, t_max=None, time=None, counts=None):
+        """Closest hit of every lane (o, d: (R, 3)) against the triangles,
+        by brute force or through the BVH, then against every box, in the
+        JAX package's order.
 
         As in the JAX package, `t_max` does not bound the search: callers
         compare ``hit.t`` with their own limit. `time` is unused (no
-        animated geometry)."""
+        animated geometry). `counts` (a dict), when given, gathers the
+        BVH traversal's node visits and triangle tests."""
         self._check_brute_force()
         R = o.shape[:-1]
         dev = o.device
@@ -138,22 +179,12 @@ class Geometry(OnDevice):
                          torch.zeros_like(o), torch.zeros(R + (2,), device=dev),
                          neg, neg, neg, neg, neg)
 
-        def upd(best, closer, t, p, n, ns, uv, mat, light, mi, mo, pid):
-            c1, c3 = closer, closer[..., None]
-            return HitRecord(
-                best.hit | c1, torch.where(c1, t, best.t),
-                torch.where(c3, p, best.p), torch.where(c3, n, best.n),
-                torch.where(c3, ns, best.ns), torch.where(c3, uv, best.uv),
-                torch.where(c1, mat, best.mat_id),
-                torch.where(c1, light, best.light_id),
-                torch.where(c1, mi, best.med_in),
-                torch.where(c1, mo, best.med_out),
-                torch.where(c1, pid, best.prim_id))
-
         def take(x, k):
             return torch.gather(x, -1, k[..., None])[..., 0]
 
-        if self.n_tri:
+        if self.n_tri and self.tri_bvh is not None:
+            best = self._intersect_tris_bvh(o, d, best, counts)
+        elif self.n_tri:
             ht, tt, b0, b1, ng = ray_triangle(
                 o[..., None, :], d[..., None, :], best.t[..., None],
                 self.tri_p0, self.tri_p1, self.tri_p2)  # (R, T)
@@ -161,18 +192,11 @@ class Geometry(OnDevice):
             k = torch.argmin(tt, dim=-1)
             t_k = take(tt, k)
             closer = torch.isfinite(t_k) & (t_k < best.t)
-            b0k, b1k = take(b0, k), take(b1, k)
-            b2k = 1.0 - b0k - b1k
-            nsk = normalize(b0k[..., None] * self.tri_n0[k]
-                            + b1k[..., None] * self.tri_n1[k]
-                            + b2k[..., None] * self.tri_n2[k])
-            uvk = (b0k[..., None] * self.tri_uv0[k]
-                   + b1k[..., None] * self.tri_uv1[k]
-                   + b2k[..., None] * self.tri_uv2[k])
-            best = upd(best, closer, t_k, o + t_k[..., None] * d, ng[k], nsk,
-                       uvk, self.tri_mat[k], self.tri_light[k],
-                       self.tri_med_in[k], self.tri_med_out[k],
-                       k.to(torch.int32))
+            nsk, uvk = self._tri_attrs(k, take(b0, k), take(b1, k))
+            best = _merge(best, closer, t_k, o + t_k[..., None] * d, ng[k],
+                          nsk, uvk, self.tri_mat[k], self.tri_light[k],
+                          self.tri_med_in[k], self.tri_med_out[k],
+                          k.to(torch.int32))
         if self.n_box:
             eps = 1e-4
             inv_d = 1.0 / d[..., None, :]
@@ -188,20 +212,72 @@ class Geometry(OnDevice):
             closer = torch.isfinite(t_k) & (t_k < best.t)
             p_k = o + t_k[..., None] * d
             n_k = aabb_normal(p_k, self.box_min[k], self.box_max[k])
-            best = upd(best, closer, t_k, p_k, n_k, n_k,
-                       torch.zeros(R + (2,), device=dev), self.box_mat[k],
-                       self.box_light[k], self.box_med_in[k],
-                       self.box_med_out[k], (self.n_tri + k).to(torch.int32))
+            best = _merge(best, closer, t_k, p_k, n_k, n_k,
+                          torch.zeros(R + (2,), device=dev), self.box_mat[k],
+                          self.box_light[k], self.box_med_in[k],
+                          self.box_med_out[k],
+                          (self.n_tri + k).to(torch.int32))
         return best
 
-    def intersect_p(self, o, d, t_max, time=None):
+    def _tri_attrs(self, k, b0, b1):
+        """Shading normal and uv of triangles k at barycentrics (b0, b1)."""
+        b2 = 1.0 - b0 - b1
+        ns = normalize(b0[..., None] * self.tri_n0[k]
+                       + b1[..., None] * self.tri_n1[k]
+                       + b2[..., None] * self.tri_n2[k])
+        uv = (b0[..., None] * self.tri_uv0[k] + b1[..., None] * self.tri_uv1[k]
+              + b2[..., None] * self.tri_uv2[k])
+        return ns, uv
+
+    def _intersect_tris_bvh(self, o, d, best, counts):
+        """The closest triangle hit through the BVH
+        (``_intersect_tris_bvh`` of the JAX package)."""
+        R = o.shape[0]
+
+        def leaf_fn(pid, m, t_best, payload):
+            k_b, b0_b, b1_b = payload
+            hit, t, b0, b1, _ = ray_triangle(
+                o, d, t_best, self.tri_p0[pid], self.tri_p1[pid],
+                self.tri_p2[pid])
+            closer = m & hit
+            return (torch.where(closer, t, t_best),
+                    (torch.where(closer, pid.to(torch.int32), k_b),
+                     torch.where(closer, b0, b0_b),
+                     torch.where(closer, b1, b1_b)))
+
+        payload0 = (torch.full((R,), -1, dtype=torch.int32, device=o.device),
+                    torch.zeros(R, device=o.device),
+                    torch.zeros(R, device=o.device))
+        t_best, (k, b0k, b1k) = bvh_traverse(self.tri_bvh, o, d, best.t,
+                                             leaf_fn, payload0,
+                                             counts=counts)
+        kc = torch.clamp(k, min=0).long()
+        ngk = normalize(cross(self.tri_p1[kc] - self.tri_p0[kc],
+                              self.tri_p2[kc] - self.tri_p0[kc]))
+        nsk, uvk = self._tri_attrs(kc, b0k, b1k)
+        return _merge(best, k >= 0, t_best, o + t_best[..., None] * d, ngk,
+                      nsk, uvk, self.tri_mat[kc], self.tri_light[kc],
+                      self.tri_med_in[kc], self.tri_med_out[kc],
+                      kc.to(torch.int32))
+
+    def intersect_p(self, o, d, t_max, time=None, counts=None):
         """Any hit of an opaque primitive (``mat >= 0``) within t_max:
         occlusion of shadow rays; interface-only primitives never
-        occlude."""
+        occlude. `counts` as for ``intersect``."""
         self._check_brute_force()
         occluded = torch.zeros(o.shape[:-1], dtype=torch.bool,
                                device=o.device)
-        if self.n_tri:
+        if self.n_tri and self.tri_bvh is not None:
+            def leaf_fn(pid, m, t_best, occ):
+                hit = ray_triangle(o, d, t_best, self.tri_p0[pid],
+                                   self.tri_p1[pid], self.tri_p2[pid])[0]
+                occ_new = occ | (m & hit & (self.tri_mat[pid] >= 0))
+                # a lane once occluded culls the rest of its walk
+                return torch.where(occ_new, 0.0, t_best), occ_new
+
+            occluded = bvh_traverse(self.tri_bvh, o, d, t_max, leaf_fn,
+                                    occluded, counts=counts)[1]
+        elif self.n_tri:
             ht = ray_triangle(o[..., None, :], d[..., None, :],
                               t_max[..., None], self.tri_p0, self.tri_p1,
                               self.tri_p2)[0]

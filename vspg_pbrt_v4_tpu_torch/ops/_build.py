@@ -32,8 +32,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (CUDA 12.9) whole warps of it lost their later samples on an H100, where
 # its plain version, the same source built with g++ and the -O0 build agree
 # (chip_smoke phase 9a holds it); -O0 costs about 6.7 times the kernel time.
+# The mesh class's build of the same header (volpath_grid_mesh.cu) loses
+# two warps the same way at -O3 on the smooth machines at 128x128x4, where
+# 1-2 spp agree, so it is built at -O0 too (chip_smoke phase 10a holds it
+# at 4 spp and 10c at the main path's 8).
 SOURCE_FLAGS = {"vspg.cu": ["-fmad=false"],
-                "volpath_grid_tris.cu": ["-Xptxas", "-O0"]}
+                "volpath_grid_tris.cu": ["-Xptxas", "-O0"],
+                "volpath_grid_mesh.cu": ["-Xptxas", "-O0"]}
 
 _lib = None
 # seconds the last build of this process took (0.0 before any), and what
@@ -106,6 +111,7 @@ SIGNATURES = {
     "volpath_homog_launch": [_P, _P, _P, _I, _I, _U, _F, _P],
     "volpath_grid_launch": [_P, _P, _P, _P, _P, _I, _I, _U, _F, _I, _P],
     "volpath_grid_tris_launch": [_P] * 7 + [_I, _I, _U, _F, _I, _I, _I, _P],
+    "volpath_grid_mesh_launch": [_P] * 8 + [_I, _I, _U, _F] + [_I] * 4 + [_P],
     "vspg_render_launch": [_P] * 12 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
     "vspg_record_launch": [_P] * 12 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
 }

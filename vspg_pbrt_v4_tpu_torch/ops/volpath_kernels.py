@@ -10,12 +10,15 @@ Two scene classes, each with one kernel (sources under ``csrc/``):
   dimensions per path event), so ``render_homog_plain`` agrees per pixel
   with the Pallas kernel run in interpret mode.
 - ``"grid"``: one box holding one density grid. ``csrc/volpath_grid.cuh``
-  replaces ``pallas_volpath._make_grid_kernel``: without triangles (B2a in
-  ROADMAP.md), and with at most ``MAX_TRIS_GRID`` flat triangles of the
-  teaser materials inside the cloud (B2b, the ``TRIS`` instantiation: the
-  triangle and material tables ride in shared memory). Its random stream
-  is its own (``render_grid_plain`` documents it), so it agrees with the
-  JAX package within Monte Carlo error.
+  replaces ``pallas_volpath._make_grid_kernel`` in three geometry modes:
+  without triangles (B2a in ROADMAP.md); with at most ``MAX_TRIS_GRID``
+  flat triangles of the teaser materials inside the cloud (B2b, a sweep of
+  the triangle table in shared memory); and the mesh class, at most
+  ``MAX_TRIS_MESH`` triangles (B2c, ``csrc/volpath_grid_mesh.cu``: each
+  thread walks the scene's BVH, its node table and the triangle table in
+  global memory). Its random stream is its own (``render_grid_plain``
+  documents it), so it agrees with the JAX package within Monte Carlo
+  error.
 
 Each kernel thread renders all samples of one pixel; a sample runs at most
 ``cfg.max_events`` path events. A wrapper renders with the plain version
@@ -35,7 +38,7 @@ from ..models.media import GridMedium, Media, seg_init, seg_next
 from ..utils import rng
 from ..utils.math import INV_4PI
 
-LAUNCHES = {"homog": 0, "grid": 0, "grid_tris": 0}
+LAUNCHES = {"homog": 0, "grid": 0, "grid_tris": 0, "grid_mesh": 0}
 
 # float32 constant table; csrc/common.cuh holds the same layout
 F_RC, F_CW = 0, 16  # raster->camera, camera->world (4x4 row-major)
@@ -57,6 +60,14 @@ TRI_COLS = 24
 (T_P0, T_E1, T_E2, T_NG, T_MAT, T_MED_IN, T_MED_OUT, T_UV0, T_UV1,
  T_UV2) = (0, 3, 6, 9, 12, 13, 14, 16, 18, 20)
 MAX_TRIS_GRID = 64
+# the mesh class (pallas_volpath.MAX_TRIS_MESH): triangle and node tables
+# in global memory, walked through the BVH
+MAX_TRIS_MESH = 16384
+# BVH node table (N, NODE_COLS) float32, csrc/bvh.cuh holds the same
+# layout: bmin, bmax, then the second child (interior) or the first row of
+# the leaf's triangles, and the triangle count (0 = interior)
+NODE_COLS = 8
+N_BMIN, N_BMAX, N_INDEX, N_COUNT = 0, 3, 6, 7
 # material table (M, MAT_COLS) float32: kind, albedo, eta, roughness, then
 # the albedo texture (kind -1 none / 1 checker, its two colours, uv scale)
 MAT_COLS = 16
@@ -67,8 +78,10 @@ MAX_MATS = 16
 # majorant grids live in one block's shared memory
 MAX_MAJ_VOX = 4096
 _BIG = 3e37
-# lanes (pixel, sample pairs) a plain render holds at once
+# lanes (pixel, sample pairs) a plain render holds at once, and the lane x
+# triangle pairs its brute-force closest-hit sweep holds at once
 _PLAIN_CHUNK = 1 << 21
+_TRI_PAIRS = 1 << 22
 
 
 @dataclass(frozen=True)
@@ -83,8 +96,9 @@ class KernelConstants:
     iconst: torch.Tensor  # (N_ICONST,) int32
     density: torch.Tensor = None  # (gx, gy, gz) float32, grid class
     majorant: torch.Tensor = None  # (mx, my, mz) float32, grid class
-    tris: torch.Tensor = None  # (T, TRI_COLS) float32, teaser class
-    mats: torch.Tensor = None  # (M, MAT_COLS) float32, teaser class
+    tris: torch.Tensor = None  # (T, TRI_COLS) float32, teaser/mesh class
+    mats: torch.Tensor = None  # (M, MAT_COLS) float32, teaser/mesh class
+    nodes: torch.Tensor = None  # (N, NODE_COLS) float32, mesh class
 
     @property
     def n_tri(self):
@@ -203,27 +217,40 @@ def extract_constants(scene, camera, film, cfg):
         i[I_GX:I_GX + 3] = grid.res
         i[I_MX:I_MX + 3] = grid.maj_res
     dev = film.device
+    tris = mats = nodes = None
+    if g.n_tri:
+        tris = pack_tri_table(g)
+        mats = torch.as_tensor(pack_mat_table(scene.materials,
+                                              scene.textures), device=dev)
+        if g.n_tri > MAX_TRIS_GRID:
+            # a leaf's triangles as contiguous rows of the table
+            tris = tris[g.tri_bvh.prim_ids.cpu().numpy()]
+            nodes = torch.as_tensor(pack_node_table(g.tri_bvh), device=dev)
+        tris = torch.as_tensor(tris, device=dev)
     return KernelConstants(
         kind, int(film.resolution[0]), int(film.resolution[1]),
         float(film.imaging_ratio), torch.as_tensor(f, device=dev),
         torch.as_tensor(i, device=dev),
         None if grid is None else grid.density.to(dev).contiguous(),
         None if grid is None else grid.majorant.to(dev).contiguous(),
-        torch.as_tensor(pack_tri_table(g), device=dev) if g.n_tri else None,
-        (torch.as_tensor(pack_mat_table(scene.materials, scene.textures),
-                         device=dev) if g.n_tri else None))
+        tris, mats, nodes)
 
 
 def _tris_supported(scene):
-    """The teaser class (``pallas_volpath.extract_constants``' triangle
-    gate): at most MAX_TRIS_GRID flat triangles, no emitters, interface
-    ids among {-1, 0}, every triangle opaque, materials diffuse / conductor
-    / smooth dielectric / CookTorrance, albedo textures only checkers."""
+    """The teaser and mesh classes (``pallas_volpath.extract_constants``'
+    triangle gate): at most MAX_TRIS_MESH flat triangles, no emitters,
+    interface ids among {-1, 0}, every triangle opaque, materials diffuse /
+    conductor / smooth dielectric / CookTorrance, albedo textures only
+    checkers and only in the teaser class (at most MAX_TRIS_GRID); above
+    that the geometry must carry its BVH."""
     from ..models.materials import PORTED_KINDS
     from ..models.textures import CHECKER
 
     g = scene.geometry
-    if g.n_tri > MAX_TRIS_GRID or bool((g.tri_light >= 0).any()):
+    if g.n_tri > MAX_TRIS_MESH or bool((g.tri_light >= 0).any()):
+        return False
+    mesh = g.n_tri > MAX_TRIS_GRID
+    if mesh and g.tri_bvh is None:
         return False
     if not (torch.allclose(g.tri_n0, g.tri_n1)
             and torch.allclose(g.tri_n0, g.tri_n2)):
@@ -243,7 +270,7 @@ def _tris_supported(scene):
         if kind == 2 and float(mats.roughness[mid]) >= 1e-3:
             return False
         tex = int(mats.albedo_tex[mid])
-        if tex >= 0 and (scene.textures is None
+        if tex >= 0 and (mesh or scene.textures is None
                          or int(scene.textures.kind[tex]) != CHECKER):
             return False
     return True
@@ -269,6 +296,20 @@ def pack_tri_table(geometry):
     tab[:, T_UV0:T_UV0 + 2] = a(g.tri_uv0)
     tab[:, T_UV1:T_UV1 + 2] = a(g.tri_uv1)
     tab[:, T_UV2:T_UV2 + 2] = a(g.tri_uv2)
+    return tab
+
+
+def pack_node_table(bvh):
+    """(N, NODE_COLS) float32 numpy table of a BVH's nodes; a leaf's index
+    is the row, in the table ordered by ``bvh.prim_ids``, of its first
+    triangle."""
+    count = bvh.count.cpu().numpy()
+    tab = np.zeros((count.shape[0], NODE_COLS), np.float32)
+    tab[:, N_BMIN:N_BMIN + 3] = bvh.bmin.cpu().numpy()
+    tab[:, N_BMAX:N_BMAX + 3] = bvh.bmax.cpu().numpy()
+    tab[:, N_INDEX] = np.where(count > 0, bvh.start.cpu().numpy(),
+                               bvh.right.cpu().numpy())
+    tab[:, N_COUNT] = count
     return tab
 
 
@@ -443,20 +484,24 @@ def _count(counts, key, n):
         counts[key] = counts.get(key, 0) + int(n)
 
 
-def _render_plain(c, spp, seed, event, counts=None):
+def _render_plain(c, spp, seed, event, counts=None, pixels=None):
     """Shared driver of the plain versions: lanes are (pixel, sample)
     pairs, chunked; `event` advances every live lane by one path event and
     returns its alive mask; dead lanes commit their radiance and leave.
-    `counts` (a dict), when given, gathers the lane-events run."""
+    `counts` (a dict), when given, gathers the lane-events run. `pixels`
+    (flat indices), when given, renders only those; the rest stay 0."""
     K = _Consts(c)
     seed = int(seed) & 0xFFFFFFFF
     npix = K.nx * K.ny
-    total = npix * int(spp)
+    if pixels is None:
+        pixels = torch.arange(npix, device=K.dev)
+    n = pixels.numel()
+    total = n * int(spp)
     acc = torch.zeros((npix, 3), dtype=torch.float32, device=K.dev)
     for start in range(0, total, _PLAIN_CHUNK):
         gid = torch.arange(start, min(total, start + _PLAIN_CHUNK),
                            device=K.dev)
-        S = _start_lanes(K, seed, gid % npix, gid // npix)
+        S = _start_lanes(K, seed, pixels[gid % n], gid // n)
         for _ in range(K.max_events):
             if S["pix"].numel() == 0:
                 break
@@ -803,8 +848,19 @@ def _ratio_track(K, media, seed, P, counts=None):
 
 def _tri_hit(tab, o, d, t_max):
     """Closest triangle of table `tab` along (o, d) nearer than t_max: the
-    kernels' Moller-Trumbore sweep (``pallas_vspg`` closest_hit). Returns
-    (hit, t (_BIG on a miss), index, b1, b2) per lane."""
+    kernels' Moller-Trumbore sweep (``pallas_vspg`` closest_hit), by brute
+    force over every row, in chunks of lanes. Returns (hit, t (_BIG on a
+    miss), index, b1, b2) per lane."""
+    step = max(1, _TRI_PAIRS // max(tab.shape[0], 1))
+    if o.shape[0] <= step:
+        return _tri_hit_chunk(tab, o, d, t_max)
+    parts = [_tri_hit_chunk(tab, o[i:i + step], d[i:i + step],
+                            t_max[i:i + step])
+             for i in range(0, o.shape[0], step)]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+def _tri_hit_chunk(tab, o, d, t_max):
     def col(j):
         return tab[:, j][None, :]
 
@@ -864,7 +920,9 @@ def _nee(K, media, seed, P, p, wi, use_point, dist, dist2, f_hat, spdf, ok,
     _, t_exit, _ = _box_hit(p, wi, K.bmin, K.bmax)
     seg = torch.where(use_point, dist, _BIG)
     if tris is not None:
-        _count(counts, "tri_tests", ok.sum() * tris.shape[0])
+        n_ok = ok.sum()
+        _count(counts, "shadow_queries", n_ok)
+        _count(counts, "tri_tests", n_ok * tris.shape[0])
         blocked = _tri_hit(tris, p, wi, seg)[0]
         ok_t = ok & ~blocked
     else:
@@ -1018,6 +1076,7 @@ def _grid_event(K, media, seed, S, tris=None, mats=None, counts=None):
     hit, t_wall, entering = _box_hit(o, d, K.bmin, K.bmax)
     wall = torch.where(hit, t_wall, _BIG)
     if tris is not None:
+        _count(counts, "tri_queries", n)
         _count(counts, "tri_tests", n * tris.shape[0])
         s_hit, t_surf, s_k, s_b1, s_b2 = _tri_hit(tris, o, d, wall)
     else:
@@ -1092,18 +1151,23 @@ def _grid_event(K, media, seed, S, tris=None, mats=None, counts=None):
     return alive
 
 
-def render_grid_plain(c: KernelConstants, spp, seed, counts=None):
+def render_grid_plain(c: KernelConstants, spp, seed, counts=None,
+                      pixels=None):
     """Plain PyTorch version of ``csrc/volpath_grid.cuh``: (ny, nx, 3).
-    `counts` gathers the lane-events, flight steps and shadow-walk steps
-    run, and with triangles the surface events and ray-triangle tests
-    (keys "events", "flight_steps", "shadow_steps", "surface_events",
-    "tri_tests")."""
+    With triangles its closest hit is a brute-force sweep of the table
+    whatever their number, independent of the mesh class's BVH, which the
+    kernel's traversal is held to. `counts` gathers the lane-events, flight
+    steps and shadow-walk steps run, and with triangles the surface events,
+    the closest-hit and shadow queries and their ray-triangle tests (keys
+    "events", "flight_steps", "shadow_steps", "surface_events",
+    "tri_queries", "shadow_queries", "tri_tests"). `pixels` (flat
+    indices), when given, renders only those pixels; the rest stay 0."""
     K = _Consts(c)
     media = _grid_media(K, c)
     return _render_plain(
         c, spp, seed,
         lambda K, seed, S: _grid_event(K, media, seed, S, c.tris, c.mats,
-                                       counts), counts)
+                                       counts), counts, pixels)
 
 
 # ---------------------------------------------------------------------------
@@ -1158,9 +1222,9 @@ def render_homog(c: KernelConstants, spp, seed):
 
 
 def render_grid(c: KernelConstants, spp, seed):
-    """B2a / B2b: render the grid-cloud class, with its triangles when it
-    has any; the CUDA kernel on a card, the plain version for constants on
-    the CPU."""
+    """B2a / B2b / B2c: render the grid-cloud class, with its triangles
+    (swept, or through the BVH in the mesh class) when it has any; the
+    CUDA kernel on a card, the plain version for constants on the CPU."""
     if c.kind != "grid":
         raise ValueError(f"render_grid got a {c.kind!r} scene")
     if c.fconst.device.type == "cpu":
@@ -1178,11 +1242,23 @@ def render_grid(c: KernelConstants, spp, seed):
         return _launch(c, spp, seed, "grid",
                        (c.density.data_ptr(), c.majorant.data_ptr()), (nmaj,))
     n_tri, n_mat = c.n_tri, int(c.mats.shape[0])
-    if not (1 <= n_tri <= MAX_TRIS_GRID and 1 <= n_mat <= MAX_MATS):
+    cap = MAX_TRIS_GRID if c.nodes is None else MAX_TRIS_MESH
+    if not (1 <= n_tri <= cap and 1 <= n_mat <= MAX_MATS):
         raise ValueError(f"{n_tri} triangles / {n_mat} materials: the kernel "
-                         f"takes 1-{MAX_TRIS_GRID} and 1-{MAX_MATS}")
+                         f"takes 1-{cap} and 1-{MAX_MATS}")
     _check(c.tris, torch.float32, (n_tri, TRI_COLS), dev, "tris")
     _check(c.mats, torch.float32, (n_mat, MAT_COLS), dev, "mats")
+    if c.nodes is not None:
+        n_node = int(c.nodes.shape[0])
+        _check(c.nodes, torch.float32, (n_node, NODE_COLS), dev, "nodes")
+        # the kernel reads both tables as float4s
+        if c.tris.data_ptr() % 16 or c.nodes.data_ptr() % 16:
+            raise ValueError("tris and nodes must be 16-byte aligned")
+        return _launch(c, spp, seed, "grid_mesh",
+                       (c.density.data_ptr(), c.majorant.data_ptr(),
+                        c.tris.data_ptr(), c.nodes.data_ptr(),
+                        c.mats.data_ptr()),
+                       (nmaj, n_tri, n_node, n_mat))
     return _launch(c, spp, seed, "grid_tris",
                    (c.density.data_ptr(), c.majorant.data_ptr(),
                     c.tris.data_ptr(), c.mats.data_ptr()),
@@ -1253,23 +1329,26 @@ def bench_camera(res, *, device):
         (res, res), device=device)
 
 
+# the machines' parts: (centre, half size, material): a glass body, a metal
+# part, a diffuse part and a small glass part; each a cube of 12 triangles
+# over corners i = (x, y, z bits)
+MACHINE_PARTS = (((0.05, -0.25, 0.0), 0.33, 1), ((-0.42, 0.18, 0.15), 0.17, 2),
+                 ((0.42, 0.3, -0.2), 0.15, 0), ((0.0, 0.45, 0.3), 0.12, 1))
+CUBE_FACES = ((0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+              (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3))
+
+
 def machine_tris():
     """The bench's transparent-machines proxy (``bench.py`` _machine_tris):
     a glass body, a metal part, a diffuse part and a small glass part, 12
     triangles each, with vacuum inside (med_in -1) and the cloud outside
     (med_out 0)."""
-    faces = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5),
-             (0, 5, 1), (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4),
-             (1, 5, 7), (1, 7, 3)]
     tris = []
-    for (cx, cy, cz), h, mat in (((0.05, -0.25, 0.0), 0.33, 1),
-                                 ((-0.42, 0.18, 0.15), 0.17, 2),
-                                 ((0.42, 0.3, -0.2), 0.15, 0),
-                                 ((0.0, 0.45, 0.3), 0.12, 1)):
+    for (cx, cy, cz), h, mat in MACHINE_PARTS:
         v = [(cx + (h if i & 1 else -h), cy + (h if i & 2 else -h),
               cz + (h if i & 4 else -h)) for i in range(8)]
         tris += [dict(p0=v[a], p1=v[b], p2=v[c], mat=mat, light=-1,
-                      med_in=-1, med_out=0) for (a, b, c) in faces]
+                      med_in=-1, med_out=0) for (a, b, c) in CUBE_FACES]
     return tris
 
 
@@ -1292,26 +1371,55 @@ MACHINE_CHECKER = dict(kind=1, c0=(0.65, 0.3, 0.2), c1=(0.9, 0.9, 0.85),
                        uvscale=(4.0, 4.0))
 
 
+def machine_mesh_tris(n_sub=3):
+    """The bench's machines as a real mesh (``bench.py``
+    _machine_mesh_tris): each part of ``machine_tris`` a cube
+    loop-subdivided n_sub times, written to a PLY file and read back (4
+    parts x 12 x 4^n_sub = 3072 triangles at n_sub 3)."""
+    import tempfile
+    from pathlib import Path
+
+    from ..tools.plytool import read_ply, write_ply
+    from ..utils.loopsubdiv import subdivide
+
+    faces = np.array(CUBE_FACES, np.int32)
+    tris = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, ((cx, cy, cz), h, mat) in enumerate(MACHINE_PARTS):
+            verts = np.array([[cx + (h if j & 1 else -h),
+                               cy + (h if j & 2 else -h),
+                               cz + (h if j & 4 else -h)] for j in range(8)],
+                             np.float32)
+            v, f, _ = subdivide(verts, faces, n_sub, compute_limit=False)
+            path = Path(tmp) / f"part{i}.ply"
+            write_ply(path, v, f)
+            mesh = read_ply(path)
+            P = np.asarray(mesh["P"], np.float32)
+            for (a, b, c) in np.asarray(mesh["indices"],
+                                        np.int64).reshape(-1, 3):
+                tris.append(dict(p0=P[a], p1=P[b], p2=P[c], mat=mat,
+                                 light=-1, med_in=-1, med_out=0))
+    return tris
+
+
 def make_machines_scene(mesh=False, materials="smooth", *, device):
-    """The teaser scene: the 48-triangle machines proxy inside the bench's
-    pyroclastic cloud (``vspg_kernels.make_pyro64_scene``), with the
-    materials of ``bench.py`` (or a variant of MACHINE_MATERIALS). The
-    2.3k-triangle PLY mesh (mesh=True) needs the BVH, which is not ported
-    yet."""
+    """The teaser scene: the 48-triangle machines proxy (mesh=False) or
+    the 3072-triangle PLY machines (mesh=True, ``machine_mesh_tris``)
+    inside the bench's pyroclastic cloud
+    (``vspg_kernels.make_pyro64_scene``), with the materials of
+    ``bench.py`` (or a variant of MACHINE_MATERIALS)."""
     from ..models.integrators.volpath import Scene
     from ..models.materials import Materials
     from ..models.shapes import Geometry
     from ..models.textures import Textures
     from .vspg_kernels import make_pyro64_scene
 
-    if mesh:
-        raise NotImplementedError("the mesh machines need the BVH, which is "
-                                  "not ported yet")
     base = make_pyro64_scene(device=device)
     geom = Geometry.build(
         boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1, light=-1,
                     med_in=0, med_out=-1)],
-        triangles=machine_tris(), device=device)
+        triangles=machine_mesh_tris() if mesh else machine_tris(),
+        device=device)
     tex = (Textures.build([MACHINE_CHECKER], device=device)
            if materials == "checker" else None)
     return Scene(geom, Materials.build(MACHINE_MATERIALS[materials],

@@ -313,12 +313,16 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
     of ``volpath_kernels.extract_constants`` (one box holding one density
     grid, with at most 64 triangles of untextured diffuse, conductor,
     smooth dielectric or CookTorrance materials: ``pallas_vspg.supports``'
-    gate), a uniform field and any of the three distance routes."""
+    gate, which refuses the mesh class), a uniform field and any of the
+    three distance routes."""
     c = extract_constants(scene, camera, film, cfg)
     if c is None or c.kind != "grid":
         return False
     if c.n_tri:
-        from .volpath_kernels import M_KIND, M_ROUGH, M_TEX
+        from .volpath_kernels import M_KIND, M_ROUGH, M_TEX, MAX_TRIS_GRID
+
+        if c.n_tri > MAX_TRIS_GRID:
+            return False  # the mesh class trains and renders in torch waves
 
         m = c.mats.cpu().numpy()
         if not (np.isin(m[:, M_KIND], (0, 1, 2, 11)).all()
