@@ -24,7 +24,11 @@ machines, and the VSPG kernel's frozen render against the torch wave's,
 also with rough surfaces. Phase 10 does it for the mesh class (the bench's
 3072-triangle PLY machines in the pyro cloud, walked through their BVH):
 the grid kernel's mesh build against its plain version, a mesh furnace and
-``render_persistent`` at 1920x1088. Every line with a number names the card
+``render_persistent`` at 1920x1088. Phase 11 does it for the Cornell
+surface class in vacuum (bench_config6): the surface kernel against its
+plain version on three scenes, a floor furnace, and ``render_persistent``
+on the Cornell box at 256x256x64 against the torch wavefront's mean.
+Every line with a number names the card
 and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -105,6 +109,16 @@ OPS = {
              # (classification, frame, field query of the surface half,
              # cosine product, guided draw, Fresnel or VNDF lobe)
              "tri_tests": (30, 1), "surface_events": (900, 150)},
+    # B5 (path_surface.cu): a lane-iteration (escape or emission with MIS,
+    # the radiance scrub and commit), a closest-hit triangle test and a
+    # shadow-sweep test (the Moller-Trumbore formula, one reciprocal), a
+    # shading iteration (hit point and frame, one NEE light sample with its
+    # square root and reciprocals, the MIS weight, the cosine bounce and
+    # its frame, roulette) and a camera sample (the pinhole ray, two
+    # normalisations)
+    "path_surface": {"fma": True, "iters": (30, 4), "tri_tests": (56, 1),
+                     "shadow_tests": (54, 1), "shades": (155, 9),
+                     "samples": (60, 3)},
 }
 
 
@@ -201,7 +215,8 @@ def main():
     print(f"phase 2 build: nvcc {_build.last_build_seconds:.2f} s {tag}",
           flush=True)
     for line in _build.last_build_log.splitlines():
-        if "vspg_kernel" in line or "registers" in line or "spill" in line:
+        if ("vspg_kernel" in line or "path_surface" in line
+                or "registers" in line or "spill" in line):
             print(f"  ptxas: {line.strip()}", flush=True)
 
     bench_cfg = volpath.VolPathConfig(max_depth=32, max_events=128,
@@ -223,7 +238,7 @@ def main():
     # (the mesh class: 0.9999 and 1e-5, the parity the header's -O0 builds
     # hold)
     tol = {"homog": (0.99, 1e-3), "grid": (0.98, 2e-3), "vspg": (0.98, 2e-3),
-           "mesh": (0.9999, 1e-5)}
+           "mesh": (0.9999, 1e-5), "surface": (0.99, 1e-3)}
 
     def check_parity(label, kind, k, p):
         frac, mean_rel, max_abs = _parity(k, p)
@@ -352,6 +367,8 @@ def main():
     b2b_ms = next(k["ms"] for k in kernels if k["name"] == "volpath_grid_tris")
     kernels += _phase10(dev, tag, check_parity, b2b_ms)
     print(f"phase 10 done {_at()}", flush=True)
+    kernels += _phase11(dev, tag, check_parity)
+    print(f"phase 11 done {_at()}", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1405,6 +1422,130 @@ def _phase10(dev, tag, check_parity, b2b_ms):
                  bound_pipe=max(pipes, key=pipes.get),
                  bound_by=bound_by, library_ms=None, plain_spp=spp,
                  plain_shape=f"{cw}x{ch} crop of {nx}x{ny}")]
+
+
+def _phase11(dev, tag, check_parity):
+    """Phase 11, the Cornell surface class in vacuum (bench_config6). 11a
+    holds B5 (path_surface) against its plain version on three scenes at
+    4 spp (the grid header's -O3 builds lost warps from the third sample
+    on); 11b is a floor furnace; 11c renders the bench line through
+    render_persistent at 256x256x64 and checks the kernel's mean against
+    the torch wavefront's. Returns B5's entry of the kernels line."""
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    cfg = volpath.VolPathConfig(max_depth=8, max_events=24)
+    cornell = volpath.make_cornell_box_scene(device=dev)
+
+    # ---- 11a: parity on the bench box, the box with every light type of
+    # the class, and the floor, at 128x128x4 ---------------------------------
+    res_a, spp_a = 128, 4
+    max_a = 0.0
+    for name, scene, eye, at in (
+            ("cornell", cornell, pk.CORNELL_EYE, pk.CORNELL_AT),
+            ("cornell lit", pk.make_cornell_lit_scene(device=dev),
+             pk.CORNELL_EYE, pk.CORNELL_AT),
+            ("floor", pk.make_floor_scene(device=dev), pk.FLOOR_EYE,
+             pk.FLOOR_AT)):
+        c = pk.extract_constants(scene, *pk.cornell_view(res_a, res_a, eye,
+                                                         at, device=dev), cfg)
+        assert c is not None, name
+        k = pk.render_surface(c, spp_a, 5)
+        p = pk.render_surface_plain(c, spp_a, 5)
+        torch.cuda.synchronize()
+        max_a = max(max_a, check_parity(
+            f"phase 11a parity path_surface ({name}) {res_a}x{res_a}x{spp_a}",
+            "surface", k, p))
+
+    # ---- 11b: floor furnace: albedo (0.7, 0.5, 0.3) under a unit env ------
+    res, spp = 256, 64
+    c_f = pk.extract_constants(
+        pk.make_floor_scene(device=dev),
+        *pk.cornell_view(res, res, pk.FLOOR_EYE, pk.FLOOR_AT, device=dev), cfg)
+    m_f = pk.render_surface(c_f, spp, 3).reshape(-1, 3).mean(0).tolist()
+    print(f"phase 11b floor furnace {res}x{res}x{spp}: path_surface mean "
+          f"{[round(v, 5) for v in m_f]} (0.7, 0.5, 0.3 within 1%) {tag}",
+          flush=True)
+    assert all(abs(m - a) / a < 0.01 for m, a in zip(m_f, (0.7, 0.5, 0.3))), \
+        m_f
+
+    # ---- 11c: the bench line path_cornell_surface_256x256x64spp -----------
+    cam, film = pk.cornell_view(res, res, device=dev)
+
+    def call():
+        return volpath.render_persistent(cornell, cam, film, spp=spp, cfg=cfg,
+                                         seed=5, lanes_per_pixel=1,
+                                         backend="auto", device=dev)
+
+    for counter in (vk.LAUNCHES, sk.LAUNCHES, pk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    img = call()
+    torch.cuda.synchronize()
+    launches = dict(pk.LAUNCHES)
+    assert launches == {"surface": 1}, launches
+    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+    assert all(v == 0 for v in sk.LAUNCHES.values()), sk.LAUNCHES
+    assert tuple(img.shape) == (res, res, 3)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    t_call, _ = _best_of_3(call)
+    c = pk.extract_constants(cornell, cam, film, cfg)
+    k_ms = _events_best_of_3(lambda: pk.render_surface(c, spp, 5))
+    assert torch.equal(img, pk.render_surface(c, spp, 5))
+    # the plain version at the bench shape on the same inputs, timed once
+    counts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = pk.render_surface_plain(c, spp, 5, counts)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    max_c = check_parity(f"phase 11c parity path_surface {res}x{res}x{spp}",
+                         "surface", img, p)
+    bound, bound_by, pipes = _bound_ms(
+        "path_surface", counts, 1.0, _nbytes(c.fconst, c.tris, img))
+    paths = res * res * spp
+    print(f"phase 11c cornell surface {res}x{res}x{spp} via "
+          f"render_persistent: call {t_call * 1e3:.3f} ms "
+          f"({paths / t_call / 1e6:.3f} Mpaths/s), kernel {k_ms:.4f} ms by "
+          f"CUDA events ({paths / k_ms / 1e3:.3f} Mpaths/s), mean "
+          f"{img.mean().item():.5f}, launches {launches['surface']}; plain "
+          f"version {t_plain * 1e3:.1f} ms; counted work {counts}; bound "
+          f"{bound:.4f} ms ({bound_by}; ms by pipe {pipes}), kernel at "
+          f"{bound / k_ms:.4f} of it, {_at()} {tag}", flush=True)
+
+    # the kernel's mean against the torch wavefront's (each on its own
+    # random stream and constants): Monte Carlo agreement
+    res_e = 64
+    cam_e, film_e = pk.cornell_view(res_e, res_e, device=dev)
+    imgs = {}
+    for backend, seed in (("auto", 11), ("torch", 12)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[backend] = volpath.render_persistent(
+            cornell, cam_e, film_e, spp=spp, cfg=cfg, seed=seed,
+            lanes_per_pixel=1, backend=backend, device=dev)
+        torch.cuda.synchronize()
+        imgs[backend + "_s"] = time.perf_counter() - t0
+    k_img, t_img = imgs["auto"], imgs["torch"]
+    assert bool(torch.isfinite(t_img).all())
+    diff = (k_img - t_img).mean(-1).reshape(-1).double()
+    err = (diff.std() / np.sqrt(diff.numel())).item()
+    m_k, m_t = k_img.mean().item(), t_img.mean().item()
+    print(f"phase 11c cornell {res_e}x{res_e}x{spp}: kernel mean {m_k:.6f} "
+          f"({imgs['auto_s']:.2f} s), torch wavefront mean {m_t:.6f} "
+          f"({imgs['torch_s']:.2f} s), difference {m_k - m_t:+.6f} = "
+          f"{(m_k - m_t) / err:+.2f} standard errors of the per-pixel "
+          f"differences (bound 4), {_at()} {tag}", flush=True)
+    assert abs(m_k - m_t) <= 4.0 * err, (m_k, m_t, err)
+    return [dict(name="path_surface", route="cuda",
+                 source="vspg_pbrt_v4_tpu_torch/csrc/path_surface.cu",
+                 replaces="vspg_pbrt_v4_tpu/ops/pallas_surface.py:195",
+                 launches=launches["surface"], max_abs_err=max(max_a, max_c),
+                 ms=k_ms, plain_ms=t_plain * 1e3, bound_ms=bound,
+                 bound_pipe=max(pipes, key=pipes.get), bound_by=bound_by,
+                 library_ms=None)]
 
 
 if __name__ == "__main__":

@@ -70,10 +70,10 @@ def test_from_jax_refuses_unported_objects():
     sph = JGeometry.build(spheres=[dict(c=(0, 0, 0), r=1.0, mat=-1)])
     with pytest.raises(NotImplementedError):
         from_jax(scene._replace(geometry=sph), cam, film, cfg, "cpu")
-    area = JLights.make(area_tris=[dict(p0=(0, 0, 0), p1=(1, 0, 0),
-                                        p2=(0, 1, 0), L=(1, 1, 1))])
+    # area lights convert; distant lights are not ported
+    distant = JLights.make(distant_dir=[(0, -1, 0)], distant_L=[(1, 1, 1)])
     with pytest.raises(NotImplementedError):
-        from_jax(scene._replace(lights=area), cam, film, cfg, "cpu")
+        from_jax(scene._replace(lights=distant), cam, film, cfg, "cpu")
 
 
 def test_port_imports_no_jax():

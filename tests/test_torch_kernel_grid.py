@@ -103,3 +103,41 @@ def test_grid_wrapper_and_auto_dispatch_use_plain_on_cpu():
     assert torch.equal(auto, plain)
     assert vk.LAUNCHES == before
     assert plain.mean() > 0
+
+
+def test_grid_class_refuses_area_lights():
+    """B2 and the VSPG kernel shade no emission: a cloud with an emissive
+    triangle leaves both classes and renders through the torch wavefront,
+    which adds its light."""
+    from vspg_pbrt_v4_tpu_torch.models.integrators.guided_volpath import \
+        GuidingOptions
+    from vspg_pbrt_v4_tpu_torch.models.integrators.vspg import VSPGOptions
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    scene, cam, film = cloud_setup()
+    ts, tc, tf, tcfg = from_jax(scene, cam, film, CFG, "cpu")
+    gopt, vopt = GuidingOptions(), VSPGOptions()
+    assert vk.extract_constants(ts, tc, tf, tcfg) is not None
+    assert sk.supports(ts, tc, tf, tcfg, gopt, vopt, None)
+    tri = dict(p0=(-0.3, 0.5, -0.3), p1=(0.3, 0.5, -0.3), p2=(0.0, 0.5, 0.3))
+    lit = ts.__class__(
+        Geometry.build([dict(bmin=(-1, -1, -1), bmax=(1, 1, 1), mat=-1,
+                             light=-1, med_in=0, med_out=-1)],
+                       [dict(tri, mat=0, light=0, med_in=0, med_out=0)],
+                       device="cpu"),
+        ts.materials, ts.media,
+        Lights.make(env_L=[0.3, 0.35, 0.4], world_radius=100.0,
+                    area_tris=[dict(tri, L=(4.0,) * 3, twosided=True)],
+                    device="cpu"))
+    assert vk.extract_constants(lit, tc, tf, tcfg) is None
+    assert not sk.supports(lit, tc, tf, tcfg, gopt, vopt, None)
+    before = dict(vk.LAUNCHES)
+    dark = ts.__class__(lit.geometry, lit.materials, lit.media,
+                        Lights.make(env_L=[0.3, 0.35, 0.4],
+                                    world_radius=100.0, device="cpu"))
+    imgs = [tv.render_persistent(s, tc, tf, spp=2, cfg=tcfg, seed=4,
+                                 device="cpu") for s in (lit, dark)]
+    assert vk.LAUNCHES == before
+    assert imgs[0].mean() > imgs[1].mean() > 0

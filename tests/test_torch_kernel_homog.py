@@ -136,6 +136,12 @@ def _variants():
         "no light": base.__class__(
             base.geometry, base.materials, base.media,
             Lights.make(device=dev)),
+        # B1 shades no emission: an area light must not render dark
+        "area light": base.__class__(
+            base.geometry, base.materials, base.media,
+            Lights.make(env_L=[0.2] * 3, area_tris=[dict(
+                p0=(0, 0, 0), p1=(1, 0, 0), p2=(0, 1, 0), L=(1, 1, 1))],
+                device=dev)),
     }
 
 

@@ -90,6 +90,21 @@ def _refusal(case):
                              accelerator="kdtree")
         return lambda: convert.from_jax(scene._replace(geometry=jg), cam,
                                         film, CFG, "cpu")
+    if case == "area light":
+        # an emissive triangle in the cloud: vspg_bounce shades no emission
+        # yet, so the VSPG arm refuses area lights rather than lose them
+        from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+
+        tri = dict(p0=(-0.2, 0.9, -0.2), p1=(0.2, 0.9, -0.2),
+                   p2=(0.0, 0.9, 0.2))
+        ts = type(ts)(Geometry.build([_box(ts)], [dict(tri, mat=0, light=0)],
+                                     device="cpu"),
+                      ts.materials, ts.media,
+                      Lights.make(env_L=[0.2] * 3, world_radius=100.0,
+                                  area_tris=[dict(tri, L=(5.0,) * 3)],
+                                  device="cpu"))
+        return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
+                                         gopt=tg, vopt=tv, device="cpu")
     if case == "adaptive field":
         return lambda: GuidingField.make((-1,) * 3, (1,) * 3, res=4,
                                          n_extra=64, device="cpu")
@@ -97,7 +112,7 @@ def _refusal(case):
 
 
 @pytest.mark.parametrize("case", ["triangles", "kd-tree", "adaptive field",
-                                  "unet"])
+                                  "unet", "area light"])
 def test_unported_routes_raise(case):
     with pytest.raises(NotImplementedError):
         _refusal(case)()

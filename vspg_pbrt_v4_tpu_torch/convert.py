@@ -113,12 +113,16 @@ def _media(m, device):
 
 def _lights(li, device):
     if (_count(li.spot_p) or _count(li.gonio_p) or _count(li.proj_p)
-            or _count(li.distant_dir) or _count(li.area_p0)
-            or li.has_env_img or li.portal is not None
-            or li.bvh is not None):
-        raise NotImplementedError("only point lights and a constant "
-                                  "environment are ported")
+            or _count(li.distant_dir) or li.has_env_img
+            or li.portal is not None or li.bvh is not None):
+        raise NotImplementedError("only point lights, triangle area lights "
+                                  "and a constant environment are ported")
     return Lights(_t(li.point_p, device), _t(li.point_I, device),
+                  _t(li.area_p0, device, torch.float32),
+                  _t(li.area_p1, device, torch.float32),
+                  _t(li.area_p2, device, torch.float32),
+                  _t(li.area_L, device, torch.float32),
+                  _t(li.area_twosided, device, torch.bool),
                   _t(li.env_L, device), _t(li.select_pmf_table, device),
                   _t(li.select_cdf, device), bool(li.has_env),
                   float(li.world_radius))

@@ -11,8 +11,8 @@ module match the JAX wavefront lane for lane.
 
 Scope: homogeneous and grid media inside box interfaces, flat triangles
 with the materials of ``models/materials.py`` (by brute force up to 64,
-through the geometry's BVH above), point lights and a constant
-environment, a pinhole camera, RGB hero-channel mode.
+through the geometry's BVH above), point lights, triangle area lights
+and a constant environment, a pinhole camera, RGB hero-channel mode.
 """
 
 from __future__ import annotations
@@ -507,9 +507,22 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
     L = _m(with_mis, L + beta * Le_env / denom_esc[..., None], L)
     alive = alive & ~escaped
 
-    # no area lights are ported, so an emissive-tagged hit adds nothing
-    # (the JAX le_area of an empty area-light table is zero)
     surf = flew & h.hit
+
+    # emissive surface hit (integrators.cpp:1146-1160): no MIS on the first
+    # or a specular bounce, else against the light sampler's pdf of the hit
+    if scene.lights.n_area:
+        emissive = surf & (h.light_id >= 0)
+        Le_surf = scene.lights.le_area(h.light_id, -s.d, h.n)
+        has_le = average(Le_surf) > 0
+        no_mis_s = emissive & first & has_le
+        L = _m(no_mis_s, L + beta * Le_surf
+               / torch.clamp(average(r_u), min=1e-30)[..., None], L)
+        with_mis_s = emissive & ~first & has_le
+        p_l_area = scene.lights.pdf_li_area(h.light_id, s.prev_p, h.p, h.n)
+        r_l_area = r_l * p_l_area[..., None]
+        denom_s = torch.clamp(average(r_u + r_l_area), min=1e-30)
+        L = _m(with_mis_s, L + beta * Le_surf / denom_s[..., None], L)
 
     # interface-only surfaces: skip through, switch medium
     # (integrators.cpp:1168-1171 SkipIntersection + SpawnRay medium logic)
@@ -627,6 +640,40 @@ def make_fog_box_scene(sigma_a, sigma_s, g=0.0, Le=None, env_L=None,
     return Scene(geom, Materials.build([], device=device), media, lights)
 
 
+def make_cornell_box_scene(Le=12.0, *, device):
+    """The classic Cornell box (a surface-only scene): white floor, ceiling
+    and back wall, red left and green right wall, and a ceiling area light
+    of two triangles facing down. The interior is x, z in [-1, 1], y in
+    [0, 2]; the camera looks from +z."""
+
+    def quad(p00, p10, p11, p01, mat, light=-1):
+        return [dict(p0=p00, p1=p10, p2=p11, mat=mat, light=light),
+                dict(p0=p00, p1=p11, p2=p01, mat=mat, light=light)]
+
+    white, red, green = 0, 1, 2
+    tris = []
+    tris += quad((-1, 0, -1), (1, 0, -1), (1, 0, 1), (-1, 0, 1), white)
+    tris += quad((-1, 2, 1), (1, 2, 1), (1, 2, -1), (-1, 2, -1), white)
+    tris += quad((-1, 0, -1), (1, 0, -1), (1, 2, -1), (-1, 2, -1), white)
+    tris += quad((-1, 0, -1), (-1, 0, 1), (-1, 2, 1), (-1, 2, -1), red)
+    tris += quad((1, 0, 1), (1, 0, -1), (1, 2, -1), (1, 2, 1), green)
+    lq = [(-0.35, 1.99, -0.35), (0.35, 1.99, -0.35),
+          (0.35, 1.99, 0.35), (-0.35, 1.99, 0.35)]
+    lt = [dict(p0=lq[0], p1=lq[1], p2=lq[3], mat=white, light=0),
+          dict(p0=lq[1], p1=lq[2], p2=lq[3], mat=white, light=1)]
+    tris += lt
+    geom = Geometry.build(triangles=tris, device=device)
+    mats = Materials.build([
+        dict(type=0, albedo=(0.73, 0.73, 0.73)),
+        dict(type=0, albedo=(0.65, 0.05, 0.05)),
+        dict(type=0, albedo=(0.12, 0.45, 0.15)),
+    ], device=device)
+    area = [dict(p0=t["p0"], p1=t["p1"], p2=t["p2"], L=(Le,) * 3)
+            for t in lt]
+    return Scene(geom, mats, Media.make(device=device),
+                 Lights.make(area_tris=area, device=device))
+
+
 def _select(mask, new, old):
     """Per-lane select over a PathState (the sampler's seed is shared)."""
     fields = {}
@@ -692,15 +739,17 @@ def render_persistent(scene: Scene, camera, film, spp=16,
     """Persistent render on `device` with the "independent" sampler;
     returns the (ny, nx, 3) image.
 
-    backend "auto" renders with the kernel of ``ops/volpath_kernels`` when
-    the scene is of its class (one box of homogeneous fog or of one density
-    grid, with the teaser's triangles or a mesh of up to 16384, a pinhole
-    camera, point/env lights) and the camera starts in vacuum; on a card
-    a kernel that fails to build or launch raises. Otherwise, and with
-    backend "torch", it runs the lockstep
-    wavefront of this module with a pool of npix * lanes_per_pixel lanes.
-    `lanes_per_pixel` sizes that pool only: a kernel runs one thread per
-    pixel."""
+    backend "auto" renders with a kernel when the scene is of its class and
+    the camera starts in vacuum, in the JAX package's order: first the
+    kernels of ``ops/volpath_kernels`` (one box of homogeneous fog or of
+    one density grid, with the teaser's triangles or a mesh of up to
+    16384, a pinhole camera, point/env lights), then the vacuum surface
+    kernel of ``ops/surface_kernels`` (the Cornell class: at most 128 flat
+    diffuse triangles, area, point and env lights, no media). On a card a
+    kernel that fails to build or launch raises. Otherwise, and with
+    backend "torch", it runs the lockstep wavefront of this module with a
+    pool of npix * lanes_per_pixel lanes. `lanes_per_pixel` sizes that
+    pool only: a kernel runs one thread per pixel."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if cfg.spectral or cfg.sss:
@@ -708,11 +757,15 @@ def render_persistent(scene: Scene, camera, film, spp=16,
                                   "ported yet")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     if backend == "auto" and camera_medium == -1:
+        from ...ops import surface_kernels as _sk
         from ...ops import volpath_kernels as _vk
 
         c = _vk.extract_constants(scene, camera, film, cfg)
         if c is not None:
             return _vk.render(c, int(spp), seed)
+        c = _sk.extract_constants(scene, camera, film, cfg)
+        if c is not None and _sk.npix_supported(c):
+            return _sk.render_surface(c, int(spp), seed)
     R = film.npix * max(int(lanes_per_pixel), 1)
     return render_persistent_wavefront(scene, camera, film, cfg, int(spp),
                                        int(seed) & 0xFFFFFFFF,

@@ -840,8 +840,8 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
                                    torch.full_like(denom_esc, 1e6))
     alive = alive & ~escaped
 
-    # ---- surfaces: no area lights are ported (an emissive-tagged hit adds
-    # nothing); interfaces switch the medium ---------------------------------
+    # ---- surfaces: an emissive hit adds nothing here (render_vspg refuses
+    # scenes with area lights); interfaces switch the medium -----------------
     surf = flew & h.hit
     iface = surf & (h.mat_id < 0)
     new_med_skip = torch.where(dot(s.d, h.n) < 0, h.med_in, h.med_out)
@@ -1058,6 +1058,10 @@ def render_vspg(scene, camera, film, spp=16, cfg=VolPathConfig(),
         raise NotImplementedError("the VSPG arm on the mesh class (more than "
                                   "64 triangles, through a BVH) is not "
                                   "ported yet")
+    if scene.lights.n_area:
+        raise NotImplementedError("area lights in the VSPG arm are not "
+                                  "ported yet (vspg_bounce shades no "
+                                  "emissive hit)")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     field = (_scene_field(scene, gopt, device) if field is None
              else field.to(device))

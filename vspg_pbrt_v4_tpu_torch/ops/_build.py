@@ -114,6 +114,7 @@ SIGNATURES = {
     "volpath_grid_mesh_launch": [_P] * 8 + [_I, _I, _U, _F] + [_I] * 4 + [_P],
     "vspg_render_launch": [_P] * 12 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
     "vspg_record_launch": [_P] * 12 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
+    "path_surface_launch": [_P, _P, _P, _I, _I, _U, _F, _I, _I, _P],
 }
 
 

@@ -314,7 +314,10 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
     grid, with at most 64 triangles of untextured diffuse, conductor,
     smooth dielectric or CookTorrance materials: ``pallas_vspg.supports``'
     gate, which refuses the mesh class), a uniform field and any of the
-    three distance routes."""
+    three distance routes. It shades no emission, so it refuses area
+    lights."""
+    if scene.lights.n_area:
+        return False
     c = extract_constants(scene, camera, film, cfg)
     if c is None or c.kind != "grid":
         return False

@@ -46,6 +46,16 @@ def sample_cosine_hemisphere(u2):
     return torch.stack([d[..., 0], d[..., 1], z], -1)
 
 
+def sample_uniform_triangle(u2):
+    """Barycentrics (b0, b1, b2) uniform on the simplex (sqrt-free
+    variant)."""
+    u0, u1 = u2[..., 0], u2[..., 1]
+    flip = u0 < u1
+    b0 = torch.where(flip, u0 / 2.0, u0 - u1 / 2.0)
+    b1 = torch.where(flip, u1 - b0, u1 / 2.0)
+    return torch.stack([b0, b1, 1.0 - b0 - b1], dim=-1)
+
+
 def cosine_hemisphere_pdf(cos_theta):
     return cos_theta * INV_PI
 
