@@ -28,12 +28,22 @@ the grid kernel's mesh build against its plain version, a mesh furnace and
 surface class in vacuum (bench_config6): the surface kernel against its
 plain version on three scenes, a floor furnace, and ``render_persistent``
 on the Cornell box at 256x256x64 against the torch wavefront's mean.
+Phase 12 does it for the adaptive guiding field (the VSPG kernel's
+two-stage coarse-cell -> leaf lookup): the record and render variants
+against their plain versions on refined fields, an adaptive furnace,
+``render_vspg`` on the pyro cloud at 256^2 with 1024 extra leaves, its
+time split into the kernels, the refinement and the rest, the render
+kernel on its inputs beside the uniform field of phase 7c, and the frozen
+render against the torch wave's. Phase 13 runs M, the gather
+microbenchmark: both table placements bit for bit against their plain
+version, then its slope timing at C = 32, 256 and 2048.
 Every line with a number names the card
 and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -163,6 +173,47 @@ def _events_best_of_3(fn):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def _rows_parity(label, rec_k, rec_p, tag):
+    """Print and check the fraction of lanes with every record row of a
+    record kernel within 1e-3 (or 1e-5 absolute) of its plain version's;
+    returns the max abs difference."""
+    rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
+    diff = (rk - rp).abs().reshape(rk.shape[0], -1)
+    ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape)) | (diff <= 1e-5))
+    frac = ok.all(-1).float().mean().item()
+    surf = int(((rec_p[7] > 0) & (rec_p[18] < 0.5)).sum())
+    print(f"{label}: {frac:.5f} of lanes with every record row within "
+          f"1e-3, max abs diff {diff.max().item():.3e} "
+          f"({int((rec_p[7] > 0).sum())} valid slots, {surf} at "
+          f"surfaces) {tag}", flush=True)
+    assert frac >= 0.98, (label, frac)
+    return diff.max().item()
+
+
+def _guided_furnace(dev):
+    """The guided furnaces' scene: a 16^3 scattering-only ball (albedo 1,
+    g 0.3) in a box under a constant env of 0.7, whose image is 0.7 under
+    any guiding distribution."""
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+
+    x = np.linspace(-1, 1, 16)
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
+        np.float32) * 3.0
+    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
+                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
+    return volpath.Scene(
+        Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
+                                   mat=-1, light=-1, med_in=0, med_out=-1)],
+                       device=dev),
+        Materials.build([], device=dev), Media.make(grids=(gm,), device=dev),
+        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
 
 
 def _best_of_3(fn):
@@ -358,7 +409,8 @@ def main():
           "training 5 torch waves (bench: 48); phase 6 plain versions timed "
           "once (was best of 3); 10c's plain version on a 256x128 crop of "
           "the 1920x1088x8 main path", flush=True)
-    kernels += _phase7(dev, tag, check_parity, fma_lib)
+    k7, inputs7 = _phase7(dev, tag, check_parity, fma_lib)
+    kernels += k7
     print(f"phase 7 done {_at()}", flush=True)
     kernels += _phase8(dev, tag, check_parity)
     print(f"phase 8 done {_at()}", flush=True)
@@ -369,6 +421,14 @@ def main():
     print(f"phase 10 done {_at()}", flush=True)
     kernels += _phase11(dev, tag, check_parity)
     print(f"phase 11 done {_at()}", flush=True)
+    t12 = time.perf_counter()
+    kernels += _phase12(dev, tag, check_parity, inputs7)
+    print(f"phase 12 done {_at()}, the phase {time.perf_counter() - t12:.1f} "
+          "s", flush=True)
+    t13 = time.perf_counter()
+    kernels += _phase13(dev, tag)
+    print(f"phase 13 done {_at()}, the phase {time.perf_counter() - t13:.1f} "
+          "s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -383,14 +443,12 @@ def _phase7(dev, tag, check_parity, fma_lib):
     versions in both direction modes (RIS, MIS), a guided furnace, then
     ``render_vspg`` on the bench's pyro cloud at 256^2. `fma_lib` is
     vspg.cu built with FMA contraction, timed against the shipped build.
-    Returns the two kernels' entries of the kernels line."""
+    Returns the two kernels' entries of the kernels line and the render
+    kernel's inputs at the main path's shape (phase 12 times B3d beside
+    them)."""
     from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
     from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
     from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
-    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
-    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
-    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
-    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
     from vspg_pbrt_v4_tpu_torch.ops import _build
     from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
@@ -449,18 +507,7 @@ def _phase7(dev, tag, check_parity, fma_lib):
                      k2, p2)
 
     # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
-    x = np.linspace(-1, 1, 16)
-    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
-    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
-        np.float32) * 3.0
-    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
-                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
-    furnace = volpath.Scene(
-        Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
-                                   mat=-1, light=-1, med_in=0, med_out=-1)],
-                       device=dev),
-        Materials.build([], device=dev), Media.make(grids=(gm,), device=dev),
-        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
+    furnace = _guided_furnace(dev)
     f_field, f_isgb = trained(furnace, 64, 8, 3)
     assert f_field.iteration > 0 and f_isgb.ready
     m_f = sk.render_vspg_kernel(*inputs(furnace, 64, f_field, f_isgb), 64,
@@ -603,7 +650,7 @@ def _phase7(dev, tag, check_parity, fma_lib):
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None),
-    ]
+    ], (c, g, ftab, itab)
 
 
 def _phase8(dev, tag, check_parity):
@@ -618,10 +665,6 @@ def _phase8(dev, tag, check_parity):
     from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
     from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
     from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
-    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
-    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
-    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
-    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
     from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
 
@@ -693,18 +736,7 @@ def _phase8(dev, tag, check_parity):
         assert counts["pre_steps"] > 0 and counts["draws"] > 0, counts
 
     # ---- 8b: furnace (albedo 1) under NDS ----------------------------------
-    x = np.linspace(-1, 1, 16)
-    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
-    dens = np.clip(1.0 - np.sqrt(X**2 + Y**2 + Z**2), 0, 1).astype(
-        np.float32) * 3.0
-    gm = GridMedium.make(dens, [0.0] * 3, [2.0] * 3, (-1, -1, -1),
-                         (1, 1, 1), g=0.3, maj_res=8, device=dev)
-    furnace = volpath.Scene(
-        Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
-                                   mat=-1, light=-1, med_in=0, med_out=-1)],
-                       device=dev),
-        Materials.build([], device=dev), Media.make(grids=(gm,), device=dev),
-        Lights.make(env_L=[0.7] * 3, world_radius=100.0, device=dev))
+    furnace = _guided_furnace(dev)
     f_field, f_isgb = trained(furnace, 64, 8, 3, v_nds)
     assert f_field.iteration > 0 and f_isgb.ready
     m_f = sk.render_vspg_kernel(*inputs(furnace, 64, f_field, f_isgb, v_nds),
@@ -945,19 +977,7 @@ def _phase9(dev, tag, check_parity):
                                 isgb)
 
     def rows_parity(label, rec_k, rec_p):
-        """Fraction of lanes with every record row within 1e-3 (or 1e-5
-        absolute), and the max abs difference."""
-        rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
-        diff = (rk - rp).abs().reshape(rk.shape[0], -1)
-        ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape)) | (diff <= 1e-5))
-        frac = ok.all(-1).float().mean().item()
-        surf = int(((rec_p[7] > 0) & (rec_p[18] < 0.5)).sum())
-        print(f"{label}: {frac:.5f} of lanes with every record row within "
-              f"1e-3, max abs diff {diff.max().item():.3e} "
-              f"({int((rec_p[7] > 0).sum())} valid slots, {surf} at "
-              f"surfaces) {tag}", flush=True)
-        assert frac >= 0.98, (label, frac)
-        return diff.max().item()
+        return _rows_parity(label, rec_k, rec_p, tag)
 
     # ---- 9a: parity ---------------------------------------------------------
     # B2b at 128^2 x 4 on the machines, with each material variant
@@ -1546,6 +1566,399 @@ def _phase11(dev, tag, check_parity):
                  ms=k_ms, plain_ms=t_plain * 1e3, bound_ms=bound,
                  bound_pipe=max(pipes, key=pipes.get), bound_by=bound_by,
                  library_ms=None)]
+
+
+
+def _phase12(dev, tag, check_parity, uniform_inputs):
+    """Phase 12, the adaptive guiding field (B3d/B4d: the VSPG kernel's
+    two-stage coarse-cell -> leaf lookup). 12a holds the record and render
+    variants against their plain versions on refined fields (resampling
+    RIS and MIS, NDS, the teaser machines); 12b is a guided furnace on an
+    adaptive field; 12c runs the main path, ``render_vspg`` on the pyro
+    cloud at 256^2 with 1024 extra leaves, split into the kernels, the
+    refinement and the rest, and times B3d on its inputs beside B3a on
+    phase 7c's uniform field (`uniform_inputs`); 12d holds the kernel's
+    frozen render against the torch wave's. Returns the two adaptive
+    kernels' entries of the kernels line."""
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.guiding import field as gfield
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    # phase 7c's configuration (bench_config3) with the adaptive field on:
+    # 1024 extra leaves (twice the 512 coarse cells), refinement at the
+    # default threshold 256, at most 16 splits a wave
+    cfg = volpath.VolPathConfig(max_depth=64, max_events=256,
+                                max_collisions=4096)
+    gopt = guided_volpath.GuidingOptions(field_res=8, record_depth=6,
+                                         min_train_weight=16.0,
+                                         train_waves=48, adaptive_extra=1024,
+                                         refine_threshold=256.0)
+    # the short trainings of 12a/12b refine from a mass of 16 (the JAX
+    # package's kernel test), so that cells split within 4-8 waves
+    gopt_short = gopt._replace(refine_threshold=16.0)
+    vopt = vspg.VSPGOptions(vsp_criterion="contribution")
+    C = 8 ** 3
+    pyro = sk.make_pyro64_scene(device=dev)
+
+    def view(res):
+        return (vk.bench_camera(res, device=dev),
+                RGBFilm.make((res, res), device=dev))
+
+    def trained(scene, res, waves, seed, gopt=gopt_short, cfg=cfg):
+        cam, film = view(res)
+        _, field, isgb = vspg.render_vspg(
+            scene, cam, film, spp=waves, cfg=cfg,
+            gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
+            device=dev)
+        assert field.n_leaves > C, ("no cell was refined", field.n_leaves)
+        return field, isgb
+
+    def inputs(scene, res, field, isgb, vopt=vopt, gopt=gopt, cfg=cfg):
+        cam, film = view(res)
+        return sk.kernel_inputs(scene, cam, film, cfg, gopt, vopt, field,
+                                isgb)
+
+    def rows_parity(label, rec_k, rec_p):
+        return _rows_parity(label, rec_k, rec_p, tag)
+
+    def child_lanes(field, rec):
+        """Fraction of lanes with a recorded vertex in a refined cell's
+        child leaf."""
+        pos = rec[0:3].permute(2, 1, 0)  # (npix, D, 3)
+        leaf = field.cell_id(pos)
+        hit = ((leaf >= C) & (rec[7].T > 0)).any(-1)
+        return hit.float().mean().item()
+
+    # ---- 12a: parity on refined fields at 64^2 -----------------------------
+    machines = vk.make_machines_scene(device=dev)
+    cfg_t = volpath.VolPathConfig(max_depth=48, max_events=256,
+                                  max_collisions=4096)
+    field_c, isgb_c = trained(pyro, 64, 4, 1)
+    field_t, isgb_t = trained(machines, 64, 4, 1, cfg=cfg_t)
+    print(f"phase 12a refined fields: cloud {field_c.n_leaves} leaves "
+          f"({int(field_c.refined.sum())} cells split), machines "
+          f"{field_t.n_leaves} ({int(field_t.refined.sum())}) {tag}",
+          flush=True)
+    for label, scene, fld, mode, method, spp_r in (
+            ("ris", pyro, (field_c, isgb_c), "ris", "resampling", 2),
+            ("mis", pyro, (field_c, isgb_c), "mis", "resampling", 2),
+            ("nds ris", pyro, (field_c, isgb_c), "ris", "nds", 1),
+            ("machines ris", machines, (field_t, isgb_t), "ris",
+             "resampling", 1)):
+        c, g, ftab, itab = inputs(
+            scene, 64, *fld, vopt._replace(sampling_method=method),
+            gopt._replace(mode=mode), cfg_t if scene is machines else cfg)
+        assert g.cells is not None and ftab.shape[1] == C + 1024
+        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
+        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
+        torch.cuda.synchronize()
+        check_parity(f"phase 12a parity vspg_record_adaptive ({label}) image "
+                     "64x64x1", "vspg", img_k, img_p)
+        rows_parity(f"phase 12a parity vspg_record_adaptive ({label}) rows",
+                    rec_k, rec_p)
+        counts = {}
+        k2 = sk.render_vspg_kernel(c, g, ftab, itab, spp_r, 22)
+        p2 = sk.render_vspg_plain(c, g, ftab, itab, spp_r, 22, counts)
+        torch.cuda.synchronize()
+        check_parity(f"phase 12a parity vspg_render_adaptive ({label}) "
+                     f"64x64x{spp_r}", "vspg", k2, p2)
+        lanes = child_lanes(fld[0], rec_p)
+        share = counts["child_scatters"] / max(counts["scatters"], 1)
+        print(f"phase 12a ({label}): {lanes:.4f} of record lanes reach a "
+              f"refined cell's child leaf; {share:.4f} of the render's "
+              f"scatter vertices resolve to one ({counts['child_scatters']} "
+              f"of {counts['scatters']}) {tag}", flush=True)
+        assert lanes > 0 and counts["child_scatters"] > 0
+    print(f"phase 12a done {_at()} {tag}", flush=True)
+
+    # ---- 12b: furnace (albedo 1) with the adaptive field -------------------
+    furnace = _guided_furnace(dev)
+    f_field, f_isgb = trained(furnace, 64, 8, 3)
+    m_f = sk.render_vspg_kernel(*inputs(furnace, 64, f_field, f_isgb), 64,
+                                9).mean().item()
+    print(f"phase 12b furnace: adaptive guided render mean {m_f:.5f} (0.7 "
+          f"within 3%), field trained {f_field.iteration} waves, "
+          f"{f_field.n_leaves} leaves {tag}", flush=True)
+    assert abs(m_f - 0.7) / 0.7 < 0.03, m_f
+
+    # ---- 12c: the main path at bench size -----------------------------------
+    res, n_train, n_frozen = 256, 48, 64
+    cam, film = view(res)
+    npix = res * res
+    for counter in (vk.LAUNCHES, sk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    refine_s = []
+    refine = gfield.refine_field
+
+    def timed_refine(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = refine(*a, **kw)
+        torch.cuda.synchronize()
+        refine_s.append(time.perf_counter() - t0)
+        return out
+
+    gfield.refine_field = timed_refine
+    sk.LAUNCH_EVENTS = []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, field, isgb = vspg.render_vspg(
+            pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
+            vopt=vopt, seed=5, spp_per_pass=1, device=dev)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+    finally:
+        gfield.refine_field = refine
+        events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+    launches = dict(sk.LAUNCHES)
+    assert launches == dict({k: 0 for k in sk.LAUNCHES},
+                            vspg_record_adaptive=n_train,
+                            vspg_render_adaptive=1), launches
+    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+    assert field.iteration == n_train and isgb.ready
+    assert field.n_leaves > C, field.n_leaves
+    assert tuple(img.shape) == (res, res, 3)
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
+    k_ms = {name: 0.0 for name in sk.LAUNCHES}
+    for name, start, end in events:
+        k_ms[name] += start.elapsed_time(end)
+    rec_ms, ren_ms = k_ms["vspg_record_adaptive"], k_ms["vspg_render_adaptive"]
+    ref_ms = sum(refine_s) * 1e3
+    rest_ms = t_main * 1e3 - rec_ms - ren_ms
+    print(f"phase 12c render_vspg adaptive pyro64 {res}x{res} {n_train} "
+          f"training waves + {n_frozen} frozen spp: {t_main:.3f} s, mean "
+          f"{img.mean().item():.5f}, {field.n_leaves} leaves after training "
+          f"({int(field.refined.sum())} of {C} cells split), launches "
+          f"{launches} {tag}", flush=True)
+    print(f"phase 12c split of that call: record kernel {rec_ms:.3f} ms in "
+          f"{n_train} launches ({rec_ms / n_train:.3f} ms each), render "
+          f"kernel {ren_ms:.3f} ms, the rest {rest_ms:.3f} ms of "
+          f"{t_main * 1e3:.3f} ms, of it refine_field {ref_ms:.3f} ms in "
+          f"{len(refine_s)} calls ({ref_ms / max(len(refine_s), 1):.3f} ms "
+          f"a wave) {tag}", flush=True)
+
+    # B3d on this call's inputs beside B3a on phase 7c's uniform field, in
+    # turns, then each variant against its plain version at 1 spp
+    c, g, ftab, itab = inputs(pyro, res, field, isgb)
+    t_ad, t_un = [], []
+    for first in (True, False):
+        order = ((t_ad, (c, g, ftab, itab)), (t_un, uniform_inputs))
+        for acc, args in (order if first else order[::-1]):
+            acc.append(_best_of_3(lambda args=args: sk.render_vspg_kernel(
+                *args, n_frozen, 11))[0])
+    t_k64, t_u64 = min(t_ad), min(t_un)
+    print(f"phase 12c vspg_render {res}x{res}x{n_frozen}: adaptive field "
+          f"{t_k64 * 1e3:.3f} ms ({npix * n_frozen / t_k64 / 1e6:.3f} "
+          f"Mpaths/s), phase 7c's uniform field {t_u64 * 1e3:.3f} ms, in "
+          f"turns {[round(t * 1e3, 3) for t in t_ad]} / "
+          f"{[round(t * 1e3, 3) for t in t_un]} {tag}", flush=True)
+    # the two fields' paths differ; the switch's own cost: phase 7c's
+    # inputs with the switch on and an identity indirection (no cell
+    # refined), which reads the same leaves and draws the same image
+    c7, g7, ftab7, itab7 = uniform_inputs
+    ident = torch.zeros((3, C), dtype=torch.int32, device=dev)
+    ident[0] = torch.arange(C, device=dev)
+    gi7 = g7.iconst.clone()
+    gi7[sk.GI_NEXTRA] = 1
+    g_id = dataclasses.replace(g7, iconst=gi7, cells=ident)
+    t_sw, t_off = [], []
+    for first in (True, False):
+        order = ((t_off, g7), (t_sw, g_id))
+        for acc, gg in (order if first else order[::-1]):
+            acc.append(_best_of_3(lambda gg=gg: sk.render_vspg_kernel(
+                c7, gg, ftab7, itab7, n_frozen, 11)))
+    assert torch.equal(t_sw[0][1], t_off[0][1])
+    sw_ms, off_ms = (min(t for t, _ in v) * 1e3 for v in (t_sw, t_off))
+    print(f"phase 12c the adaptive switch alone on phase 7c's inputs at "
+          f"{res}x{res}x{n_frozen} (identity indirection, the same image): "
+          f"{sw_ms:.3f} ms against {off_ms:.3f} ms without, "
+          f"{(sw_ms / off_ms - 1) * 100:+.2f}%, in turns "
+          f"{[round(t * 1e3, 3) for t, _ in t_off]} / "
+          f"{[round(t * 1e3, 3) for t, _ in t_sw]} {tag}", flush=True)
+    t_k1, k1 = _best_of_3(lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1,
+                                                        11))
+    counts = {}
+    t0 = time.perf_counter()
+    p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 11, counts)
+    torch.cuda.synchronize()
+    t_p1 = time.perf_counter() - t0
+    max_ren = check_parity(f"phase 12c parity vspg_render_adaptive "
+                           f"{res}x{res}x1", "vspg", k1, p1)
+    t_rk, (img_rk, rec_rk) = _best_of_3(
+        lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
+    counts_r = {}
+    t0 = time.perf_counter()
+    img_rp, rec_rp = sk.train_wave_plain(c, g, ftab, itab, 31, 6, counts_r)
+    torch.cuda.synchronize()
+    t_rp = time.perf_counter() - t0
+    check_parity(f"phase 12c parity vspg_record_adaptive {res}x{res}x1 "
+                 "image", "vspg", img_rk, img_rp)
+    max_rec = rows_parity(f"phase 12c parity vspg_record_adaptive "
+                          f"{res}x{res}x1 rows", rec_rk, rec_rp)
+    ins_bytes = _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, g.cells,
+                        c.density, c.majorant, ftab, itab)
+    b_ren, by_ren, p_ren = _bound_ms("vspg", counts, n_frozen,
+                                     ins_bytes + _nbytes(img))
+    b_rec, by_rec, p_rec = _bound_ms(
+        "vspg", counts_r, 1.0, ins_bytes + _nbytes(img)
+        + sk.REC_ROWS * gopt.record_depth * npix * 4)
+    print(f"phase 12c vspg_render_adaptive at 1 spp kernel "
+          f"{t_k1 * 1e3:.3f} ms, plain {t_p1 * 1e3:.1f} ms; counted work "
+          f"{counts}; bound at {n_frozen} spp {b_ren:.4f} ms ({by_ren}; ms "
+          f"by pipe {p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it "
+          f"{tag}", flush=True)
+    print(f"phase 12c vspg_record_adaptive kernel {res}x{res}x1 "
+          f"{t_rk * 1e3:.3f} ms a wave, plain {t_rp * 1e3:.1f} ms; counted "
+          f"work {counts_r}; bound {b_rec:.4f} ms ({by_rec}; ms by pipe "
+          f"{p_rec}), kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}",
+          flush=True)
+
+    # ---- 12d: the kernel's frozen render against the torch wave's ---------
+    res_e, spp_e = 128, 64
+    cam_e, film_e = view(res_e)
+    field_e, isgb_e = trained(pyro, res_e, n_train, 7, gopt)
+    imgs = {}
+    for backend in ("auto", "torch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[backend] = vspg.render_vspg(
+            pyro, cam_e, film_e, spp=spp_e, cfg=cfg, gopt=gopt, vopt=vopt,
+            seed=11 if backend == "auto" else 12, spp_per_pass=spp_e,
+            field=field_e, isgb=isgb_e, train=False, backend=backend,
+            device=dev)[0]
+        torch.cuda.synchronize()
+        imgs[backend + "_s"] = time.perf_counter() - t0
+    k_img, t_img = imgs["auto"], imgs["torch"]
+    assert bool(torch.isfinite(t_img).all())
+    diff = (k_img - t_img).mean(-1).reshape(-1).double()
+    err = (diff.std() / np.sqrt(diff.numel())).item()
+    m_k, m_t = k_img.mean().item(), t_img.mean().item()
+    print(f"phase 12d frozen adaptive {res_e}x{res_e}x{spp_e} "
+          f"({field_e.n_leaves} leaves): kernel mean {m_k:.6f} "
+          f"({imgs['auto_s']:.2f} s), torch wave mean {m_t:.6f} "
+          f"({imgs['torch_s']:.2f} s), difference {m_k - m_t:+.6f} = "
+          f"{(m_k - m_t) / err:+.2f} standard errors of the per-pixel "
+          f"differences (bound 4) {tag}", flush=True)
+    assert abs(m_k - m_t) <= 4.0 * err, (m_k, m_t, err)
+
+    src = "vspg_pbrt_v4_tpu_torch/csrc/vspg.cu"
+    rep = "vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241"
+    return [
+        dict(name="vspg_render_adaptive", route="cuda", source=src,
+             replaces=rep, launches=launches["vspg_render_adaptive"],
+             max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1 * 1e3,
+             bound_ms=b_ren, bound_pipe=max(p_ren, key=p_ren.get),
+             bound_by=by_ren, library_ms=None, plain_spp=1,
+             uniform_field_ms=t_u64 * 1e3, switch_off_ms=off_ms,
+             switch_on_ms=sw_ms),
+        dict(name="vspg_record_adaptive", route="cuda", source=src,
+             replaces=rep, launches=launches["vspg_record_adaptive"],
+             max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
+             bound_ms=b_rec, bound_pipe=max(p_rec, key=p_rec.get),
+             bound_by=by_rec, library_ms=None),
+    ]
+
+
+# M's integer work per lookup, counted by hand from
+# csrc/gather_microbench.cu: the word, cell and lane masks and shifts (4),
+# the address (2), the float-to-int conversion (1), the two wrapping adds
+# (2), the hash (two shifts, two xors, a multiply: 5); the float add of
+# the sum is one FP32 operation. Hopper issues 64 INT32 operations a cycle
+# an SM (NVIDIA's Hopper architecture white paper).
+GATHER_INT_OPS = 14
+INT32_PER_S = 132 * 64 * 1.98e9
+
+
+def _phase13(dev, tag):
+    """Phase 13, M: the gather microbenchmark. Both table placements
+    against the plain version, bit for bit, for block 0 (the TPU kernel's
+    result) and every block of a full card; then its driver ``run``, the
+    JAX file's slope timing, at C = 32, 256 and 2048 with one block and
+    with a full card. Returns the two placements' entries of the kernels
+    line."""
+    from vspg_pbrt_v4_tpu_torch.benchmarks import gather_microbench as gm
+
+    full = 132 * 8  # eight 1024-lane blocks on each of the 132 SMs
+    for C in (32, 256):
+        table = torch.as_tensor(gm.make_table(C), device=dev)
+        p = gm.gather_plain(table, 3, C, 64, full)
+        p1 = gm.gather_plain(table, 3, C, 64, 1)
+        assert torch.equal(p[:1], p1)
+        for variant in gm.VARIANTS:
+            k = gm.gather(table, 3, C, 64, full, variant)
+            k1 = gm.gather(table, 3, C, 64, 1, variant)
+            torch.cuda.synchronize()
+            same = torch.equal(k, p) and torch.equal(k1, p1)
+            print(f"phase 13 parity gather_{variant} C={C} 64 events: block "
+                  f"0 and all {full} blocks bit for bit: {same} {tag}",
+                  flush=True)
+            assert same, (variant, C)
+    for key in gm.LAUNCHES:
+        gm.LAUNCHES[key] = 0
+    print(f"phase 13 gather microbenchmark (E_LO={gm.E_LO}, E_HI={gm.E_HI}, "
+          f"best of 5 by CUDA events; every lookup waits for the previous "
+          f"one, so the slope is a latency) {tag}", flush=True)
+    timed = {}
+    for variant in gm.VARIANTS:
+        for C in (32, 256, 2048):
+            if variant == "shared" and C > gm.MAX_SHARED_C:
+                print(f"phase 13 gather_shared C={C}: cut, the {C * 512} "
+                      f"byte table exceeds a block's shared memory {tag}",
+                      flush=True)
+                continue
+            for blocks in (1, full):
+                us, rate, ms_hi = gm.run(variant, C, blocks=blocks,
+                                         device=dev)
+                timed[variant, C, blocks] = ms_hi
+                # one block: the slope is one lane's dependent-lookup
+                # latency; a full card: its lookups per second
+                print(f"phase 13 gather_{variant} C={C} blocks={blocks}: "
+                      f"{us:.4f} us per event"
+                      + (f" per block, {us * 1e3:.1f} ns per dependent lookup"
+                         if blocks == 1 else "")
+                      + f", {rate:.2f} Mlookups/s {tag}", flush=True)
+    launches = dict(gm.LAUNCHES)
+    assert all(v > 0 for v in launches.values()), launches
+    entries = []
+    for variant, C in (("global", 2048), ("shared", 256)):
+        # the entry's shape: the TPU kernel's (one block) at E_HI events
+        table = torch.as_tensor(gm.make_table(C), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = gm.gather_plain(table, 2, C, gm.E_HI, 1)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        k = gm.gather(table, 2, C, gm.E_HI, 1, variant)
+        gm.LAUNCHES["gather_" + variant] -= 1  # a comparison launch
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), variant
+        lookups = gm.SUB * gm.LANES * gm.E_HI
+        t_bytes = (C * gm.LANES * 4 + gm.SUB * gm.LANES * 4) / HBM_BYTES_PER_S
+        t_ops = lookups * GATHER_INT_OPS / INT32_PER_S
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        ms = timed[variant, C, 1]
+        print(f"phase 13 gather_{variant} C={C} 1 block x {gm.E_HI} events: "
+              f"kernel {ms:.4f} ms, plain {t_plain * 1e3:.1f} ms, bound "
+              f"{bound:.6f} ms ({by}: table and output bytes "
+              f"{t_bytes * 1e3:.6f} ms, integer ops {t_ops * 1e3:.6f} ms), "
+              f"kernel at {bound / ms:.5f} of it: the chain of dependent "
+              f"loads makes it a latency measurement {tag}", flush=True)
+        entries.append(dict(
+            name=f"gather_{variant}", route="cuda",
+            source="vspg_pbrt_v4_tpu_torch/csrc/gather_microbench.cu",
+            replaces="benchmarks/gather_microbench.py:45",
+            launches=launches["gather_" + variant], max_abs_err=0.0, ms=ms,
+            plain_ms=t_plain * 1e3, bound_ms=bound, bound_by=by,
+            bound_pipe="bytes" if by == "bytes" else "int32",
+            library_ms=None, shape=f"C={C}, 1 block, {gm.E_HI} events",
+            full_card_ms=timed[variant, C, full]))
+    return entries
 
 
 if __name__ == "__main__":

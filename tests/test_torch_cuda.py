@@ -151,11 +151,12 @@ def test_wrapper_checks_inputs(dev):
 
 
 def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling",
-                 scene="cloud"):
+                 scene="cloud", adaptive=False):
     """VSPG kernel inputs on the bench's pyro cloud (or the teaser
     machines in it), the field and ISGB trained by `waves` record waves,
     for direction mode `mode` and distance route `method` (NDS+ with a
-    TrBuffer varying per pixel)."""
+    TrBuffer varying per pixel); `adaptive`: an adaptive field (1024 extra
+    leaves, refined after each wave at threshold 16)."""
     from vspg_pbrt_v4_tpu_torch.models.integrators import vspg
     from vspg_pbrt_v4_tpu_torch.models.integrators.guided_volpath import (
         GuidingOptions)
@@ -163,7 +164,9 @@ def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling",
 
     cfg = tv.VolPathConfig(max_depth=64, max_events=256, max_collisions=4096)
     gopt = GuidingOptions(field_res=8, record_depth=6, min_train_weight=16.0,
-                          train_waves=waves)
+                          train_waves=waves,
+                          adaptive_extra=1024 if adaptive else 0,
+                          refine_threshold=16.0)
     vopt = vspg.VSPGOptions(vsp_criterion="contribution")
     scene = (sk.make_pyro64_scene(device=dev) if scene == "cloud"
              else vk.make_machines_scene(device=dev))
@@ -215,6 +218,54 @@ def test_vspg_kernel_matches_plain(dev, variant, mode, method, scene):
     diff = (k - p).abs()
     ok = ((diff <= 1e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
     assert ok.float().mean().item() >= 0.98
+
+
+@pytest.mark.parametrize("scene", ["cloud", "machines"])
+@pytest.mark.parametrize("method", ["resampling", "nds"])
+@pytest.mark.parametrize("variant", ["render", "record"])
+def test_vspg_kernel_adaptive_matches_plain(dev, variant, method, scene):
+    """B3d/B4d: the kernel on a refined adaptive field against its plain
+    version (RIS), with the bar of the uniform field's test; some queries
+    resolve through a child leaf."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, waves=4, method=method,
+                                    scene=scene, adaptive=True)
+    assert g.cells is not None and ftab.shape[1] == 512 + 1024
+    assert bool(g.cells[2].any()), "no cell was refined"
+    name = ("vspg_" + variant + ("_tris" if scene == "machines" else "")
+            + "_adaptive")
+    before = sk.LAUNCHES[name]
+    if variant == "render":
+        k = sk.render_vspg_kernel(c, g, ftab, itab, 1, 7)
+        p = sk.render_vspg_plain(c, g, ftab, itab, 1, 7)
+    else:
+        k, rk = sk.train_wave_kernel(c, g, ftab, itab, 7, 6)
+        p, rp = sk.train_wave_plain(c, g, ftab, itab, 7, 6)
+        d = (rk - rp).abs()
+        ok = ((d <= 1e-3 * rp.abs()) | (d <= 1e-5)).all(0).all(0)
+        assert ok.float().mean().item() >= 0.98
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before + 1
+    diff = (k - p).abs()
+    ok = ((diff <= 1e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.98
+
+
+@pytest.mark.parametrize("C", [32, 256])
+@pytest.mark.parametrize("variant", ["global", "shared"])
+def test_gather_kernel_matches_plain(dev, variant, C):
+    """M: both table placements bit for bit with the plain version, for
+    every block of a full card."""
+    from vspg_pbrt_v4_tpu_torch.benchmarks import gather_microbench as gm
+
+    table = torch.as_tensor(gm.make_table(C), device=dev)
+    before = gm.LAUNCHES["gather_" + variant]
+    k = gm.gather(table, 9, C, 64, 132 * 8, variant)
+    p = gm.gather_plain(table, 9, C, 64, 132 * 8)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES["gather_" + variant] == before + 1
+    assert torch.equal(k, p)
 
 
 def test_vspg_launch_events(dev):

@@ -334,6 +334,6 @@ def test_constant_layout_matches_header():
     decl = {m[0]: int(m[1]) for m in re.findall(
         r"\b(GI?_\w+|N_GI?CONST)\s*=\s*(\d+)", src)}
     names = [n for n in dir(sk) if re.fullmatch(r"GI?_\w+|N_GI?CONST", n)]
-    assert len(names) == len(decl) == 22 + 1 + 14 + 1
+    assert len(names) == len(decl) == 22 + 1 + 16 + 1
     for n in names:
         assert decl[n] == getattr(sk, n), n

@@ -11,7 +11,6 @@ import torch
 from vspg_pbrt_v4_tpu.models.integrators import volpath as jv
 from vspg_pbrt_v4_tpu.models.integrators import vspg as jvspg
 from vspg_pbrt_v4_tpu_torch import convert
-from vspg_pbrt_v4_tpu_torch.models.guiding.field import GuidingField
 from vspg_pbrt_v4_tpu_torch.models.guiding.isgb import ISGB
 from vspg_pbrt_v4_tpu_torch.models.integrators import vspg as tvspg
 from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
@@ -105,23 +104,22 @@ def _refusal(case):
                                   device="cpu"))
         return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
                                          gopt=tg, vopt=tv, device="cpu")
-    if case == "adaptive field":
-        return lambda: GuidingField.make((-1,) * 3, (1,) * 3, res=4,
-                                         n_extra=64, device="cpu")
     return lambda: ISGB.make((4, 4), "variance", "unet", device="cpu")
 
 
-@pytest.mark.parametrize("case", ["triangles", "kd-tree", "adaptive field",
-                                  "unet", "area light"])
+@pytest.mark.parametrize("case", ["triangles", "kd-tree", "unet",
+                                  "area light"])
 def test_unported_routes_raise(case):
     with pytest.raises(NotImplementedError):
         _refusal(case)()
 
 
 # case: (sampling method, spp_per_pass, scene) and the route the JAX
-# package takes: (record-kernel waves, torch waves, frozen-kernel renders)
+# package takes: (record-kernel waves, torch waves, frozen-kernel renders);
+# "adaptive" is the cloud with an adaptive field (res 4, 128 extra leaves)
 WAVE_ROUTES = {
     "nds": (("nds", 1, "cloud"), (1, 0, 1)),
+    "adaptive": (("resampling", 1, "adaptive"), (1, 0, 1)),
     "nds+": (("nds+", 1, "cloud"), (0, 1, 1)),
     "spp_per_pass": (("resampling", 2, "cloud"), (0, 1, 1)),
     "fog box": (("resampling", 1, "fog"), (0, 4, 0)),
@@ -131,10 +129,10 @@ WAVE_ROUTES = {
 @pytest.mark.parametrize("case", list(WAVE_ROUTES))
 def test_wave_routes_render(case, monkeypatch):
     """Calls that once raised now render, each by the JAX package's route:
-    NDS trains through the record kernel; NDS+ and spp_per_pass > 1 train
-    through the torch wave; both freeze into the render kernel (NDS+ with
-    its TrBuffer); the fog box, outside the kernel's class, takes the torch
-    wave for every sample."""
+    NDS and the adaptive field train through the record kernel; NDS+ and
+    spp_per_pass > 1 train through the torch wave; all freeze into the
+    render kernel (NDS+ with its TrBuffer); the fog box, outside the
+    kernel's class, takes the torch wave for every sample."""
     (method, per_pass, which), want = WAVE_ROUTES[case]
     calls = {"train_wave": 0, "vspg_wave": 0, "render_frozen": []}
 
@@ -157,7 +155,11 @@ def test_wave_routes_render(case, monkeypatch):
     ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, SHORT, "cpu")
     if which == "fog":
         ts = vk.make_fog_box_scene(device="cpu")
-    tg, tv = convert.options_from_jax(GOPT._replace(train_waves=1),
+    gopt = GOPT._replace(train_waves=1)
+    if which == "adaptive":
+        gopt = gopt._replace(field_res=4, adaptive_extra=128,
+                             refine_threshold=16.0)
+    tg, tv = convert.options_from_jax(gopt,
                                       VOPT._replace(sampling_method=method))
     img, field, isgb = tvspg.render_vspg(ts, tc, tf, 2 * per_pass + 2, tcfg,
                                          tg, tv, seed=4,
@@ -165,6 +167,7 @@ def test_wave_routes_render(case, monkeypatch):
     assert tuple(img.shape) == (16, 16, 3)
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
     assert field.iteration == 1 and isgb.ready
+    assert field.n_extra == (128 if which == "adaptive" else 0)
     got = (calls["train_wave"], calls["vspg_wave"],
            len(calls["render_frozen"]))
     assert got == want, (case, got)

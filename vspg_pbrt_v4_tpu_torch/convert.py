@@ -174,19 +174,22 @@ def _half_from_jax(h, device):
 
 
 def field_from_jax(field, device="cuda"):
-    """This package's GuidingField holding the values of a JAX one (uniform
-    fields only: the adaptive field is not ported)."""
+    """This package's GuidingField holding the values of a JAX one, the
+    adaptive field's indirection arrays and leaf centres included."""
     from .models.guiding.field import GuidingField
 
-    if int(field.n_extra):
-        raise NotImplementedError("the adaptive guiding field is not ported "
-                                  "yet")
     return GuidingField(_t(field.b_min, device, torch.float32),
                         _t(field.b_max, device, torch.float32),
                         _half_from_jax(field.surface, device),
                         _half_from_jax(field.volume, device),
                         int(field.iteration), int(field.res),
-                        int(field.n_lobes))
+                        int(field.n_lobes), n_extra=int(field.n_extra),
+                        leaf_of=_t(field.leaf_of, device, torch.int64),
+                        refined=_t(field.refined, device, torch.bool),
+                        child_base=_t(field.child_base, device, torch.int64),
+                        n_leaves=int(field.n_leaves),
+                        leaf_center=_t(field.leaf_center, device,
+                                       torch.float32))
 
 
 def isgb_from_jax(isgb, device="cuda"):
@@ -208,9 +211,8 @@ def isgb_from_jax(isgb, device="cuda"):
 
 def options_from_jax(gopt, vopt):
     """(GuidingOptions, VSPGOptions) of this package with the values of the
-    JAX package's options tuples. The JAX fields this package lacks
-    (``surface_guiding``, ``refine_threshold``, ``calculate_tr_buffer``)
-    serve only routes that are not ported, which raise on their own."""
+    JAX package's options tuples. ``VSPGOptions.calculate_tr_buffer`` is
+    dropped: the JAX package defines it and reads it nowhere."""
     from .models.integrators.guided_volpath import GuidingOptions
     from .models.integrators.vspg import VSPGOptions
 

@@ -1,8 +1,9 @@
-// B3a/B3b/B3c + B4a/B4b/B4c: the VSPG megakernel, frozen-field render and
-// training-wave record variants, for one density grid in a box, a uniform
-// guiding field and the three distance routes of guided walks: resampling
-// (B3a/B4a), NDS and NDS+ (B3b/B4b); the TRIS instantiations add at most
-// 64 flat triangles of the teaser materials inside the cloud (B3c/B4c).
+// B3a-d + B4a-d: the VSPG megakernel, frozen-field render and
+// training-wave record variants, for one density grid in a box and the
+// three distance routes of guided walks: resampling (B3a/B4a), NDS and
+// NDS+ (B3b/B4b); the TRIS instantiations add at most 64 flat triangles of
+// the teaser materials inside the cloud (B3c/B4c); every instantiation
+// reads a uniform or an adaptive guiding field (B3d/B4d, below).
 //
 // Replaces pallas_vspg._make_vspg_kernel (vspg_pbrt_v4_tpu/ops/
 // pallas_vspg.py) with record=False (B3) and record=True (B4), for
@@ -55,6 +56,16 @@
 // faults of the Pallas kernel are not carried (ROADMAP.md §C): a surface
 // NEE walk starts from unit transmittance, and a glossy surface's light
 // sample is taken at the surface.
+//
+// The adaptive field (B3d/B4d: pallas_vspg._make_vspg_kernel with
+// n_extra > 0) is a runtime switch of the guiding table (GI_NEXTRA), not a
+// template parameter: it is uniform across a launch and adds one
+// dependent load to a field query. The field table is (P, L) over the L
+// leaves; a query reads its coarse cell's refined flag from the (3, C)
+// int32 indirection table [leaf_of, child_base, refined], then either
+// child_base + the octant of the clamped grid coordinate or leaf_of, and
+// reads that leaf's column, whose centre re-aims the lobes. The TPU
+// kernel's bf16 hi/lo split of those integers is not carried.
 #include "common.cuh"
 #include "vspg.cuh"
 
@@ -79,8 +90,11 @@ struct Lobes {
 struct Tables {
   const float* __restrict__ density;
   const float* maj;  // shared memory
-  const float* __restrict__ ftab;
+  const float* __restrict__ ftab;  // (P, nleaf)
   int gx, gy, gz, mx, my, mz, fres, ncell, K;
+  // the adaptive field: (3, ncell) indirection, nullptr on a uniform field
+  const int* __restrict__ cells;
+  int nleaf;
 };
 
 static __device__ __forceinline__ float clampf(float x, float lo, float hi) {
@@ -223,23 +237,35 @@ static __device__ float vsp_directional(const float* fc, const Lobes& lb,
   return (mass > 8.0f && vdir >= 0.0f) ? vdir : vsp_cell;
 }
 
-// the field cell at p: lobes (mu renormalized, parallax re-aimed), valid,
-// cell VSP and flux, of the half whose rows start at `base`
+// the field leaf at p: lobes (mu renormalized, parallax re-aimed), valid,
+// leaf VSP and flux, of the half whose rows start at `base`; on an adaptive
+// field the coarse cell resolves to its leaf first
 static __device__ void field_query(const float* gc, const Tables& T, V3 p,
                                    Lobes* lb, bool* valid, float* vsp_cell,
                                    V3* flux, int base = 0) {
   const int fres = T.fres;
   const float pc[3] = {p.x, p.y, p.z};
   int ix[3];
+  float gf[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    float g = clampf((pc[k] - gc[G_FB0 + k]) / gc[G_FEXT + k] * (float)fres,
-                     0.0f, gc[G_FRES_HI]);
-    ix[k] = (int)g;
+    gf[k] = clampf((pc[k] - gc[G_FB0 + k]) / gc[G_FEXT + k] * (float)fres,
+                   0.0f, gc[G_FRES_HI]);
+    ix[k] = (int)gf[k];
   }
-  const int cid = (ix[0] * fres + ix[1]) * fres + ix[2];
-  const float* col = T.ftab + cid + (size_t)base * T.ncell;
-  const int n = T.ncell, K = T.K;
+  int cid = (ix[0] * fres + ix[1]) * fres + ix[2];
+  if (T.cells != nullptr) {
+    if (__ldg(T.cells + 2 * T.ncell + cid) != 0) {
+      const int octant = (gf[0] - (float)ix[0] >= 0.5f ? 4 : 0) +
+                         (gf[1] - (float)ix[1] >= 0.5f ? 2 : 0) +
+                         (gf[2] - (float)ix[2] >= 0.5f ? 1 : 0);
+      cid = __ldg(T.cells + T.ncell + cid) + octant;
+    } else {
+      cid = __ldg(T.cells + cid);
+    }
+  }
+  const float* col = T.ftab + cid + (size_t)base * T.nleaf;
+  const int n = T.nleaf, K = T.K;
   auto row = [&](int r) { return __ldg(col + (size_t)r * n); };
   *valid = row(8 * K) > 0.5f;
   *vsp_cell = row(8 * K + 1);
@@ -394,6 +420,7 @@ __global__ void __launch_bounds__(128)
                 const float* __restrict__ majorant,
                 const float* __restrict__ ftab,
                 const float* __restrict__ itab,
+                const int* __restrict__ cells,
                 const float* __restrict__ tris_g,
                 const float* __restrict__ mats_g, float* __restrict__ out,
                 float* __restrict__ rec, int npix, int spp, uint32_t seed,
@@ -423,7 +450,8 @@ __global__ void __launch_bounds__(128)
   const uint32_t pix = (uint32_t)pix_i;
   const Tables T = {density, smaj, ftab, ic[I_GX], ic[I_GY], ic[I_GZ],
                     ic[I_MX], ic[I_MY], ic[I_MZ], gi[GI_FRES], gi[GI_NCELL],
-                    gi[GI_K]};
+                    gi[GI_K], gi[GI_NEXTRA] > 0 ? cells : nullptr,
+                    gi[GI_NLEAF]};
   const int K = T.K;
   const bool has_point = ic[I_HAS_POINT] != 0, has_env = ic[I_HAS_ENV] != 0;
   const bool iso = ic[I_HG_ISO] != 0, gray = gi[GI_SIGMA_GRAY] != 0;
@@ -1520,13 +1548,14 @@ void launch_one(int blocks, int threads, size_t smem, cudaStream_t st,
                 const float* fconst, const int* iconst, const float* gconst,
                 const int* giconst, const float* density,
                 const float* majorant, const float* ftab, const float* itab,
-                const float* tris, const float* mats, float* out, float* rec,
-                int npix, int spp, unsigned int seed, float out_scale,
-                int nmaj, int rec_depth, int n_tri, int n_mat) {
+                const int* cells, const float* tris, const float* mats,
+                float* out, float* rec, int npix, int spp, unsigned int seed,
+                float out_scale, int nmaj, int rec_depth, int n_tri,
+                int n_mat) {
   vspg_kernel<RECORD, RIS, METHOD, TRIS><<<blocks, threads, smem, st>>>(
-      fconst, iconst, gconst, giconst, density, majorant, ftab, itab, tris,
-      mats, out, rec, npix, spp, seed, out_scale, nmaj, rec_depth, n_tri,
-      n_mat);
+      fconst, iconst, gconst, giconst, density, majorant, ftab, itab, cells,
+      tris, mats, out, rec, npix, spp, seed, out_scale, nmaj, rec_depth,
+      n_tri, n_mat);
 }
 
 template <bool RECORD, bool TRIS>
@@ -1547,10 +1576,11 @@ LaunchFn<RECORD, TRIS> pick(int ris, int method) {
 template <bool RECORD>
 int launch(const float* fconst, const int* iconst, const float* gconst,
            const int* giconst, const float* density, const float* majorant,
-           const float* ftab, const float* itab, const float* tris,
-           const float* mats, float* out, float* rec, int npix, int spp,
-           unsigned int seed, float out_scale, int nmaj, int rec_depth,
-           int ris, int method, int n_tri, int n_mat, void* stream) {
+           const float* ftab, const float* itab, const int* cells,
+           const float* tris, const float* mats, float* out, float* rec,
+           int npix, int spp, unsigned int seed, float out_scale, int nmaj,
+           int rec_depth, int ris, int method, int n_tri, int n_mat,
+           void* stream) {
   const int threads = 128;
   const int blocks = (npix + threads - 1) / threads;
   const size_t smem =
@@ -1562,50 +1592,50 @@ int launch(const float* fconst, const int* iconst, const float* gconst,
   if (n_tri > 0)
     pick<RECORD, true>(ris, method)(blocks, threads, smem, st, fconst, iconst,
                                     gconst, giconst, density, majorant, ftab,
-                                    itab, tris, mats, out, rec, npix, spp,
-                                    seed, out_scale, nmaj, rec_depth, n_tri,
-                                    n_mat);
+                                    itab, cells, tris, mats, out, rec, npix,
+                                    spp, seed, out_scale, nmaj, rec_depth,
+                                    n_tri, n_mat);
   else
     pick<RECORD, false>(ris, method)(blocks, threads, smem, st, fconst,
                                      iconst, gconst, giconst, density,
-                                     majorant, ftab, itab, tris, mats, out,
-                                     rec, npix, spp, seed, out_scale, nmaj,
-                                     rec_depth, 0, 0);
+                                     majorant, ftab, itab, cells, tris, mats,
+                                     out, rec, npix, spp, seed, out_scale,
+                                     nmaj, rec_depth, 0, 0);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// B3a/B3b/B3c: frozen-field render of spp samples per pixel
+// B3a-d: frozen-field render of spp samples per pixel
 extern "C" int vspg_render_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
                                   const float* ftab, const float* itab,
-                                  const float* tris, const float* mats,
-                                  float* out, float* rec, int npix, int spp,
-                                  unsigned int seed, float out_scale,
-                                  int nmaj, int rec_depth, int ris,
-                                  int method, int n_tri, int n_mat,
+                                  const int* cells, const float* tris,
+                                  const float* mats, float* out, float* rec,
+                                  int npix, int spp, unsigned int seed,
+                                  float out_scale, int nmaj, int rec_depth,
+                                  int ris, int method, int n_tri, int n_mat,
                                   void* stream) {
   return launch<false>(fconst, iconst, gconst, giconst, density, majorant,
-                       ftab, itab, tris, mats, out, rec, npix, spp, seed,
-                       out_scale, nmaj, rec_depth, ris, method, n_tri, n_mat,
-                       stream);
+                       ftab, itab, cells, tris, mats, out, rec, npix, spp,
+                       seed, out_scale, nmaj, rec_depth, ris, method, n_tri,
+                       n_mat, stream);
 }
 
-// B4a/B4b/B4c: one training sample per pixel plus its record rows
+// B4a-d: one training sample per pixel plus its record rows
 extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
                                   const float* ftab, const float* itab,
-                                  const float* tris, const float* mats,
-                                  float* out, float* rec, int npix, int spp,
-                                  unsigned int seed, float out_scale,
-                                  int nmaj, int rec_depth, int ris,
-                                  int method, int n_tri, int n_mat,
+                                  const int* cells, const float* tris,
+                                  const float* mats, float* out, float* rec,
+                                  int npix, int spp, unsigned int seed,
+                                  float out_scale, int nmaj, int rec_depth,
+                                  int ris, int method, int n_tri, int n_mat,
                                   void* stream) {
   return launch<true>(fconst, iconst, gconst, giconst, density, majorant,
-                      ftab, itab, tris, mats, out, rec, npix, spp, seed,
-                      out_scale, nmaj, rec_depth, ris, method, n_tri, n_mat,
-                      stream);
+                      ftab, itab, cells, tris, mats, out, rec, npix, spp,
+                      seed, out_scale, nmaj, rec_depth, ris, method, n_tri,
+                      n_mat, stream);
 }

@@ -48,7 +48,9 @@ enum GIConst {
   GI_METHOD = 11,         // distance route (Method below)
   GI_SURF_GUIDE = 12,     // guided BSDF draws at diffuse surfaces (trained)
   GI_ANY_ROUGH = 13,      // a material is glossy: the extra lobe draw
-  N_GICONST = 14
+  GI_NEXTRA = 14,         // adaptive field: extra leaves (0: uniform grid)
+  GI_NLEAF = 15,          // leaves, fres^3 + n_extra: the field table's width
+  N_GICONST = 16
 };
 
 // distance route of guided walks (ops/vspg_kernels.py METHODS); the kernel

@@ -1,12 +1,15 @@
 """Spatial-directional guiding field (counterpart of
-``models/guiding/field.py``): a uniform res^3 voxel grid over the scene
-bounds whose cells hold a surface and a volume half, each a K-lobe vMF
-mixture trained by incremental weighted EM, parallax distances, VSP
-statistics (contribution and variance criteria) and a flux cache.
+``models/guiding/field.py``): a res^3 voxel grid over the scene bounds
+whose leaves hold a surface and a volume half, each a K-lobe vMF mixture
+trained by incremental weighted EM, parallax distances, VSP statistics
+(contribution and variance criteria) and a flux cache.
 
-Only the uniform grid is ported. The adaptive two-level field
-(``n_extra > 0``, ``refine_field``) and ``save_field``/``load_field``
-are queued in ROADMAP.md §A item 6.
+With ``n_extra > 0`` the field is adaptive and two-level (the JAX
+package's analog of OpenPGL's sample-adaptive kd-tree): between waves,
+``refine_field`` splits dense coarse cells into 2^3 child leaves, and a
+coarse cell resolves to its leaf through the indirection arrays
+``leaf_of``, ``refined`` and ``child_base``. ``save_field``/``load_field``
+are not ported.
 """
 
 from __future__ import annotations
@@ -53,17 +56,23 @@ class GuidingField(OnDevice):
     iteration: int  # training iterations done
     res: int  # cells per axis
     n_lobes: int
-    n_extra: int = 0  # adaptive leaves: always 0 here
+    # the adaptive two-level addressing: L = res^3 + n_extra leaves; a
+    # refined coarse cell c maps octant o to leaf child_base[c] + o, any
+    # other to leaf_of[c]. n_extra 0 is the plain uniform grid.
+    n_extra: int = 0
+    leaf_of: torch.Tensor = None  # (C,) int64 coarse cell -> leaf
+    refined: torch.Tensor = None  # (C,) bool
+    child_base: torch.Tensor = None  # (C,) int64 first of the 8 children
+    n_leaves: int = 0  # allocated leaves
+    leaf_center: torch.Tensor = None  # (L,3) leaf centres (parallax re-aim)
 
     @staticmethod
     def make(b_min, b_max, res=16, n_lobes=8, n_extra=0, *, device="cuda"):
-        """A fresh field: every cell holds K fibonacci-spiral lobes of equal
-        weight and kappa 1."""
-        if n_extra:
-            raise NotImplementedError(
-                "the adaptive guiding field (n_extra > 0) is not ported yet "
-                "(ROADMAP.md §B: the adaptive field)")
+        """A fresh field of res^3 + n_extra leaves: every leaf holds K
+        fibonacci-spiral lobes of equal weight and kappa 1; the first res^3
+        are the grid cells, the rest wait for ``refine_field``."""
         C = res ** 3
+        L = C + int(n_extra)
         K = n_lobes
         i = np.arange(K)
         golden = (1 + 5 ** 0.5) / 2
@@ -78,24 +87,45 @@ class GuidingField(OnDevice):
 
         def half():
             return FieldHalf(
-                f((C, K), 1.0 / K),
-                torch.as_tensor(np.tile(dirs[None], (C, 1, 1)),
+                f((L, K), 1.0 / K),
+                torch.as_tensor(np.tile(dirs[None], (L, 1, 1)),
                                 device=device),
-                f((C, K), 1.0), f((C, K)), f((C, K, 3)), f((C, K)), f((C,)),
-                f((C,)), f((C,)), f((C,)), f((C,)), f((C, 3)), f((C,)),
-                f((C, K)), f((C, K)))
+                f((L, K), 1.0), f((L, K)), f((L, K, 3)), f((L, K)), f((L,)),
+                f((L,)), f((L,)), f((L,)), f((L,)), f((L, 3)), f((L,)),
+                f((L, K)), f((L, K)))
 
-        def vec(v):
-            return torch.as_tensor(np.asarray(v, np.float32), device=device)
+        bmin = np.asarray(b_min, np.float32)
+        bmax = np.asarray(b_max, np.float32)
+        ii = np.arange(C)
+        idx = np.stack([ii // (res * res), (ii // res) % res, ii % res],
+                       -1).astype(np.float32) + 0.5
+        leaf_center = np.zeros((L, 3), np.float32)
+        leaf_center[:C] = bmin + idx / res * (bmax - bmin)
 
-        return GuidingField(vec(b_min), vec(b_max), half(), half(), 0,
-                            int(res), int(n_lobes))
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        return GuidingField(
+            t(bmin), t(bmax), half(), half(), 0, int(res), int(n_lobes),
+            n_extra=int(n_extra), leaf_of=t(np.arange(C)),
+            refined=t(np.zeros(C, bool)), child_base=t(np.zeros(C, np.int64)),
+            n_leaves=C, leaf_center=t(leaf_center))
 
     def cell_id(self, p):
-        """(..., 3) world position -> flat cell index (...)."""
+        """(..., 3) world position -> flat leaf index (...): the coarse
+        cell, then, on an adaptive field, its leaf, from the octant of the
+        clamped grid coordinate."""
         g = (p - self.b_min) / (self.b_max - self.b_min)
-        i = torch.clamp(g * self.res, 0.0, self.res - 1e-4).to(torch.int64)
-        return (i[..., 0] * self.res + i[..., 1]) * self.res + i[..., 2]
+        gi = torch.clamp(g * self.res, 0.0, self.res - 1e-4)
+        i = gi.to(torch.int64)
+        c = (i[..., 0] * self.res + i[..., 1]) * self.res + i[..., 2]
+        if self.n_extra == 0:
+            return c
+        frac = gi - i.to(torch.float32)
+        half = (frac >= 0.5).to(torch.int64)
+        octant = half[..., 0] * 4 + half[..., 1] * 2 + half[..., 2]
+        return torch.where(self.refined[c], self.child_base[c] + octant,
+                           self.leaf_of[c])
 
     @property
     def trained(self):
@@ -118,6 +148,8 @@ class CellDistribution(NamedTuple):
 
 
 def _cell_center(field: GuidingField, cid):
+    if field.n_extra > 0:
+        return field.leaf_center[cid]
     res = field.res
     idx = torch.stack([cid // (res * res), (cid // res) % res, cid % res],
                       -1).to(torch.float32) + 0.5
@@ -271,3 +303,67 @@ def field_update(field: GuidingField, batch: TrainBatch, decay=0.75):
         volume=_update_half(field, field.volume, batch, batch.is_volume,
                             decay),
         iteration=field.iteration + 1)
+
+
+def refine_field(field: GuidingField, threshold=256.0, max_splits=16):
+    """Between-wave spatial refinement: the coarse cells whose EM sample
+    mass (both halves) exceeds `threshold`, heaviest first, at most
+    `max_splits` and as many as the free leaves hold, split into 2^3
+    children that inherit the parent's lobes with 1/8 of its statistics.
+    The cells are picked on the host as the JAX package picks them (numpy
+    float32 sums, numpy's argsort, whose tie order a torch sort would not
+    keep); the row copies run on the field's device. A uniform field
+    (n_extra 0) is returned as it is."""
+    if field.n_extra == 0:
+        return field
+    C = field.res ** 3
+    L = C + field.n_extra
+    n_leaves = int(field.n_leaves)
+    cap = (L - n_leaves) // 8
+    if cap <= 0:
+        return field
+    refined = field.refined.cpu().numpy().copy()
+    leaf_of = field.leaf_of.cpu().numpy()
+    mass = (field.surface.stats_w.cpu().numpy().sum(-1)
+            + field.volume.stats_w.cpu().numpy().sum(-1))
+    cell_mass = np.where(refined, 0.0, mass[leaf_of])
+    order = np.argsort(-cell_mass)
+    picks = [int(c) for c in order if cell_mass[c] > threshold]
+    picks = picks[:min(int(max_splits), cap)]
+    if not picks:
+        return field
+    dev = field.b_min.device
+    bmin = field.b_min.cpu().numpy()
+    bmax = field.b_max.cpu().numpy()
+    cell = (bmax - bmin) / field.res
+    res = field.res
+    child_base = field.child_base.cpu().numpy().copy()
+    centers = np.zeros((8 * len(picks), 3), np.float32)
+    for j, c in enumerate(picks):
+        lo = bmin + np.asarray([c // (res * res), (c // res) % res,
+                                c % res]) * cell
+        for o in range(8):
+            off = np.asarray([(o >> 2) & 1, (o >> 1) & 1, o & 1], np.float32)
+            centers[8 * j + o] = lo + (off * 0.5 + 0.25) * cell
+        refined[c] = True
+        child_base[c] = n_leaves + 8 * j
+    dst = torch.arange(n_leaves, n_leaves + 8 * len(picks), device=dev)
+    src = torch.as_tensor(np.repeat(leaf_of[picks], 8), device=dev)
+
+    def split(h):
+        rows = {}
+        for name in FieldHalf.__dataclass_fields__:
+            a = getattr(h, name).clone()
+            row = a[src]
+            # children inherit the distribution and split the statistics
+            a[dst] = row if name in ("weights", "mu", "kappa") else row / 8.0
+            rows[name] = a
+        return FieldHalf(**rows)
+
+    leaf_center = field.leaf_center.clone()
+    leaf_center[dst] = torch.as_tensor(centers, device=dev)
+    return replace(
+        field, surface=split(field.surface), volume=split(field.volume),
+        refined=torch.as_tensor(refined, device=dev),
+        child_base=torch.as_tensor(child_base, device=dev),
+        n_leaves=n_leaves + 8 * len(picks), leaf_center=leaf_center)

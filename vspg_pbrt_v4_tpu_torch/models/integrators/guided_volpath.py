@@ -21,8 +21,7 @@ from ..guiding import field as gfield
 
 class GuidingOptions(NamedTuple):
     """Static guiding configuration (the integrator's scene-file
-    parameters). The JAX package's ``refine_threshold`` (the adaptive
-    field) waits for the route it serves (ROADMAP.md §B)."""
+    parameters)."""
 
     mode: str = "ris"  # "mis" | "ris"
     guiding_prob: float = 0.5
@@ -33,8 +32,11 @@ class GuidingOptions(NamedTuple):
     min_train_weight: float = 128.0
     field_res: int = 16
     n_lobes: int = 8
-    # adaptive spatial refinement: not ported, anything but 0 raises
+    # adaptive spatial refinement: extra leaf capacity (0: uniform grid);
+    # between waves, coarse cells whose EM mass exceeds refine_threshold
+    # split into 2^3 children (guiding/field.refine_field)
     adaptive_extra: int = 0
+    refine_threshold: float = 256.0
 
 
 def train_step(field, batch):

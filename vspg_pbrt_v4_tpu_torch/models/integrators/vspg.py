@@ -1109,6 +1109,8 @@ def render_vspg(scene, camera, film, spp=16, cfg=VolPathConfig(),
                                                   0.0)))
             if total_w > gopt.min_train_weight:
                 field = gv.train_step(field, batch)
+                if gopt.adaptive_extra:
+                    field = gfield.refine_field(field, gopt.refine_threshold)
         if (wave + 1) in vopt.isgb_update_waves:
             isgb = gisgb.isgb_update(isgb)
     remaining = spp - spp_done

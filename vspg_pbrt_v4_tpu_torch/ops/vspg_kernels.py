@@ -3,12 +3,14 @@ render path, its host-side tables, its plain PyTorch versions and the
 support predicate that decides when ``render_vspg`` may use it.
 
 One kernel, ``csrc/vspg.cu``, replaces ``pallas_vspg._make_vspg_kernel``
-for the grid-cloud class on a uniform guiding field, with each of the
-three distance routes: resampling (B3a/B4a in ROADMAP.md), NDS and NDS+
-(B3b/B4b), and with at most 64 triangles of the teaser materials in the
-cloud (B3c/B4c: the field table then holds the surface half's rows after
-the volume half's, and diffuse hits draw from the guided BSDF). It has two
-variants: the render
+for the grid-cloud class, with each of the three distance routes:
+resampling (B3a/B4a in ROADMAP.md), NDS and NDS+ (B3b/B4b), with at most
+64 triangles of the teaser materials in the cloud (B3c/B4c: the field
+table then holds the surface half's rows after the volume half's, and
+diffuse hits draw from the guided BSDF), and on a uniform or an adaptive
+guiding field (B3d/B4d: a field query resolves the coarse cell to its
+leaf through an int32 indirection table, then reads the leaf's column and
+re-aims the lobes from the leaf's centre). It has two variants: the render
 variant renders spp frozen-field samples per pixel; the record variant
 renders one training sample per pixel and writes the ``REC_ROWS`` x
 ``rec_depth`` record rows of each lane. Under NDS a guided walk first runs
@@ -55,9 +57,10 @@ from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX, I_MX,
                               _count, _dot, _hg_value, _keep, _normalize,
                               _sample_hg, _tri_hit, extract_constants)
 
-# the TRIS instantiations (scenes with triangles) count apart
-LAUNCHES = {"vspg_render": 0, "vspg_record": 0, "vspg_render_tris": 0,
-            "vspg_record_tris": 0}
+# the TRIS instantiations (scenes with triangles) and the launches on an
+# adaptive field count apart
+LAUNCHES = {f"vspg_{v}{t}{a}": 0 for a in ("", "_adaptive")
+            for t in ("", "_tris") for v in ("render", "record")}
 LAUNCH_EVENTS = None
 
 MIN_KAPPA = 1e-2
@@ -82,8 +85,9 @@ N_GCONST = 34
 # int32 guiding constant table
 (GI_FRES, GI_K, GI_NCELL, GI_RIS, GI_GUIDE_RR, GI_MIN_RR_DEPTH,
  GI_GUIDE_PRIMARY, GI_GUIDE_SECONDARY, GI_VOL_GUIDING, GI_APPLY_HG,
- GI_SIGMA_GRAY, GI_METHOD, GI_SURF_GUIDE, GI_ANY_ROUGH) = range(14)
-N_GICONST = 14
+ GI_SIGMA_GRAY, GI_METHOD, GI_SURF_GUIDE, GI_ANY_ROUGH, GI_NEXTRA,
+ GI_NLEAF) = range(16)
+N_GICONST = 16
 # vMF approximation of the clamped-cosine lobe (vmf.COSINE_KAPPA), the
 # product the surface half takes at diffuse hits
 KAPPA_COS = 2.18853
@@ -132,6 +136,9 @@ class GuidingConstants:
     ris: bool
     method: int  # index into METHODS
     n_tri: int = 0  # triangles of the scene: the field table holds both halves
+    # an adaptive field's coarse-cell indirection (pack_cell_table), (3, C)
+    # int32; None on a uniform field
+    cells: torch.Tensor = None
 
     @property
     def isgb_rows(self):
@@ -139,10 +146,11 @@ class GuidingConstants:
         return 6 if METHODS[self.method] == "nds+" else 3
 
 
-def pack_guiding_constants(c, gc, device):
+def pack_guiding_constants(c, gc, device, cells=None):
     """GuidingConstants of guiding dict `gc` for the scene constants `c`
-    (a grid-class ``KernelConstants``). Constants the Pallas kernel folds
-    at trace time in double are folded here in double too."""
+    (a grid-class ``KernelConstants``); `cells` is the adaptive field's
+    ``pack_cell_table``, which gc["n_extra"] > 0 needs. Constants the Pallas
+    kernel folds at trace time in double are folded here in double too."""
     if gc["mode"] not in ("mis", "ris"):
         raise ValueError(f"unknown guiding mode {gc['mode']!r}")
     if gc["sampling_method"] not in METHODS:
@@ -201,6 +209,12 @@ def pack_guiding_constants(c, gc, device):
     i[GI_APPLY_HG] = int(abs(g_hg) > 1e-3)
     i[GI_SIGMA_GRAY] = int(float(st[0]) == float(st[1]) == float(st[2]))
     i[GI_METHOD] = method
+    n_extra = int(gc["n_extra"])
+    i[GI_NEXTRA] = n_extra
+    i[GI_NLEAF] = gc["fres"] ** 3 + n_extra
+    if n_extra and (cells is None
+                    or tuple(cells.shape) != (3, gc["fres"] ** 3)):
+        raise ValueError("an adaptive field needs its (3, fres^3) cell table")
     n_tri = c.n_tri
     i[GI_SURF_GUIDE] = int(n_tri > 0 and gc["surface_guiding"]
                            and gc["trained"])
@@ -213,7 +227,9 @@ def pack_guiding_constants(c, gc, device):
             | (m[:, M_KIND] == 11))))
     return GuidingConstants(
         torch.as_tensor(f.astype(np.float32), device=device),
-        torch.as_tensor(i, device=device), ris, method, n_tri)
+        torch.as_tensor(i, device=device), ris, method, n_tri,
+        torch.as_tensor(np.asarray(cells, np.int32), device=device)
+        if n_extra else None)
 
 
 def _grid_g(c):
@@ -225,13 +241,16 @@ def _grid_g(c):
 
 
 def pack_field_table(field, criterion="variance", with_surface=False):
-    """The volume half of `field` as a float32 (P, C) numpy table over its
-    C = res^3 cells, P = 8K + 8 with K = min(n_lobes, K_PACK): per lobe [w,
-    mux, muy, muz, kappa, mean_dist, vsp_lobe_vol, vsp_lobe_surf], then
-    [valid, vsp, flux_r, flux_g, flux_b, cx, cy, cz], vsp with the criterion
-    applied (``pallas_vspg.pack_field_table(k_top=K_PACK)`` before its bf16
-    rounding). with_surface (scenes with triangles) appends the surface
-    half's rows in the same layout: P = 2 (8K + 8)."""
+    """The volume half of `field` as a float32 (P, L) numpy table over its
+    L = res^3 + n_extra leaves, P = 8K + 8 with K = min(n_lobes, K_PACK):
+    per lobe [w, mux, muy, muz, kappa, mean_dist, vsp_lobe_vol,
+    vsp_lobe_surf], then [valid, vsp, flux_r, flux_g, flux_b, cx, cy, cz],
+    vsp with the criterion applied and c the leaf centre
+    (``pallas_vspg.pack_field_table(k_top=K_PACK)`` before its bf16 rounding
+    and without its indirection rows: see ``pack_cell_table``). Leaves not
+    yet allocated are packed as ``GuidingField.make`` left them (fresh
+    lobes, valid 0, a zero centre). with_surface (scenes with triangles)
+    appends the surface half's rows in the same layout: P = 2 (8K + 8)."""
     rows = _pack_half_rows(field, field.volume, criterion)
     if with_surface:
         rows += _pack_half_rows(field, field.surface, criterion)
@@ -276,12 +295,7 @@ def _pack_half_rows(field, vol, criterion):
     vsp = np.where(den > 0, num / np.maximum(den, 1e-20), -1.0)
     vsp = np.where(vsp_n > 8.0, vsp, -1.0)
     flux = a(vol.flux) / np.maximum(a(vol.flux_w), 1e-12)[:, None]
-    res = int(field.res)
-    ii = np.arange(C)
-    gi = np.stack([ii // (res * res), (ii // res) % res, ii % res],
-                  -1).astype(np.float32)
-    b0, b1 = a(field.b_min), a(field.b_max)
-    centers = b0 + (gi + 0.5) / res * (b1 - b0)
+    centers = a(field.leaf_center)
     rows = []
     for k in range(K):
         rows += [w[:, k], mu[:, k, 0], mu[:, k, 1], mu[:, k, 2], kap[:, k],
@@ -289,6 +303,18 @@ def _pack_half_rows(field, vol, criterion):
     rows += [valid, vsp.astype(np.float32), flux[:, 0], flux[:, 1],
              flux[:, 2], centers[:, 0], centers[:, 1], centers[:, 2]]
     return rows
+
+
+def pack_cell_table(field):
+    """The coarse-cell indirection of an adaptive field as a (3, C) int32
+    numpy table: [leaf_of, child_base, refined]; None for a uniform field.
+    It replaces the five bf16 indirection rows of
+    ``pallas_vspg.pack_field_table``."""
+    if field.n_extra == 0:
+        return None
+    return np.stack([field.leaf_of.cpu().numpy(),
+                     field.child_base.cpu().numpy(),
+                     field.refined.cpu().numpy()], 0).astype(np.int32)
 
 
 def pack_isgb_table(isgb, npix, tr_buffer=None):
@@ -313,9 +339,9 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
     of ``volpath_kernels.extract_constants`` (one box holding one density
     grid, with at most 64 triangles of untextured diffuse, conductor,
     smooth dielectric or CookTorrance materials: ``pallas_vspg.supports``'
-    gate, which refuses the mesh class), a uniform field and any of the
-    three distance routes. It shades no emission, so it refuses area
-    lights."""
+    gate, which refuses the mesh class), a uniform or an adaptive field and
+    any of the three distance routes. It shades no emission, so it refuses
+    area lights."""
     if scene.lights.n_area:
         return False
     c = extract_constants(scene, camera, film, cfg)
@@ -332,10 +358,6 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
                 and not ((m[:, M_KIND] == 2) & (m[:, M_ROUGH] >= 1e-3)).any()
                 and (m[:, M_TEX] < 0).all()):
             return False
-    if field is not None and int(getattr(field, "n_extra", 0)) != 0:
-        return False
-    if int(getattr(gopt, "adaptive_extra", 0)) != 0:
-        return False
     return str(vopt.sampling_method) in METHODS
 
 
@@ -360,7 +382,12 @@ class _G:
          self.cap, self.kappa_h, self.log_c_h, self.hg_sign,
          self.log_2pi) = fl[G_FRES_HI:G_LOG_2PI + 1]
         (self.fres, self.K, self.ncell, ris, guide_rr, self.min_rr_depth,
-         gp, gs, vg, ahg, gray, method, sgd, rough) = il
+         gp, gs, vg, ahg, gray, method, sgd, rough, n_extra, self.nleaf) = il
+        # the adaptive field's indirection, and its allocated leaves: the
+        # refined cells' children follow the res^3 grid cells
+        self.cells = None if g.cells is None else g.cells.to(dev).long()
+        self.n_alloc = self.ncell + (0 if g.cells is None
+                                     else 8 * int(self.cells[2].sum()))
         self.kappa_cos, self.log_c_cos = fl[G_KAPPA_COS], fl[G_LOG_C_COS]
         self.surf_guide, self.any_rough = bool(sgd), bool(rough)
         self.ris, self.guide_rr = bool(ris), bool(guide_rr)
@@ -510,13 +537,29 @@ def _vsp_directional(K, lob, vsp_cell, d):
     return torch.where((mass > 8.0) & (vdir >= 0.0), vdir, vsp_cell)
 
 
-def _field_query(G, ftab, p):
-    """The lobes (parallax re-aimed, mu renormalized), valid, vsp and flux
-    of the field cell at p: of the volume half, then, when the table holds
-    both halves, of the surface half."""
+def _leaf(G, p):
+    """The field leaf at p: the coarse cell, and on an adaptive field the
+    child of the octant of the clamped grid coordinate in a refined cell,
+    the cell's own leaf in any other."""
     gf = torch.clamp((p - G.fb0) / G.fext * G.fres, 0.0, G.fres_hi)
     ix = gf.to(torch.int64)
     cid = (ix[:, 0] * G.fres + ix[:, 1]) * G.fres + ix[:, 2]
+    if G.cells is None:
+        return cid
+    hi = (gf - ix.to(torch.float32) >= 0.5).to(torch.int64)
+    octant = hi[:, 0] * 4 + hi[:, 1] * 2 + hi[:, 2]
+    ind = G.cells[:, cid]
+    leaf = torch.where(ind[2] != 0, ind[1] + octant, ind[0])
+    if not bool((leaf < G.n_alloc).all()):
+        raise RuntimeError("a field query reached an unallocated leaf")
+    return leaf
+
+
+def _field_query(G, ftab, p):
+    """The lobes (parallax re-aimed, mu renormalized), valid, vsp and flux
+    of the field leaf at p: of the volume half, then, when the table holds
+    both halves, of the surface half."""
+    cid = _leaf(G, p)
     v = ftab[:, cid]  # (P, N)
     K = G.K
     half = 8 * K + 8
@@ -1366,6 +1409,9 @@ def _body(K, G, T, S, seed, spp, rec, counts):
         _count(counts, "scatters", scat.sum())
         if G.guide_secondary:
             _count(counts, "queries", (in_med & (depth != 0)).sum())
+        if G.cells is not None:
+            _count(counts, "child_scatters",
+                   (scat & (_leaf(G, s) >= G.ncell)).sum())
     q = _W(scat, s, o)
     if TR:
         # surface interactions (the depth cap holds for surfaces too)
@@ -1710,7 +1756,9 @@ def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None):
     the (ny, nx, 3) image of `spp` frozen-field samples per pixel.
     `counts` (a dict) gathers the work run: lane-iterations ("iters"),
     walk and shadow steps ("steps"), NDS prepass steps ("pre_steps") and
-    ODS candidate draws ("draws"), scatters, walk-start field queries."""
+    ODS candidate draws ("draws"), scatters, walk-start field queries; on
+    an adaptive field also the scatters whose leaf is a refined cell's
+    child ("child_scatters")."""
     return _plain(c, gconst, ftab, itab, spp, seed, None, counts)
 
 
@@ -1749,7 +1797,10 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
     _check(c.majorant, torch.float32, mres, dev, "majorant")
     gi = g.iconst.tolist()
     P = (8 * gi[GI_K] + 8) * (2 if c.n_tri else 1)
-    _check(ftab, torch.float32, (P, gi[GI_NCELL]), dev, "ftab")
+    _check(ftab, torch.float32, (P, gi[GI_NLEAF]), dev, "ftab")
+    adaptive = gi[GI_NEXTRA] > 0
+    if adaptive:
+        _check(g.cells, torch.int32, (3, gi[GI_NCELL]), dev, "cells")
     n_tri = c.n_tri
     n_mat = 0 if c.mats is None else int(c.mats.shape[0])
     if n_tri:
@@ -1783,12 +1834,12 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
             events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             events[0].record(stream)
         fn = getattr(lib, f"{name}_launch")
-        if n_tri:
-            name += "_tris"
+        name += ("_tris" if n_tri else "") + ("_adaptive" if adaptive else "")
         err = fn(c.fconst.data_ptr(), c.iconst.data_ptr(),
                  g.fconst.data_ptr(), g.iconst.data_ptr(),
                  c.density.data_ptr(), c.majorant.data_ptr(),
                  ftab.data_ptr(), itab.data_ptr(),
+                 g.cells.data_ptr() if adaptive else 0,
                  c.tris.data_ptr() if n_tri else 0,
                  c.mats.data_ptr() if n_tri else 0, out.data_ptr(),
                  0 if rec is None else rec.data_ptr(), npix, int(spp),
@@ -1805,7 +1856,7 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
 
 
 def render_vspg_kernel(c, gconst, ftab, itab, spp, seed):
-    """B3a/B3b: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3);
+    """B3a-d: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3);
     the CUDA kernel on a card, the plain version for tensors on the CPU."""
     if c.fconst.device.type == "cpu":
         return render_vspg_plain(c, gconst, ftab, itab, spp, seed)
@@ -1813,7 +1864,7 @@ def render_vspg_kernel(c, gconst, ftab, itab, spp, seed):
 
 
 def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
-    """B4a/B4b: one training sample per pixel; (image, record (REC_ROWS,
+    """B4a-d: one training sample per pixel; (image, record (REC_ROWS,
     rec_depth, npix)). The CUDA kernel on a card, the plain version for
     tensors on the CPU."""
     if c.fconst.device.type == "cpu":
@@ -1841,7 +1892,7 @@ def kernel_inputs(scene, camera, film, cfg, gopt, vopt, field, isgb,
     c = extract_constants(scene, camera, film, cfg)
     dev = c.fconst.device
     gc = guiding_constants(field, gopt, vopt)
-    g = pack_guiding_constants(c, gc, dev)
+    g = pack_guiding_constants(c, gc, dev, pack_cell_table(field))
     ftab = torch.as_tensor(pack_field_table(field, vopt.vsp_criterion,
                                             with_surface=c.n_tri > 0),
                            device=dev)
