@@ -36,8 +36,17 @@ time split into the kernels, the refinement and the rest, the render
 kernel on its inputs beside the uniform field of phase 7c, and the frozen
 render against the torch wave's. Phase 13 runs M, the gather
 microbenchmark: both table placements bit for bit against their plain
-version, then its slope timing at C = 32, 256 and 2048.
-Every line with a number names the card
+version, then its slope timing at C = 32, 256 and 2048. Phase 14 holds
+the render kernel's register budget: render-only builds of vspg.cu at 2, 3
+and 4 minimum blocks an SM, timed in turns on phases 7c's and 9d's inputs,
+also with each item's cap cut to one sample's budget (a time only: that
+cap changes the image); then the iteration cap's rule at 64 spp on the
+same inputs with max_events cut to 1, where the cap cuts samples in many
+pixels, against the per-pixel plain version on a crop. Every render check
+against the plain version runs at least
+ITEMS_PER_THREAD items a thread, and each render launch of a main path
+prints its grid, registers, spills, items at the cap and its time beside
+the earlier one. Every line with a number names the card
 and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -230,6 +239,154 @@ def _best_of_3(fn):
     return best, out
 
 
+# The render variant's checks against its plain version run at least this
+# many items a thread: its per-lane item loop has the shape in which ptxas
+# -O1 to -O3 lost warps' later samples in the grid kernel (ROADMAP.md
+# section C 1), which a check with fewer items a thread would not see.
+ITEMS_PER_THREAD = 4
+# B3's times at the main path's shapes with one thread a pixel, before the
+# render kernel ran (pixel, sample) items (PERF.md section 6; NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside the new ones
+EARLIER_MS = {"vspg_render": 392.691, "vspg_render_nds": 288.537,
+              "vspg_render_ndsp": 297.334, "vspg_render_tris": 410.355,
+              "vspg_render_adaptive": 384.801}
+# ptxas's registers and spill bytes of the shipped build's VSPG kernels, by
+# (record, ris, method, tris) (phase 2)
+PTXAS = {}
+# the render-only builds of vspg.cu that phase 14 times: (minimum blocks an
+# SM of the render instantiations, extra nvcc flags)
+SWEEP = {f"min{k}": [f"-DVSPG_RENDER_MIN_BLOCKS={k}",
+                     f"-DVSPG_RENDER_TRIS_MIN_BLOCKS={k}"] for k in (2, 3, 4)}
+RENDER_NAMES = ("vspg_render_launch", "vspg_render_info",
+                "vspg_reduce_launch")
+
+
+def _ptxas_table(log):
+    """{(record, ris, method, tris): {"regs", "stack", "st", "ld"}} of the
+    VSPG kernels in an ``-Xptxas -v`` log."""
+    import re
+
+    rows, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = re.search(r"vspg_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)E",
+                            m.group(1))
+            continue
+        if cur is None:
+            continue
+        key = tuple(int(x) for x in cur.groups())
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            rows.setdefault(key, {}).update(
+                stack=int(m.group(1)), st=int(m.group(2)),
+                ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rows.setdefault(key, {})["regs"] = int(m.group(1))
+    return rows
+
+
+def _render_variant_cmd(out, flags):
+    """The nvcc command that builds vspg.cu's render entry points alone
+    (-DVSPG_RENDER_ONLY) with the extra nvcc `flags` into the shared
+    library `out`, printing ptxas's registers and spills."""
+    from vspg_pbrt_v4_tpu_torch.ops import _build
+
+    return [_build._nvcc(), *_build.NVCC_FLAGS, "-DVSPG_RENDER_ONLY",
+            *flags, "-Xptxas", "-v", "-shared", "-o", str(out),
+            str(_build.CSRC / "vspg.cu")]
+
+
+def _check_blocks(n_items):
+    """Persistent blocks that give each thread of a check at least
+    ITEMS_PER_THREAD items."""
+    return max(1, n_items // (128 * ITEMS_PER_THREAD))
+
+
+def _render_check(label, c, g, ftab, itab, spp, seed, check_parity,
+                  counts=None):
+    """The render kernel on a grid cut to ITEMS_PER_THREAD or more items a
+    thread against its per-pixel plain version at the same spp and seed
+    (`counts` gathers the plain version's work); at 1 spp its items at the
+    cap must be the plain version's pixels at the cap. Returns (max abs
+    difference, the plain version's seconds, items at the cap)."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    n = c.nx * c.ny * spp
+    blocks = _check_blocks(n)
+    k, cap = sk.render_vspg_items(c, g, ftab, itab, spp, seed, blocks=blocks)
+    counts = {} if counts is None else counts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = sk.render_vspg_plain(c, g, ftab, itab, spp, seed, counts)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    at_cap = int(cap)
+    max_abs = check_parity(
+        f"{label} ({blocks} blocks, {n / (blocks * 128):.1f} items a thread, "
+        f"{at_cap} items at the cap)", "vspg", k, p)
+    if spp == 1:
+        assert at_cap == counts["capped"], (label, at_cap, counts["capped"])
+    return max_abs, t_p, at_cap
+
+
+def _render_report(label, name, c, g, ms, bound, at_cap, tag):
+    """Print a render launch's grid, the shipped build's registers and
+    spills, its items at the cap, its time beside the earlier one and its
+    share of its bound; returns them as keys of its kernels-line entry."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    grid = sk.render_grid(c, g)
+    pt = PTXAS.get((0, int(g.ris), int(g.method), int(c.n_tri > 0)), {})
+    print(f"{label} render launch: {grid['blocks']} blocks ({grid['per_sm']} "
+          f"an SM on {grid['sms']} SMs), {grid['regs']} registers a thread, "
+          f"spill stores {pt.get('st')} / loads {pt.get('ld')} bytes, "
+          f"{at_cap} items at the cap; {ms:.3f} ms against "
+          f"{EARLIER_MS[name]:.3f} ms before the redesign "
+          f"({EARLIER_MS[name] / ms:.3f}x); bound {bound:.4f} ms, the kernel "
+          f"at {bound / ms:.5f} of it {tag}", flush=True)
+    return dict(grid=[grid["blocks"], grid["per_sm"]], regs=grid["regs"],
+                spill_bytes=pt.get("st"), items_at_cap=at_cap)
+
+
+def _main_path_calls(fn):
+    """Run `fn` (one main-path call) from reset VSPG launch counters, with
+    CUDA events around each kernel call and the render calls' items at the
+    cap gathered; returns (fn's result, seconds, launches, ms by variant,
+    items at the cap)."""
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    for counter in (vk.LAUNCHES, sk.LAUNCHES):
+        for key in counter:
+            counter[key] = 0
+    sk.LAUNCH_EVENTS, sk.AT_CAP = [], []
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t_call = time.perf_counter() - t0
+    finally:
+        events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+        caps, sk.AT_CAP = sk.AT_CAP, None
+    launches = dict(sk.LAUNCHES)
+    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+    # one event pair a kernel call; a render call at these sizes is one
+    # chunk: one item kernel and one reduce
+    renders = sum(v for k, v in launches.items()
+                  if k.startswith("vspg_render"))
+    assert launches["vspg_reduce"] == renders == len(caps), (launches, caps)
+    assert len(events) == sum(launches.values()) - renders, (len(events),
+                                                             launches)
+    k_ms = {name: 0.0 for name in sk.LAUNCHES}
+    for name, start, end in events:
+        k_ms[name] += start.elapsed_time(end)
+    return out, t_call, launches, k_ms, sum(int(x) for x in caps)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -250,15 +407,13 @@ def main():
     print(f"phase 1 card: {card}", flush=True)
 
     # the VSPG kernel is shipped without FMA contraction, for parity with
-    # its plain version; a second build with it, started alongside the
+    # its plain version; a render-only build with it, started alongside the
     # package's, times what that costs (phase 7c)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fma_lib = _build.BUILD_DIR / "libvspg_fma.so"
     with subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             str(fma_lib), str(_build.CSRC / "vspg.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True) as fma_build:
+            _render_variant_cmd(fma_lib, []), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) as fma_build:
         _build.build(force=True, verbose=True)
         fma_log = fma_build.communicate()[0]
     assert fma_build.returncode == 0, fma_log
@@ -269,6 +424,15 @@ def main():
         if ("vspg_kernel" in line or "path_surface" in line
                 or "registers" in line or "spill" in line):
             print(f"  ptxas: {line.strip()}", flush=True)
+    PTXAS.update(_ptxas_table(_build.last_build_log))
+    # phase 14's render-only builds of vspg.cu (the register-budget sweep)
+    # compile while phases 3-13 run
+    variants = {}
+    for name, flags in SWEEP.items():
+        out = _build.BUILD_DIR / f"libvspg_{name}.so"
+        variants[name] = (subprocess.Popen(
+            _render_variant_cmd(out, ["-fmad=false", *flags]),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
 
     bench_cfg = volpath.VolPathConfig(max_depth=32, max_events=128,
                                       max_collisions=2048)
@@ -414,7 +578,8 @@ def main():
     print(f"phase 7 done {_at()}", flush=True)
     kernels += _phase8(dev, tag, check_parity)
     print(f"phase 8 done {_at()}", flush=True)
-    kernels += _phase9(dev, tag, check_parity)
+    k9, inputs9 = _phase9(dev, tag, check_parity)
+    kernels += k9
     print(f"phase 9 done {_at()}", flush=True)
     b2b_ms = next(k["ms"] for k in kernels if k["name"] == "volpath_grid_tris")
     kernels += _phase10(dev, tag, check_parity, b2b_ms)
@@ -428,6 +593,10 @@ def main():
     t13 = time.perf_counter()
     kernels += _phase13(dev, tag)
     print(f"phase 13 done {_at()}, the phase {time.perf_counter() - t13:.1f} "
+          "s", flush=True)
+    t14 = time.perf_counter()
+    _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
+    print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
           "s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
@@ -500,11 +669,8 @@ def _phase7(dev, tag, check_parity, fma_lib):
               f"lanes with every record row within 1e-3 ({n_valid} valid "
               f"slots) {tag}", flush=True)
         assert frac_rec >= 0.98, frac_rec
-        k2 = sk.render_vspg_kernel(c, g, ftab, itab, 2, 22)
-        p2 = sk.render_vspg_plain(c, g, ftab, itab, 2, 22)
-        torch.cuda.synchronize()
-        check_parity(f"phase 7a parity vspg_render ({mode}) 64x64x2", "vspg",
-                     k2, p2)
+        _render_check(f"phase 7a parity vspg_render ({mode}) 64x64x2", c, g,
+                      ftab, itab, 2, 22, check_parity)
 
     # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
     furnace = _guided_furnace(dev)
@@ -520,42 +686,33 @@ def _phase7(dev, tag, check_parity, fma_lib):
     res, n_train, n_frozen = 256, 48, 64
     cam, film = view(res)
     npix = res * res
-    for counter in (vk.LAUNCHES, sk.LAUNCHES):
-        for key in counter:
-            counter[key] = 0
-    # CUDA events around each kernel launch of this call split its time
-    sk.LAUNCH_EVENTS = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img, field, isgb = vspg.render_vspg(
-        pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
-        vopt=vopt, seed=5, spp_per_pass=1, device=dev)
-    torch.cuda.synchronize()
-    t_main = time.perf_counter() - t0
-    events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
-    launches = dict(sk.LAUNCHES)
+    # CUDA events around each kernel call of this call split its time (a
+    # render call: the counters' memsets, the item kernel and the reduce)
+    (img, field, isgb), t_main, launches, k_ms, cap_main = _main_path_calls(
+        lambda: vspg.render_vspg(
+            pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
+            vopt=vopt, seed=5, spp_per_pass=1, device=dev))
     mean = img.mean().item()
     print(f"phase 7c render_vspg pyro64 {res}x{res} {n_train} training "
           f"waves + {n_frozen} frozen spp: {t_main:.3f} s, mean {mean:.5f}, "
           f"field iteration {field.iteration}, isgb ready {isgb.ready}, "
-          f"launches {launches} {tag}", flush=True)
+          f"launches {launches}, render items at the cap {cap_main} {tag}",
+          flush=True)
     assert field.iteration == n_train and isgb.ready
-    assert launches["vspg_record"] > 0 and launches["vspg_render"] > 0
-    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+    assert launches == dict({k: 0 for k in sk.LAUNCHES},
+                            vspg_record=n_train, vspg_render=1,
+                            vspg_reduce=1), launches
     assert tuple(img.shape) == (res, res, 3)
     assert bool(torch.isfinite(img).all()) and mean > 0
-    assert len(events) == sum(launches.values()), (len(events), launches)
-    k_ms = {name: 0.0 for name in sk.LAUNCHES}
-    for name, start, end in events:
-        k_ms[name] += start.elapsed_time(end)
     rest_ms = t_main * 1e3 - k_ms["vspg_record"] - k_ms["vspg_render"]
     print(f"phase 7c split of that call: record kernel "
           f"{k_ms['vspg_record']:.3f} ms in {launches['vspg_record']} "
           f"launches ({k_ms['vspg_record'] / launches['vspg_record']:.3f} "
-          f"ms each), render kernel {k_ms['vspg_render']:.3f} ms in "
-          f"{launches['vspg_render']}, the rest (tables, propagate, EM, "
-          f"ISGB, launch gaps) {rest_ms:.3f} ms of {t_main * 1e3:.3f} ms "
-          f"{tag}", flush=True)
+          f"ms each), render call {k_ms['vspg_render']:.3f} ms (the item "
+          f"kernel and the reduce, {k_ms['vspg_render'] / (t_main * 1e3):.4f}"
+          f" of the call), the rest (tables, propagate, EM, ISGB, launch "
+          f"gaps) {rest_ms:.3f} ms of {t_main * 1e3:.3f} ms {tag}",
+          flush=True)
 
     # the frozen render alone, through the main path's entry point
     def frozen(vopt, field, isgb):
@@ -583,9 +740,10 @@ def _phase7(dev, tag, check_parity, fma_lib):
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
     # the same launch from the build with FMA contraction, then the shipped
     # build again, on the same inputs
-    lib_fma = _build.bind(fma_lib, ("vspg_render_launch",))
-    t_fma, k64_fma = _best_of_3(
-        lambda: sk._launch(c, g, ftab, itab, n_frozen, 11, None, lib=lib_fma))
+    lib_fma = _build.bind(fma_lib, RENDER_NAMES)
+    t_fma, (k64_fma, _) = _best_of_3(
+        lambda: sk.render_vspg_items(c, g, ftab, itab, n_frozen, 11,
+                                     lib=lib_fma))
     t_k64b, _ = _best_of_3(
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
     frac_fma, mean_fma, _ = _parity(k64_fma, k64)
@@ -595,16 +753,12 @@ def _phase7(dev, tag, check_parity, fma_lib):
           f"after; its image: {frac_fma:.5f} of pixels within 1e-3 of the "
           f"shipped one, mean rel diff {mean_fma:.3e} {tag}", flush=True)
     spp_plain = 1  # keeps the plain version within a minute at 256^2
-    t_k2, k2 = _best_of_3(
+    t_k2, _ = _best_of_3(
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, spp_plain, 11))
     counts = {}
-    t0 = time.perf_counter()
-    p2 = sk.render_vspg_plain(c, g, ftab, itab, spp_plain, 11, counts)
-    torch.cuda.synchronize()
-    t_p2 = time.perf_counter() - t0
-    max_ren = check_parity(
-        f"phase 7c parity vspg_render {res}x{res}x{spp_plain}", "vspg", k2,
-        p2)
+    max_ren, t_p2, _ = _render_check(
+        f"phase 7c parity vspg_render {res}x{res}x{spp_plain}", c, g, ftab,
+        itab, spp_plain, 11, check_parity, counts)
     print(f"phase 7c vspg_render kernel {res}x{res}x{n_frozen} "
           f"{t_k64 * 1e3:.3f} ms ({npix * n_frozen / t_k64 / 1e6:.3f} "
           f"Mpaths/s); at {spp_plain} spp kernel {t_k2 * 1e3:.3f} ms, plain "
@@ -639,18 +793,75 @@ def _phase7(dev, tag, check_parity, fma_lib):
           f"pipe {p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it; "
           f"vspg_record {b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), "
           f"kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}", flush=True)
+    extra = _render_report("phase 7c", "vspg_render", c, g, t_k64 * 1e3,
+                           b_ren, cap_main, tag)
     return [
         dict(name="vspg_render", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_render"], max_abs_err=max_ren,
              ms=t_k64 * 1e3, plain_ms=t_p2 * 1e3, bound_ms=b_ren,
              bound_pipe=max(p_ren, key=p_ren.get),
-             bound_by=by_ren, library_ms=None, plain_spp=spp_plain),
+             bound_by=by_ren, library_ms=None, plain_spp=spp_plain, **extra),
+        _reduce_entry(dev, npix, n_frozen,
+                      n_frozen * int(c.iconst[vk.I_MAX_EVENTS]) * 12,
+                      launches["vspg_reduce"], tag),
         dict(name="vspg_record", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_record"], max_abs_err=max_rec,
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None),
     ], (c, g, ftab, itab)
+
+
+def _reduce_entry(dev, npix, spp, max_iters, launches, tag):
+    """The ordered sum (vspg_reduce) alone at the main path's shape and
+    iteration cap, on a numpy-seeded (spp, npix, 3) radiance scratch and
+    item iteration counts that bring about half the pixels past the cap
+    (a few items stopped at it): bit for bit against its plain version,
+    timed by CUDA events beside the plain version and, for scale, one
+    torch.sum of the radiances (without the cap: no PyTorch call computes
+    this function, so the entry has no library time); its kernels-line
+    entry."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    rng = np.random.default_rng(12)
+    L = torch.as_tensor(rng.lognormal(-3.0, 2.0, (spp, npix, 3)).astype(
+        np.float32), device=dev)
+    n_it = rng.integers(1, 2 * max_iters // spp, (spp, npix))
+    n_it[rng.integers(0, spp, 64), rng.integers(0, npix, 64)] = max_iters + 1
+    n_it = torch.as_tensor(n_it.astype(np.int32), device=dev)
+    scale = 1.0 / spp
+    k = sk.reduce_samples(L, n_it, max_iters, scale)
+    t0 = time.perf_counter()
+    p = sk.reduce_samples_plain(L, n_it, max_iters, scale)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    same = torch.equal(k, p)
+    cut = int((n_it.to(torch.int64).sum(0) > max_iters).sum())
+    ms = _events_best_of_3(lambda: sk.reduce_samples(L, n_it, max_iters,
+                                                     scale))
+    sum_ms = _events_best_of_3(lambda: torch.sum(L, 0))
+    # radiances and counts read once, the image and the carried counts
+    # written once
+    nbytes = _nbytes(L, n_it, k, k)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * L.numel() / FP32_INSTR_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"phase 7c vspg_reduce {spp}x{npix}x3 at a cap of {max_iters} "
+          f"iterations ({cut} of {npix} pixels cut): bit for bit with its "
+          f"plain version {same}; kernel {ms:.4f} ms, plain "
+          f"{t_p * 1e3:.3f} ms, torch.sum without the cap {sum_ms:.4f} ms; "
+          f"bound {bound:.4f} ms ({by}: {nbytes} bytes {t_bytes:.4f} ms, "
+          f"{L.numel()} adds and as many count adds {t_ops:.5f} ms), kernel "
+          f"at {bound / ms:.4f} of it {tag}", flush=True)
+    assert same and 0 < cut < npix, (same, cut)
+    return dict(name="vspg_reduce", route="cuda",
+                source="vspg_pbrt_v4_tpu_torch/csrc/vspg.cu",
+                replaces="vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241",
+                launches=launches, max_abs_err=(k - p).abs().max().item(),
+                ms=ms, plain_ms=t_p * 1e3, bound_ms=bound, bound_by=by,
+                bound_pipe="bytes" if by == "bytes" else "fp32",
+                library_ms=None)
 
 
 def _phase8(dev, tag, check_parity):
@@ -728,11 +939,8 @@ def _phase8(dev, tag, check_parity):
               flush=True)
         assert frac_rec >= 0.98, frac_rec
         counts = {}
-        k2 = sk.render_vspg_kernel(c, g, ftab, itab, 2, 22)
-        p2 = sk.render_vspg_plain(c, g, ftab, itab, 2, 22, counts)
-        torch.cuda.synchronize()
-        check_parity(f"phase 8a parity vspg_render ({name}) 64x64x2",
-                     "vspg", k2, p2)
+        _render_check(f"phase 8a parity vspg_render ({name}) 64x64x2", c, g,
+                      ftab, itab, 2, 22, check_parity, counts)
         assert counts["pre_steps"] > 0 and counts["draws"] > 0, counts
 
     # ---- 8b: furnace (albedo 1) under NDS ----------------------------------
@@ -752,43 +960,33 @@ def _phase8(dev, tag, check_parity):
 
     def main_path(vopt, waves, seed):
         """One render_vspg call from reset counters, split by CUDA events
-        around each kernel launch: (image, field, isgb, launches, seconds,
-        kernel ms by variant)."""
-        for counter in (vk.LAUNCHES, sk.LAUNCHES):
-            for key in counter:
-                counter[key] = 0
-        sk.LAUNCH_EVENTS = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, field, isgb = vspg.render_vspg(
-            pyro, cam, film, spp=waves + n_frozen, cfg=cfg,
-            gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
-            spp_per_pass=1, device=dev)
-        torch.cuda.synchronize()
-        t_call = time.perf_counter() - t0
-        events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
-        launches = dict(sk.LAUNCHES)
-        assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
-        assert len(events) == sum(launches.values()), (len(events), launches)
-        k_ms = {name: 0.0 for name in sk.LAUNCHES}
-        for name, start, end in events:
-            k_ms[name] += start.elapsed_time(end)
+        around each kernel call: (image, field, isgb, launches, seconds,
+        kernel ms by variant, render items at the cap)."""
+        (img, field, isgb), t_call, launches, k_ms, cap = _main_path_calls(
+            lambda: vspg.render_vspg(
+                pyro, cam, film, spp=waves + n_frozen, cfg=cfg,
+                gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
+                spp_per_pass=1, device=dev))
         assert field.iteration == waves and isgb.ready
         assert tuple(img.shape) == (res, res, 3)
         assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
-        return img, field, isgb, launches, t_call, k_ms
+        return img, field, isgb, launches, t_call, k_ms, cap
 
-    img, field_n, isgb_n, launches_n, t_n, k_n = main_path(v_nds, n_train, 5)
+    img, field_n, isgb_n, launches_n, t_n, k_n, cap_n = main_path(
+        v_nds, n_train, 5)
     assert launches_n == dict({k: 0 for k in sk.LAUNCHES},
-                              vspg_record=n_train, vspg_render=1), launches_n
+                              vspg_record=n_train, vspg_render=1,
+                              vspg_reduce=1), launches_n
     rest = t_n * 1e3 - k_n["vspg_record"] - k_n["vspg_render"]
     print(f"phase 8c render_vspg nds pyro64 {res}x{res} {n_train} training "
           f"waves + {n_frozen} frozen spp: {t_n:.3f} s, mean "
-          f"{img.mean().item():.5f}, launches {launches_n}; split: record "
-          f"kernel {k_n['vspg_record']:.3f} ms "
-          f"({k_n['vspg_record'] / n_train:.3f} ms each), render kernel "
-          f"{k_n['vspg_render']:.3f} ms, the rest (tables, propagate, EM, "
-          f"ISGB, launch gaps) {rest:.3f} ms {tag}", flush=True)
+          f"{img.mean().item():.5f}, launches {launches_n}, render items at "
+          f"the cap {cap_n}; split: record kernel {k_n['vspg_record']:.3f} "
+          f"ms ({k_n['vspg_record'] / n_train:.3f} ms each), render call "
+          f"{k_n['vspg_render']:.3f} ms "
+          f"({k_n['vspg_render'] / (t_n * 1e3):.4f} of the call), the rest "
+          f"(tables, propagate, EM, ISGB, launch "
+          f"gaps) {rest:.3f} ms {tag}", flush=True)
 
     # ---- 8d: the NDS+ main path: torch waves, then the render kernel -------
     # the training waves are cut from 48 to a fixed 5, so that the call
@@ -806,11 +1004,12 @@ def _phase8(dev, tag, check_parity):
 
     sk.render_vspg_kernel = spy
     try:
-        img_p, _, _, launches_p, t_p, k_p = main_path(v_ndsp, n_plus, 6)
+        img_p, _, _, launches_p, t_p, k_p, cap_p = main_path(v_ndsp, n_plus,
+                                                             6)
     finally:
         sk.render_vspg_kernel = render_kernel
     assert launches_p == dict({k: 0 for k in sk.LAUNCHES},
-                              vspg_render=1), launches_p
+                              vspg_render=1, vspg_reduce=1), launches_p
     inputs_p = seen["inputs"]
     tr = inputs_p[3][3:]
     assert inputs_p[3].shape[0] == 6 and bool(torch.isfinite(tr).all())
@@ -818,7 +1017,8 @@ def _phase8(dev, tag, check_parity):
     rest_p = t_p * 1e3 - k_p["vspg_render"]
     print(f"phase 8d render_vspg nds+ pyro64 {res}x{res} {n_plus} training "
           f"waves + {n_frozen} frozen spp: {t_p:.3f} s, mean "
-          f"{img_p.mean().item():.5f}, launches {launches_p}, ISGB rows "
+          f"{img_p.mean().item():.5f}, launches {launches_p}, render items "
+          f"at the cap {cap_p}, ISGB rows "
           f"{inputs_p[3].shape[0]}, TrBuffer mean {tr.mean().item():.5f} min "
           f"{tr.min().item():.5f}; split: render kernel "
           f"{k_p['vspg_render']:.3f} ms, torch waves and the rest "
@@ -868,22 +1068,20 @@ def _phase8(dev, tag, check_parity):
     src = "vspg_pbrt_v4_tpu_torch/csrc/vspg.cu"
     rep = "vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241"
 
-    def render_alone(method, c, g, ftab, itab, launches):
-        """The render variant alone on one main path's inputs: 64 spp and
-        1 spp timed, held against its plain version at 1 spp, and bound
-        by the plain version's counted work; its kernels-line entry."""
+    def render_alone(method, c, g, ftab, itab, launches, cap):
+        """The render variant alone on one main path's inputs (`cap`: that
+        call's items at the cap): 64 spp and 1 spp timed, held against its
+        plain version at 1 spp, and bound by the plain version's counted
+        work; its kernels-line entry."""
         t_k64, k64 = _best_of_3(
             lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
-        t_k1, k1 = _best_of_3(
+        t_k1, _ = _best_of_3(
             lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1, 11))
         counts = {}
-        t0 = time.perf_counter()
-        p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 11, counts)
-        torch.cuda.synchronize()
-        t_p1 = time.perf_counter() - t0
-        max_ren = check_parity(f"phase 8 parity vspg_render ({method}) "
-                               f"{res}x{res}x1, {itab.shape[0]} ISGB rows",
-                               "vspg", k1, p1)
+        max_ren, t_p1, _ = _render_check(
+            f"phase 8 parity vspg_render ({method}) {res}x{res}x1, "
+            f"{itab.shape[0]} ISGB rows", c, g, ftab, itab, 1, 11,
+            check_parity, counts)
         b_ren, by_ren, p_ren = _bound_ms(
             "vspg", counts, n_frozen,
             _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
@@ -894,12 +1092,14 @@ def _phase8(dev, tag, check_parity):
               f"{t_p1 * 1e3:.1f} ms; counted work at 1 spp {counts}; bound "
               f"{b_ren:.4f} ms ({by_ren}; ms by pipe {p_ren}), kernel at "
               f"{b_ren / (t_k64 * 1e3):.5f} of it {tag}", flush=True)
-        return dict(name="vspg_render_" + method.replace("+", "p"),
-                    route="cuda", source=src, replaces=rep, launches=launches,
-                    max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1 * 1e3,
-                    bound_pipe=max(p_ren, key=p_ren.get),
+        name = "vspg_render_" + method.replace("+", "p")
+        extra = _render_report(f"phase 8 ({method})", name, c, g,
+                               t_k64 * 1e3, b_ren, cap, tag)
+        return dict(name=name, route="cuda", source=src, replaces=rep,
+                    launches=launches, max_abs_err=max_ren, ms=t_k64 * 1e3,
+                    plain_ms=t_p1 * 1e3, bound_pipe=max(p_ren, key=p_ren.get),
                     bound_ms=b_ren, bound_by=by_ren, library_ms=None,
-                    plain_spp=1)
+                    plain_spp=1, **extra)
 
     b_rec, by_rec, p_rec = _bound_ms(
         "vspg", counts_r, 1.0,
@@ -911,10 +1111,11 @@ def _phase8(dev, tag, check_parity):
           f"{counts_r}; bound {b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), "
           f"kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}", flush=True)
     return [
-        render_alone("nds", c, g, ftab, itab, launches_n["vspg_render"]),
+        render_alone("nds", c, g, ftab, itab, launches_n["vspg_render"],
+                     cap_n),
         # NDS+ on the inputs its main path gave the kernel: the field its
         # torch waves trained and the 6-row ISGB table with their TrBuffer
-        render_alone("nds+", *inputs_p, launches_p["vspg_render"]),
+        render_alone("nds+", *inputs_p, launches_p["vspg_render"], cap_p),
         dict(name="vspg_record_nds", route="cuda", source=src, replaces=rep,
              launches=launches_n["vspg_record"], max_abs_err=max_rec,
              ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
@@ -931,7 +1132,8 @@ def _phase9(dev, tag, check_parity):
     through render_persistent at 1920x1088 x 8 spp, 9d the VSPG teaser cell
     through render_vspg at 128^2 (48 training waves, 64 frozen spp); 9e
     holds the frozen B3c render against the torch wave. Returns the three
-    kernels' entries of the kernels line."""
+    kernels' entries of the kernels line and 9d's render inputs (phase 14
+    times B3c on them)."""
     from vspg_pbrt_v4_tpu_torch.models.cameras import PerspectiveCamera
     from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
     from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
@@ -1013,11 +1215,8 @@ def _phase9(dev, tag, check_parity):
         rows_parity(f"phase 9a parity vspg_record_tris ({label}) rows",
                     rec_k, rec_p)
         counts = {}
-        k1 = sk.render_vspg_kernel(c, g, ftab, itab, 1, 22)
-        p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 22, counts)
-        torch.cuda.synchronize()
-        check_parity(f"phase 9a parity vspg_render_tris ({label}) 64x64x1",
-                     "vspg", k1, p1)
+        _render_check(f"phase 9a parity vspg_render_tris ({label}) 64x64x2",
+                      c, g, ftab, itab, 2, 22, check_parity, counts)
         assert counts["surface_events"] > 0, counts
     print(f"phase 9a done {_at()} {tag}", flush=True)
 
@@ -1111,40 +1310,28 @@ def _phase9(dev, tag, check_parity):
     res, n_train, n_frozen = 128, 48, 64
     cam, film = view(res)
     npix = res * res
-    for counter in (vk.LAUNCHES, sk.LAUNCHES):
-        for key in counter:
-            counter[key] = 0
-    sk.LAUNCH_EVENTS = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    img, field, isgb = vspg.render_vspg(
-        scene, cam, film, spp=n_train + n_frozen, cfg=cfg_v, gopt=gopt,
-        vopt=vopt, seed=5, spp_per_pass=1, device=dev)
-    torch.cuda.synchronize()
-    t_v = time.perf_counter() - t0
-    events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
-    launches_v = dict(sk.LAUNCHES)
+    (img, field, isgb), t_v, launches_v, k_ms, cap_v = _main_path_calls(
+        lambda: vspg.render_vspg(
+            scene, cam, film, spp=n_train + n_frozen, cfg=cfg_v, gopt=gopt,
+            vopt=vopt, seed=5, spp_per_pass=1, device=dev))
     assert launches_v == dict({k: 0 for k in sk.LAUNCHES},
                               vspg_record_tris=n_train,
-                              vspg_render_tris=1), launches_v
-    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+                              vspg_render_tris=1, vspg_reduce=1), launches_v
     assert field.iteration == n_train and isgb.ready
     assert tuple(img.shape) == (res, res, 3)
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
-    assert len(events) == n_train + 1
-    k_ms = {name: 0.0 for name in sk.LAUNCHES}
-    for name, start, end in events:
-        k_ms[name] += start.elapsed_time(end)
     rest = t_v * 1e3 - k_ms["vspg_record_tris"] - k_ms["vspg_render_tris"]
     n_surf = int((field.surface.stats_w.sum(-1) > 8.0).sum())
     print(f"phase 9d render_vspg teaser machines pyro64 {res}x{res} "
           f"{n_train} training waves + {n_frozen} frozen spp: {t_v:.3f} s, "
-          f"mean {img.mean().item():.5f}, launches {launches_v}, surface "
-          f"cells with data {n_surf}; split: record kernel "
-          f"{k_ms['vspg_record_tris']:.3f} ms "
-          f"({k_ms['vspg_record_tris'] / n_train:.3f} ms each), render kernel "
-          f"{k_ms['vspg_render_tris']:.3f} ms, the rest (tables, propagate, "
-          f"EM, ISGB, launch gaps) {rest:.3f} ms {tag}", flush=True)
+          f"mean {img.mean().item():.5f}, launches {launches_v}, render "
+          f"items at the cap {cap_v}, surface cells with data {n_surf}; "
+          f"split: record kernel {k_ms['vspg_record_tris']:.3f} ms "
+          f"({k_ms['vspg_record_tris'] / n_train:.3f} ms each), render call "
+          f"{k_ms['vspg_render_tris']:.3f} ms "
+          f"({k_ms['vspg_render_tris'] / (t_v * 1e3):.4f} of the call), the "
+          f"rest (tables, propagate, EM, ISGB, launch gaps) {rest:.3f} ms "
+          f"{tag}", flush=True)
     # each variant alone on the main path's inputs, and its plain version
     c, g, ftab, itab = inputs(scene, res, field, isgb)
     t_rk, (img_rk, rec_rk) = _best_of_3(
@@ -1160,15 +1347,11 @@ def _phase9(dev, tag, check_parity):
                           "rows", rec_rk, rec_rp)
     t_k64, k64 = _best_of_3(
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
-    k1 = sk.render_vspg_kernel(c, g, ftab, itab, 1, 11)
+    inputs9 = (c, g, ftab, itab)
     counts = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 11, counts)
-    torch.cuda.synchronize()
-    t_p1v = time.perf_counter() - t0
-    max_ren = check_parity(f"phase 9d parity vspg_render_tris {res}x{res}x1",
-                           "vspg", k1, p1)
+    max_ren, t_p1v, _ = _render_check(
+        f"phase 9d parity vspg_render_tris {res}x{res}x1", c, g, ftab, itab,
+        1, 11, check_parity, counts)
     ins = _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
                   c.majorant, ftab, itab, c.tris, c.mats)
     b_ren, by_ren, p_ren = _bound_ms("vspg", counts, n_frozen,
@@ -1185,6 +1368,8 @@ def _phase9(dev, tag, check_parity):
           f"{t_rp * 1e3:.1f} ms, counted work {counts_r}, bound "
           f"{b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), kernel at "
           f"{b_rec / (t_rk * 1e3):.5f} of it, {_at()} {tag}", flush=True)
+    extra = _render_report("phase 9d", "vspg_render_tris", c, g,
+                           t_k64 * 1e3, b_ren, cap_v, tag)
 
     # ---- 9e: the kernel's frozen render against the torch wave's ----------
     # both unbiased on the same field: their means agree within Monte Carlo
@@ -1231,13 +1416,14 @@ def _phase9(dev, tag, check_parity):
              replaces=rep_v, launches=launches_v["vspg_render_tris"],
              max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1v * 1e3,
              bound_pipe=max(p_ren, key=p_ren.get),
-             bound_ms=b_ren, bound_by=by_ren, library_ms=None, plain_spp=1),
+             bound_ms=b_ren, bound_by=by_ren, library_ms=None, plain_spp=1,
+             **extra),
         dict(name="vspg_record_tris", route="cuda", source=src_v,
              replaces=rep_v, launches=launches_v["vspg_record_tris"],
              max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
              bound_pipe=max(p_rec, key=p_rec.get),
              bound_ms=b_rec, bound_by=by_rec, library_ms=None),
-    ]
+    ], inputs9
 
 
 def _phase10(dev, tag, check_parity, b2b_ms):
@@ -1660,11 +1846,9 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
         rows_parity(f"phase 12a parity vspg_record_adaptive ({label}) rows",
                     rec_k, rec_p)
         counts = {}
-        k2 = sk.render_vspg_kernel(c, g, ftab, itab, spp_r, 22)
-        p2 = sk.render_vspg_plain(c, g, ftab, itab, spp_r, 22, counts)
-        torch.cuda.synchronize()
-        check_parity(f"phase 12a parity vspg_render_adaptive ({label}) "
-                     f"64x64x{spp_r}", "vspg", k2, p2)
+        _render_check(f"phase 12a parity vspg_render_adaptive ({label}) "
+                      f"64x64x{spp_r}", c, g, ftab, itab, spp_r, 22,
+                      check_parity, counts)
         lanes = child_lanes(fld[0], rec_p)
         share = counts["child_scatters"] / max(counts["scatters"], 1)
         print(f"phase 12a ({label}): {lanes:.4f} of record lanes reach a "
@@ -1703,30 +1887,20 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
         return out
 
     gfield.refine_field = timed_refine
-    sk.LAUNCH_EVENTS = []
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img, field, isgb = vspg.render_vspg(
-            pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
-            vopt=vopt, seed=5, spp_per_pass=1, device=dev)
-        torch.cuda.synchronize()
-        t_main = time.perf_counter() - t0
+        (img, field, isgb), t_main, launches, k_ms, cap_main = (
+            _main_path_calls(lambda: vspg.render_vspg(
+                pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
+                vopt=vopt, seed=5, spp_per_pass=1, device=dev)))
     finally:
         gfield.refine_field = refine
-        events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
-    launches = dict(sk.LAUNCHES)
     assert launches == dict({k: 0 for k in sk.LAUNCHES},
                             vspg_record_adaptive=n_train,
-                            vspg_render_adaptive=1), launches
-    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
+                            vspg_render_adaptive=1, vspg_reduce=1), launches
     assert field.iteration == n_train and isgb.ready
     assert field.n_leaves > C, field.n_leaves
     assert tuple(img.shape) == (res, res, 3)
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
-    k_ms = {name: 0.0 for name in sk.LAUNCHES}
-    for name, start, end in events:
-        k_ms[name] += start.elapsed_time(end)
     rec_ms, ren_ms = k_ms["vspg_record_adaptive"], k_ms["vspg_render_adaptive"]
     ref_ms = sum(refine_s) * 1e3
     rest_ms = t_main * 1e3 - rec_ms - ren_ms
@@ -1734,10 +1908,11 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"training waves + {n_frozen} frozen spp: {t_main:.3f} s, mean "
           f"{img.mean().item():.5f}, {field.n_leaves} leaves after training "
           f"({int(field.refined.sum())} of {C} cells split), launches "
-          f"{launches} {tag}", flush=True)
+          f"{launches}, render items at the cap {cap_main} {tag}", flush=True)
     print(f"phase 12c split of that call: record kernel {rec_ms:.3f} ms in "
           f"{n_train} launches ({rec_ms / n_train:.3f} ms each), render "
-          f"kernel {ren_ms:.3f} ms, the rest {rest_ms:.3f} ms of "
+          f"call {ren_ms:.3f} ms ({ren_ms / (t_main * 1e3):.4f} of the call), "
+          f"the rest {rest_ms:.3f} ms of "
           f"{t_main * 1e3:.3f} ms, of it refine_field {ref_ms:.3f} ms in "
           f"{len(refine_s)} calls ({ref_ms / max(len(refine_s), 1):.3f} ms "
           f"a wave) {tag}", flush=True)
@@ -1780,15 +1955,12 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"{(sw_ms / off_ms - 1) * 100:+.2f}%, in turns "
           f"{[round(t * 1e3, 3) for t, _ in t_off]} / "
           f"{[round(t * 1e3, 3) for t, _ in t_sw]} {tag}", flush=True)
-    t_k1, k1 = _best_of_3(lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1,
-                                                        11))
+    t_k1, _ = _best_of_3(lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1,
+                                                       11))
     counts = {}
-    t0 = time.perf_counter()
-    p1 = sk.render_vspg_plain(c, g, ftab, itab, 1, 11, counts)
-    torch.cuda.synchronize()
-    t_p1 = time.perf_counter() - t0
-    max_ren = check_parity(f"phase 12c parity vspg_render_adaptive "
-                           f"{res}x{res}x1", "vspg", k1, p1)
+    max_ren, t_p1, _ = _render_check(
+        f"phase 12c parity vspg_render_adaptive {res}x{res}x1", c, g, ftab,
+        itab, 1, 11, check_parity, counts)
     t_rk, (img_rk, rec_rk) = _best_of_3(
         lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
     counts_r = {}
@@ -1817,6 +1989,8 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"work {counts_r}; bound {b_rec:.4f} ms ({by_rec}; ms by pipe "
           f"{p_rec}), kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}",
           flush=True)
+    extra = _render_report("phase 12c", "vspg_render_adaptive", c, g,
+                           t_k64 * 1e3, b_ren, cap_main, tag)
 
     # ---- 12d: the kernel's frozen render against the torch wave's ---------
     res_e, spp_e = 128, 64
@@ -1855,13 +2029,113 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
              bound_ms=b_ren, bound_pipe=max(p_ren, key=p_ren.get),
              bound_by=by_ren, library_ms=None, plain_spp=1,
              uniform_field_ms=t_u64 * 1e3, switch_off_ms=off_ms,
-             switch_on_ms=sw_ms),
+             switch_on_ms=sw_ms, **extra),
         dict(name="vspg_record_adaptive", route="cuda", source=src,
              replaces=rep, launches=launches["vspg_record_adaptive"],
              max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
              bound_ms=b_rec, bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None),
     ]
+
+
+def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
+    """Phase 14, the render kernel's register budget and its iteration cap.
+    14a: the render-only builds of vspg.cu at 2, 3 and 4 minimum blocks an
+    SM (`variants`, started after phase 2; ptxas's registers and spills of
+    each) time B3a on phase 7c's inputs and B3c on phase 9d's at 64 spp in
+    turns, each image held bit for bit against the shipped build's, and
+    again with max_events cut to max_events / spp, which caps each item at
+    one sample's budget and so leaves out the capped items' long tails (a
+    time only: the pixel's cap then cuts samples, and the image differs).
+    14b: on the same inputs with max_events cut to 1 (a pixel's cap of 768
+    iterations at 64 spp, which cuts samples in many pixels), the kernel at
+    64 spp and ITEMS_PER_THREAD items a thread against its per-pixel plain
+    version on a crop of two rows through the image's middle."""
+    from vspg_pbrt_v4_tpu_torch.ops import _build
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.ops.volpath_kernels import I_MAX_EVENTS
+
+    libs = {}
+    for name, (proc, out) in variants.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, (name, log[-4000:])
+        libs[name] = _build.bind(out, RENDER_NAMES)
+        for key, v in sorted(_ptxas_table(log).items()):
+            print(f"phase 14a ptxas {name} ris={key[1]} method={key[2]} "
+                  f"tris={key[3]}: {v.get('regs')} registers, "
+                  f"{v.get('stack')} bytes stack frame, {v.get('st')} bytes "
+                  f"spill stores, {v.get('ld')} bytes spill loads {tag}",
+                  flush=True)
+
+    def with_max_events(c, n):
+        ic = c.iconst.clone()
+        ic[I_MAX_EVENTS] = n
+        return dataclasses.replace(c, iconst=ic)
+
+    n_frozen = 64
+    cells = (("B3a", inputs7), ("B3c", inputs9))
+    for label, (c, g, ftab, itab) in cells:
+        ref, ref_cap = sk.render_vspg_items(c, g, ftab, itab, n_frozen, 11)
+        c1 = with_max_events(c, max(1, int(c.iconst[I_MAX_EVENTS])
+                                    // n_frozen))
+        cap_iters = (int(c.iconst[I_MAX_EVENTS]) * n_frozen * 12,
+                     int(c1.iconst[I_MAX_EVENTS]) * n_frozen * 12)
+        times = {(k, cut): [] for k in SWEEP for cut in (0, 1)}
+        same, caps = {}, {}
+        for order in (list(SWEEP), list(SWEEP)[::-1]):
+            for k in order:
+                for cut, cc in ((0, c), (1, c1)):
+                    t, (img, cap) = _best_of_3(
+                        lambda k=k, cc=cc: sk.render_vspg_items(
+                            cc, g, ftab, itab, n_frozen, 11, lib=libs[k]))
+                    times[k, cut].append(round(t * 1e3, 3))
+                    same[k, cut] = (img == ref).all(-1).float().mean().item()
+                    caps[k, cut] = int(cap)
+        for k in SWEEP:
+            grid = sk.render_grid(c, g, lib=libs[k])
+            print(f"phase 14a sweep {label} {c.nx}x{c.ny}x{n_frozen} {k}: "
+                  f"{grid['blocks']} blocks ({grid['per_sm']} an SM), "
+                  f"{grid['regs']} registers, {grid['local_bytes']} bytes "
+                  f"local a thread; at the pixel's cap of {cap_iters[0]} "
+                  f"iterations {min(times[k, 0]):.3f} ms (turns "
+                  f"{times[k, 0]}), {caps[k, 0]} items at the cap, "
+                  f"{same[k, 0]:.6f} of pixels bit for bit the shipped "
+                  f"build's; with a cap of {cap_iters[1]} (one sample's "
+                  f"budget an item; time only) {min(times[k, 1]):.3f} ms "
+                  f"(turns {times[k, 1]}), {caps[k, 1]} items at the cap "
+                  f"{tag}", flush=True)
+            assert same[k, 0] == 1.0 and caps[k, 0] == int(ref_cap), (label,
+                                                                     k)
+
+    # 14b: the cap's rule where it binds
+    for label, (c, g, ftab, itab) in cells:
+        c1 = with_max_events(c, 1)
+        n = c.nx * c.ny * n_frozen
+        blocks = _check_blocks(n)
+        k, cap = sk.render_vspg_items(c1, g, ftab, itab, n_frozen, 13,
+                                      blocks=blocks)
+        crop = torch.arange((c.ny // 2) * c.nx, (c.ny // 2 + 2) * c.nx,
+                            device=dev)
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = sk.render_vspg_plain(c1, g, ftab, itab, n_frozen, 13, counts,
+                                 pixels=crop)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
+        kc = k.reshape(-1, 3)[crop]
+        exact = (kc == p).all(-1).float().mean().item()
+        check_parity(
+            f"phase 14b parity {label} vspg_render {c.nx}x{c.ny}x{n_frozen} "
+            f"at a pixel cap of {n_frozen * 12} iterations, rows "
+            f"{c.ny // 2}-{c.ny // 2 + 1} ({blocks} blocks, "
+            f"{n / (blocks * 128):.1f} items a thread; {int(cap)} items at "
+            f"the cap in the image, {counts['capped']} of the crop's "
+            f"{crop.numel()} pixels cut by the cap; {exact:.5f} of them bit "
+            f"for bit; plain {t_p:.1f} s)", "vspg", kc.reshape(1, -1, 3),
+            p.reshape(1, -1, 3))
+        assert int(cap) > 0 and counts["capped"] > 0, (label, int(cap),
+                                                       counts)
 
 
 # M's integer work per lookup, counted by hand from

@@ -185,6 +185,24 @@ def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling",
                             isgb, tr)
 
 
+def _render_items_against_plain(c, g, ftab, itab, spp=4, seed=7):
+    """The render kernel on a grid cut to at least 4 items a thread (the
+    per-lane item loop's check: ptxas lost warps' later samples in such a
+    loop, ROADMAP.md section C 1), and its per-pixel plain version, at 4
+    spp so that the items of one pixel start at several samples and the
+    reduce adds several terms; no item and no pixel reaches the cap.
+    Returns both images."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    blocks = max(1, c.nx * c.ny * spp // (128 * 4))
+    k, at_cap = sk.render_vspg_items(c, g, ftab, itab, spp, seed,
+                                     blocks=blocks)
+    counts = {}
+    p = sk.render_vspg_plain(c, g, ftab, itab, spp, seed, counts)
+    assert at_cap.tolist() == [0] and counts["capped"] == 0
+    return k, p
+
+
 @pytest.mark.parametrize("scene", ["cloud", "machines"])
 @pytest.mark.parametrize("method", ["resampling", "nds", "nds+"])
 @pytest.mark.parametrize("mode", ["ris", "mis"])
@@ -205,8 +223,7 @@ def test_vspg_kernel_matches_plain(dev, variant, mode, method, scene):
     name = "vspg_" + variant + ("_tris" if scene == "machines" else "")
     before = sk.LAUNCHES[name]
     if variant == "render":
-        k = sk.render_vspg_kernel(c, g, ftab, itab, 1, 7)
-        p = sk.render_vspg_plain(c, g, ftab, itab, 1, 7)
+        k, p = _render_items_against_plain(c, g, ftab, itab)
     else:
         k, rk = sk.train_wave_kernel(c, g, ftab, itab, 7, 6)
         p, rp = sk.train_wave_plain(c, g, ftab, itab, 7, 6)
@@ -237,8 +254,7 @@ def test_vspg_kernel_adaptive_matches_plain(dev, variant, method, scene):
             + "_adaptive")
     before = sk.LAUNCHES[name]
     if variant == "render":
-        k = sk.render_vspg_kernel(c, g, ftab, itab, 1, 7)
-        p = sk.render_vspg_plain(c, g, ftab, itab, 1, 7)
+        k, p = _render_items_against_plain(c, g, ftab, itab)
     else:
         k, rk = sk.train_wave_kernel(c, g, ftab, itab, 7, 6)
         p, rp = sk.train_wave_plain(c, g, ftab, itab, 7, 6)
@@ -286,6 +302,90 @@ def test_vspg_launch_events(dev):
     assert all(start.elapsed_time(end) > 0 for _, start, end in events)
     sk.render_vspg_kernel(c, g, ftab, itab, 1, 0)
     assert sk.LAUNCH_EVENTS is None
+
+
+def test_vspg_render_chunks_and_grids_agree(dev):
+    """The render's image is the same float for float whatever the persistent
+    grid and however the samples are cut into chunks of the scratch (each
+    chunk's reduce adds onto the running sum in sample order)."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, res=32, waves=1)
+    whole, cap = sk.render_vspg_items(c, g, ftab, itab, 8, 3)
+    small, _ = sk.render_vspg_items(c, g, ftab, itab, 8, 3, blocks=3)
+    before = dict(sk.LAUNCHES)
+    scratch = sk.SCRATCH_BYTES
+    sk.SCRATCH_BYTES = 3 * 32 * 32 * 16  # 3 samples a chunk: 3 + 3 + 2
+    try:
+        chunked, cap_c = sk.render_vspg_items(c, g, ftab, itab, 8, 3)
+    finally:
+        sk.SCRATCH_BYTES = scratch
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["vspg_render"] == before["vspg_render"] + 3
+    assert sk.LAUNCHES["vspg_reduce"] == before["vspg_reduce"] + 3
+    assert torch.equal(whole, small) and torch.equal(whole, chunked)
+    assert int(cap) == int(cap_c) == 0
+
+
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("scene,method,max_events", [
+    ("cloud", "resampling", 1), ("machines", "nds", 2)])
+def test_vspg_render_cap_matches_plain(dev, scene, method, max_events,
+                                       chunks, monkeypatch):
+    """With max_events cut to 1 or 2 the pixel's iteration cap (8 spp x
+    max_events x 12) cuts samples in many pixels; the per-pixel loop loses
+    the sample the cap cuts and every later one, and the reduce drops the
+    same samples from the items' iteration counts, in one chunk of the
+    scratch or carried across three. So the kernel's image is the per-pixel
+    plain version's bit for bit, at 4 items a thread, with items stopped at
+    the cap."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    res, spp = 32, 8
+    c, g, ftab, itab = _vspg_inputs(dev, res=res, waves=1, method=method,
+                                    scene=scene)
+    ic = c.iconst.clone()
+    ic[vk.I_MAX_EVENTS] = max_events
+    c = dataclasses.replace(c, iconst=ic)
+    if chunks > 1:
+        monkeypatch.setattr(sk, "SCRATCH_BYTES", 3 * res * res * 16)
+    before = sk.LAUNCHES["vspg_reduce"]
+    k, at_cap = sk.render_vspg_items(c, g, ftab, itab, spp, 5,
+                                     blocks=res * res * spp // (128 * 4))
+    counts = {}
+    p = sk.render_vspg_plain(c, g, ftab, itab, spp, 5, counts)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES["vspg_reduce"] == before + chunks
+    assert int(at_cap) > 0 and 0 < counts["capped"] < res * res
+    assert torch.equal(k, p)
+
+
+def test_vspg_render_raises_without_fallback(dev, monkeypatch):
+    """A launch the card refuses (a majorant grid too large for shared
+    memory, past the wrapper's own limit) and a scratch that cannot be
+    allocated raise; nothing falls back to the plain version."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, res=16, waves=1)
+    monkeypatch.setattr(sk, "render_vspg_plain", None)
+    n = 128
+    ic = c.iconst.clone()
+    ic[vk.I_MX:vk.I_MX + 3] = n
+    big = dataclasses.replace(
+        c, iconst=ic, majorant=torch.ones((n, n, n), device=dev))
+    monkeypatch.setattr(vk, "MAX_MAJ_VOX", n ** 3)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        sk.render_vspg_items(big, g, ftab, itab, 1, 0)
+    # 2^27 spp at one event a sample: an iteration cap within int32, and
+    # a scratch of 2^27 x 256 items
+    ic = c.iconst.clone()
+    ic[vk.I_MAX_EVENTS] = 1
+    one = dataclasses.replace(c, iconst=ic)
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 1 << 62)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        sk.render_vspg_items(one, g, ftab, itab, 1 << 27, 0)
+    with pytest.raises(ValueError, match="exceeds int32"):
+        sk.render_vspg_items(c, g, ftab, itab, 1 << 40, 0)
 
 
 def test_vspg_wrapper_checks_inputs(dev):

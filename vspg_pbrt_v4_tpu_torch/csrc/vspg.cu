@@ -7,19 +7,19 @@
 //
 // Replaces pallas_vspg._make_vspg_kernel (vspg_pbrt_v4_tpu/ops/
 // pallas_vspg.py) with record=False (B3) and record=True (B4), for
-// sampling_method "resampling", "nds" and "nds+". One thread
-// renders all samples of one pixel and runs the Pallas kernel's per-lane
-// state machine: per iteration one event of its path (mode 0 transport, 2
+// sampling_method "resampling", "nds" and "nds+". A thread runs the
+// Pallas kernel's per-lane state machine on one (pixel, sample) path at a
+// time: per iteration one event of its path (mode 0 transport, 2
 // reservoir-resampling walk, 3 delta walk, 4/5 ratio-tracked shadow walk
 // toward the point light / environment; under NDS 1 the majorant
 // optical-depth prepass and 2 the ODS walk), the same eight uniform4 draws in
-// the same order, and the same iteration cap spp * max_events * 12. So it
-// agrees per pixel with ops/vspg_kernels.render_vspg_plain /
-// train_wave_plain, which agree per pixel with the interpret-mode Pallas
-// kernel where bf16 rounds nothing. The block-wide sharing of the Pallas
-// kernel (one field query and one majorant step per iteration for
-// disjoint lane sets) becomes per-thread branches: a thread queries the
-// field only at a scatter or a walk start.
+// the same order, each path from the same fresh state. So it agrees per
+// pixel with ops/vspg_kernels.render_vspg_plain / train_wave_plain, which
+// agree per pixel with the interpret-mode Pallas kernel where bf16 rounds
+// nothing. The block-wide sharing of the Pallas kernel (one field query
+// and one majorant step per iteration for disjoint lane sets) becomes
+// per-thread branches: a thread queries the field only at a scatter or a
+// walk start.
 //
 // What bounds it on the H100: dependent loads and divergence. Each walk
 // step of a thread is one iteration with a majorant read (shared memory)
@@ -28,10 +28,33 @@
 // read (40 floats of an 80 KB float32 table) and the vMF mixture math of
 // four lobes; the threads of a warp sit in different modes and take
 // different numbers of iterations. Registers hold the ~80-value lane state
-// and the lobes, so occupancy is low. The design keeps the whole path in
-// registers (no device-memory traffic but the reads above, the image and
-// the record rows) and leaves the TPU's bf16 tables, one-hot MXU gathers,
-// chunk sweeps, stochastic trilerp, tiled lane map and spp chunking out.
+// and the lobes (204-255 a thread with no minimum of blocks), so few warps
+// are resident. The design keeps the whole path in registers (no
+// device-memory traffic but the reads above, the radiance and the record
+// rows) and leaves the TPU's bf16 tables, one-hot MXU gathers, chunk
+// sweeps, stochastic trilerp and tiled lane map out.
+//
+// The render variant's work: one thread a pixel walking all spp samples in
+// turn left B3c (128^2) 128 blocks of 4 warps on 132 SMs and a tail of 64
+// serial samples. So a work item is one (pixel, sample), N = npix * spp of
+// them, sample-major (a warp's lanes start on 32 neighbouring pixels of
+// one sample), on SMs x B persistent blocks, B the instantiation's resident
+// blocks an SM at its register budget (VSPG_RENDER_MIN_BLOCKS below); a
+// lane whose path ends takes the next item from a 64-bit device counter.
+// Each item writes its radiance to a (samples, npix, 3) scratch, and
+// vspg_reduce_kernel adds a pixel's samples in sample order, acc = acc +
+// L[s] from zero, then scales, the per-pixel loop's order and rounding.
+// Every item has the whole pixel's iteration cap (spp * max_events * 12),
+// so no sample stops before the per-pixel loop would have stopped it, and
+// writes its iteration count beside its radiance; the reduce adds a
+// sample only while the pixel's running count stays within the cap, as
+// the per-pixel loop, which loses the sample its cap cuts and every later
+// one. So the image is the same float for float. An item at the cap counts
+// itself. Such an item is a walk whose limit is BIG (a walk or shadow walk
+// that starts within 1e-4 of the box's exit, where box_hit reports no
+// exit; ROADMAP.md section C 4) and runs all its cap's iterations in
+// series, about 0.4 s at 64 spp: that tail, which the per-pixel loop had
+// too, and not the launch's parallelism, sets B3's time (PERF.md).
 //
 // NDS and NDS+ are template switches: the ODS walk keeps its state in the
 // reservoir's registers, as the Pallas kernel aliases its carries (c_t the
@@ -412,8 +435,42 @@ static __device__ __forceinline__ V3 to_loc(const Surf& S, V3 v) {
 
 }  // namespace
 
+// Resident blocks an SM that ptxas budgets the render instantiations for
+// (65536 registers / (128 threads x blocks)): 2 allows 255 registers a
+// thread, 3 168, 4 128. The shipped values are the fastest of
+// chip_smoke.py phase 14's sweep, which rebuilds this file with others
+// (-DVSPG_RENDER_MIN_BLOCKS=...); the record instantiations keep
+// __launch_bounds__(128) with no minimum.
+#ifndef VSPG_RENDER_MIN_BLOCKS
+#define VSPG_RENDER_MIN_BLOCKS 3
+#endif
+#ifndef VSPG_RENDER_TRIS_MIN_BLOCKS
+#define VSPG_RENDER_TRIS_MIN_BLOCKS 2
+#endif
+
+constexpr int THREADS = 128;
+
+template <bool RECORD, bool TRIS>
+struct MinBlocks {
+  static constexpr int value =
+      RECORD ? 1
+             : (TRIS ? VSPG_RENDER_TRIS_MIN_BLOCKS : VSPG_RENDER_MIN_BLOCKS);
+};
+
+// One work item is one (pixel, sample) path. The record variant runs one
+// item a thread, item = pixel (spp 1), and writes out = L * out_scale. The
+// render variant runs the n_items items of one chunk of samples, item i
+// being sample samp0 + i / npix of pixel i % npix (sample-major, so a
+// warp's lanes start on neighbouring pixels of one sample): each lane
+// takes its next item from the counter *next_item when its path ends, until
+// the items run out, and writes the item's radiance L to out[i] and its
+// iterations to n_iter[i] (the scratch that vspg_reduce_kernel sums per
+// pixel in sample order). Every item has the whole pixel's iteration cap,
+// spp * max_events * 12, the per-pixel loop's; an item that reaches it
+// writes zero radiance and cap + 1 iterations and counts itself in
+// *at_cap.
 template <bool RECORD, bool RIS, int METHOD, bool TRIS>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
     vspg_kernel(const float* __restrict__ fc_g, const int* __restrict__ ic_g,
                 const float* __restrict__ gc_g, const int* __restrict__ gi_g,
                 const float* __restrict__ density,
@@ -423,9 +480,11 @@ __global__ void __launch_bounds__(128)
                 const int* __restrict__ cells,
                 const float* __restrict__ tris_g,
                 const float* __restrict__ mats_g, float* __restrict__ out,
-                float* __restrict__ rec, int npix, int spp, uint32_t seed,
-                float out_scale, int nmaj, int rec_depth, int n_tri,
-                int n_mat) {
+                int* __restrict__ n_iter, float* __restrict__ rec,
+                unsigned long long* __restrict__ next_item,
+                int* __restrict__ at_cap, int npix, int spp, int samp0,
+                long long n_items, uint32_t seed, float out_scale, int nmaj,
+                int rec_depth, int n_tri, int n_mat) {
   __shared__ float fc[N_FCONST];
   __shared__ int ic[N_ICONST];
   __shared__ float gc[N_GCONST];
@@ -445,9 +504,12 @@ __global__ void __launch_bounds__(128)
       smats[i] = mats_g[i];
   }
   __syncthreads();
-  const int pix_i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix_i >= npix) return;
-  const uint32_t pix = (uint32_t)pix_i;
+  long long item;
+  if constexpr (RECORD)
+    item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  else
+    item = (long long)atomicAdd(next_item, 1ull);
+  if (item >= n_items) return;
   const Tables T = {density, smaj, ftab, ic[I_GX], ic[I_GY], ic[I_GZ],
                     ic[I_MX], ic[I_MY], ic[I_MZ], gi[GI_FRES], gi[GI_NCELL],
                     gi[GI_K], gi[GI_NEXTRA] > 0 ? cells : nullptr,
@@ -466,14 +528,16 @@ __global__ void __launch_bounds__(128)
   const V3 lp = v3(fc + F_LP), lI = v3(fc + F_LI), envL = v3(fc + F_ENV);
   const float pmf = fc[F_PMF], penv = fc[F_PENV];
   const V3 one3 = v3(1.f, 1.f, 1.f), zero3 = v3(0.f, 0.f, 0.f);
-  const float ivsp = itab[pix_i], ipel = itab[npix + pix_i],
-              ipem = itab[2 * npix + pix_i];
   constexpr bool NDS = METHOD != M_RESAMPLING;
   constexpr bool NDS_PLUS = METHOD == M_NDS_PLUS;
   const bool surf_guide = TRIS && gi[GI_SURF_GUIDE] != 0;
   const bool any_rough = TRIS && gi[GI_ANY_ROUGH] != 0;
   const int P_HALF = 8 * K + 8;
 
+  // the item's pixel and sample, and the pixel's ISGB entries
+  int pix_i;
+  uint32_t pix, samp;
+  float ivsp, ipel, ipem;
   auto rec_put = [&](int row, int slot, float v) {
     if (RECORD && slot >= 0 && slot < rec_depth)
       rec[((size_t)row * rec_depth + slot) * npix + pix_i] = v;
@@ -486,31 +550,67 @@ __global__ void __launch_bounds__(128)
   };
 
   // lane state (the Pallas kernel's carry)
-  uint32_t samp = 0, dim = 1;
-  bool alive = true;
+  uint32_t dim;
+  bool alive;
   V3 o, d;
   int hero;
-  start_path(fc, ic[I_NX], seed, pix, 0u, &o, &d, &hero);
-  V3 b = one3, ru = one3, rl = one3, L = zero3, acc = zero3;
-  int depth = 0, med = -1, mode = 0, rslot = 0;
-  float t_walk = 0.f, w_sum = 0.f, c_t = 0.f, c_wi = 0.f, c_ste = 0.f;
-  V3 wf = one3, wu = one3, wl = one3, wT = one3, wr = one3, cn = one3,
-     cd = one3;
-  bool has_c = false;
-  float maj_sc = 1.f, tau_acc = 0.f, vsp_c = 0.f;
-  V3 sh = zero3, sT = one3, sl = one3, su = one3;
-  float sh_t = 0.f, sh_end = 0.f, sh_pdf = 0.f, sh_d2 = 1.f, sh_f = 0.f,
-        sh_fl = 0.f, rr_srv = 1.f;
+  V3 b, ru, rl, L;
+  int depth, med, mode, rslot;
+  float t_walk, w_sum, c_t, c_wi, c_ste;
+  V3 wf, wu, wl, wT, wr, cn, cd;
+  bool has_c;
+  float maj_sc, tau_acc, vsp_c;
+  V3 sh, sT, sl, su;
+  float sh_t, sh_end, sh_pdf, sh_d2, sh_f, sh_fl, rr_srv;
   // the surface machine (TRIS): the pending closest hit, the sweep and
   // occlusion requests, the delta-bounce flag, a surface NEE record's
   // albedo tint and the per-channel glossy NEE folds
-  float t_surf = BIG, sh_f1 = 0.f, sh_f2 = 0.f;
-  V3 hng = zero3, ra = one3;
-  int hmat = -1, hmi = -1, hmo = -1;
-  bool needs_i = true, sh_occ = false, spec_last = false;
+  float t_surf, sh_f1, sh_f2;
+  V3 hng, ra;
+  int hmat, hmi, hmo;
+  bool needs_i, sh_occ, spec_last;
+  // a fresh path for `item`: every carry at the value the per-pixel kernel
+  // gave it at its first sample
+  auto begin = [&]() {
+    pix_i = (int)(item % npix);
+    pix = (uint32_t)pix_i;
+    samp = (uint32_t)samp0 + (uint32_t)(item / npix);
+    ivsp = itab[pix_i];
+    ipel = itab[npix + pix_i];
+    ipem = itab[2 * npix + pix_i];
+    dim = 1;
+    alive = true;
+    start_path(fc, ic[I_NX], seed, pix, samp, &o, &d, &hero);
+    b = ru = rl = one3;
+    L = zero3;
+    depth = 0;
+    med = -1;
+    mode = 0;
+    rslot = 0;
+    t_walk = w_sum = c_t = c_wi = c_ste = 0.f;
+    wf = wu = wl = wT = wr = cn = cd = one3;
+    has_c = false;
+    maj_sc = 1.f;
+    tau_acc = vsp_c = 0.f;
+    sh = zero3;
+    sT = sl = su = one3;
+    sh_t = sh_end = sh_pdf = 0.f;
+    sh_d2 = 1.f;
+    sh_f = sh_fl = 0.f;
+    rr_srv = 1.f;
+    t_surf = BIG;
+    sh_f1 = sh_f2 = 0.f;
+    hng = zero3;
+    ra = one3;
+    hmat = hmi = hmo = -1;
+    needs_i = true;
+    sh_occ = spec_last = false;
+  };
+  begin();
 
   const long long max_iters = (long long)spp * ic[I_MAX_EVENTS] * 12;
-  for (long long it = 0; it < max_iters && alive; ++it) {
+  long long it = 0;
+  for (;;) {
     // mode 2: the reservoir walk, or under NDS the ODS walk; mode 1: the
     // NDS majorant-OD prepass
     const bool walk_res = !NDS && mode == 2, walk_nds = NDS && mode == 2;
@@ -1511,119 +1611,238 @@ __global__ void __launch_bounds__(128)
       }
     }
 
-    // ---- commit a finished sample, start the next one ---------------------
+    // ---- an item ends with its path or at its iteration cap ---------------
     if (!(isfinite(L.x) && isfinite(L.y) && isfinite(L.z))) L = zero3;
-    if (!alive) {
-      acc = add(acc, L);
-      samp += 1;
-      if (samp < (uint32_t)spp) {
-        start_path(fc, ic[I_NX], seed, pix, samp, &o, &d, &hero);
-        dim = 1;
-        b = ru = rl = one3;
-        L = zero3;
-        depth = 0;
-        med = -1;
-        mode = 0;
-        rr_srv = 1.0f;
-        rslot = 0;
-        if (TRIS) {
-          t_surf = BIG;
-          needs_i = true;
-          sh_occ = false;
-          spec_last = false;
-        }
-        alive = true;
-      }
+    it += 1;
+    if (alive && it < max_iters) continue;
+    if (alive && at_cap != nullptr) atomicAdd(at_cap, 1);
+    const V3 Li = alive ? zero3 : L;
+    const long long n_it = alive ? max_iters + 1 : it;
+    if constexpr (RECORD) {
+      out[3 * pix_i + 0] = (0.0f + Li.x) * out_scale;
+      out[3 * pix_i + 1] = (0.0f + Li.y) * out_scale;
+      out[3 * pix_i + 2] = (0.0f + Li.z) * out_scale;
+      return;
+    } else {
+      out[3 * item + 0] = Li.x;
+      out[3 * item + 1] = Li.y;
+      out[3 * item + 2] = Li.z;
+      n_iter[item] = (int)n_it;  // the wrapper keeps max_iters < 2^31 - 1
+      item = (long long)atomicAdd(next_item, 1ull);
+      if (item >= n_items) return;
+      begin();
+      it = 0;
     }
   }
-  out[3 * pix_i + 0] = acc.x * out_scale;
-  out[3 * pix_i + 1] = acc.y * out_scale;
-  out[3 * pix_i + 2] = acc.z * out_scale;
+}
+
+// B3's ordered per-sample sum of one chunk of samples: thread i (a pixel
+// channel) adds the chunk's n_samp radiances of its channel in sample
+// order, acc = acc + L[s], from acc = 0 on the first chunk and from the
+// running sum in out on later ones, and multiplies by out_scale after the
+// last chunk: the order and rounding of the per-pixel loop's sum. The
+// per-pixel loop runs a pixel's samples in turn within one cap of
+// max_iters iterations and loses the sample the cap cuts and every later
+// one, so a sample counts only while the pixel's running iteration total
+// (`used`, carried from chunk to chunk) stays within max_iters. So the
+// image is the same float for float.
+__global__ void __launch_bounds__(256)
+    vspg_reduce_kernel(const float* __restrict__ lbuf,
+                       const int* __restrict__ n_iter, float* __restrict__ out,
+                       int* __restrict__ used, int npix, int n_samp,
+                       int max_iters, float out_scale, int first, int last) {
+  const int n3 = 3 * npix;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n3) return;
+  const int p = i / 3;
+  float acc = first ? 0.0f : out[i];
+  long long u = first ? 0 : used[i];
+  for (int s = 0; s < n_samp; ++s) {
+    u += n_iter[(size_t)s * npix + p];
+    if (u > max_iters) break;
+    acc = acc + lbuf[(size_t)s * n3 + i];
+  }
+  used[i] = (int)min(u, (long long)max_iters + 1);
+  out[i] = last ? acc * out_scale : acc;
 }
 
 namespace {
 
+// the arguments of one launch of vspg_kernel
+struct Args {
+  const float *fconst;
+  const int *iconst;
+  const float *gconst;
+  const int *giconst;
+  const float *density, *majorant, *ftab, *itab;
+  const int* cells;
+  const float *tris, *mats;
+  float* out;
+  int* n_iter;
+  float* rec;
+  unsigned long long* next_item;
+  int* at_cap;
+  int npix, spp, samp0;
+  long long n_items;
+  unsigned int seed;
+  float out_scale;
+  int nmaj, rec_depth, n_tri, n_mat;
+};
+
+// one instantiation: its launch, and its resident blocks an SM (from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor at the first call's shared
+// memory, then cached: registers bound it, the shared memory of 4 blocks is
+// at most ~100 KB) with its registers and local memory
 template <bool RECORD, bool RIS, int METHOD, bool TRIS>
-void launch_one(int blocks, int threads, size_t smem, cudaStream_t st,
-                const float* fconst, const int* iconst, const float* gconst,
-                const int* giconst, const float* density,
-                const float* majorant, const float* ftab, const float* itab,
-                const int* cells, const float* tris, const float* mats,
-                float* out, float* rec, int npix, int spp, unsigned int seed,
-                float out_scale, int nmaj, int rec_depth, int n_tri,
-                int n_mat) {
-  vspg_kernel<RECORD, RIS, METHOD, TRIS><<<blocks, threads, smem, st>>>(
-      fconst, iconst, gconst, giconst, density, majorant, ftab, itab, cells,
-      tris, mats, out, rec, npix, spp, seed, out_scale, nmaj, rec_depth,
-      n_tri, n_mat);
+struct Inst {
+  static void launch(int blocks, size_t smem, cudaStream_t st,
+                     const Args& a) {
+    vspg_kernel<RECORD, RIS, METHOD, TRIS><<<blocks, THREADS, smem, st>>>(
+        a.fconst, a.iconst, a.gconst, a.giconst, a.density, a.majorant,
+        a.ftab, a.itab, a.cells, a.tris, a.mats, a.out, a.n_iter, a.rec,
+        a.next_item,
+        a.at_cap, a.npix, a.spp, a.samp0, a.n_items, a.seed, a.out_scale,
+        a.nmaj, a.rec_depth, a.n_tri, a.n_mat);
+  }
+  static cudaError_t info(size_t smem, int* out4) {
+    static int cached[3] = {0, 0, 0};
+    if (cached[0] == 0) {
+      cudaFuncAttributes fa;
+      cudaError_t e =
+          cudaFuncGetAttributes(&fa, vspg_kernel<RECORD, RIS, METHOD, TRIS>);
+      if (e != cudaSuccess) return e;
+      int n = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, vspg_kernel<RECORD, RIS, METHOD, TRIS>, THREADS, smem);
+      if (e != cudaSuccess) return e;
+      if (n < 1) return cudaErrorInvalidConfiguration;
+      cached[1] = fa.numRegs;
+      cached[2] = (int)fa.localSizeBytes;
+      cached[0] = n;
+    }
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    out4[0] = cached[0];
+    out4[1] = sms;
+    out4[2] = cached[1];
+    out4[3] = cached[2];
+    return cudaSuccess;
+  }
+};
+
+struct InstFns {
+  void (*launch)(int, size_t, cudaStream_t, const Args&);
+  cudaError_t (*info)(size_t, int*);
+};
+
+template <bool RECORD, bool RIS, int METHOD, bool TRIS>
+constexpr InstFns fns() {
+  return {Inst<RECORD, RIS, METHOD, TRIS>::launch,
+          Inst<RECORD, RIS, METHOD, TRIS>::info};
+}
+
+// one of the 24 instantiations, by variant, direction mode, distance route
+// and whether the scene has triangles
+template <bool RECORD, bool RIS, bool TRIS>
+InstFns pick_method(int method) {
+  return method == M_NDS_PLUS ? fns<RECORD, RIS, M_NDS_PLUS, TRIS>()
+         : method == M_NDS    ? fns<RECORD, RIS, M_NDS, TRIS>()
+                              : fns<RECORD, RIS, M_RESAMPLING, TRIS>();
 }
 
 template <bool RECORD, bool TRIS>
-using LaunchFn = decltype(&launch_one<RECORD, false, M_RESAMPLING, TRIS>);
-
-template <bool RECORD, bool TRIS>
-LaunchFn<RECORD, TRIS> pick(int ris, int method) {
-  return ris ? (method == M_NDS_PLUS ? launch_one<RECORD, true, M_NDS_PLUS, TRIS>
-                : method == M_NDS    ? launch_one<RECORD, true, M_NDS, TRIS>
-                                     : launch_one<RECORD, true, M_RESAMPLING, TRIS>)
-             : (method == M_NDS_PLUS ? launch_one<RECORD, false, M_NDS_PLUS, TRIS>
-                : method == M_NDS    ? launch_one<RECORD, false, M_NDS, TRIS>
-                                     : launch_one<RECORD, false, M_RESAMPLING, TRIS>);
+InstFns pick(int ris, int method) {
+  return ris ? pick_method<RECORD, true, TRIS>(method)
+             : pick_method<RECORD, false, TRIS>(method);
 }
 
-// one of the 24 instantiations, by direction mode, distance route and
-// whether the scene has triangles
 template <bool RECORD>
-int launch(const float* fconst, const int* iconst, const float* gconst,
-           const int* giconst, const float* density, const float* majorant,
-           const float* ftab, const float* itab, const int* cells,
-           const float* tris, const float* mats, float* out, float* rec,
-           int npix, int spp, unsigned int seed, float out_scale, int nmaj,
-           int rec_depth, int ris, int method, int n_tri, int n_mat,
-           void* stream) {
-  const int threads = 128;
-  const int blocks = (npix + threads - 1) / threads;
-  const size_t smem =
-      (size_t)(nmaj + n_tri * TRI_COLS + n_mat * MAT_COLS) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (method < M_RESAMPLING || method > M_NDS_PLUS || n_tri < 0 ||
-      n_tri > MAX_TRIS || (n_tri > 0 && (n_mat < 1 || n_mat > 16)))
-    return (int)cudaErrorInvalidValue;
-  if (n_tri > 0)
-    pick<RECORD, true>(ris, method)(blocks, threads, smem, st, fconst, iconst,
-                                    gconst, giconst, density, majorant, ftab,
-                                    itab, cells, tris, mats, out, rec, npix,
-                                    spp, seed, out_scale, nmaj, rec_depth,
-                                    n_tri, n_mat);
-  else
-    pick<RECORD, false>(ris, method)(blocks, threads, smem, st, fconst,
-                                     iconst, gconst, giconst, density,
-                                     majorant, ftab, itab, cells, tris, mats,
-                                     out, rec, npix, spp, seed, out_scale,
-                                     nmaj, rec_depth, 0, 0);
-  return (int)cudaGetLastError();
+InstFns pick(int ris, int method, int n_tri) {
+  return n_tri > 0 ? pick<RECORD, true>(ris, method)
+                   : pick<RECORD, false>(ris, method);
+}
+
+// the dynamic shared memory: the majorant grid, then the triangle and
+// material tables of a TRIS instantiation
+size_t smem_bytes(int nmaj, int n_tri, int n_mat) {
+  return (size_t)(nmaj + n_tri * TRI_COLS + (n_tri > 0 ? n_mat : 0) *
+                                               MAT_COLS) *
+         sizeof(float);
+}
+
+bool bad_args(int method, int n_tri, int n_mat) {
+  return method < M_RESAMPLING || method > M_NDS_PLUS || n_tri < 0 ||
+         n_tri > MAX_TRIS || (n_tri > 0 && (n_mat < 1 || n_mat > 16));
 }
 
 }  // namespace
 
-// B3a-d: frozen-field render of spp samples per pixel
-extern "C" int vspg_render_launch(const float* fconst, const int* iconst,
-                                  const float* gconst, const int* giconst,
-                                  const float* density, const float* majorant,
-                                  const float* ftab, const float* itab,
-                                  const int* cells, const float* tris,
-                                  const float* mats, float* out, float* rec,
-                                  int npix, int spp, unsigned int seed,
-                                  float out_scale, int nmaj, int rec_depth,
-                                  int ris, int method, int n_tri, int n_mat,
-                                  void* stream) {
-  return launch<false>(fconst, iconst, gconst, giconst, density, majorant,
-                       ftab, itab, cells, tris, mats, out, rec, npix, spp,
-                       seed, out_scale, nmaj, rec_depth, ris, method, n_tri,
-                       n_mat, stream);
+// B3a-d, one chunk of samples: the n_samp samples from samp0 of every
+// pixel as npix * n_samp work items on `blocks` persistent blocks (0: the
+// SMs times the instantiation's resident blocks an SM); each item's
+// radiance goes to lbuf (n_samp, npix, 3) and its iterations to nbuf
+// (n_samp, npix). next_item (zeroed by the caller) hands out the items;
+// at_cap counts the items that reached the iteration cap of the whole
+// pixel, spp * max_events * 12.
+extern "C" int vspg_render_launch(
+    const float* fconst, const int* iconst, const float* gconst,
+    const int* giconst, const float* density, const float* majorant,
+    const float* ftab, const float* itab, const int* cells, const float* tris,
+    const float* mats, float* lbuf, int* nbuf, unsigned long long* next_item,
+    int* at_cap, int npix, int spp, int samp0, int n_samp, unsigned int seed,
+    int nmaj, int ris, int method, int n_tri, int n_mat, int blocks,
+    void* stream) {
+  if (bad_args(method, n_tri, n_mat) || npix < 1 || n_samp < 1 ||
+      blocks < 0 || samp0 < 0 || samp0 + n_samp > spp)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(nmaj, n_tri, n_mat);
+  const InstFns f = pick<false>(ris, method, n_tri);
+  if (blocks == 0) {
+    int g[4];
+    cudaError_t e = f.info(smem, g);
+    if (e != cudaSuccess) return (int)e;
+    blocks = g[0] * g[1];
+  }
+  const Args a = {fconst, iconst, gconst, giconst, density, majorant, ftab,
+                  itab, cells, tris, mats, lbuf, nbuf, nullptr, next_item,
+                  at_cap, npix, spp, samp0, (long long)npix * n_samp, seed,
+                  1.0f, nmaj, 0, n_tri, n_tri > 0 ? n_mat : 0};
+  f.launch(blocks, smem, (cudaStream_t)stream, a);
+  return (int)cudaGetLastError();
 }
 
-// B4a-d: one training sample per pixel plus its record rows
+// the render instantiation's grid: out4 = [resident blocks an SM, SMs,
+// registers a thread, local memory bytes a thread]
+extern "C" int vspg_render_info(int ris, int method, int n_tri, int nmaj,
+                                int n_mat, int* out4) {
+  if (bad_args(method, n_tri, n_mat)) return (int)cudaErrorInvalidValue;
+  return (int)pick<false>(ris, method, n_tri)
+      .info(smem_bytes(nmaj, n_tri, n_mat), out4);
+}
+
+// B3a-d's ordered sum of one chunk: out (npix, 3) = (acc + the n_samp
+// radiances of lbuf in sample order while the pixel's iterations, counted
+// in nbuf (n_samp, npix) and carried in used (npix, 3), stay within
+// max_iters) [* out_scale after the last chunk]
+extern "C" int vspg_reduce_launch(const float* lbuf, const int* nbuf,
+                                  float* out, int* used, int npix, int n_samp,
+                                  int max_iters, float out_scale, int first,
+                                  int last, void* stream) {
+  if (npix < 1 || n_samp < 1 || max_iters < 1)
+    return (int)cudaErrorInvalidValue;
+  vspg_reduce_kernel<<<(3 * npix + 255) / 256, 256, 0,
+                       (cudaStream_t)stream>>>(lbuf, nbuf, out, used, npix,
+                                               n_samp, max_iters, out_scale,
+                                               first, last);
+  return (int)cudaGetLastError();
+}
+
+#ifndef VSPG_RENDER_ONLY  // builds that time the render variant alone
+// B4a-d: one training sample per pixel plus its record rows, one thread a
+// pixel
 extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
                                   const float* gconst, const int* giconst,
                                   const float* density, const float* majorant,
@@ -1634,8 +1853,15 @@ extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
                                   float out_scale, int nmaj, int rec_depth,
                                   int ris, int method, int n_tri, int n_mat,
                                   void* stream) {
-  return launch<true>(fconst, iconst, gconst, giconst, density, majorant,
-                      ftab, itab, cells, tris, mats, out, rec, npix, spp,
-                      seed, out_scale, nmaj, rec_depth, ris, method, n_tri,
-                      n_mat, stream);
+  if (bad_args(method, n_tri, n_mat) || spp != 1)
+    return (int)cudaErrorInvalidValue;
+  const Args a = {fconst, iconst, gconst, giconst, density, majorant, ftab,
+                  itab, cells, tris, mats, out, nullptr, rec, nullptr,
+                  nullptr, npix, 1, 0, npix, seed, out_scale, nmaj,
+                  rec_depth, n_tri, n_tri > 0 ? n_mat : 0};
+  pick<true>(ris, method, n_tri)
+      .launch((npix + THREADS - 1) / THREADS,
+              smem_bytes(nmaj, n_tri, n_mat), (cudaStream_t)stream, a);
+  return (int)cudaGetLastError();
 }
+#endif

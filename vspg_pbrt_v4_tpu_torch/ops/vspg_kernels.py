@@ -32,15 +32,25 @@ stochastic one-corner trilerp, the tiled lane map and spp chunking. The
 density is float32 with the exact eight-corner trilerp; the field table is
 float32 and unpacked.
 
+On the card the render variant runs each (pixel, sample) as a work item
+of its own on persistent blocks and writes the items' radiances and
+iteration counts to a scratch, which a second kernel (``vspg_reduce``)
+sums per pixel in sample order while the pixel's running count stays
+within its iteration cap: the per-pixel loop's order and cap, so the image
+is the same float for float; ``render_items_plain`` is the plain version
+of the items, ``reduce_samples_plain`` of the sum.
+
 A wrapper runs the plain version only when its tensors lie on the CPU; on
 a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts the
-kernel launches; while ``LAUNCH_EVENTS`` is a list, each launch appends
-(name, start, end) CUDA events around itself, so that a caller can take
-the kernels' share of a whole render (chip_smoke.py does).
+kernel launches; while ``LAUNCH_EVENTS`` is a list, each kernel call (a
+render call: its memsets, item kernel and reduce) appends (name, start,
+end) CUDA events around itself, so that a caller can take the kernels'
+share of a whole render (chip_smoke.py does).
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,7 +60,8 @@ from ..models.guiding.isgb import isgb_contribution, isgb_primary_vsp
 from ..models.guiding.recording import SegmentRecord
 from ..utils import rng
 from ..utils.math import INV_4PI, INV_PI, PI
-from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX, I_MX,
+from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX,
+                              I_MAX_EVENTS, I_MX,
                               M_ALB, M_ETA, M_KIND, M_ROUGH, MAT_COLS,
                               T_MAT, T_MED_IN, T_MED_OUT, T_NG, TRI_COLS,
                               _BIG, _box_hit, _camera_ray, _check, _Consts,
@@ -61,7 +72,16 @@ from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX, I_MX,
 # adaptive field count apart
 LAUNCHES = {f"vspg_{v}{t}{a}": 0 for a in ("", "_adaptive")
             for t in ("", "_tris") for v in ("render", "record")}
+# the render variant's ordered per-sample sum, one launch a chunk
+LAUNCHES["vspg_reduce"] = 0
 LAUNCH_EVENTS = None
+# while a list, each render call appends its count of items stopped at the
+# iteration cap (a (1,) int32 tensor on the card)
+AT_CAP = None
+# bytes of the render variant's per-item scratch, radiance (samples, npix,
+# 3) float32 and iterations (samples, npix) int32: 64 MiB holds 64 samples
+# at 256^2; larger renders run their samples in chunks
+SCRATCH_BYTES = 64 << 20
 
 MIN_KAPPA = 1e-2
 MAX_KAPPA = 2e3
@@ -649,46 +669,48 @@ def _start(K, seed, pix, samp):
     return o, d, hero
 
 
-def _init_lanes(K, seed, itab):
-    npix = K.nx * K.ny
+def _init_lanes(K, seed, itab, pix, samp, n_samp):
+    """The lanes' state: lane i renders pixel pix[i] from sample samp[i]
+    (int64, one entry a lane each) to sample samp[i] + n_samp - 1."""
+    n = samp.numel()
     dev = K.dev
-    pix = torch.arange(npix, device=dev)
-    o, d, hero = _start(K, seed, pix, torch.zeros_like(pix))
+    o, d, hero = _start(K, seed, pix, samp)
 
     def z():
-        return torch.zeros(npix, device=dev)
+        return torch.zeros(n, device=dev)
 
     def o1():
-        return torch.ones(npix, device=dev)
+        return torch.ones(n, device=dev)
 
     def z3():
-        return torch.zeros((npix, 3), device=dev)
+        return torch.zeros((n, 3), device=dev)
 
     def o3():
-        return torch.ones((npix, 3), device=dev)
+        return torch.ones((n, 3), device=dev)
 
-    zi = torch.zeros(npix, dtype=torch.int64, device=dev)
+    zi = torch.zeros(n, dtype=torch.int64, device=dev)
     return dict(
-        pix=pix, samp=zi.clone(), dim=zi + 1,
-        alive=torch.ones(npix, dtype=torch.bool, device=dev), o=o, d=d,
+        lane=torch.arange(n, device=dev), pix=pix, samp=samp,
+        end=samp + int(n_samp), dim=zi + 1,
+        alive=torch.ones(n, dtype=torch.bool, device=dev), o=o, d=d,
         b=o3(), ru=o3(), rl=o3(), L=z3(), depth=zi.clone(), hero=hero,
         med=zi - 1, acc=z3(), mode=zi.clone(), t_walk=z(), wf=o3(),
         wu=o3(), wl=o3(), wT=o3(), wr=o3(), w_sum=z(), c_t=z(), c_wi=z(),
         c_ste=z(), cn=o3(), cd=o3(),
-        has_c=torch.zeros(npix, dtype=torch.bool, device=dev), maj_sc=o1(),
+        has_c=torch.zeros(n, dtype=torch.bool, device=dev), maj_sc=o1(),
         tau_acc=z(), vsp_c=z(), sh=z3(), sh_t=z(), sh_end=z(), sh_pdf=z(),
         sh_d2=o1(), sT=o3(), sl=o3(), su=o3(), sh_f=z(), rr_srv=o1(),
-        sh_fl=z(), rslot=zi.clone(), ivsp=itab[0].clone(),
-        ipel=itab[1].clone(), ipem=itab[2].clone(),
-        itr=itab[3:6].T.clone() if itab.shape[0] == 6 else o3(),
+        sh_fl=z(), rslot=zi.clone(), ivsp=itab[0][pix], ipel=itab[1][pix],
+        ipem=itab[2][pix],
+        itr=itab[3:6].T[pix] if itab.shape[0] == 6 else o3(),
         # the surface machine (scenes with triangles): the pending closest
         # hit (distance, normal, material, interface ids), the sweep and
         # occlusion requests, the delta-bounce flag, the albedo tint of a
         # surface NEE's record and the per-channel glossy NEE folds
         t_surf=z() + _BIG, hng=z3(), hmat=zi - 1, hmi=zi - 1, hmo=zi - 1,
-        needs_i=torch.ones(npix, dtype=torch.bool, device=dev),
-        sh_occ=torch.zeros(npix, dtype=torch.bool, device=dev),
-        spec_last=torch.zeros(npix, dtype=torch.bool, device=dev), ra=o3(),
+        needs_i=torch.ones(n, dtype=torch.bool, device=dev),
+        sh_occ=torch.zeros(n, dtype=torch.bool, device=dev),
+        spec_last=torch.zeros(n, dtype=torch.bool, device=dev), ra=o3(),
         sh_f1=z(), sh_f2=z())
 
 
@@ -965,9 +987,10 @@ def _surface_bounce(K, G, SF, d, u_s, u_dir, U):
     return out
 
 
-def _body(K, G, T, S, seed, spp, rec, counts):
+def _body(K, G, T, S, seed, rec, counts):
     """One iteration of ``pallas_vspg._make_vspg_kernel``'s loop body for
-    every lane of S, updating S in place. The eight draws per iteration:
+    every lane of S, updating S in place; a lane's samples end before its
+    sample number S["end"]. The eight draws per iteration:
     deferred RR, walk step, walk event, reservoir conclusion, majorant
     probe, NEE, direction (two); with triangles a ninth for the surface
     bounce and, when a material is glossy, a tenth for its lobe. `counts`
@@ -1678,10 +1701,11 @@ def _body(K, G, T, S, seed, spp, rec, counts):
 
     # ---- commit finished samples, start the next ones ---------------------
     samp = S["samp"]
-    died = ~alive & (samp < spp)
+    end = S["end"]
+    died = ~alive & (samp < end)
     L = _W(~torch.isfinite(L).all(-1), torch.zeros_like(L), L)
     acc = _W(died, S["acc"] + L, S["acc"])
-    has_budget = died & (samp + 1 < spp)
+    has_budget = died & (samp + 1 < end)
     samp = torch.where(died, samp + 1, samp)
     dim = S["dim"]
     j = torch.nonzero(has_budget)[:, 0]
@@ -1720,7 +1744,17 @@ def _body(K, G, T, S, seed, spp, rec, counts):
                  needs_i=needs_i, sh_occ=sh_occ, spec_last=spec_last)
 
 
-def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None):
+def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None,
+           first_sample=0, items=False, pixels=None):
+    """The lockstep loop of the plain versions: one lane a pixel running
+    samples first_sample, ..., first_sample + spp - 1 in turn, returning the
+    image (and the record of a record wave), or with `pixels` (int64 pixel
+    indices) the (len(pixels), 3) values of those pixels alone; with
+    `items`, one lane a (pixel, sample) item in the render kernel's
+    sample-major order, returning the items' raw radiances (spp, npix, 3)
+    and iterations (spp, npix), cap + 1 for an item stopped at the cap.
+    Either way the iteration cap is spp * max_events * 12, the whole
+    pixel's."""
     K = _Consts(c)
     K.bmin_t = torch.tensor(K.bmin, dtype=torch.float32, device=K.dev)
     K.bmax_t = torch.tensor(K.bmax, dtype=torch.float32, device=K.dev)
@@ -1735,31 +1769,85 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None):
     T = (c.density.reshape(-1), c.majorant.reshape(-1), ftab, c.tris,
          c.mats)
     rec = None if rec_depth is None else _Rec(int(rec_depth), npix, K.dev)
-    S = _init_lanes(K, seed, itab)
-    out = torch.zeros((npix, 3), device=K.dev)
+    if items:
+        lane = torch.arange(spp * npix, device=K.dev)
+        S = _init_lanes(K, seed, itab, lane % npix, lane // npix, 1)
+    else:
+        pix = (torch.arange(npix, device=K.dev) if pixels is None
+               else torch.as_tensor(pixels, dtype=torch.int64, device=K.dev))
+        samp = torch.full_like(pix, int(first_sample))
+        S = _init_lanes(K, seed, itab, pix, samp, spp)
+    n = S["lane"].numel()
+    out = torch.zeros((n, 3), device=K.dev)
     max_iters = spp * K.max_events * 12
-    for _ in range(max_iters):
-        if S["pix"].numel() == 0:
+    n_iter = torch.full((n,), max_iters + 1, dtype=torch.int32,
+                        device=K.dev)
+    for it in range(max_iters):
+        if S["lane"].numel() == 0:
             break
-        _body(K, G, T, S, seed, spp, rec, counts)
+        _body(K, G, T, S, seed, rec, counts)
         done = ~S["alive"]
         if bool(done.any()):
-            out.index_put_((S["pix"][done],), S["acc"][done])
+            out.index_put_((S["lane"][done],), S["acc"][done])
+            n_iter[S["lane"][done]] = it + 1
             S = _keep(S, ~done)
-    out.index_put_((S["pix"],), S["acc"])
-    img = (out * (c.imaging_ratio / spp)).reshape(K.ny, K.nx, 3)
+    # lanes still alive here stopped at the iteration cap
+    _count(counts, "capped", S["lane"].numel())
+    out.index_put_((S["lane"],), S["acc"])
+    if items:
+        return out.reshape(spp, npix, 3), n_iter.reshape(spp, npix)
+    out = out * (c.imaging_ratio / spp)
+    if pixels is not None:
+        return out
+    img = out.reshape(K.ny, K.nx, 3)
     return img if rec is None else (img, rec.buf)
 
 
-def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None):
+def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None,
+                      first_sample=0, pixels=None):
     """Plain PyTorch version of the render variant of ``csrc/vspg.cu``:
-    the (ny, nx, 3) image of `spp` frozen-field samples per pixel.
-    `counts` (a dict) gathers the work run: lane-iterations ("iters"),
-    walk and shadow steps ("steps"), NDS prepass steps ("pre_steps") and
-    ODS candidate draws ("draws"), scatters, walk-start field queries; on
-    an adaptive field also the scatters whose leaf is a refined cell's
-    child ("child_scatters")."""
-    return _plain(c, gconst, ftab, itab, spp, seed, None, counts)
+    the (ny, nx, 3) image of `spp` frozen-field samples per pixel, one lane
+    a pixel running samples `first_sample`, ..., `first_sample + spp - 1`
+    in turn within one iteration cap of spp * max_events * 12; with
+    `pixels` (pixel indices) the (len(pixels), 3) values of a crop. `counts` (a
+    dict) gathers the work run: lane-iterations ("iters"), walk and shadow
+    steps ("steps"), NDS prepass steps ("pre_steps") and ODS candidate
+    draws ("draws"), scatters, walk-start field queries, the lanes stopped
+    at the cap ("capped"); on an adaptive field also the scatters whose
+    leaf is a refined cell's child ("child_scatters")."""
+    return _plain(c, gconst, ftab, itab, spp, seed, None, counts,
+                  first_sample, pixels=pixels)
+
+
+def render_items_plain(c, gconst, ftab, itab, spp, seed, counts=None):
+    """Plain PyTorch version of the render variant's item kernel: the raw
+    radiance (spp, npix, 3) and the iterations (spp, npix) of every (pixel,
+    sample) item, each a lane of its own from a fresh state with the whole
+    pixel's iteration cap spp * max_events * 12 (an item at the cap gives
+    zero radiance and cap + 1 iterations). Sample s of pixel p is
+    ``render_vspg_plain(spp=1, first_sample=s)``'s, and
+    ``reduce_samples_plain`` of the items is ``render_vspg_plain``'s
+    image. `counts` as for ``render_vspg_plain``, with "capped" counting
+    items."""
+    return _plain(c, gconst, ftab, itab, spp, seed, None, counts,
+                  items=True)
+
+
+def reduce_samples_plain(L, n_iter, max_iters, out_scale):
+    """Plain PyTorch version of ``csrc/vspg.cu``'s sample reduce: per pixel
+    and channel, ``acc = acc + L[s]`` in sample order from zero while the
+    pixel's running total of item iterations (`n_iter`, (samples, npix))
+    stays within `max_iters`, then ``acc * out_scale``; L is (samples,
+    npix, 3). This is the per-pixel loop's sum: it runs a pixel's samples
+    in turn within one cap of max_iters iterations and loses the sample the
+    cap cuts and every later one. A Python loop, because ``torch.sum`` may
+    reorder the adds."""
+    acc = torch.zeros_like(L[0])
+    used = torch.zeros(L.shape[1], dtype=torch.int64, device=L.device)
+    for s in range(L.shape[0]):
+        used = used + n_iter[s].to(torch.int64)
+        acc = torch.where((used <= int(max_iters))[:, None], acc + L[s], acc)
+    return acc * out_scale
 
 
 def train_wave_plain(c, gconst, ftab, itab, seed, rec_depth, counts=None):
@@ -1774,20 +1862,14 @@ def train_wave_plain(c, gconst, ftab, itab, seed, rec_depth, counts=None):
 # ---------------------------------------------------------------------------
 
 
-def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
-    """Launch the render (rec_depth None) or record variant on the current
-    stream of the constants' card, from `lib` (default: the package's
-    library; chip_smoke.py passes a build with other flags to time it)."""
-    from . import _build
-
+def _check_inputs(c, g, ftab, itab, name):
+    """Check the inputs of a launch of either variant; returns (npix,
+    majorant cells, triangles, materials, adaptive)."""
     dev = c.fconst.device
-    name = "vspg_render" if rec_depth is None else "vspg_record"
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     if c.kind != "grid":
         raise ValueError(f"{name} got a {c.kind!r} scene")
-    if int(spp) < 1:
-        raise ValueError("spp must be at least 1")
     _check(c.fconst, torch.float32, (c.fconst.numel(),), dev, "fconst")
     _check(g.fconst, torch.float32, (N_GCONST,), dev, "gconst")
     _check(g.iconst, torch.int32, (N_GICONST,), dev, "giconst")
@@ -1822,45 +1904,206 @@ def _launch(c, g, ftab, itab, spp, seed, rec_depth, lib=None):
                          f"{MAX_MAJ_VOX}")
     if gi[GI_K] > K_PACK:
         raise ValueError(f"at most {K_PACK} lobes per cell, got {gi[GI_K]}")
-    lib = _build.load() if lib is None else lib
+    return npix, nmaj, n_tri, n_mat, adaptive
+
+
+def _table_ptrs(c, g, ftab, itab, adaptive):
+    """The pointers of the tables both variants read, in the launchers'
+    order."""
+    return (c.fconst.data_ptr(), c.iconst.data_ptr(), g.fconst.data_ptr(),
+            g.iconst.data_ptr(), c.density.data_ptr(), c.majorant.data_ptr(),
+            ftab.data_ptr(), itab.data_ptr(),
+            g.cells.data_ptr() if adaptive else 0,
+            c.tris.data_ptr() if c.n_tri else 0,
+            c.mats.data_ptr() if c.n_tri else 0)
+
+
+def _start_events(stream):
+    if LAUNCH_EVENTS is None:
+        return None
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record(stream)
+    return events
+
+
+def _end_events(events, name, stream):
+    if events is not None:
+        events[1].record(stream)
+        LAUNCH_EVENTS.append((name, *events))
+
+
+def _record_launch(c, g, ftab, itab, seed, rec_depth):
+    """Launch the record variant, one thread a pixel, on the current stream
+    of the constants' card."""
+    from . import _build
+
+    npix, nmaj, n_tri, n_mat, adaptive = _check_inputs(c, g, ftab, itab,
+                                                       "vspg_record")
+    lib = _build.load()
+    dev = c.fconst.device
+    name = ("vspg_record" + ("_tris" if n_tri else "")
+            + ("_adaptive" if adaptive else ""))
+    D = int(rec_depth)
     with torch.cuda.device(dev):
         out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
-        D = 0 if rec_depth is None else int(rec_depth)
-        rec = (torch.zeros((REC_ROWS, D, npix), dtype=torch.float32,
-                           device=dev) if D else None)
+        rec = torch.zeros((REC_ROWS, D, npix), dtype=torch.float32,
+                          device=dev)
         stream = torch.cuda.current_stream(dev)
-        events = None
-        if LAUNCH_EVENTS is not None:
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record(stream)
-        fn = getattr(lib, f"{name}_launch")
-        name += ("_tris" if n_tri else "") + ("_adaptive" if adaptive else "")
-        err = fn(c.fconst.data_ptr(), c.iconst.data_ptr(),
-                 g.fconst.data_ptr(), g.iconst.data_ptr(),
-                 c.density.data_ptr(), c.majorant.data_ptr(),
-                 ftab.data_ptr(), itab.data_ptr(),
-                 g.cells.data_ptr() if adaptive else 0,
-                 c.tris.data_ptr() if n_tri else 0,
-                 c.mats.data_ptr() if n_tri else 0, out.data_ptr(),
-                 0 if rec is None else rec.data_ptr(), npix, int(spp),
-                 int(seed) & 0xFFFFFFFF, c.imaging_ratio / int(spp), nmaj, D,
-                 int(g.ris), int(g.method), n_tri, n_mat,
-                 stream.cuda_stream)
-        if events is not None:
-            events[1].record(stream)
-            LAUNCH_EVENTS.append((name, *events))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        events = _start_events(stream)
+        err = lib.vspg_record_launch(
+            *_table_ptrs(c, g, ftab, itab, adaptive), out.data_ptr(),
+            rec.data_ptr(), npix, 1, int(seed) & 0xFFFFFFFF, c.imaging_ratio,
+            nmaj, D, int(g.ris), int(g.method), n_tri, n_mat,
+            stream.cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        _end_events(events, name, stream)
     LAUNCHES[name] += 1
-    return out if rec is None else (out, rec)
+    return out, rec
+
+
+def scratch_samples(npix, spp):
+    """Samples per chunk of a render: as many as SCRATCH_BYTES of per-item
+    radiance and iterations hold, at least one."""
+    return max(1, min(int(spp), SCRATCH_BYTES // (16 * int(npix))))
+
+
+def render_grid(c, g, lib=None):
+    """The render instantiation's persistent grid on the constants' card:
+    blocks (the SMs times the resident blocks an SM), per_sm, sms, and the
+    build's registers and local-memory bytes a thread (``lib`` as for
+    ``render_vspg_items``)."""
+    from . import _build
+
+    lib = _build.load() if lib is None else lib
+    n_tri = c.n_tri
+    n_mat = 0 if c.mats is None else int(c.mats.shape[0])
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(c.fconst.device):
+        err = lib.vspg_render_info(int(g.ris), int(g.method), n_tri,
+                                   c.majorant.numel(), n_mat, info)
+    if err != 0:
+        raise RuntimeError(f"vspg_render_info failed: CUDA error {err}")
+    per_sm, sms, regs, local = info
+    return dict(blocks=per_sm * sms, per_sm=per_sm, sms=sms, regs=regs,
+                local_bytes=local)
+
+
+def reduce_samples(L, n_iter, max_iters, out_scale, out=None, used=None,
+                   first=True, last=True, lib=None):
+    """B3's ordered per-sample sum: `L` (samples, npix, 3) summed per pixel
+    and channel in sample order onto zero (`first`) or onto the running
+    sum in `out`, while the pixel's running total of item iterations
+    (`n_iter` (samples, npix) int32, carried in `used` (npix, 3) int32)
+    stays within `max_iters`, then times `out_scale` (`last`); returns
+    `out` ((npix, 3), allocated when None). The CUDA kernel for a CUDA
+    tensor, the plain version (`first` and `last` only) for a CPU one."""
+    if L.device.type == "cpu":
+        if not (first and last):
+            raise ValueError("the plain version sums one whole chunk")
+        return reduce_samples_plain(L, n_iter, max_iters, out_scale)
+    from . import _build
+
+    S, npix = int(L.shape[0]), int(L.shape[1])
+    dev = L.device
+    _check(L, torch.float32, (S, npix, 3), dev, "L")
+    _check(n_iter, torch.int32, (S, npix), dev, "n_iter")
+    if not 1 <= int(max_iters) < 2 ** 31 - 1:
+        raise ValueError(f"max_iters {max_iters} out of the int32 range")
+    lib = _build.load() if lib is None else lib
+    with torch.cuda.device(dev):
+        if out is None:
+            out = torch.empty((npix, 3), dtype=torch.float32, device=dev)
+        if used is None:
+            used = torch.empty((npix, 3), dtype=torch.int32, device=dev)
+        _check(out.view(npix, 3), torch.float32, (npix, 3), dev, "out")
+        _check(used.view(npix, 3), torch.int32, (npix, 3), dev, "used")
+        err = lib.vspg_reduce_launch(
+            L.data_ptr(), n_iter.data_ptr(), out.data_ptr(), used.data_ptr(),
+            npix, S, int(max_iters), float(out_scale), int(bool(first)),
+            int(bool(last)), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"vspg_reduce kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["vspg_reduce"] += 1
+    return out
+
+
+def render_vspg_items(c, gconst, ftab, itab, spp, seed, blocks=None,
+                      lib=None):
+    """B3a-d: `spp` frozen-field VSPG samples per pixel; returns (image
+    (ny, nx, 3), items at cap (a (1,) int32 tensor)). On a card: zero the
+    item counters and the cap count, then per chunk of samples
+    (``scratch_samples``) the item kernel on `blocks` persistent blocks
+    (None: the SMs times the resident blocks an SM), writing each (pixel,
+    sample)'s radiance and iterations to the scratch, and the ordered
+    reduce; every item's iteration cap is the whole pixel's, and the
+    reduce drops the samples that the per-pixel loop's cap would have cut.
+    For CPU tensors the plain
+    version, whose count is of pixels stopped at the cap. `lib`: the
+    package's library (None) or another build of vspg.cu (chip_smoke.py
+    times one)."""
+    if c.fconst.device.type == "cpu":
+        counts = {}
+        img = render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts)
+        return img, torch.tensor([counts["capped"]], dtype=torch.int32)
+    from . import _build
+
+    spp = int(spp)
+    if spp < 1:
+        raise ValueError("spp must be at least 1")
+    if blocks is not None and int(blocks) < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    npix, nmaj, n_tri, n_mat, adaptive = _check_inputs(
+        c, gconst, ftab, itab, "vspg_render")
+    lib = _build.load() if lib is None else lib
+    dev = c.fconst.device
+    name = ("vspg_render" + ("_tris" if n_tri else "")
+            + ("_adaptive" if adaptive else ""))
+    max_iters = spp * int(c.iconst[I_MAX_EVENTS]) * 12
+    if max_iters + 1 >= 2 ** 31:
+        raise ValueError(f"an iteration cap of {max_iters} exceeds int32")
+    chunk = scratch_samples(npix, spp)
+    n_chunks = -(-spp // chunk)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        events = _start_events(stream)
+        counters = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+        at_cap = torch.zeros(1, dtype=torch.int32, device=dev)
+        lbuf = torch.empty((chunk, npix, 3), dtype=torch.float32, device=dev)
+        nbuf = torch.empty((chunk, npix), dtype=torch.int32, device=dev)
+        out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
+        used = torch.empty((npix, 3), dtype=torch.int32, device=dev)
+        tables = _table_ptrs(c, gconst, ftab, itab, adaptive)
+        for k in range(n_chunks):
+            s0 = k * chunk
+            n = min(chunk, spp - s0)
+            err = lib.vspg_render_launch(
+                *tables, lbuf.data_ptr(), nbuf.data_ptr(),
+                counters[k:].data_ptr(),
+                at_cap.data_ptr(), npix, spp, s0, n,
+                int(seed) & 0xFFFFFFFF, nmaj, int(gconst.ris),
+                int(gconst.method), n_tri, n_mat,
+                0 if blocks is None else int(blocks), stream.cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                   f"error {err}")
+            LAUNCHES[name] += 1
+            reduce_samples(lbuf[:n], nbuf[:n], max_iters,
+                           c.imaging_ratio / spp, out, used, k == 0,
+                           k == n_chunks - 1, lib)
+        _end_events(events, name, stream)
+    if AT_CAP is not None:
+        AT_CAP.append(at_cap)
+    return out, at_cap
 
 
 def render_vspg_kernel(c, gconst, ftab, itab, spp, seed):
-    """B3a-d: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3);
-    the CUDA kernel on a card, the plain version for tensors on the CPU."""
-    if c.fconst.device.type == "cpu":
-        return render_vspg_plain(c, gconst, ftab, itab, spp, seed)
-    return _launch(c, gconst, ftab, itab, spp, seed, None)
+    """B3a-d: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3): the
+    image of ``render_vspg_items`` (the CUDA kernels on a card, the plain
+    version for tensors on the CPU)."""
+    return render_vspg_items(c, gconst, ftab, itab, spp, seed)[0]
 
 
 def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
@@ -1871,7 +2114,7 @@ def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
         return train_wave_plain(c, gconst, ftab, itab, seed, rec_depth)
     if int(rec_depth) < 1:
         raise ValueError("rec_depth must be at least 1")
-    return _launch(c, gconst, ftab, itab, 1, seed, int(rec_depth))
+    return _record_launch(c, gconst, ftab, itab, seed, rec_depth)
 
 
 # ---------------------------------------------------------------------------
