@@ -42,12 +42,17 @@ and 4 minimum blocks an SM, timed in turns on phases 7c's and 9d's inputs,
 also with each item's cap cut to one sample's budget (a time only: that
 cap changes the image); then the iteration cap's rule at 64 spp on the
 same inputs with max_events cut to 1, where the cap cuts samples in many
-pixels, against the per-pixel plain version on a crop. Every render check
-against the plain version runs at least
-ITEMS_PER_THREAD items a thread, and each render launch of a main path
-prints its grid, registers, spills, items at the cap and its time beside
-the earlier one. Every line with a number names the card
-and its power limit. Any failure raises and exits
+pixels, against the per-pixel plain version on a crop. Phase 15 holds the
+grid kernel's register budget and warp vote: each grid source built alone
+at 2, 3 and 4 minimum blocks an SM, and with its vote flipped, timed in
+turns on the main paths' inputs of phases 6, 9c and 10c. The grid kernel (B2a-c) runs (pixel, sample) items too:
+9a and 10a hold B2b and B2c per item against the plain per-item version
+at 4 spp, printing the items the kernel reads as 0 (a lost sample), and
+every B2b/B2c image check uses the mesh bar (0.9999 of pixels). Every
+render check against the plain version runs at least ITEMS_PER_THREAD
+items a thread, and each render launch of a main path prints its grid,
+registers, spills, items at the cap and its time beside the earlier one.
+Every line with a number names the card and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
 """
@@ -250,9 +255,32 @@ ITEMS_PER_THREAD = 4
 EARLIER_MS = {"vspg_render": 392.691, "vspg_render_nds": 288.537,
               "vspg_render_ndsp": 297.334, "vspg_render_tris": 410.355,
               "vspg_render_adaptive": 384.801}
+# B2a-c's times at the main path's shapes with one thread a pixel, before
+# the grid kernel ran (pixel, sample) items (PERF.md section 6; NVIDIA H100
+# 80GB HBM3, 700.00 W; B2b and B2c built at ptxas -O0 then; B2a's and
+# B2b's taken by the host's clock around a synchronised call, B2c's by CUDA
+# events, as every grid time is now)
+EARLIER_MS.update(volpath_grid=18.829, volpath_grid_tris=243.842,
+                  volpath_grid_mesh=328.892)
 # ptxas's registers and spill bytes of the shipped build's VSPG kernels, by
-# (record, ris, method, tris) (phase 2)
+# (record, ris, method, tris), and of its grid kernels, by (geometry mode,)
+# (phase 2)
 PTXAS = {}
+PTXAS_GRID = {}
+VSPG_ENTRY = r"vspg_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)E"
+GRID_ENTRY = r"volpath_grid_kernelILi(\d)E"
+# the grid kernel's sources, by kernels-line name, and the minimum blocks an
+# SM of the builds that phase 15 times (its register-budget sweep; each
+# source is also timed with its warp vote, VOLPATH_GRID_VOTE, flipped)
+GRID_SOURCES = {"volpath_grid": "volpath_grid.cu",
+                "volpath_grid_tris": "volpath_grid_tris.cu",
+                "volpath_grid_mesh": "volpath_grid_mesh.cu"}
+GRID_SWEEP = (2, 3, 4)
+# phase 15 times a build only while the script has run less than this
+SWEEP_UNTIL_S = 1100.0
+# each grid kernel's main-path inputs (constants, spp), kept by phases 6,
+# 9c and 10c for phase 15
+GRID_CELLS = {}
 # the render-only builds of vspg.cu that phase 14 times: (minimum blocks an
 # SM of the render instantiations, extra nvcc flags)
 SWEEP = {f"min{k}": [f"-DVSPG_RENDER_MIN_BLOCKS={k}",
@@ -261,17 +289,18 @@ RENDER_NAMES = ("vspg_render_launch", "vspg_render_info",
                 "vspg_reduce_launch")
 
 
-def _ptxas_table(log):
-    """{(record, ris, method, tris): {"regs", "stack", "st", "ld"}} of the
-    VSPG kernels in an ``-Xptxas -v`` log."""
+def _ptxas_table(log, entry=VSPG_ENTRY):
+    """{key: {"regs", "stack", "st", "ld"}} of the kernels whose mangled
+    name matches `entry` in an ``-Xptxas -v`` log, keyed by its groups as
+    ints: (record, ris, method, tris) of the VSPG kernels, (geometry mode,)
+    of the grid kernels (GRID_ENTRY)."""
     import re
 
     rows, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = re.search(r"vspg_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)E",
-                            m.group(1))
+            cur = re.search(entry, m.group(1))
             continue
         if cur is None:
             continue
@@ -297,6 +326,85 @@ def _render_variant_cmd(out, flags):
     return [_build._nvcc(), *_build.NVCC_FLAGS, "-DVSPG_RENDER_ONLY",
             *flags, "-Xptxas", "-v", "-shared", "-o", str(out),
             str(_build.CSRC / "vspg.cu")]
+
+
+def _grid_variant_cmd(out, src, blocks, vote):
+    """The nvcc command that builds one grid source alone at `blocks`
+    minimum blocks an SM and warp vote `vote` into the shared library
+    `out`, printing ptxas's registers and spills."""
+    from vspg_pbrt_v4_tpu_torch.ops import _build
+
+    return [_build._nvcc(), *_build.NVCC_FLAGS,
+            f"-DVOLPATH_GRID_MIN_BLOCKS={blocks}",
+            f"-DVOLPATH_GRID_VOTE={vote}", "-Xptxas", "-v",
+            "-shared", "-o", str(out), str(_build.CSRC / src)]
+
+
+def _shipped_grid_build(src):
+    """The (minimum blocks an SM, warp vote) that grid source `src` ships
+    with."""
+    import re
+
+    from vspg_pbrt_v4_tpu_torch.ops import _build
+
+    text = (_build.CSRC / src).read_text()
+    return tuple(int(re.search(rf"#define {m} (\d+)", text).group(1))
+                 for m in ("VOLPATH_GRID_MIN_BLOCKS", "VOLPATH_GRID_VOTE"))
+
+
+def _grid_items_check(label, c, spp, seed, tag, plain_items=None):
+    """The grid kernel's per-item radiances on a grid cut to
+    ITEMS_PER_THREAD or more items a thread against the plain per-item
+    version at the same spp and seed (`plain_items`, computed when None):
+    at least 0.9999 of items within 1e-3 relative or 1e-5 absolute. Prints
+    the items the kernel reads as 0 where the plain version does not (a
+    lost sample). Returns the plain items and the max abs difference."""
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+
+    n = c.nx * c.ny * spp
+    blocks = _check_blocks(n)
+    k = vk.grid_items(c, seed, 0, spp, blocks=blocks)
+    p = (vk.render_grid_items_plain(c, spp, seed) if plain_items is None
+         else plain_items)
+    torch.cuda.synchronize()
+    diff = (k - p).abs()
+    ok = ((diff <= 1e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    frac = ok.float().mean().item()
+    zero = int(((k == 0).all(-1) & (p != 0).any(-1)).sum())
+    bad = torch.nonzero(~ok.reshape(-1))[:, 0]
+    first = ("none" if bad.numel() == 0 else
+             f"(pixel {int(bad[0]) % (c.nx * c.ny)}, sample "
+             f"{int(bad[0]) // (c.nx * c.ny)})")
+    print(f"{label} per item ({blocks} blocks, {n / (blocks * 128):.1f} "
+          f"items a thread): {frac:.6f} of {n} items within 1e-3, max abs "
+          f"diff {diff.max().item():.3e}, {zero} items the kernel reads as 0 "
+          f"where the plain version does not, first item off the bar "
+          f"{first} {tag}", flush=True)
+    assert frac >= 0.9999, (label, frac, zero, first)
+    return p, diff.max().item()
+
+
+def _grid_report(label, name, c, ms, bound, tag):
+    """Print a grid render's persistent grid, the shipped build's registers
+    and spills, its time beside the earlier one and its share of its
+    bound; returns them as keys of its kernels-line entry."""
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+
+    grid = vk.grid_info(c)
+    geom = 0 if c.tris is None else (1 if c.nodes is None else 2)
+    pt = PTXAS_GRID.get((geom,), {})
+    chunks = -(-GRID_CELLS[name][1] // vk.grid_chunk_samples(
+        c.nx * c.ny, GRID_CELLS[name][1]))
+    print(f"{label} {name} items: {grid['blocks']} blocks ({grid['per_sm']} "
+          f"an SM on {grid['sms']} SMs), {grid['regs']} registers a thread, "
+          f"spill stores {pt.get('st')} / loads {pt.get('ld')} bytes, "
+          f"{grid['local_bytes']} bytes local, {chunks} chunks of samples; "
+          f"{ms:.3f} ms against {EARLIER_MS[name]:.3f} ms before the "
+          f"redesign ({EARLIER_MS[name] / ms:.3f}x); bound {bound:.4f} ms, "
+          f"the kernel at {bound / ms:.5f} of it {tag}", flush=True)
+    return dict(grid=[grid["blocks"], grid["per_sm"]], regs=grid["regs"],
+                spill_bytes=pt.get("st"), earlier_ms=EARLIER_MS[name],
+                chunks=chunks)
 
 
 def _check_blocks(n_items):
@@ -425,6 +533,13 @@ def main():
                 or "registers" in line or "spill" in line):
             print(f"  ptxas: {line.strip()}", flush=True)
     PTXAS.update(_ptxas_table(_build.last_build_log))
+    PTXAS_GRID.update(_ptxas_table(_build.last_build_log, GRID_ENTRY))
+    for (geom,), v in sorted(PTXAS_GRID.items()):
+        print(f"phase 2 ptxas grid kernel geometry {geom} (-O3): "
+              f"{v.get('regs')} registers, {v.get('stack')} bytes stack "
+              f"frame, {v.get('st')} bytes spill stores, {v.get('ld')} bytes "
+              f"spill loads {tag}", flush=True)
+    assert len(PTXAS_GRID) == 3, PTXAS_GRID
     # phase 14's render-only builds of vspg.cu (the register-budget sweep)
     # compile while phases 3-13 run
     variants = {}
@@ -433,6 +548,18 @@ def main():
         variants[name] = (subprocess.Popen(
             _render_variant_cmd(out, ["-fmad=false", *flags]),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    # phase 15's builds of each grid source at 2, 3 and 4 minimum blocks
+    # with its shipped vote, and at its shipped budget with the vote flipped
+    # (the shipped build is the package's own)
+    for name, src in GRID_SOURCES.items():
+        k0, v0 = _shipped_grid_build(src)
+        for k, v in [(k, v0) for k in GRID_SWEEP] + [(k0, 1 - v0)]:
+            if (k, v) == (k0, v0):
+                continue
+            out = _build.BUILD_DIR / f"lib{name}_min{k}_vote{v}.so"
+            variants[name, k, v] = (subprocess.Popen(
+                _grid_variant_cmd(out, src, k, v), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), out)
 
     bench_cfg = volpath.VolPathConfig(max_depth=32, max_events=128,
                                       max_collisions=2048)
@@ -450,8 +577,7 @@ def main():
     # kernel against its plain version: least fraction of pixels within 1e-3
     # relative (or 1e-5 absolute), largest relative difference of the means;
     # the grid walk branches on more float compares, so it flips more pixels
-    # (the mesh class: 0.9999 and 1e-5, the parity the header's -O0 builds
-    # hold)
+    # (B2a: "grid"; B2b and B2c: "mesh", 0.9999 and 1e-5)
     tol = {"homog": (0.99, 1e-3), "grid": (0.98, 2e-3), "vspg": (0.98, 2e-3),
            "mesh": (0.9999, 1e-5), "surface": (0.99, 1e-3)}
 
@@ -523,6 +649,9 @@ def main():
         counts = {}
         ref8 = plain[kind](c, 8, 5, counts)
         t_kernel, k_img = _best_of_3(lambda: vk.render(c, spp, 5))
+        if kind == "grid":  # by CUDA events, as the other grid kernels
+            GRID_CELLS["volpath_grid"] = (c, spp)
+            t_kernel = _events_best_of_3(lambda: vk.render(c, spp, 5)) / 1e3
         # the plain version timed once (it repeats the kernel's arithmetic
         # lane by lane and is no yardstick of speed)
         torch.cuda.synchronize()
@@ -553,6 +682,8 @@ def main():
         print(f"phase 6 {name} bound {bound:.4f} ms ({bound_by}; ms by "
               f"pipe {pipes}), kernel at {bound / (t_kernel * 1e3):.4f} of "
               f"it; counted work at 8 spp {counts} {tag}", flush=True)
+        extra = ({} if kind == "homog" else _grid_report(
+            "phase 6", "volpath_grid", c, t_kernel * 1e3, bound, tag))
         kernels.append(dict(
             name=f"volpath_{kind}", route="cuda",
             source=f"vspg_pbrt_v4_tpu_torch/csrc/volpath_{kind}.cu",
@@ -562,15 +693,16 @@ def main():
             launches=launches[kind], max_abs_err=max_abs,
             ms=t_kernel * 1e3, plain_ms=t_plain * 1e3, bound_ms=bound,
             bound_pipe=max(pipes, key=pipes.get),
-            bound_by=bound_by, library_ms=None))
+            bound_by=bound_by, library_ms=None, **extra))
 
     print(f"phase 6 done {_at()}", flush=True)
     # each plain VSPG version steps every lane in lockstep (10-50 s a call
     # at 64^2 and more at 256^2), so the parity renders are cut to fit the
     # script in its 1200 s
     print("cuts: parity renders 7a/8a 64x64x2 spp, 9a 64x64x1 spp (was "
-          "64x64x4); 8a NDS-RIS and NDS+-MIS only (was all four); NDS+ "
-          "training 5 torch waves (bench: 48); phase 6 plain versions timed "
+          "64x64x4); 8a NDS-RIS and NDS+-MIS only (was all four); 12a's "
+          "RIS resampling case 64x64x1 (was 64x64x2); NDS+ "
+          "training 3 torch waves (bench: 48); phase 6 plain versions timed "
           "once (was best of 3); 10c's plain version on a 256x128 crop of "
           "the 1920x1088x8 main path", flush=True)
     k7, inputs7 = _phase7(dev, tag, check_parity, fma_lib)
@@ -597,6 +729,10 @@ def main():
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
+          "s", flush=True)
+    t15 = time.perf_counter()
+    _phase15(tag, variants, check_parity)
+    print(f"phase 15 done {_at()}, the phase {time.perf_counter() - t15:.1f} "
           "s", flush=True)
 
     print(json.dumps({"kernels": kernels}))
@@ -989,10 +1125,10 @@ def _phase8(dev, tag, check_parity):
           f"gaps) {rest:.3f} ms {tag}", flush=True)
 
     # ---- 8d: the NDS+ main path: torch waves, then the render kernel -------
-    # the training waves are cut from 48 to a fixed 5, so that the call
-    # fits in ~40 s (a torch wave took 2.7-7.2 s at 256^2 on an H100) and
-    # the script, phase 9 included, well inside its 1200 s
-    n_plus = 5
+    # the training waves are cut from 48 to a fixed 3, so that the call
+    # fits in ~20 s (a torch wave took 2.7-7.2 s at 256^2 on an H100) and
+    # the script, phase 9 included, inside its 1200 s
+    n_plus = 3
     print(f"phase 8d NDS+ training cut to {n_plus} torch waves (bench: "
           f"{n_train}) {tag}", flush=True)
     seen = {}
@@ -1182,16 +1318,26 @@ def _phase9(dev, tag, check_parity):
         return _rows_parity(label, rec_k, rec_p, tag)
 
     # ---- 9a: parity ---------------------------------------------------------
-    # B2b at 128^2 x 4 on the machines, with each material variant
+    # B2b at 128^2 x 4 on the machines, with each material variant, at the
+    # mesh bar; on the smooth machines (where the per-pixel -O3 build lost
+    # warp 146 from its third sample on) per item too, and the image against
+    # the ordered sum of the plain items
     cam, film = view(128)
     for name, scene in machines.items():
         c = vk.extract_constants(scene, cam, film, cfg_m)
         assert c.n_tri == 48
         k = vk.render(c, 4, 13)
-        p = vk.render_grid_plain(c, 4, 13)
+        if name == "smooth":
+            items, _ = _grid_items_check(
+                "phase 9a parity volpath_grid_tris (smooth) 128x128x4", c, 4,
+                13, tag)
+            p = sk.reduce_samples_plain(items, None, 0, c.imaging_ratio / 4)
+            p = p.reshape(k.shape)
+        else:
+            p = vk.render_grid_plain(c, 4, 13)
         torch.cuda.synchronize()
         check_parity(f"phase 9a parity volpath_grid_tris ({name}) 128x128x4",
-                     "grid", k, p)
+                     "mesh", k, p)
     # B4c and B3c at 64^2 on a field trained by 8 kernel waves. Each plain
     # version takes 15-40 s here (it steps every lane in lockstep), so three
     # variants cover RIS and MIS, resampling and NDS, smooth and rough
@@ -1273,11 +1419,18 @@ def _phase9(dev, tag, check_parity):
     img = teaser_call()
     torch.cuda.synchronize()
     launches_m = dict(vk.LAUNCHES)
-    assert launches_m == dict({k: 0 for k in vk.LAUNCHES}, grid_tris=1), \
-        launches_m
+    launches_r = dict(sk.LAUNCHES)
+    # one item launch and one ordered reduce a chunk of samples
+    chunks = -(-spp_m // vk.grid_chunk_samples(nx * ny, spp_m))
+    assert launches_m == dict({k: 0 for k in vk.LAUNCHES},
+                              grid_tris=chunks), launches_m
+    assert launches_r == dict({k: 0 for k in sk.LAUNCHES},
+                              vspg_reduce=chunks), launches_r
     t_call, _ = _best_of_3(teaser_call)
     c = vk.extract_constants(scene, cam_m, film_m, cfg_m)
-    t_k, k_img = _best_of_3(lambda: vk.render(c, spp_m, 5))
+    GRID_CELLS["volpath_grid_tris"] = (c, spp_m)
+    t_k = _events_best_of_3(lambda: vk.render(c, spp_m, 5)) / 1e3
+    k_img = vk.render(c, spp_m, 5)
     assert torch.equal(img, k_img)
     assert tuple(img.shape) == (ny, nx, 3) and bool(torch.isfinite(img).all())
     # the plain version at 1 spp on the same inputs (a minute at 8)
@@ -1289,7 +1442,7 @@ def _phase9(dev, tag, check_parity):
     torch.cuda.synchronize()
     t_p1 = time.perf_counter() - t0
     max_m = check_parity(f"phase 9c parity volpath_grid_tris {nx}x{ny}x1",
-                         "grid", k1, p1)
+                         "mesh", k1, p1)
     b_m, by_m, pipes_m = _bound_ms(
         "volpath_grid_tris", counts_m, spp_m,
         _nbytes(c.fconst, c.iconst, c.density, c.majorant, c.tris, c.mats,
@@ -1298,11 +1451,14 @@ def _phase9(dev, tag, check_parity):
     print(f"phase 9c volpath teaser machines pyro64 {nx}x{ny}x{spp_m} via "
           f"render_persistent: call {t_call * 1e3:.3f} ms ({mpaths:.3f} "
           f"Mpaths/s), kernel {t_k * 1e3:.3f} ms, mean "
-          f"{img.mean().item():.5f}, launches {launches_m['grid_tris']}; "
+          f"{img.mean().item():.5f}, launches {launches_m['grid_tris']} "
+          f"item and {launches_r['vspg_reduce']} reduce, two runs equal; "
           f"plain at 1 spp {t_p1 * 1e3:.1f} ms, counted work at 1 spp "
           f"{counts_m}; bound {b_m:.4f} ms ({by_m}; ms by pipe {pipes_m}), "
           f"kernel at {b_m / (t_k * 1e3):.5f} of it, {_at()} {tag}",
           flush=True)
+    extra_g = _grid_report("phase 9c", "volpath_grid_tris", c, t_k * 1e3,
+                           b_m, tag)
 
     # ---- 9d: the VSPG teaser cell -------------------------------------------
     # bench_config5v: 128^2, 48 training waves through B4c, 64 frozen spp
@@ -1411,7 +1567,8 @@ def _phase9(dev, tag, check_parity):
              replaces=rep_g, launches=launches_m["grid_tris"],
              max_abs_err=max_m, ms=t_k * 1e3, plain_ms=t_p1 * 1e3,
              bound_pipe=max(pipes_m, key=pipes_m.get),
-             bound_ms=b_m, bound_by=by_m, library_ms=None, plain_spp=1),
+             bound_ms=b_m, bound_by=by_m, library_ms=None, plain_spp=1,
+             call_ms=t_call * 1e3, **extra_g),
         dict(name="vspg_render_tris", route="cuda", source=src_v,
              replaces=rep_v, launches=launches_v["vspg_render_tris"],
              max_abs_err=max_ren, ms=t_k64 * 1e3, plain_ms=t_p1v * 1e3,
@@ -1490,7 +1647,17 @@ def _phase10(dev, tag, check_parity, b2b_ms):
         first = not counts
         vk._tri_hit = keep_rays if first else tri_hit
         try:
-            p = vk.render_grid_plain(c, spp_a, 5, counts if first else None)
+            if name == "smooth" and spp_a == 4:
+                # per item too where the per-pixel -O3 build lost warps
+                items, max_i = _grid_items_check(
+                    f"phase 10a parity volpath_grid_mesh (smooth) {w}x{h}x4",
+                    c, 4, 5, tag)
+                p = sk.reduce_samples_plain(items, None, 0,
+                                            c.imaging_ratio / 4)
+                p = p.reshape(k.shape)
+            else:
+                p = vk.render_grid_plain(c, spp_a, 5,
+                                         counts if first else None)
         finally:
             vk._tri_hit = tri_hit
         torch.cuda.synchronize()
@@ -1546,13 +1713,18 @@ def _phase10(dev, tag, check_parity, b2b_ms):
     img = call()
     torch.cuda.synchronize()
     launches = dict(vk.LAUNCHES)
-    assert launches == dict({k: 0 for k in vk.LAUNCHES}, grid_mesh=1), \
-        launches
-    assert all(v == 0 for v in sk.LAUNCHES.values()), sk.LAUNCHES
+    launches_r = dict(sk.LAUNCHES)
+    # one item launch and one ordered reduce a chunk of samples
+    chunks = -(-spp // vk.grid_chunk_samples(nx * ny, spp))
+    assert launches == dict({k: 0 for k in vk.LAUNCHES},
+                            grid_mesh=chunks), launches
+    assert launches_r == dict({k: 0 for k in sk.LAUNCHES},
+                              vspg_reduce=chunks), launches_r
     assert tuple(img.shape) == (ny, nx, 3) and bool(torch.isfinite(img).all())
     assert img.mean().item() > 0
     t_call, _ = _best_of_3(call)
     c = vk.extract_constants(mesh, cam, film, cfg)
+    GRID_CELLS["volpath_grid_mesh"] = (c, spp)
     k_ms = _events_best_of_3(lambda: vk.render(c, spp, 5))
     assert torch.equal(img, vk.render(c, spp, 5))
     # B2c at the main path's 8 spp on its own inputs, against its plain
@@ -1606,7 +1778,8 @@ def _phase10(dev, tag, check_parity, b2b_ms):
           f"({nx * ny * spp / t_call / 1e6:.3f} Mpaths/s), kernel "
           f"{k_ms:.3f} ms by CUDA events ({nx * ny * spp / k_ms / 1e3:.3f} "
           f"Mpaths/s), mean {img.mean().item():.5f}, launches "
-          f"{launches['grid_mesh']}; 3072 triangles, BVH of "
+          f"{launches['grid_mesh']} item and {launches_r['vspg_reduce']} "
+          f"reduce, two runs equal; 3072 triangles, BVH of "
           f"{bvh.n_nodes} nodes built on the host by the {builder} builder "
           f"in {t_bvh * 1e3:.3f} ms (the scene in {t_scene * 1e3:.1f} ms); "
           f"a closest-hit query walks "
@@ -1619,15 +1792,18 @@ def _phase10(dev, tag, check_parity, b2b_ms):
           f"estimate), kernel at {bound / k_ms:.5f} of it; phase 9c's "
           f"48-triangle B2b {b2b_ms:.3f} ms at the same shape, {_at()} {tag}",
           flush=True)
+    extra = _grid_report("phase 10c", "volpath_grid_mesh", c, k_ms, bound,
+                         tag)
     return [dict(name="volpath_grid_mesh", route="cuda",
                  source="vspg_pbrt_v4_tpu_torch/csrc/volpath_grid_mesh.cu",
                  replaces="vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380",
                  launches=launches["grid_mesh"],
-                 max_abs_err=max(max_a, max_c),
+                 max_abs_err=max(max_a, max_c, max_i),
                  ms=k_ms, plain_ms=t_plain * 1e3, bound_ms=bound,
                  bound_pipe=max(pipes, key=pipes.get),
                  bound_by=bound_by, library_ms=None, plain_spp=spp,
-                 plain_shape=f"{cw}x{ch} crop of {nx}x{ny}")]
+                 plain_shape=f"{cw}x{ch} crop of {nx}x{ny}",
+                 call_ms=t_call * 1e3, **extra)]
 
 
 def _phase11(dev, tag, check_parity):
@@ -1829,7 +2005,7 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"{field_t.n_leaves} ({int(field_t.refined.sum())}) {tag}",
           flush=True)
     for label, scene, fld, mode, method, spp_r in (
-            ("ris", pyro, (field_c, isgb_c), "ris", "resampling", 2),
+            ("ris", pyro, (field_c, isgb_c), "ris", "resampling", 1),
             ("mis", pyro, (field_c, isgb_c), "mis", "resampling", 2),
             ("nds ris", pyro, (field_c, isgb_c), "ris", "nds", 1),
             ("machines ris", machines, (field_t, isgb_t), "ris",
@@ -2057,6 +2233,8 @@ def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
 
     libs = {}
     for name, (proc, out) in variants.items():
+        if name not in SWEEP:  # phase 15's grid builds
+            continue
         log = proc.communicate()[0]
         assert proc.returncode == 0, (name, log[-4000:])
         libs[name] = _build.bind(out, RENDER_NAMES)
@@ -2136,6 +2314,74 @@ def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
             p.reshape(1, -1, 3))
         assert int(cap) > 0 and counts["capped"] > 0, (label, int(cap),
                                                        counts)
+
+
+def _phase15(tag, variants, check_parity):
+    """Phase 15, the grid kernel's register budget and warp vote: each grid
+    source built alone at 2, 3 and 4 minimum blocks an SM with its shipped
+    vote, and at its shipped budget with the vote flipped (`variants`,
+    started after phase 2, ptxas's registers and spills of each; the
+    shipped build is the package's, phase 2), renders its main path's
+    inputs (phases 6, 9c and 10c) in turns, best of 3 by CUDA events, each
+    image held against the shipped build's (the mesh bar, and the share of
+    pixels bit for bit). Runs while the script stays under SWEEP_UNTIL_S
+    seconds and prints every cut."""
+    from vspg_pbrt_v4_tpu_torch.ops import _build
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+
+    libs, ship = {}, {}  # the shipped build: the package's (None)
+    for name, src in GRID_SOURCES.items():
+        ship[name] = (name, *_shipped_grid_build(src))
+        libs[ship[name]] = None
+    for key, (proc, out) in variants.items():
+        if key in SWEEP:  # phase 14's VSPG builds
+            continue
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, (key, log[-4000:])
+        name, k, v = key
+        stem = name[len("volpath_"):]
+        libs[key] = _build.bind(out, (f"volpath_{stem}_launch",
+                                      f"volpath_{stem}_info"))
+        for (geom,), row in _ptxas_table(log, GRID_ENTRY).items():
+            print(f"phase 15 ptxas {name} min{k} vote{v} (geometry {geom}): "
+                  f"{row.get('regs')} registers, {row.get('stack')} bytes "
+                  f"stack frame, {row.get('st')} bytes spill stores, "
+                  f"{row.get('ld')} bytes spill loads {tag}", flush=True)
+    libs = dict(sorted(libs.items()))
+    times, shipped = {}, {}
+    for name, (c, spp) in GRID_CELLS.items():
+        shipped[name] = vk.render(c, spp, 5)
+    for order in (list(libs), list(libs)[::-1]):
+        for key in order:
+            if time.perf_counter() - _T0 > SWEEP_UNTIL_S:
+                print(f"phase 15 cut: {key[0]} min{key[1]} vote{key[2]}, "
+                      f"turn {len(times.get(key, [])) + 1} ({_at()}, past "
+                      f"{SWEEP_UNTIL_S} s)", flush=True)
+                continue
+            c, spp = GRID_CELLS[key[0]]
+            times.setdefault(key, []).append(round(_events_best_of_3(
+                lambda: vk.render_grid(c, spp, 5, lib=libs[key])), 3))
+    for key, t in times.items():
+        name, k, v = key
+        c, spp = GRID_CELLS[name]
+        img = vk.render_grid(c, spp, 5, lib=libs[key])
+        grid = vk.grid_info(c, lib=libs[key])
+        same = (img == shipped[name]).all(-1).float().mean().item()
+        check_parity(f"phase 15 {name} min{k} vote{v} {c.nx}x{c.ny}x{spp} "
+                     f"against the shipped build ({same:.6f} of pixels bit "
+                     "for bit)", "mesh", img, shipped[name])
+        print(f"phase 15 sweep {name} {c.nx}x{c.ny}x{spp} min{k} vote{v}"
+              f"{' (shipped)' if key == ship[name] else ''}: "
+              f"{grid['blocks']} blocks ({grid['per_sm']} an SM), "
+              f"{grid['regs']} registers, {grid['local_bytes']} bytes local "
+              f"a thread; {min(t):.3f} ms (turns {t}) {tag}", flush=True)
+    for name, key in ship.items():
+        flip = (*key[:2], 1 - key[2])
+        if key in times and flip in times:
+            t0, t1 = min(times[key]), min(times[flip])
+            print(f"phase 15 vote {name}: shipped vote{key[2]} {t0:.3f} ms, "
+                  f"vote{flip[2]} {t1:.3f} ms ({100 * (t1 / t0 - 1):+.1f}%) "
+                  f"{tag}", flush=True)
 
 
 # M's integer work per lookup, counted by hand from

@@ -150,6 +150,62 @@ def test_wrapper_checks_inputs(dev):
         vk.render_grid(c, 0, 0)
 
 
+GRID_SCENES = {
+    "none": lambda dev: vk.make_cloud64_scene(device=dev),
+    "sweep": lambda dev: vk.make_machines_scene(device=dev),
+    "bvh": lambda dev: vk.make_machines_scene(mesh=True, device=dev)}
+
+
+def _grid_consts(dev, geom, res):
+    c = vk.extract_constants(GRID_SCENES[geom](dev),
+                             vk.bench_camera(res, device=dev),
+                             RGBFilm.make((res, res), device=dev), CFG)
+    assert (c.tris is None) == (geom == "none")
+    assert (c.nodes is not None) == (geom == "bvh")
+    return c
+
+
+@pytest.mark.parametrize("geom", list(GRID_SCENES))
+def test_grid_items_match_plain(dev, geom):
+    """B2a-c per item: the item kernel's (sample, pixel) radiances on a grid
+    cut to 4 items a thread, at 4 spp (the per-pixel -O3 builds lost warps'
+    samples from the third on, ROADMAP.md section C 1), against the plain
+    per-item version on the same random stream: 0.9999 of items within
+    1e-3 relative or 1e-5 absolute, and no item that the kernel reads as 0
+    where the plain version does not."""
+    c = _grid_consts(dev, geom, 64)
+    spp = 4
+    blocks = c.nx * c.ny * spp // (128 * 4)
+    k = vk.grid_items(c, 11, 0, spp, blocks=blocks)
+    p = vk.render_grid_items_plain(c, spp, 11)
+    torch.cuda.synchronize()
+    diff = (k - p).abs()
+    ok = ((diff <= 1e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.9999
+    assert int(((k == 0).all(-1) & (p != 0).any(-1)).sum()) == 0
+
+
+@pytest.mark.parametrize("geom", list(GRID_SCENES))
+def test_grid_chunks_blocks_runs_agree(dev, geom, monkeypatch):
+    """B2a-c's image: one chunk of samples against three (the sum carried
+    across chunks), one persistent block against the full grid, and two
+    runs, each bit for bit; one item launch a chunk."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c = _grid_consts(dev, geom, 32)
+    name = {"none": "grid", "sweep": "grid_tris", "bvh": "grid_mesh"}[geom]
+    before = vk.LAUNCHES[name]
+    one = vk.render_grid(c, 3, 9)
+    assert vk.LAUNCHES[name] == before + 1
+    assert torch.equal(vk.render_grid(c, 3, 9), one)
+    assert torch.equal(vk.render_grid(c, 3, 9, blocks=1), one)
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 12 * c.nx * c.ny)
+    before = vk.LAUNCHES[name]
+    assert torch.equal(vk.render_grid(c, 3, 9), one)
+    assert vk.LAUNCHES[name] == before + 3
+    assert bool(torch.isfinite(one).all()) and one.mean().item() > 0
+
+
 def _vspg_inputs(dev, res=48, waves=2, mode="ris", method="resampling",
                  scene="cloud", adaptive=False):
     """VSPG kernel inputs on the bench's pyro cloud (or the teaser

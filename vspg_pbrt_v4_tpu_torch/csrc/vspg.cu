@@ -1645,7 +1645,9 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
 // max_iters iterations and loses the sample the cap cuts and every later
 // one, so a sample counts only while the pixel's running iteration total
 // (`used`, carried from chunk to chunk) stays within max_iters. So the
-// image is the same float for float.
+// image is the same float for float. With n_iter null (the grid kernel of
+// volpath_grid.cuh, which has no such cap) every sample counts and `used`
+// is not read.
 __global__ void __launch_bounds__(256)
     vspg_reduce_kernel(const float* __restrict__ lbuf,
                        const int* __restrict__ n_iter, float* __restrict__ out,
@@ -1656,13 +1658,17 @@ __global__ void __launch_bounds__(256)
   if (i >= n3) return;
   const int p = i / 3;
   float acc = first ? 0.0f : out[i];
-  long long u = first ? 0 : used[i];
-  for (int s = 0; s < n_samp; ++s) {
-    u += n_iter[(size_t)s * npix + p];
-    if (u > max_iters) break;
-    acc = acc + lbuf[(size_t)s * n3 + i];
+  if (n_iter == nullptr) {
+    for (int s = 0; s < n_samp; ++s) acc = acc + lbuf[(size_t)s * n3 + i];
+  } else {
+    long long u = first ? 0 : used[i];
+    for (int s = 0; s < n_samp; ++s) {
+      u += n_iter[(size_t)s * npix + p];
+      if (u > max_iters) break;
+      acc = acc + lbuf[(size_t)s * n3 + i];
+    }
+    used[i] = (int)min(u, (long long)max_iters + 1);
   }
-  used[i] = (int)min(u, (long long)max_iters + 1);
   out[i] = last ? acc * out_scale : acc;
 }
 
@@ -1826,12 +1832,14 @@ extern "C" int vspg_render_info(int ris, int method, int n_tri, int nmaj,
 // B3a-d's ordered sum of one chunk: out (npix, 3) = (acc + the n_samp
 // radiances of lbuf in sample order while the pixel's iterations, counted
 // in nbuf (n_samp, npix) and carried in used (npix, 3), stay within
-// max_iters) [* out_scale after the last chunk]
+// max_iters) [* out_scale after the last chunk]; with nbuf null (B2a-c)
+// every sample, used and max_iters unread
 extern "C" int vspg_reduce_launch(const float* lbuf, const int* nbuf,
                                   float* out, int* used, int npix, int n_samp,
                                   int max_iters, float out_scale, int first,
                                   int last, void* stream) {
-  if (npix < 1 || n_samp < 1 || max_iters < 1)
+  if (npix < 1 || n_samp < 1 ||
+      (nbuf != nullptr && (max_iters < 1 || used == nullptr)))
     return (int)cudaErrorInvalidValue;
   vspg_reduce_kernel<<<(3 * npix + 255) / 256, 256, 0,
                        (cudaStream_t)stream>>>(lbuf, nbuf, out, used, npix,

@@ -27,18 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 # Per-source flags. The VSPG kernel rounds as its plain version's separate
 # PyTorch ops do: contracting a*b+c into one FMA changes the rounding, and
-# its long branchy walks then diverge on about 1% of pixels. The grid
-# kernel with triangles is built with ptxas optimisation off: at -O1 to -O3
-# (CUDA 12.9) whole warps of it lost their later samples on an H100, where
-# its plain version, the same source built with g++ and the -O0 build agree
-# (chip_smoke phase 9a holds it); -O0 costs about 6.7 times the kernel time.
-# The mesh class's build of the same header (volpath_grid_mesh.cu) loses
-# two warps the same way at -O3 on the smooth machines at 128x128x4, where
-# 1-2 spp agree, so it is built at -O0 too (chip_smoke phase 10a holds it
-# at 4 spp and 10c at the main path's 8).
-SOURCE_FLAGS = {"vspg.cu": ["-fmad=false"],
-                "volpath_grid_tris.cu": ["-Xptxas", "-O0"],
-                "volpath_grid_mesh.cu": ["-Xptxas", "-O0"]}
+# its long branchy walks then diverge on about 1% of pixels. Every source
+# builds at ptxas -O3: the grid kernel's per-pixel design lost whole warps'
+# later samples at -O1 to -O3 (CUDA 12.9) in its triangle builds, which
+# therefore built at -O0 until its (pixel, sample) item design
+# (csrc/volpath_grid.cuh), which chip_smoke.py holds per item and per pixel
+# at 4 spp and more.
+SOURCE_FLAGS = {"vspg.cu": ["-fmad=false"]}
 
 _lib = None
 # seconds the last build of this process took (0.0 before any), and what
@@ -105,13 +100,16 @@ def build(force=False, verbose=False):
     return LIB_PATH
 
 
+# the grid kernel's three instantiations (csrc/volpath_grid*.cu), one
+# launch and one info entry point each
+GRID_NAMES = ("grid", "grid_tris", "grid_mesh")
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # argument types of each C entry point (all return an int CUDA error code)
 SIGNATURES = {
     "volpath_homog_launch": [_P, _P, _P, _I, _I, _U, _F, _P],
-    "volpath_grid_launch": [_P, _P, _P, _P, _P, _I, _I, _U, _F, _I, _P],
-    "volpath_grid_tris_launch": [_P] * 7 + [_I, _I, _U, _F, _I, _I, _I, _P],
-    "volpath_grid_mesh_launch": [_P] * 8 + [_I, _I, _U, _F] + [_I] * 4 + [_P],
+    **{f"volpath_{g}_launch": [_P] * 9 + [_I, _I, _I, _U] + [_I] * 5 + [_P]
+       for g in GRID_NAMES},
+    **{f"volpath_{g}_info": [_I, _I, _I, _P] for g in GRID_NAMES},
     "vspg_render_launch": [_P] * 15 + [_I] * 4 + [_U] + [_I] * 6 + [_P],
     "vspg_render_info": [_I] * 5 + [_P],
     "vspg_reduce_launch": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _P],

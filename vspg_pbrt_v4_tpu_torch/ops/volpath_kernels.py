@@ -20,14 +20,21 @@ Two scene classes, each with one kernel (sources under ``csrc/``):
   documents it), so it agrees with the JAX package within Monte Carlo
   error.
 
-Each kernel thread renders all samples of one pixel; a sample runs at most
-``cfg.max_events`` path events. A wrapper renders with the plain version
-only when its constant tensor lies on the CPU; on a CUDA tensor it launches
-its kernel or raises. ``LAUNCHES`` counts the kernel launches.
+B1's threads each render all samples of one pixel. B2a-c run every (pixel,
+sample) as a work item of its own on persistent blocks, one flat step loop
+a lane, and write each item's radiance to a scratch that
+``vspg_kernels.reduce_samples`` sums per pixel in sample order
+(``render_grid``; ``render_grid_items_plain`` is the plain version of the
+items). A sample runs at most ``cfg.max_events`` path events. A wrapper
+renders with the plain version only when its constant tensor lies on the
+CPU; on a CUDA tensor it launches its kernel or raises. ``LAUNCHES``
+counts the kernel launches: one a render for B1, one a chunk of samples
+for B2a-c (whose reduce counts in ``vspg_kernels.LAUNCHES``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 
@@ -484,12 +491,15 @@ def _count(counts, key, n):
         counts[key] = counts.get(key, 0) + int(n)
 
 
-def _render_plain(c, spp, seed, event, counts=None, pixels=None):
+def _render_plain(c, spp, seed, event, counts=None, pixels=None,
+                  items=False):
     """Shared driver of the plain versions: lanes are (pixel, sample)
     pairs, chunked; `event` advances every live lane by one path event and
     returns its alive mask; dead lanes commit their radiance and leave.
     `counts` (a dict), when given, gathers the lane-events run. `pixels`
-    (flat indices), when given, renders only those; the rest stay 0."""
+    (flat indices), when given, renders only those; the rest stay 0. With
+    `items` each lane's radiance is stored at its (sample, pixel) slot
+    instead: the raw (spp, len(pixels), 3) radiances, unscaled."""
     K = _Consts(c)
     seed = int(seed) & 0xFFFFFFFF
     npix = K.nx * K.ny
@@ -497,11 +507,20 @@ def _render_plain(c, spp, seed, event, counts=None, pixels=None):
         pixels = torch.arange(npix, device=K.dev)
     n = pixels.numel()
     total = n * int(spp)
-    acc = torch.zeros((npix, 3), dtype=torch.float32, device=K.dev)
+    acc = torch.zeros((total if items else npix, 3), dtype=torch.float32,
+                      device=K.dev)
+
+    def commit(S, m):
+        if items:
+            acc.index_put_((S["lane"][m],), S["L"][m])
+        else:
+            acc.index_add_(0, S["pix"][m], S["L"][m])
+
     for start in range(0, total, _PLAIN_CHUNK):
         gid = torch.arange(start, min(total, start + _PLAIN_CHUNK),
                            device=K.dev)
         S = _start_lanes(K, seed, pixels[gid % n], gid // n)
+        S["lane"] = gid
         for _ in range(K.max_events):
             if S["pix"].numel() == 0:
                 break
@@ -510,10 +529,12 @@ def _render_plain(c, spp, seed, event, counts=None, pixels=None):
             # NaN/Inf scrub (RayIntegrator, integrators.cpp:308)
             S["L"] = torch.where(torch.isfinite(S["L"]).all(-1)[:, None],
                                  S["L"], 0.0)
-            acc.index_add_(0, S["pix"][~alive], S["L"][~alive])
+            commit(S, ~alive)
             S = _keep(S, alive)
         # lanes still alive after max_events commit what they gathered
-        acc.index_add_(0, S["pix"], S["L"])
+        commit(S, torch.ones_like(S["pix"], dtype=torch.bool))
+    if items:
+        return acc.reshape(int(spp), n, 3)
     return (acc * (c.imaging_ratio / int(spp))).reshape(K.ny, K.nx, 3)
 
 
@@ -1170,6 +1191,24 @@ def render_grid_plain(c: KernelConstants, spp, seed, counts=None,
                                        counts), counts, pixels)
 
 
+def render_grid_items_plain(c: KernelConstants, spp, seed, pixels=None):
+    """Plain PyTorch version of the item kernel of ``csrc/volpath_grid.cuh``:
+    the raw radiance (spp, npix, 3) of every (sample, pixel) item, each a
+    lane of its own from a fresh path (``render_grid_plain``'s lanes, each
+    stored at its slot). With `pixels` (flat indices) the (spp,
+    len(pixels), 3) items of those pixels. ``vspg_kernels.
+    reduce_samples_plain(items, None, 0, out_scale)`` sums them per pixel
+    in the kernel's order."""
+    K = _Consts(c)
+    media = _grid_media(K, c)
+    if pixels is not None:
+        pixels = torch.as_tensor(pixels, dtype=torch.int64, device=K.dev)
+    return _render_plain(
+        c, spp, seed,
+        lambda K, seed, S: _grid_event(K, media, seed, S, c.tris, c.mats),
+        pixels=pixels, items=True)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -1183,14 +1222,19 @@ def _check(t, dtype, shape, device, name):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def _launch(c: KernelConstants, spp, seed, name, extra_ptrs, extra_args):
-    """Launch kernel `name` on the current stream of the constants' card;
-    returns the (ny, nx, 3) image."""
+def render_homog(c: KernelConstants, spp, seed):
+    """B1: render the homogeneous-fog class; the CUDA kernel on a card (on
+    the current stream of the constants' card), the plain version for
+    constants on the CPU."""
     from . import _build
 
+    if c.kind != "homog":
+        raise ValueError(f"render_homog got a {c.kind!r} scene")
     dev = c.fconst.device
+    if dev.type == "cpu":
+        return render_homog_plain(c, spp, seed)
     if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
+        raise ValueError(f"homog: no kernel for device {dev}")
     _check(c.fconst, torch.float32, (N_FCONST,), dev, "fconst")
     _check(c.iconst, torch.int32, (N_ICONST,), dev, "iconst")
     if int(spp) < 1:
@@ -1198,38 +1242,26 @@ def _launch(c: KernelConstants, spp, seed, name, extra_ptrs, extra_args):
     lib = _build.load()
     with torch.cuda.device(dev):
         out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = getattr(lib, f"volpath_{name}_launch")
-        err = fn(c.fconst.data_ptr(), c.iconst.data_ptr(), *extra_ptrs,
-                 out.data_ptr(), c.nx * c.ny, int(spp),
-                 int(seed) & 0xFFFFFFFF, c.imaging_ratio / int(spp),
-                 *extra_args, stream)
+        err = lib.volpath_homog_launch(
+            c.fconst.data_ptr(), c.iconst.data_ptr(), out.data_ptr(),
+            c.nx * c.ny, int(spp), int(seed) & 0xFFFFFFFF,
+            c.imaging_ratio / int(spp),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"volpath_{name} kernel launch failed: CUDA error "
+        raise RuntimeError(f"volpath_homog kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES[name] += 1
+    LAUNCHES["homog"] += 1
     return out
 
 
-def render_homog(c: KernelConstants, spp, seed):
-    """B1: render the homogeneous-fog class; the CUDA kernel on a card, the
-    plain version for constants on the CPU."""
-    if c.kind != "homog":
-        raise ValueError(f"render_homog got a {c.kind!r} scene")
-    if c.fconst.device.type == "cpu":
-        return render_homog_plain(c, spp, seed)
-    return _launch(c, spp, seed, "homog", (), ())
-
-
-def render_grid(c: KernelConstants, spp, seed):
-    """B2a / B2b / B2c: render the grid-cloud class, with its triangles
-    (swept, or through the BVH in the mesh class) when it has any; the
-    CUDA kernel on a card, the plain version for constants on the CPU."""
-    if c.kind != "grid":
-        raise ValueError(f"render_grid got a {c.kind!r} scene")
-    if c.fconst.device.type == "cpu":
-        return render_grid_plain(c, spp, seed)
+def _grid_args(c: KernelConstants):
+    """Check a grid-class launch's tables on their card; returns the entry
+    point's stem, the table pointers and (nmaj, n_tri, n_node, n_mat)."""
     dev = c.fconst.device
+    if dev.type != "cuda":
+        raise ValueError(f"render_grid: no kernel for device {dev}")
+    _check(c.fconst, torch.float32, (N_FCONST,), dev, "fconst")
+    _check(c.iconst, torch.int32, (N_ICONST,), dev, "iconst")
     res = tuple(int(v) for v in c.iconst[I_GX:I_GX + 3].tolist())
     mres = tuple(int(v) for v in c.iconst[I_MX:I_MX + 3].tolist())
     _check(c.density, torch.float32, res, dev, "density")
@@ -1238,9 +1270,10 @@ def render_grid(c: KernelConstants, spp, seed):
     if nmaj > MAX_MAJ_VOX:
         raise ValueError(f"majorant grid of {nmaj} cells exceeds "
                          f"{MAX_MAJ_VOX}")
+    ptrs = [c.fconst.data_ptr(), c.iconst.data_ptr(), c.density.data_ptr(),
+            c.majorant.data_ptr(), 0, 0, 0]
     if c.tris is None:
-        return _launch(c, spp, seed, "grid",
-                       (c.density.data_ptr(), c.majorant.data_ptr()), (nmaj,))
+        return "grid", ptrs, (nmaj, 0, 0, 0)
     n_tri, n_mat = c.n_tri, int(c.mats.shape[0])
     cap = MAX_TRIS_GRID if c.nodes is None else MAX_TRIS_MESH
     if not (1 <= n_tri <= cap and 1 <= n_mat <= MAX_MATS):
@@ -1248,21 +1281,114 @@ def render_grid(c: KernelConstants, spp, seed):
                          f"takes 1-{cap} and 1-{MAX_MATS}")
     _check(c.tris, torch.float32, (n_tri, TRI_COLS), dev, "tris")
     _check(c.mats, torch.float32, (n_mat, MAT_COLS), dev, "mats")
-    if c.nodes is not None:
-        n_node = int(c.nodes.shape[0])
-        _check(c.nodes, torch.float32, (n_node, NODE_COLS), dev, "nodes")
-        # the kernel reads both tables as float4s
-        if c.tris.data_ptr() % 16 or c.nodes.data_ptr() % 16:
-            raise ValueError("tris and nodes must be 16-byte aligned")
-        return _launch(c, spp, seed, "grid_mesh",
-                       (c.density.data_ptr(), c.majorant.data_ptr(),
-                        c.tris.data_ptr(), c.nodes.data_ptr(),
-                        c.mats.data_ptr()),
-                       (nmaj, n_tri, n_node, n_mat))
-    return _launch(c, spp, seed, "grid_tris",
-                   (c.density.data_ptr(), c.majorant.data_ptr(),
-                    c.tris.data_ptr(), c.mats.data_ptr()),
-                   (nmaj, n_tri, n_mat))
+    ptrs[4], ptrs[6] = c.tris.data_ptr(), c.mats.data_ptr()
+    if c.nodes is None:
+        return "grid_tris", ptrs, (nmaj, n_tri, 0, n_mat)
+    n_node = int(c.nodes.shape[0])
+    _check(c.nodes, torch.float32, (n_node, NODE_COLS), dev, "nodes")
+    # the kernel reads both tables as float4s
+    if c.tris.data_ptr() % 16 or c.nodes.data_ptr() % 16:
+        raise ValueError("tris and nodes must be 16-byte aligned")
+    ptrs[5] = c.nodes.data_ptr()
+    return "grid_mesh", ptrs, (nmaj, n_tri, n_node, n_mat)
+
+
+def grid_info(c: KernelConstants, lib=None):
+    """The item kernel's persistent grid for the constants' scene class on
+    their card: blocks (the SMs times the resident blocks an SM), per_sm,
+    sms, and the build's registers and local-memory bytes a thread (`lib`
+    as for ``grid_items``)."""
+    from . import _build
+
+    name, _, (nmaj, n_tri, _, n_mat) = _grid_args(c)
+    lib = _build.load() if lib is None else lib
+    info = (ctypes.c_int * 4)()
+    with torch.cuda.device(c.fconst.device):
+        err = getattr(lib, f"volpath_{name}_info")(nmaj, n_tri, n_mat, info)
+    if err != 0:
+        raise RuntimeError(f"volpath_{name}_info failed: CUDA error {err}")
+    per_sm, sms, regs, local = info
+    return dict(blocks=per_sm * sms, per_sm=per_sm, sms=sms, regs=regs,
+                local_bytes=local)
+
+
+def grid_chunk_samples(npix, spp):
+    """Samples per chunk of a grid render: as many as
+    ``vspg_kernels.SCRATCH_BYTES`` of per-item radiance hold, at least
+    one."""
+    from . import vspg_kernels as sk
+
+    return max(1, min(int(spp), sk.SCRATCH_BYTES // (12 * int(npix))))
+
+
+def grid_items(c: KernelConstants, seed, samp0, n_samp, blocks=None,
+               lib=None, out=None):
+    """B2a-c's item kernel alone: the raw radiances (n_samp, npix, 3) of
+    samples samp0, ..., samp0 + n_samp - 1 of every pixel, one (pixel,
+    sample) item at a time on `blocks` persistent blocks (None: the SMs
+    times the resident blocks an SM), written to `out` (allocated when
+    None). `lib`: the package's library (None) or another build of the
+    grid sources bound with their entry points (chip_smoke.py times
+    some)."""
+    from . import _build
+
+    name, ptrs, (nmaj, n_tri, n_node, n_mat) = _grid_args(c)
+    n_samp = int(n_samp)
+    if n_samp < 1 or int(samp0) < 0:
+        raise ValueError(f"samples {samp0}..{samp0 + n_samp - 1}")
+    if blocks is not None and int(blocks) < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    npix = c.nx * c.ny
+    dev = c.fconst.device
+    lib = _build.load() if lib is None else lib
+    with torch.cuda.device(dev):
+        if out is None:
+            out = torch.empty((n_samp, npix, 3), dtype=torch.float32,
+                              device=dev)
+        _check(out, torch.float32, (n_samp, npix, 3), dev, "out")
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        err = getattr(lib, f"volpath_{name}_launch")(
+            *ptrs, out.data_ptr(), counter.data_ptr(), npix, int(samp0),
+            n_samp, int(seed) & 0xFFFFFFFF, nmaj, n_tri, n_node, n_mat,
+            0 if blocks is None else int(blocks),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"volpath_{name} kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def render_grid(c: KernelConstants, spp, seed, blocks=None, lib=None):
+    """B2a / B2b / B2c: render the grid-cloud class, with its triangles
+    (swept, or through the BVH in the mesh class) when it has any, (ny, nx,
+    3). On a card, per chunk of samples (``grid_chunk_samples``) the item
+    kernel writes each (pixel, sample)'s radiance to the scratch
+    (``grid_items``; `blocks` and `lib` as there) and
+    ``vspg_kernels.reduce_samples`` adds it to the image in sample order;
+    for constants on the CPU the plain version."""
+    from . import vspg_kernels as sk
+
+    if c.kind != "grid":
+        raise ValueError(f"render_grid got a {c.kind!r} scene")
+    if c.fconst.device.type == "cpu":
+        return render_grid_plain(c, spp, seed)
+    spp = int(spp)
+    if spp < 1:
+        raise ValueError("spp must be at least 1")
+    npix = c.nx * c.ny
+    dev = c.fconst.device
+    chunk = grid_chunk_samples(npix, spp)
+    n_chunks = -(-spp // chunk)
+    with torch.cuda.device(dev):
+        lbuf = torch.empty((chunk, npix, 3), dtype=torch.float32, device=dev)
+        out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
+        for k in range(n_chunks):
+            n = min(chunk, spp - k * chunk)
+            grid_items(c, seed, k * chunk, n, blocks, lib, lbuf[:n])
+            sk.reduce_samples(lbuf[:n], None, 0, c.imaging_ratio / spp, out,
+                              None, k == 0, k == n_chunks - 1)
+    return out
 
 
 def render(c: KernelConstants, spp, seed):

@@ -1833,18 +1833,25 @@ def render_items_plain(c, gconst, ftab, itab, spp, seed, counts=None):
                   items=True)
 
 
-def reduce_samples_plain(L, n_iter, max_iters, out_scale):
+def reduce_samples_plain(L, n_iter, max_iters, out_scale, acc=None):
     """Plain PyTorch version of ``csrc/vspg.cu``'s sample reduce: per pixel
     and channel, ``acc = acc + L[s]`` in sample order from zero while the
     pixel's running total of item iterations (`n_iter`, (samples, npix))
     stays within `max_iters`, then ``acc * out_scale``; L is (samples,
     npix, 3). This is the per-pixel loop's sum: it runs a pixel's samples
     in turn within one cap of max_iters iterations and loses the sample the
-    cap cuts and every later one. A Python loop, because ``torch.sum`` may
-    reorder the adds."""
-    acc = torch.zeros_like(L[0])
+    cap cuts and every later one. With `n_iter` None (the grid kernel's
+    items) every sample counts, and the sum may start from `acc`, the
+    unscaled sum of earlier chunks of samples. A Python loop, because
+    ``torch.sum`` may reorder the adds."""
+    if acc is not None and n_iter is not None:
+        raise ValueError("a carried sum needs the carried iteration counts")
+    acc = torch.zeros_like(L[0]) if acc is None else acc.clone()
     used = torch.zeros(L.shape[1], dtype=torch.int64, device=L.device)
     for s in range(L.shape[0]):
+        if n_iter is None:
+            acc = acc + L[s]
+            continue
         used = used + n_iter[s].to(torch.int64)
         acc = torch.where((used <= int(max_iters))[:, None], acc + L[s], acc)
     return acc * out_scale
@@ -1997,8 +2004,10 @@ def reduce_samples(L, n_iter, max_iters, out_scale, out=None, used=None,
     sum in `out`, while the pixel's running total of item iterations
     (`n_iter` (samples, npix) int32, carried in `used` (npix, 3) int32)
     stays within `max_iters`, then times `out_scale` (`last`); returns
-    `out` ((npix, 3), allocated when None). The CUDA kernel for a CUDA
-    tensor, the plain version (`first` and `last` only) for a CPU one."""
+    `out` ((npix, 3), allocated when None). With `n_iter` None (B2a-c's
+    items) every sample counts and `used` and `max_iters` are not read.
+    The CUDA kernel for a CUDA tensor, the plain version (`first` and
+    `last` only) for a CPU one."""
     if L.device.type == "cpu":
         if not (first and last):
             raise ValueError("the plain version sums one whole chunk")
@@ -2008,19 +2017,22 @@ def reduce_samples(L, n_iter, max_iters, out_scale, out=None, used=None,
     S, npix = int(L.shape[0]), int(L.shape[1])
     dev = L.device
     _check(L, torch.float32, (S, npix, 3), dev, "L")
-    _check(n_iter, torch.int32, (S, npix), dev, "n_iter")
-    if not 1 <= int(max_iters) < 2 ** 31 - 1:
-        raise ValueError(f"max_iters {max_iters} out of the int32 range")
+    if n_iter is not None:
+        _check(n_iter, torch.int32, (S, npix), dev, "n_iter")
+        if not 1 <= int(max_iters) < 2 ** 31 - 1:
+            raise ValueError(f"max_iters {max_iters} out of the int32 range")
     lib = _build.load() if lib is None else lib
     with torch.cuda.device(dev):
         if out is None:
             out = torch.empty((npix, 3), dtype=torch.float32, device=dev)
-        if used is None:
-            used = torch.empty((npix, 3), dtype=torch.int32, device=dev)
         _check(out.view(npix, 3), torch.float32, (npix, 3), dev, "out")
-        _check(used.view(npix, 3), torch.int32, (npix, 3), dev, "used")
+        if n_iter is not None:
+            if used is None:
+                used = torch.empty((npix, 3), dtype=torch.int32, device=dev)
+            _check(used.view(npix, 3), torch.int32, (npix, 3), dev, "used")
         err = lib.vspg_reduce_launch(
-            L.data_ptr(), n_iter.data_ptr(), out.data_ptr(), used.data_ptr(),
+            L.data_ptr(), 0 if n_iter is None else n_iter.data_ptr(),
+            out.data_ptr(), 0 if n_iter is None else used.data_ptr(),
             npix, S, int(max_iters), float(out_scale), int(bool(first)),
             int(bool(last)), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
