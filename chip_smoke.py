@@ -40,8 +40,8 @@ version, then its slope timing at C = 32, 256 and 2048. Phase 14 holds
 the render kernel's register budget: render-only builds of vspg.cu at 2, 3
 and 4 minimum blocks an SM, timed in turns on phases 7c's and 9d's inputs,
 also with each item's cap cut to one sample's budget (a time only: that
-cap changes the image); then the iteration cap's rule at 64 spp on the
-same inputs with max_events cut to 1, where the cap cuts samples in many
+cap changes the image); then the iteration cap's rule on the same inputs
+with max_events cut to 1 at 16 spp, where the cap cuts samples in many
 pixels, against the per-pixel plain version on a crop. Phase 15 holds the
 grid kernel's register budget and warp vote: each grid source built alone
 at 2, 3 and 4 minimum blocks an SM, and with its vote flipped, timed in
@@ -52,6 +52,11 @@ every B2b/B2c image check uses the mesh bar (0.9999 of pixels). Every
 render check against the plain version runs at least ITEMS_PER_THREAD
 items a thread, and each render launch of a main path prints its grid,
 registers, spills, items at the cap and its time beside the earlier one.
+The record kernel (B4a-d) runs its pixels on persistent blocks: every
+record check runs at least ITEMS_PER_THREAD pixels a thread and holds the
+image and every record row bit for bit, each record launch of a main path
+prints the same and its time by CUDA events around the launch, and every
+main path holds 0 render items and 0 record lanes at the iteration cap.
 Every line with a number names the card and its power limit. Any failure raises and exits
 non-zero; the last line, printed only after every phase passed, is
 ``{"ok": true, "device": {...}}``. Imports no JAX.
@@ -262,6 +267,12 @@ EARLIER_MS = {"vspg_render": 392.691, "vspg_render_nds": 288.537,
 # events, as every grid time is now)
 EARLIER_MS.update(volpath_grid=18.829, volpath_grid_tris=243.842,
                   volpath_grid_mesh=328.892)
+# B4's times at the main path's shapes with one thread a pixel on
+# (npix + 127) / 128 blocks, before its pixels ran on persistent blocks
+# (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W; the host's clock
+# around a synchronised call, best of 3)
+EARLIER_MS.update(vspg_record=5.669, vspg_record_nds=2.041,
+                  vspg_record_tris=4.252, vspg_record_adaptive=5.856)
 # ptxas's registers and spill bytes of the shipped build's VSPG kernels, by
 # (record, ris, method, tris), and of its grid kernels, by (geometry mode,)
 # (phase 2)
@@ -315,6 +326,15 @@ def _ptxas_table(log, entry=VSPG_ENTRY):
         if m:
             rows.setdefault(key, {})["regs"] = int(m.group(1))
     return rows
+
+
+def _lowest_priority():
+    """Run a build started beside the checks at the lowest CPU priority:
+    the plain versions are bound by the host's dispatch, and the builds
+    would take their cores."""
+    import os
+
+    os.nice(19)
 
 
 def _render_variant_cmd(out, flags):
@@ -403,8 +423,27 @@ def _grid_report(label, name, c, ms, bound, tag):
           f"redesign ({EARLIER_MS[name] / ms:.3f}x); bound {bound:.4f} ms, "
           f"the kernel at {bound / ms:.5f} of it {tag}", flush=True)
     return dict(grid=[grid["blocks"], grid["per_sm"]], regs=grid["regs"],
-                spill_bytes=pt.get("st"), earlier_ms=EARLIER_MS[name],
-                chunks=chunks)
+                spill_bytes=pt.get("st"), chunks=chunks)
+
+
+# The parity checks at 64^2 (7a, 8a, 9a, 12a) run with max_events cut to
+# this (bench: 256): a pixel's cap of PARITY_EVENTS * 12 iterations a
+# sample. A plain version steps its lanes in lockstep until the longest
+# path ends, 20-45 ms of host dispatch an iteration, so the cap bounds its
+# time (each check prints its lockstep iterations and seconds); kernel
+# and plain version cap the same paths, and the pixels at the cap are
+# held against the plain version's. The main paths' checks (7c, 8, 9d,
+# 12c) run at the bench's max_events.
+PARITY_EVENTS = 32
+
+
+def _with_max_events(c, n):
+    """Kernel constants `c` with max_events set to n."""
+    from vspg_pbrt_v4_tpu_torch.ops.volpath_kernels import I_MAX_EVENTS
+
+    ic = c.iconst.clone()
+    ic[I_MAX_EVENTS] = n
+    return dataclasses.replace(c, iconst=ic)
 
 
 def _check_blocks(n_items):
@@ -414,27 +453,38 @@ def _check_blocks(n_items):
 
 
 def _render_check(label, c, g, ftab, itab, spp, seed, check_parity,
-                  counts=None):
+                  counts=None, plain=None):
     """The render kernel on a grid cut to ITEMS_PER_THREAD or more items a
     thread against its per-pixel plain version at the same spp and seed
     (`counts` gathers the plain version's work); at 1 spp its items at the
-    cap must be the plain version's pixels at the cap. Returns (max abs
-    difference, the plain version's seconds, items at the cap)."""
+    cap must be the plain version's pixels at the cap. `plain`, at 1 spp:
+    (image, seconds) of the record check's plain run at the same seed,
+    whose work `counts` holds. A training wave draws the render's paths,
+    so train_wave_plain's image is render_vspg_plain's at 1 spp bit for
+    bit (tests/test_torch_vspg_items.py), and one plain run serves both
+    kernels. Returns (max abs difference, the plain version's seconds,
+    items at the cap)."""
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
 
     n = c.nx * c.ny * spp
     blocks = _check_blocks(n)
     k, cap = sk.render_vspg_items(c, g, ftab, itab, spp, seed, blocks=blocks)
     counts = {} if counts is None else counts
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p = sk.render_vspg_plain(c, g, ftab, itab, spp, seed, counts)
-    torch.cuda.synchronize()
-    t_p = time.perf_counter() - t0
+    if plain is not None:
+        assert spp == 1, spp
+        p, t_p = plain
+    else:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = sk.render_vspg_plain(c, g, ftab, itab, spp, seed, counts)
+        torch.cuda.synchronize()
+        t_p = time.perf_counter() - t0
     at_cap = int(cap)
     max_abs = check_parity(
         f"{label} ({blocks} blocks, {n / (blocks * 128):.1f} items a thread, "
-        f"{at_cap} items at the cap)", "vspg", k, p)
+        f"{at_cap} items at the cap; plain {t_p:.1f} s"
+        + (f", {counts['lockstep_iters']} lockstep iterations)"
+           if "lockstep_iters" in counts else ")"), "vspg", k, p)
     if spp == 1:
         assert at_cap == counts["capped"], (label, at_cap, counts["capped"])
     return max_abs, t_p, at_cap
@@ -461,16 +511,17 @@ def _render_report(label, name, c, g, ms, bound, at_cap, tag):
 
 def _main_path_calls(fn):
     """Run `fn` (one main-path call) from reset VSPG launch counters, with
-    CUDA events around each kernel call and the render calls' items at the
-    cap gathered; returns (fn's result, seconds, launches, ms by variant,
-    items at the cap)."""
+    CUDA events around each kernel call and the render calls' items and the
+    record launches' pixels at the cap gathered; returns (fn's result,
+    seconds, launches, ms by variant, render items at the cap, record lanes
+    at the cap summed over the waves)."""
     from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
 
     for counter in (vk.LAUNCHES, sk.LAUNCHES):
         for key in counter:
             counter[key] = 0
-    sk.LAUNCH_EVENTS, sk.AT_CAP = [], []
+    sk.LAUNCH_EVENTS, sk.AT_CAP, sk.RECORD_AT_CAP = [], [], []
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -480,6 +531,7 @@ def _main_path_calls(fn):
     finally:
         events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
         caps, sk.AT_CAP = sk.AT_CAP, None
+        rec_caps, sk.RECORD_AT_CAP = sk.RECORD_AT_CAP, None
     launches = dict(sk.LAUNCHES)
     assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
     # one event pair a kernel call; a render call at these sizes is one
@@ -489,10 +541,132 @@ def _main_path_calls(fn):
     assert launches["vspg_reduce"] == renders == len(caps), (launches, caps)
     assert len(events) == sum(launches.values()) - renders, (len(events),
                                                              launches)
+    records = sum(v for k, v in launches.items()
+                  if k.startswith("vspg_record"))
+    assert len(rec_caps) == records, (launches, len(rec_caps))
     k_ms = {name: 0.0 for name in sk.LAUNCHES}
     for name, start, end in events:
         k_ms[name] += start.elapsed_time(end)
-    return out, t_call, launches, k_ms, sum(int(x) for x in caps)
+    return (out, t_call, launches, k_ms, sum(int(x) for x in caps),
+            sum(int(x) for x in rec_caps))
+
+
+def _launch_ms(fn):
+    """Best of 3 warm runs of `fn`: the device ms of its VSPG kernel
+    launches, by the wrappers' CUDA events around each launch
+    (vspg_kernels.LAUNCH_EVENTS), and the host's seconds around the
+    synchronised call; returns (ms, seconds, fn's result)."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    out = fn()
+    best, best_s = float("inf"), float("inf")
+    for _ in range(3):
+        sk.LAUNCH_EVENTS = []
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best_s = min(best_s, time.perf_counter() - t0)
+            events = sk.LAUNCH_EVENTS
+        finally:
+            sk.LAUNCH_EVENTS = None
+        best = min(best, sum(s.elapsed_time(e) for _, s, e in events))
+    return best, best_s, out
+
+
+def _record_check(label, c, g, ftab, itab, seed, check_parity, tag,
+                  counts=None):
+    """The record kernel on a grid cut to ITEMS_PER_THREAD or more pixels
+    a thread (so that its lanes take several pixels from the counter)
+    against train_wave_plain at the same seed: the image at the vspg bar,
+    every record row at _rows_parity's, and the share of lanes whose image
+    and every record row are bit for bit the plain version's (asserted 1);
+    its pixels at the cap must be the plain version's (`counts` gathers the
+    plain version's work). Returns (max abs row difference, the plain
+    version's seconds, pixels at the cap, the plain version's record and
+    image)."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    npix = c.nx * c.ny
+    blocks = _check_blocks(npix)
+    k, rk, cap = sk.train_wave_items(c, g, ftab, itab, seed, 6,
+                                     blocks=blocks)
+    counts = {} if counts is None else counts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, rp = sk.train_wave_plain(c, g, ftab, itab, seed, 6, counts)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    at_cap = int(cap)
+    same = ((k == p).all(-1).reshape(-1)
+            & (rk == rp).all(0).all(0)).float().mean().item()
+    check_parity(f"{label} image ({blocks} blocks, "
+                 f"{npix / (blocks * 128):.1f} pixels a thread, {at_cap} "
+                 f"pixels at the cap, {same:.5f} of lanes bit for bit in "
+                 f"the image and every record row; plain {t_p:.1f} s, "
+                 f"{counts['lockstep_iters']} lockstep iterations)", "vspg",
+                 k, p)
+    max_rec = _rows_parity(f"{label} rows", rk, rp, tag)
+    assert at_cap == counts["capped"], (label, at_cap, counts["capped"])
+    assert same == 1.0, (label, same)
+    return max_rec, t_p, at_cap, rp, p
+
+
+def _pair_check(label, name, c, g, ftab, itab, seed, check_parity, tag,
+                counts=None, render_spp=None):
+    """The record kernel (`name` the record's, e.g. "vspg_record_tris")
+    and the render kernel at 1 spp, both against one plain run at the same
+    seed (_record_check, then _render_check on its image); with
+    `render_spp`, the render kernel at that many samples a pixel too,
+    against a render_vspg_plain run of its own (its later samples and the
+    ordered per-sample sum). `label` names the phase and case. Returns (max
+    abs row difference, max abs image difference of the render at 1 spp,
+    the plain run's seconds, the record's pixels at the cap, the plain
+    version's record)."""
+    counts = {} if counts is None else counts
+    res = f"{c.nx}x{c.ny}x1"
+    render = label.format(name.replace("record", "render"))
+    max_rec, t_p, cap, rp, p = _record_check(
+        f"{label.format(name)} {res}", c, g, ftab, itab, seed, check_parity,
+        tag, counts)
+    max_ren = _render_check(f"{render} {res}", c, g, ftab, itab, 1, seed,
+                            check_parity, counts, plain=(p, t_p))[0]
+    if render_spp is not None:
+        _render_check(f"{render} {c.nx}x{c.ny}x{render_spp}", c, g, ftab,
+                      itab, render_spp, seed, check_parity)
+    return max_rec, max_ren, t_p, cap, rp
+
+
+def _record_report(label, name, c, g, ms, wall_ms, bound, at_cap, counts,
+                   tag):
+    """Print a record launch's persistent grid, the shipped build's
+    registers and spills, its pixels at the cap, its time beside the
+    earlier one, its share of its bound and the longest path's iterations
+    (the plain version's lockstep iterations, `counts`) with the kernel's
+    time over them; returns them as keys of its kernels-line entry."""
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    grid = sk.render_grid(c, g, variant="record")
+    pt = PTXAS.get((1, int(g.ris), int(g.method), int(c.n_tri > 0)), {})
+    longest = counts["lockstep_iters"]
+    print(f"{label} record launch: {grid['blocks']} blocks "
+          f"({grid['per_sm']} an SM on {grid['sms']} SMs), {grid['regs']} "
+          f"registers a thread, spill stores {pt.get('st')} / loads "
+          f"{pt.get('ld')} bytes, {at_cap} pixels at the cap; {ms:.3f} ms "
+          f"by CUDA events around the launch ({wall_ms:.3f} ms the "
+          f"synchronised call) against {EARLIER_MS[name]:.3f} ms before the "
+          f"redesign (the call, {EARLIER_MS[name] / wall_ms:.3f}x); bound "
+          f"{bound:.4f} ms, the kernel at {bound / ms:.5f} of it; the "
+          f"longest path {longest} iterations of the cap's "
+          f"{int(c.iconst[vk.I_MAX_EVENTS]) * 12}, the kernel "
+          f"{ms * 1e3 / longest:.3f} us an iteration of it {tag}",
+          flush=True)
+    return dict(grid=[grid["blocks"], grid["per_sm"]], regs=grid["regs"],
+                spill_bytes=pt.get("st"), call_ms=wall_ms,
+                lanes_at_cap=at_cap,
+                longest_path_iters=longest)
 
 
 def main():
@@ -521,7 +695,8 @@ def main():
     fma_lib = _build.BUILD_DIR / "libvspg_fma.so"
     with subprocess.Popen(
             _render_variant_cmd(fma_lib, []), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) as fma_build:
+            stderr=subprocess.STDOUT, text=True,
+            preexec_fn=_lowest_priority) as fma_build:
         _build.build(force=True, verbose=True)
         fma_log = fma_build.communicate()[0]
     assert fma_build.returncode == 0, fma_log
@@ -540,6 +715,12 @@ def main():
               f"frame, {v.get('st')} bytes spill stores, {v.get('ld')} bytes "
               f"spill loads {tag}", flush=True)
     assert len(PTXAS_GRID) == 3, PTXAS_GRID
+    for (rec, ris, method, tris), v in sorted(PTXAS.items()):
+        if rec:
+            print(f"phase 2 ptxas vspg record ris={ris} method={method} "
+                  f"tris={tris}: {v.get('regs')} registers, {v.get('stack')} "
+                  f"bytes stack frame, {v.get('st')} bytes spill stores, "
+                  f"{v.get('ld')} bytes spill loads {tag}", flush=True)
     # phase 14's render-only builds of vspg.cu (the register-budget sweep)
     # compile while phases 3-13 run
     variants = {}
@@ -547,7 +728,8 @@ def main():
         out = _build.BUILD_DIR / f"libvspg_{name}.so"
         variants[name] = (subprocess.Popen(
             _render_variant_cmd(out, ["-fmad=false", *flags]),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            preexec_fn=_lowest_priority), out)
     # phase 15's builds of each grid source at 2, 3 and 4 minimum blocks
     # with its shipped vote, and at its shipped budget with the vote flipped
     # (the shipped build is the package's own)
@@ -559,7 +741,8 @@ def main():
             out = _build.BUILD_DIR / f"lib{name}_min{k}_vote{v}.so"
             variants[name, k, v] = (subprocess.Popen(
                 _grid_variant_cmd(out, src, k, v), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), out)
+                stderr=subprocess.STDOUT, text=True,
+                preexec_fn=_lowest_priority), out)
 
     bench_cfg = volpath.VolPathConfig(max_depth=32, max_events=128,
                                       max_collisions=2048)
@@ -699,12 +882,15 @@ def main():
     # each plain VSPG version steps every lane in lockstep (10-50 s a call
     # at 64^2 and more at 256^2), so the parity renders are cut to fit the
     # script in its 1200 s
-    print("cuts: parity renders 7a/8a 64x64x2 spp, 9a 64x64x1 spp (was "
-          "64x64x4); 8a NDS-RIS and NDS+-MIS only (was all four); 12a's "
-          "RIS resampling case 64x64x1 (was 64x64x2); NDS+ "
-          "training 3 torch waves (bench: 48); phase 6 plain versions timed "
-          "once (was best of 3); 10c's plain version on a 256x128 crop of "
-          "the 1920x1088x8 main path", flush=True)
+    print("cuts: the parity checks of 7a, 8a, 9a and 12a at max_events "
+          f"{PARITY_EVENTS} (bench: 256); the render checks of 7a, 8a and 9a "
+          "at 64x64x2 on a plain run of their own (was 64x64x4), each also "
+          "at 64x64x1 on its record check's plain run, as 12a's and the 1 "
+          "spp checks of 7c, 8 (NDS), 9d and 12c (was a plain run of their "
+          "own); 8a NDS-RIS and NDS+-MIS only (was all four); 14b at 16 spp "
+          "(was 64); NDS+ training 3 torch waves (bench: 48); phase 6 plain "
+          "versions timed once (was best of 3); 10c's plain version on a "
+          "256x128 crop of the 1920x1088x8 main path", flush=True)
     k7, inputs7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
     print(f"phase 7 done {_at()}", flush=True)
@@ -791,22 +977,9 @@ def _phase7(dev, tag, check_parity, fma_lib):
         c, g, ftab, itab = inputs(pyro, 64, field, isgb,
                                   gopt=gopt._replace(mode=mode))
         assert g.ris == (mode == "ris")
-        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
-        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
-        torch.cuda.synchronize()
-        check_parity(f"phase 7a parity vspg_record ({mode}) image 64x64x1",
-                     "vspg", img_k, img_p)
-        rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
-        diff = (rk - rp).abs().reshape(rk.shape[0], -1)
-        ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape)) | (diff <= 1e-5))
-        frac_rec = ok.all(-1).float().mean().item()
-        n_valid = int((rec_p[7] > 0).sum())
-        print(f"phase 7a parity vspg_record ({mode}) rows: {frac_rec:.5f} of "
-              f"lanes with every record row within 1e-3 ({n_valid} valid "
-              f"slots) {tag}", flush=True)
-        assert frac_rec >= 0.98, frac_rec
-        _render_check(f"phase 7a parity vspg_render ({mode}) 64x64x2", c, g,
-                      ftab, itab, 2, 22, check_parity)
+        c = _with_max_events(c, PARITY_EVENTS)
+        _pair_check(f"phase 7a parity {{}} ({mode})", "vspg_record", c, g,
+                    ftab, itab, 21, check_parity, tag, render_spp=2)
 
     # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
     furnace = _guided_furnace(dev)
@@ -824,16 +997,18 @@ def _phase7(dev, tag, check_parity, fma_lib):
     npix = res * res
     # CUDA events around each kernel call of this call split its time (a
     # render call: the counters' memsets, the item kernel and the reduce)
-    (img, field, isgb), t_main, launches, k_ms, cap_main = _main_path_calls(
-        lambda: vspg.render_vspg(
+    (img, field, isgb), t_main, launches, k_ms, cap_main, rcap_main = (
+        _main_path_calls(lambda: vspg.render_vspg(
             pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
-            vopt=vopt, seed=5, spp_per_pass=1, device=dev))
+            vopt=vopt, seed=5, spp_per_pass=1, device=dev)))
     mean = img.mean().item()
     print(f"phase 7c render_vspg pyro64 {res}x{res} {n_train} training "
           f"waves + {n_frozen} frozen spp: {t_main:.3f} s, mean {mean:.5f}, "
           f"field iteration {field.iteration}, isgb ready {isgb.ready}, "
-          f"launches {launches}, render items at the cap {cap_main} {tag}",
+          f"launches {launches}, render items at the cap {cap_main}, record "
+          f"lanes at the cap {rcap_main} (over the {n_train} waves) {tag}",
           flush=True)
+    assert cap_main == 0 and rcap_main == 0, (cap_main, rcap_main)
     assert field.iteration == n_train and isgb.ready
     assert launches == dict({k: 0 for k in sk.LAUNCHES},
                             vspg_record=n_train, vspg_render=1,
@@ -863,15 +1038,14 @@ def _phase7(dev, tag, check_parity, fma_lib):
 
     # each variant alone at the main path's shapes, and its plain version
     c, g, ftab, itab = inputs(pyro, res, field, isgb)
-    t_rk, (img_rk, _) = _best_of_3(
+    ms_rk, t_rk, (img_rk, _) = _launch_ms(
         lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
+    # both variants against one plain run at 1 spp (its counts bound both)
     counts_r = {}
-    t0 = time.perf_counter()
-    img_rp, _ = sk.train_wave_plain(c, g, ftab, itab, 31, 6, counts_r)
-    torch.cuda.synchronize()
-    t_rp = time.perf_counter() - t0
-    max_rec = check_parity(f"phase 7c parity vspg_record {res}x{res}x1",
-                           "vspg", img_rk, img_rp)
+    max_rec, max_ren, t_rp, _, _ = _pair_check(
+        "phase 7c parity {}", "vspg_record", c, g, ftab, itab, 31,
+        check_parity, tag, counts_r)
+    counts, t_p2 = counts_r, t_rp
     t_k64, k64 = _best_of_3(
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
     # the same launch from the build with FMA contraction, then the shipped
@@ -891,18 +1065,14 @@ def _phase7(dev, tag, check_parity, fma_lib):
     spp_plain = 1  # keeps the plain version within a minute at 256^2
     t_k2, _ = _best_of_3(
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, spp_plain, 11))
-    counts = {}
-    max_ren, t_p2, _ = _render_check(
-        f"phase 7c parity vspg_render {res}x{res}x{spp_plain}", c, g, ftab,
-        itab, spp_plain, 11, check_parity, counts)
     print(f"phase 7c vspg_render kernel {res}x{res}x{n_frozen} "
           f"{t_k64 * 1e3:.3f} ms ({npix * n_frozen / t_k64 / 1e6:.3f} "
           f"Mpaths/s); at {spp_plain} spp kernel {t_k2 * 1e3:.3f} ms, plain "
           f"{t_p2 * 1e3:.1f} ms; counted work at {spp_plain} spp {counts} "
           f"{tag}", flush=True)
-    print(f"phase 7c vspg_record kernel {res}x{res}x1 {t_rk * 1e3:.3f} ms, "
-          f"plain {t_rp * 1e3:.1f} ms; counted work {counts_r} {tag}",
-          flush=True)
+    print(f"phase 7c vspg_record kernel {res}x{res}x1 {ms_rk:.3f} ms (the "
+          f"call {t_rk * 1e3:.3f} ms), plain {t_rp * 1e3:.1f} ms; counted "
+          f"work {counts_r} {tag}", flush=True)
 
     # the variance-criterion cell (bench_config4): its own 48-wave training,
     # then its frozen render
@@ -928,9 +1098,11 @@ def _phase7(dev, tag, check_parity, fma_lib):
     print(f"phase 7c bounds: vspg_render {b_ren:.4f} ms ({by_ren}; ms by "
           f"pipe {p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it; "
           f"vspg_record {b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), "
-          f"kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}", flush=True)
+          f"kernel at {b_rec / ms_rk:.5f} of it {tag}", flush=True)
     extra = _render_report("phase 7c", "vspg_render", c, g, t_k64 * 1e3,
                            b_ren, cap_main, tag)
+    extra_r = _record_report("phase 7c", "vspg_record", c, g, ms_rk,
+                             t_rk * 1e3, b_rec, rcap_main, counts_r, tag)
     return [
         dict(name="vspg_render", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_render"], max_abs_err=max_ren,
@@ -942,9 +1114,9 @@ def _phase7(dev, tag, check_parity, fma_lib):
                       launches["vspg_reduce"], tag),
         dict(name="vspg_record", route="cuda", source=src, replaces=rep,
              launches=launches["vspg_record"], max_abs_err=max_rec,
-             ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
+             ms=ms_rk, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_pipe=max(p_rec, key=p_rec.get),
-             bound_by=by_rec, library_ms=None),
+             bound_by=by_rec, library_ms=None, **extra_r),
     ], (c, g, ftab, itab)
 
 
@@ -1058,25 +1230,10 @@ def _phase8(dev, tag, check_parity):
                                   gopt._replace(mode=mode), tr_buffer(64))
         assert itab.shape[0] == (6 if vopt.sampling_method == "nds+"
                                  else 3)
-        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
-        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
-        torch.cuda.synchronize()
-        check_parity(f"phase 8a parity vspg_record ({name}) image "
-                     "64x64x1", "vspg", img_k, img_p)
-        rk, rp = rec_k.permute(2, 0, 1), rec_p.permute(2, 0, 1)
-        diff = (rk - rp).abs().reshape(rk.shape[0], -1)
-        ok = ((diff <= 1e-3 * rp.abs().reshape(diff.shape))
-              | (diff <= 1e-5))
-        frac_rec = ok.all(-1).float().mean().item()
-        print(f"phase 8a parity vspg_record ({name}) rows: "
-              f"{frac_rec:.5f} of lanes with every record row within "
-              f"1e-3, max abs diff {diff.max().item():.3e} "
-              f"({int((rec_p[7] > 0).sum())} valid slots) {tag}",
-              flush=True)
-        assert frac_rec >= 0.98, frac_rec
+        c = _with_max_events(c, PARITY_EVENTS)
         counts = {}
-        _render_check(f"phase 8a parity vspg_render ({name}) 64x64x2", c, g,
-                      ftab, itab, 2, 22, check_parity, counts)
+        _pair_check(f"phase 8a parity {{}} ({name})", "vspg_record", c, g,
+                    ftab, itab, 21, check_parity, tag, counts, render_spp=2)
         assert counts["pre_steps"] > 0 and counts["draws"] > 0, counts
 
     # ---- 8b: furnace (albedo 1) under NDS ----------------------------------
@@ -1097,18 +1254,19 @@ def _phase8(dev, tag, check_parity):
     def main_path(vopt, waves, seed):
         """One render_vspg call from reset counters, split by CUDA events
         around each kernel call: (image, field, isgb, launches, seconds,
-        kernel ms by variant, render items at the cap)."""
-        (img, field, isgb), t_call, launches, k_ms, cap = _main_path_calls(
-            lambda: vspg.render_vspg(
+        kernel ms by variant, render items at the cap, record lanes at the
+        cap over the waves)."""
+        (img, field, isgb), t_call, launches, k_ms, cap, rcap = (
+            _main_path_calls(lambda: vspg.render_vspg(
                 pyro, cam, film, spp=waves + n_frozen, cfg=cfg,
                 gopt=gopt._replace(train_waves=waves), vopt=vopt, seed=seed,
-                spp_per_pass=1, device=dev))
+                spp_per_pass=1, device=dev)))
         assert field.iteration == waves and isgb.ready
         assert tuple(img.shape) == (res, res, 3)
         assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
-        return img, field, isgb, launches, t_call, k_ms, cap
+        return img, field, isgb, launches, t_call, k_ms, cap, rcap
 
-    img, field_n, isgb_n, launches_n, t_n, k_n, cap_n = main_path(
+    img, field_n, isgb_n, launches_n, t_n, k_n, cap_n, rcap_n = main_path(
         v_nds, n_train, 5)
     assert launches_n == dict({k: 0 for k in sk.LAUNCHES},
                               vspg_record=n_train, vspg_render=1,
@@ -1117,12 +1275,14 @@ def _phase8(dev, tag, check_parity):
     print(f"phase 8c render_vspg nds pyro64 {res}x{res} {n_train} training "
           f"waves + {n_frozen} frozen spp: {t_n:.3f} s, mean "
           f"{img.mean().item():.5f}, launches {launches_n}, render items at "
-          f"the cap {cap_n}; split: record kernel {k_n['vspg_record']:.3f} "
+          f"the cap {cap_n}, record lanes at the cap {rcap_n} (over the "
+          f"{n_train} waves); split: record kernel {k_n['vspg_record']:.3f} "
           f"ms ({k_n['vspg_record'] / n_train:.3f} ms each), render call "
           f"{k_n['vspg_render']:.3f} ms "
           f"({k_n['vspg_render'] / (t_n * 1e3):.4f} of the call), the rest "
           f"(tables, propagate, EM, ISGB, launch "
           f"gaps) {rest:.3f} ms {tag}", flush=True)
+    assert cap_n == 0 and rcap_n == 0, (cap_n, rcap_n)
 
     # ---- 8d: the NDS+ main path: torch waves, then the render kernel -------
     # the training waves are cut from 48 to a fixed 3, so that the call
@@ -1140,8 +1300,8 @@ def _phase8(dev, tag, check_parity):
 
     sk.render_vspg_kernel = spy
     try:
-        img_p, _, _, launches_p, t_p, k_p, cap_p = main_path(v_ndsp, n_plus,
-                                                             6)
+        img_p, _, _, launches_p, t_p, k_p, cap_p, rcap_p = main_path(
+            v_ndsp, n_plus, 6)
     finally:
         sk.render_vspg_kernel = render_kernel
     assert launches_p == dict({k: 0 for k in sk.LAUNCHES},
@@ -1160,6 +1320,7 @@ def _phase8(dev, tag, check_parity):
           f"{k_p['vspg_render']:.3f} ms, torch waves and the rest "
           f"{rest_p:.3f} ms ({rest_p / n_plus:.1f} ms a wave) {tag}",
           flush=True)
+    assert cap_p == 0 and rcap_p == 0, (cap_p, rcap_p)
 
     # ---- 8e: the kernel's frozen render against the torch wave's ----------
     res_e, spp_e = 128, 64
@@ -1192,32 +1353,31 @@ def _phase8(dev, tag, check_parity):
 
     # ---- each NDS variant alone at the main path's shapes ------------------
     c, g, ftab, itab = inputs(pyro, res, field_n, isgb_n, v_nds)
-    t_rk, (img_rk, _) = _best_of_3(
+    ms_rk, t_rk, (img_rk, _) = _launch_ms(
         lambda: sk.train_wave_kernel(c, g, ftab, itab, 11, 6))
     counts_r = {}
-    t0 = time.perf_counter()
-    img_rp, _ = sk.train_wave_plain(c, g, ftab, itab, 11, 6, counts_r)
-    torch.cuda.synchronize()
-    t_rp = time.perf_counter() - t0
-    max_rec = check_parity(f"phase 8 parity vspg_record (nds) {res}x{res}x1",
-                           "vspg", img_rk, img_rp)
+    max_rec, t_rp, _, _, img_rp = _record_check(
+        f"phase 8 parity vspg_record (nds) {res}x{res}x1", c, g, ftab, itab,
+        11, check_parity, tag, counts_r)
     src = "vspg_pbrt_v4_tpu_torch/csrc/vspg.cu"
     rep = "vspg_pbrt_v4_tpu/ops/pallas_vspg.py:241"
 
-    def render_alone(method, c, g, ftab, itab, launches, cap):
+    def render_alone(method, c, g, ftab, itab, launches, cap, counts=None,
+                     plain=None):
         """The render variant alone on one main path's inputs (`cap`: that
         call's items at the cap): 64 spp and 1 spp timed, held against its
-        plain version at 1 spp, and bound by the plain version's counted
-        work; its kernels-line entry."""
+        plain version at 1 spp (`plain` and `counts`: the record check's
+        run on these inputs, as _render_check takes them), and bound by the
+        plain version's counted work; its kernels-line entry."""
         t_k64, k64 = _best_of_3(
             lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
         t_k1, _ = _best_of_3(
             lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1, 11))
-        counts = {}
+        counts = {} if counts is None else counts
         max_ren, t_p1, _ = _render_check(
             f"phase 8 parity vspg_render ({method}) {res}x{res}x1, "
             f"{itab.shape[0]} ISGB rows", c, g, ftab, itab, 1, 11,
-            check_parity, counts)
+            check_parity, counts, plain)
         b_ren, by_ren, p_ren = _bound_ms(
             "vspg", counts, n_frozen,
             _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
@@ -1243,20 +1403,23 @@ def _phase8(dev, tag, check_parity):
                 ftab, itab, img_rk)
         + sk.REC_ROWS * gopt.record_depth * npix * 4)
     print(f"phase 8 vspg_record (nds) kernel {res}x{res}x1 "
-          f"{t_rk * 1e3:.3f} ms, plain {t_rp * 1e3:.1f} ms; counted work "
-          f"{counts_r}; bound {b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), "
-          f"kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}", flush=True)
+          f"{ms_rk:.3f} ms (the call {t_rk * 1e3:.3f} ms), plain "
+          f"{t_rp * 1e3:.1f} ms; counted work {counts_r}; bound "
+          f"{b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), kernel at "
+          f"{b_rec / ms_rk:.5f} of it {tag}", flush=True)
+    extra_r = _record_report("phase 8 (nds)", "vspg_record_nds", c, g,
+                             ms_rk, t_rk * 1e3, b_rec, rcap_n, counts_r, tag)
     return [
         render_alone("nds", c, g, ftab, itab, launches_n["vspg_render"],
-                     cap_n),
+                     cap_n, counts_r, (img_rp, t_rp)),
         # NDS+ on the inputs its main path gave the kernel: the field its
         # torch waves trained and the 6-row ISGB table with their TrBuffer
         render_alone("nds+", *inputs_p, launches_p["vspg_render"], cap_p),
         dict(name="vspg_record_nds", route="cuda", source=src, replaces=rep,
              launches=launches_n["vspg_record"], max_abs_err=max_rec,
-             ms=t_rk * 1e3, plain_ms=t_rp * 1e3, bound_ms=b_rec,
+             ms=ms_rk, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_pipe=max(p_rec, key=p_rec.get),
-             bound_by=by_rec, library_ms=None),
+             bound_by=by_rec, library_ms=None, **extra_r),
     ]
 
 
@@ -1314,9 +1477,6 @@ def _phase9(dev, tag, check_parity):
         return sk.kernel_inputs(scene, cam, film, cfg_v, gopt, vopt, field,
                                 isgb)
 
-    def rows_parity(label, rec_k, rec_p):
-        return _rows_parity(label, rec_k, rec_p, tag)
-
     # ---- 9a: parity ---------------------------------------------------------
     # B2b at 128^2 x 4 on the machines, with each material variant, at the
     # mesh bar; on the smooth machines (where the per-pixel -O3 build lost
@@ -1353,16 +1513,11 @@ def _phase9(dev, tag, check_parity):
             machines[name], 64, *fields[name],
             vopt._replace(sampling_method=method), gopt._replace(mode=mode))
         assert c.n_tri == 48 and g.n_tri == 48
-        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
-        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
-        torch.cuda.synchronize()
-        check_parity(f"phase 9a parity vspg_record_tris ({label}) image "
-                     "64x64x1", "vspg", img_k, img_p)
-        rows_parity(f"phase 9a parity vspg_record_tris ({label}) rows",
-                    rec_k, rec_p)
+        c = _with_max_events(c, PARITY_EVENTS)
         counts = {}
-        _render_check(f"phase 9a parity vspg_render_tris ({label}) 64x64x2",
-                      c, g, ftab, itab, 2, 22, check_parity, counts)
+        _pair_check(f"phase 9a parity {{}} ({label})", "vspg_record_tris",
+                    c, g, ftab, itab, 21, check_parity, tag, counts,
+                    render_spp=2)
         assert counts["surface_events"] > 0, counts
     print(f"phase 9a done {_at()} {tag}", flush=True)
 
@@ -1466,10 +1621,10 @@ def _phase9(dev, tag, check_parity):
     res, n_train, n_frozen = 128, 48, 64
     cam, film = view(res)
     npix = res * res
-    (img, field, isgb), t_v, launches_v, k_ms, cap_v = _main_path_calls(
-        lambda: vspg.render_vspg(
+    (img, field, isgb), t_v, launches_v, k_ms, cap_v, rcap_v = (
+        _main_path_calls(lambda: vspg.render_vspg(
             scene, cam, film, spp=n_train + n_frozen, cfg=cfg_v, gopt=gopt,
-            vopt=vopt, seed=5, spp_per_pass=1, device=dev))
+            vopt=vopt, seed=5, spp_per_pass=1, device=dev)))
     assert launches_v == dict({k: 0 for k in sk.LAUNCHES},
                               vspg_record_tris=n_train,
                               vspg_render_tris=1, vspg_reduce=1), launches_v
@@ -1481,33 +1636,27 @@ def _phase9(dev, tag, check_parity):
     print(f"phase 9d render_vspg teaser machines pyro64 {res}x{res} "
           f"{n_train} training waves + {n_frozen} frozen spp: {t_v:.3f} s, "
           f"mean {img.mean().item():.5f}, launches {launches_v}, render "
-          f"items at the cap {cap_v}, surface cells with data {n_surf}; "
+          f"items at the cap {cap_v}, record lanes at the cap {rcap_v} (over "
+          f"the {n_train} waves), surface cells with data {n_surf}; "
           f"split: record kernel {k_ms['vspg_record_tris']:.3f} ms "
           f"({k_ms['vspg_record_tris'] / n_train:.3f} ms each), render call "
           f"{k_ms['vspg_render_tris']:.3f} ms "
           f"({k_ms['vspg_render_tris'] / (t_v * 1e3):.4f} of the call), the "
           f"rest (tables, propagate, EM, ISGB, launch gaps) {rest:.3f} ms "
           f"{tag}", flush=True)
+    assert cap_v == 0 and rcap_v == 0, (cap_v, rcap_v)
     # each variant alone on the main path's inputs, and its plain version
     c, g, ftab, itab = inputs(scene, res, field, isgb)
-    t_rk, (img_rk, rec_rk) = _best_of_3(
+    ms_rk, t_rk, (img_rk, _) = _launch_ms(
         lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
     counts_r = {}
-    t0 = time.perf_counter()
-    img_rp, rec_rp = sk.train_wave_plain(c, g, ftab, itab, 31, 6, counts_r)
-    torch.cuda.synchronize()
-    t_rp = time.perf_counter() - t0
-    check_parity(f"phase 9d parity vspg_record_tris {res}x{res}x1 image",
-                 "vspg", img_rk, img_rp)
-    max_rec = rows_parity(f"phase 9d parity vspg_record_tris {res}x{res}x1 "
-                          "rows", rec_rk, rec_rp)
+    max_rec, max_ren, t_rp, _, _ = _pair_check(
+        "phase 9d parity {}", "vspg_record_tris", c, g, ftab, itab, 31,
+        check_parity, tag, counts_r)
+    counts, t_p1v = counts_r, t_rp
     t_k64, k64 = _best_of_3(
         lambda: sk.render_vspg_kernel(c, g, ftab, itab, n_frozen, 11))
     inputs9 = (c, g, ftab, itab)
-    counts = {}
-    max_ren, t_p1v, _ = _render_check(
-        f"phase 9d parity vspg_render_tris {res}x{res}x1", c, g, ftab, itab,
-        1, 11, check_parity, counts)
     ins = _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, c.density,
                   c.majorant, ftab, itab, c.tris, c.mats)
     b_ren, by_ren, p_ren = _bound_ms("vspg", counts, n_frozen,
@@ -1520,12 +1669,15 @@ def _phase9(dev, tag, check_parity):
           f"Mpaths/s), plain at 1 spp {t_p1v * 1e3:.1f} ms, counted work at 1 "
           f"spp {counts}, bound {b_ren:.4f} ms ({by_ren}; ms by pipe "
           f"{p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it; "
-          f"vspg_record_tris kernel {res}x{res}x1 {t_rk * 1e3:.3f} ms, plain "
-          f"{t_rp * 1e3:.1f} ms, counted work {counts_r}, bound "
-          f"{b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), kernel at "
-          f"{b_rec / (t_rk * 1e3):.5f} of it, {_at()} {tag}", flush=True)
+          f"vspg_record_tris kernel {res}x{res}x1 {ms_rk:.3f} ms (the call "
+          f"{t_rk * 1e3:.3f} ms), plain {t_rp * 1e3:.1f} ms, counted work "
+          f"{counts_r}, bound {b_rec:.4f} ms ({by_rec}; ms by pipe "
+          f"{p_rec}), kernel at {b_rec / ms_rk:.5f} of it, {_at()} {tag}",
+          flush=True)
     extra = _render_report("phase 9d", "vspg_render_tris", c, g,
                            t_k64 * 1e3, b_ren, cap_v, tag)
+    extra_r = _record_report("phase 9d", "vspg_record_tris", c, g, ms_rk,
+                             t_rk * 1e3, b_rec, rcap_v, counts_r, tag)
 
     # ---- 9e: the kernel's frozen render against the torch wave's ----------
     # both unbiased on the same field: their means agree within Monte Carlo
@@ -1577,9 +1729,9 @@ def _phase9(dev, tag, check_parity):
              **extra),
         dict(name="vspg_record_tris", route="cuda", source=src_v,
              replaces=rep_v, launches=launches_v["vspg_record_tris"],
-             max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
+             max_abs_err=max_rec, ms=ms_rk, plain_ms=t_rp * 1e3,
              bound_pipe=max(p_rec, key=p_rec.get),
-             bound_ms=b_rec, bound_by=by_rec, library_ms=None),
+             bound_ms=b_rec, bound_by=by_rec, library_ms=None, **extra_r),
     ], inputs9
 
 
@@ -1983,9 +2135,6 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
         return sk.kernel_inputs(scene, cam, film, cfg, gopt, vopt, field,
                                 isgb)
 
-    def rows_parity(label, rec_k, rec_p):
-        return _rows_parity(label, rec_k, rec_p, tag)
-
     def child_lanes(field, rec):
         """Fraction of lanes with a recorded vertex in a refined cell's
         child leaf."""
@@ -2004,27 +2153,21 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"({int(field_c.refined.sum())} cells split), machines "
           f"{field_t.n_leaves} ({int(field_t.refined.sum())}) {tag}",
           flush=True)
-    for label, scene, fld, mode, method, spp_r in (
-            ("ris", pyro, (field_c, isgb_c), "ris", "resampling", 1),
-            ("mis", pyro, (field_c, isgb_c), "mis", "resampling", 2),
-            ("nds ris", pyro, (field_c, isgb_c), "ris", "nds", 1),
+    for label, scene, fld, mode, method in (
+            ("ris", pyro, (field_c, isgb_c), "ris", "resampling"),
+            ("mis", pyro, (field_c, isgb_c), "mis", "resampling"),
+            ("nds ris", pyro, (field_c, isgb_c), "ris", "nds"),
             ("machines ris", machines, (field_t, isgb_t), "ris",
-             "resampling", 1)):
+             "resampling")):
         c, g, ftab, itab = inputs(
             scene, 64, *fld, vopt._replace(sampling_method=method),
             gopt._replace(mode=mode), cfg_t if scene is machines else cfg)
         assert g.cells is not None and ftab.shape[1] == C + 1024
-        img_k, rec_k = sk.train_wave_kernel(c, g, ftab, itab, 21, 6)
-        img_p, rec_p = sk.train_wave_plain(c, g, ftab, itab, 21, 6)
-        torch.cuda.synchronize()
-        check_parity(f"phase 12a parity vspg_record_adaptive ({label}) image "
-                     "64x64x1", "vspg", img_k, img_p)
-        rows_parity(f"phase 12a parity vspg_record_adaptive ({label}) rows",
-                    rec_k, rec_p)
+        c = _with_max_events(c, PARITY_EVENTS)
         counts = {}
-        _render_check(f"phase 12a parity vspg_render_adaptive ({label}) "
-                      f"64x64x{spp_r}", c, g, ftab, itab, spp_r, 22,
-                      check_parity, counts)
+        rec_p = _pair_check(f"phase 12a parity {{}} ({label})",
+                            "vspg_record_adaptive", c, g, ftab, itab, 21,
+                            check_parity, tag, counts)[4]
         lanes = child_lanes(fld[0], rec_p)
         share = counts["child_scatters"] / max(counts["scatters"], 1)
         print(f"phase 12a ({label}): {lanes:.4f} of record lanes reach a "
@@ -2064,7 +2207,7 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
 
     gfield.refine_field = timed_refine
     try:
-        (img, field, isgb), t_main, launches, k_ms, cap_main = (
+        (img, field, isgb), t_main, launches, k_ms, cap_main, rcap_main = (
             _main_path_calls(lambda: vspg.render_vspg(
                 pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
                 vopt=vopt, seed=5, spp_per_pass=1, device=dev)))
@@ -2084,7 +2227,9 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"training waves + {n_frozen} frozen spp: {t_main:.3f} s, mean "
           f"{img.mean().item():.5f}, {field.n_leaves} leaves after training "
           f"({int(field.refined.sum())} of {C} cells split), launches "
-          f"{launches}, render items at the cap {cap_main} {tag}", flush=True)
+          f"{launches}, render items at the cap {cap_main}, record lanes at "
+          f"the cap {rcap_main} (over the {n_train} waves) {tag}", flush=True)
+    assert cap_main == 0 and rcap_main == 0, (cap_main, rcap_main)
     print(f"phase 12c split of that call: record kernel {rec_ms:.3f} ms in "
           f"{n_train} launches ({rec_ms / n_train:.3f} ms each), render "
           f"call {ren_ms:.3f} ms ({ren_ms / (t_main * 1e3):.4f} of the call), "
@@ -2133,21 +2278,13 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"{[round(t * 1e3, 3) for t, _ in t_sw]} {tag}", flush=True)
     t_k1, _ = _best_of_3(lambda: sk.render_vspg_kernel(c, g, ftab, itab, 1,
                                                        11))
-    counts = {}
-    max_ren, t_p1, _ = _render_check(
-        f"phase 12c parity vspg_render_adaptive {res}x{res}x1", c, g, ftab,
-        itab, 1, 11, check_parity, counts)
-    t_rk, (img_rk, rec_rk) = _best_of_3(
+    ms_rk, t_rk, (img_rk, _) = _launch_ms(
         lambda: sk.train_wave_kernel(c, g, ftab, itab, 31, 6))
     counts_r = {}
-    t0 = time.perf_counter()
-    img_rp, rec_rp = sk.train_wave_plain(c, g, ftab, itab, 31, 6, counts_r)
-    torch.cuda.synchronize()
-    t_rp = time.perf_counter() - t0
-    check_parity(f"phase 12c parity vspg_record_adaptive {res}x{res}x1 "
-                 "image", "vspg", img_rk, img_rp)
-    max_rec = rows_parity(f"phase 12c parity vspg_record_adaptive "
-                          f"{res}x{res}x1 rows", rec_rk, rec_rp)
+    max_rec, max_ren, t_rp, _, _ = _pair_check(
+        "phase 12c parity {}", "vspg_record_adaptive", c, g, ftab, itab, 31,
+        check_parity, tag, counts_r)
+    counts, t_p1 = counts_r, t_rp
     ins_bytes = _nbytes(c.fconst, c.iconst, g.fconst, g.iconst, g.cells,
                         c.density, c.majorant, ftab, itab)
     b_ren, by_ren, p_ren = _bound_ms("vspg", counts, n_frozen,
@@ -2161,12 +2298,15 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
           f"by pipe {p_ren}), kernel at {b_ren / (t_k64 * 1e3):.5f} of it "
           f"{tag}", flush=True)
     print(f"phase 12c vspg_record_adaptive kernel {res}x{res}x1 "
-          f"{t_rk * 1e3:.3f} ms a wave, plain {t_rp * 1e3:.1f} ms; counted "
-          f"work {counts_r}; bound {b_rec:.4f} ms ({by_rec}; ms by pipe "
-          f"{p_rec}), kernel at {b_rec / (t_rk * 1e3):.5f} of it {tag}",
-          flush=True)
+          f"{ms_rk:.3f} ms a wave (the call {t_rk * 1e3:.3f} ms), plain "
+          f"{t_rp * 1e3:.1f} ms; counted work {counts_r}; bound "
+          f"{b_rec:.4f} ms ({by_rec}; ms by pipe {p_rec}), kernel at "
+          f"{b_rec / ms_rk:.5f} of it {tag}", flush=True)
     extra = _render_report("phase 12c", "vspg_render_adaptive", c, g,
                            t_k64 * 1e3, b_ren, cap_main, tag)
+    extra_r = _record_report("phase 12c", "vspg_record_adaptive", c, g,
+                             ms_rk, t_rk * 1e3, b_rec, rcap_main, counts_r,
+                             tag)
 
     # ---- 12d: the kernel's frozen render against the torch wave's ---------
     res_e, spp_e = 128, 64
@@ -2208,14 +2348,14 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
              switch_on_ms=sw_ms, **extra),
         dict(name="vspg_record_adaptive", route="cuda", source=src,
              replaces=rep, launches=launches["vspg_record_adaptive"],
-             max_abs_err=max_rec, ms=t_rk * 1e3, plain_ms=t_rp * 1e3,
+             max_abs_err=max_rec, ms=ms_rk, plain_ms=t_rp * 1e3,
              bound_ms=b_rec, bound_pipe=max(p_rec, key=p_rec.get),
-             bound_by=by_rec, library_ms=None),
+             bound_by=by_rec, library_ms=None, **extra_r),
     ]
 
 
 def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
-    """Phase 14, the render kernel's register budget and its iteration cap.
+    """Phase 14, the VSPG kernel's register budgets and its iteration cap.
     14a: the render-only builds of vspg.cu at 2, 3 and 4 minimum blocks an
     SM (`variants`, started after phase 2; ptxas's registers and spills of
     each) time B3a on phase 7c's inputs and B3c on phase 9d's at 64 spp in
@@ -2223,9 +2363,9 @@ def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
     again with max_events cut to max_events / spp, which caps each item at
     one sample's budget and so leaves out the capped items' long tails (a
     time only: the pixel's cap then cuts samples, and the image differs).
-    14b: on the same inputs with max_events cut to 1 (a pixel's cap of 768
-    iterations at 64 spp, which cuts samples in many pixels), the kernel at
-    64 spp and ITEMS_PER_THREAD items a thread against its per-pixel plain
+    14b: on the same inputs with max_events cut to 1 (a pixel's cap of 192
+    iterations at 16 spp, which cuts samples in many pixels), the kernel at
+    16 spp and ITEMS_PER_THREAD items a thread against its per-pixel plain
     version on a crop of two rows through the image's middle."""
     from vspg_pbrt_v4_tpu_torch.ops import _build
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
@@ -2245,16 +2385,11 @@ def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
                   f"spill stores, {v.get('ld')} bytes spill loads {tag}",
                   flush=True)
 
-    def with_max_events(c, n):
-        ic = c.iconst.clone()
-        ic[I_MAX_EVENTS] = n
-        return dataclasses.replace(c, iconst=ic)
-
     n_frozen = 64
     cells = (("B3a", inputs7), ("B3c", inputs9))
     for label, (c, g, ftab, itab) in cells:
         ref, ref_cap = sk.render_vspg_items(c, g, ftab, itab, n_frozen, 11)
-        c1 = with_max_events(c, max(1, int(c.iconst[I_MAX_EVENTS])
+        c1 = _with_max_events(c, max(1, int(c.iconst[I_MAX_EVENTS])
                                     // n_frozen))
         cap_iters = (int(c.iconst[I_MAX_EVENTS]) * n_frozen * 12,
                      int(c1.iconst[I_MAX_EVENTS]) * n_frozen * 12)
@@ -2286,26 +2421,27 @@ def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
                                                                      k)
 
     # 14b: the cap's rule where it binds
+    spp_b = 16
     for label, (c, g, ftab, itab) in cells:
-        c1 = with_max_events(c, 1)
-        n = c.nx * c.ny * n_frozen
+        c1 = _with_max_events(c, 1)
+        n = c.nx * c.ny * spp_b
         blocks = _check_blocks(n)
-        k, cap = sk.render_vspg_items(c1, g, ftab, itab, n_frozen, 13,
+        k, cap = sk.render_vspg_items(c1, g, ftab, itab, spp_b, 13,
                                       blocks=blocks)
         crop = torch.arange((c.ny // 2) * c.nx, (c.ny // 2 + 2) * c.nx,
                             device=dev)
         counts = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p = sk.render_vspg_plain(c1, g, ftab, itab, n_frozen, 13, counts,
+        p = sk.render_vspg_plain(c1, g, ftab, itab, spp_b, 13, counts,
                                  pixels=crop)
         torch.cuda.synchronize()
         t_p = time.perf_counter() - t0
         kc = k.reshape(-1, 3)[crop]
         exact = (kc == p).all(-1).float().mean().item()
         check_parity(
-            f"phase 14b parity {label} vspg_render {c.nx}x{c.ny}x{n_frozen} "
-            f"at a pixel cap of {n_frozen * 12} iterations, rows "
+            f"phase 14b parity {label} vspg_render {c.nx}x{c.ny}x{spp_b} "
+            f"at a pixel cap of {spp_b * 12} iterations, rows "
             f"{c.ny // 2}-{c.ny // 2 + 1} ({blocks} blocks, "
             f"{n / (blocks * 128):.1f} items a thread; {int(cap)} items at "
             f"the cap in the image, {counts['capped']} of the crop's "

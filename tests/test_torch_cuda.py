@@ -324,6 +324,103 @@ def test_vspg_kernel_adaptive_matches_plain(dev, variant, method, scene):
     assert ok.float().mean().item() >= 0.98
 
 
+@pytest.mark.parametrize("scene", ["cloud", "machines"])
+def test_vspg_record_persistent_blocks(dev, scene):
+    """B4a/B4c: the record variant's pixels run on persistent blocks, the
+    lanes of a warp taking them from a counter; at 1 and 3 blocks (18 and
+    6 pixels a thread) and at the full grid, the image and every record
+    row are train_wave_plain's bit for bit (each pixel's path, its random
+    stream and its rows are its own, whichever lane runs it), and the
+    pixels at the cap are the plain version's (none here)."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, scene=scene)
+    counts = {}
+    p, rp = sk.train_wave_plain(c, g, ftab, itab, 7, 6, counts)
+    name = "vspg_record" + ("_tris" if scene == "machines" else "")
+    for blocks in (1, 3, None):
+        before = sk.LAUNCHES[name]
+        k, rk, cap = sk.train_wave_items(c, g, ftab, itab, 7, 6,
+                                         blocks=blocks)
+        torch.cuda.synchronize()
+        assert sk.LAUNCHES[name] == before + 1
+        assert torch.equal(k, p) and torch.equal(rk, rp), blocks
+        assert cap.tolist() == [counts["capped"]] == [0]
+    grid = sk.render_grid(c, g, variant="record")
+    assert grid["blocks"] == grid["per_sm"] * grid["sms"] > 0
+
+
+def _thin_slab_inputs(dev, method="resampling"):
+    """VSPG kernel inputs on a grid slab 1.5e-4 deep along the camera axis
+    under a constant environment (tests/test_torch_box_exit.py's scene,
+    built without JAX): the entry nudge of 1e-4 leaves every crossing lane
+    0.5e-4 from the exit. A fresh field and ISGB, with every primary ray
+    guided (ISGB VSP 0.5)."""
+    from vspg_pbrt_v4_tpu_torch.models.cameras import PerspectiveCamera
+    from vspg_pbrt_v4_tpu_torch.models.guiding.isgb import ISGB
+    from vspg_pbrt_v4_tpu_torch.models.integrators import vspg
+    from vspg_pbrt_v4_tpu_torch.models.integrators.guided_volpath import (
+        GuidingOptions)
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.materials import Materials
+    from vspg_pbrt_v4_tpu_torch.models.media import GridMedium, Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.utils import transform as ttr
+
+    h, res = 0.75e-4, 32
+    dens = np.random.default_rng(11).uniform(0.5, 1.5, (4, 4, 2))
+    gm = GridMedium.make(dens.astype(np.float32), [40.0] * 3, [60.0] * 3,
+                         (-1, -1, -h), (1, 1, h), g=0.0, maj_res=2,
+                         device=dev)
+    box = dict(bmin=(-1, -1, -h), bmax=(1, 1, h), mat=-1, light=-1,
+               med_in=0, med_out=-1)
+    scene = tv.Scene(Geometry.build(boxes=[box], device=dev),
+                     Materials.build([], device=dev),
+                     Media.make(grids=(gm,), device=dev),
+                     Lights.make(env_L=[0.5, 0.6, 0.7], world_radius=100.0,
+                                 device=dev))
+    cam = PerspectiveCamera.make(
+        ttr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=dev), 20.0,
+        (res, res), device=dev)
+    film = RGBFilm.make((res, res), device=dev)
+    cfg = tv.VolPathConfig(max_depth=8, max_events=4)
+    gopt = GuidingOptions(field_res=4, record_depth=4, min_train_weight=16.0)
+    vopt = vspg.VSPGOptions(vsp_criterion="variance",
+                            sampling_method=method)
+    field = vspg._scene_field(scene, gopt, dev)
+    isgb = ISGB.make(film.resolution, vopt.vsp_criterion, vopt.denoiser,
+                     device=dev)
+    c, g, ftab, itab = sk.kernel_inputs(scene, cam, film, cfg, gopt, vopt,
+                                        field, isgb)
+    itab[0] = 0.5
+    return c, g, ftab, itab
+
+
+@pytest.mark.parametrize("method", ["resampling", "nds"])
+def test_vspg_thin_slab_nothing_at_cap(dev, method):
+    """ROADMAP.md section C 4 on the card: on the thin slab every crossing
+    lane's guided walk starts 0.5e-4 from the exit and ends there; no
+    record pixel and no render item reaches the iteration cap, no pixel is
+    black, and both variants match their plain versions bit for bit."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _thin_slab_inputs(dev, method)
+    k, rk, cap = sk.train_wave_items(c, g, ftab, itab, 9, 4, blocks=2)
+    counts = {}
+    p, rp = sk.train_wave_plain(c, g, ftab, itab, 9, 4, counts)
+    torch.cuda.synchronize()
+    assert cap.tolist() == [0] and counts["capped"] == 0
+    assert counts["exit_walks"] >= c.nx * c.ny, counts
+    assert torch.equal(k, p) and torch.equal(rk, rp)
+    assert bool((k.sum(-1) > 0).all())
+    img, cap_r = sk.render_vspg_items(c, g, ftab, itab, 4, 5, blocks=8)
+    ref = sk.render_vspg_plain(c, g, ftab, itab, 4, 5)
+    torch.cuda.synchronize()
+    assert cap_r.tolist() == [0]
+    assert torch.equal(img, ref) and bool((img.sum(-1) > 0).all())
+
+
 @pytest.mark.parametrize("C", [32, 256])
 @pytest.mark.parametrize("variant", ["global", "shared"])
 def test_gather_kernel_matches_plain(dev, variant, C):

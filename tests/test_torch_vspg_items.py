@@ -171,6 +171,23 @@ def test_items_sum_to_the_per_pixel_render_where_the_cap_binds(
     assert torch.equal(part, full.reshape(-1, 3)[crop])
 
 
+@pytest.mark.parametrize("kind,method", [("cloud", "resampling"),
+                                         ("machines", "nds")],
+                         ids=["resampling", "tris-nds"])
+def test_record_wave_draws_the_single_sample_render(kind, method):
+    """A training wave draws the render's paths: the record variant's plain
+    version (train_wave_plain) gives render_vspg_plain's 1-spp image at the
+    same seed bit for bit and counts the same work; its record rows only
+    add writes. So one plain run holds both kernels at 1 spp
+    (chip_smoke.py's parity checks)."""
+    c, g, ftab, itab = port_inputs(kind, method, 0)
+    counts_w, counts_r = {}, {}
+    img, rec = sk.train_wave_plain(c, g, ftab, itab, SEED, 6, counts_w)
+    ren = sk.render_vspg_plain(c, g, ftab, itab, 1, SEED, counts_r)
+    assert torch.equal(img, ren) and counts_w == counts_r
+    assert bool((rec[7] > 0).any()) and bool((img > 0).any())
+
+
 def test_reduce_samples_plain_adds_in_sample_order():
     """The plain reduce is the Python loop acc = acc + L[s] from zero, in
     sample order while the pixel's running iteration total stays within

@@ -25,8 +25,8 @@ from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
 from vspg_pbrt_v4_tpu_torch.ops.volpath_kernels import machine_tris
 
 from test_torch_vspg_kernel import (CFG, GOPT, RES, VOPT, bf16_table,
-                                    jax_setup, lanes_close, port_inputs,
-                                    wave_rows)
+                                    exit_lanes, jax_setup, lanes_close,
+                                    port_inputs, wave_rows)
 
 MATS = [dict(type=M.DIFFUSE, albedo=(0.65, 0.3, 0.2)),
         dict(type=M.DIELECTRIC, eta=1.5, roughness=0.0),
@@ -58,7 +58,9 @@ def record_then_render(mode):
         interpret=True)
     c, g, ftab, itab = port_inputs(scene, cam, film, field, isgb, gopt=gopt)
     assert c.n_tri == 48 and tuple(ftab.shape) == (80, 512)
-    img, rec = sk.train_wave_plain(c, g, ftab, itab, 1, GOPT.record_depth)
+    counts = {}
+    img, rec = sk.train_wave_plain(c, g, ftab, itab, 1, GOPT.record_depth,
+                                   counts)
     seg, fa, fn, fv = sk.records_to_segments(rec)
     # surface vertices (row 18 zero) are recorded
     assert bool((seg.valid & ~seg.is_volume).any())
@@ -72,7 +74,10 @@ def record_then_render(mode):
                                             VOPT, field, isgb, seed=9,
                                             interpret=True))
     c, g, ftab, itab = port_inputs(scene, cam, film, field, isgb, gopt=gopt)
-    out = sk.render_vspg_plain(c, g, bf16_table(ftab), itab, 2, 9).numpy()
+    out = sk.render_vspg_plain(c, g, bf16_table(ftab), itab, 2, 9,
+                               counts).numpy()
+    # no lane of either run starts at the box's exit
+    assert exit_lanes(counts) == 0, counts
     d = np.abs(out - ref)
     f_ren = ((d <= 1e-3 * np.abs(ref)) | (d <= 1e-5)).all(-1).mean()
     print(f"teaser ({mode}): record {f_rec:.4f} of lanes, render "

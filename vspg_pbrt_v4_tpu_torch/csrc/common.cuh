@@ -217,6 +217,30 @@ static __device__ __forceinline__ bool box_hit(const float* fc, V3 o, V3 d,
   return ok;
 }
 
+// The exit of a ray whose origin lies in the box: the far face, clamped at
+// 0, with box_hit's arithmetic (so it is box_hit's t_hit wherever that
+// reports one). A walk in the medium ends there, as the XLA path clips
+// every walk to the grid's bounds with no epsilon (models/media.py
+// seg_init's t1). box_hit reports no face nearer than 1e-4, so a walk that
+// started that close to the exit took BIG as its limit and stepped on
+// through the clamped majorant cells beyond the box.
+static __device__ __forceinline__ float box_exit(const float* fc, V3 o,
+                                                 V3 d) {
+  float t_f = BIG;
+  const float oc[3] = {o.x, o.y, o.z};
+  const float dc[3] = {d.x, d.y, d.z};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float dk = dc[k];
+    float den = fabsf(dk) < 1e-12f ? (dk >= 0.0f ? 1e-12f : -1e-12f) : dk;
+    float inv = 1.0f / den;
+    float t0 = (fc[F_BMIN + k] - oc[k]) * inv;
+    float t1 = (fc[F_BMAX + k] - oc[k]) * inv;
+    t_f = fminf(t_f, fmaxf(t0, t1));
+  }
+  return fmaxf(t_f, 0.0f);
+}
+
 static __device__ __forceinline__ bool outside_box(const float* fc, V3 o) {
   return o.x < fc[F_BMIN] || o.x > fc[F_BMAX] || o.y < fc[F_BMIN + 1] ||
          o.y > fc[F_BMAX + 1] || o.z < fc[F_BMIN + 2] ||

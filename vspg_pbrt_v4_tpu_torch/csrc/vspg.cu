@@ -50,11 +50,22 @@
 // sample only while the pixel's running count stays within the cap, as
 // the per-pixel loop, which loses the sample its cap cuts and every later
 // one. So the image is the same float for float. An item at the cap counts
-// itself. Such an item is a walk whose limit is BIG (a walk or shadow walk
-// that starts within 1e-4 of the box's exit, where box_hit reports no
-// exit; ROADMAP.md section C 4) and runs all its cap's iterations in
-// series, about 0.4 s at 64 spp: that tail, which the per-pixel loop had
-// too, and not the launch's parallelism, sets B3's time (PERF.md).
+// itself. Walks that start within 1e-4 of the box's exit, where box_hit
+// reports no face, end at the exit (box_exit, as the XLA path's clip to
+// the grid's bounds): with a limit of BIG they stepped on through the
+// clamped majorant cells beyond the box, in series to the pixel's cap
+// (ROADMAP.md section C 4).
+//
+// The record variant's work: one thread a pixel on (npix + 127) / 128
+// blocks held each SM slot until the block's slowest lane ended, and with
+// no register budget few blocks fit an SM. So its items, the pixels (spp
+// 1: its RNG stream, record rows and layout are the per-pixel kernel's),
+// run on SMs x B persistent blocks at its own budget
+// (MinBlocks below), the lanes of a warp that end together
+// taking the next pixels with one atomicAdd on a 64-bit counter. A wave
+// of one sample a pixel is still as long as its longest path, whose
+// iterations run in series (PERF.md): no schedule of the pixels shortens
+// that.
 //
 // NDS and NDS+ are template switches: the ODS walk keeps its state in the
 // reservoir's registers, as the Pallas kernel aliases its carries (c_t the
@@ -435,17 +446,19 @@ static __device__ __forceinline__ V3 to_loc(const Surf& S, V3 v) {
 
 }  // namespace
 
-// Resident blocks an SM that ptxas budgets the render instantiations for
-// (65536 registers / (128 threads x blocks)): 2 allows 255 registers a
-// thread, 3 168, 4 128. The shipped values are the fastest of
-// chip_smoke.py phase 14's sweep, which rebuilds this file with others
-// (-DVSPG_RENDER_MIN_BLOCKS=...); the record instantiations keep
-// __launch_bounds__(128) with no minimum.
+// Resident blocks an SM that ptxas budgets each variant's instantiations
+// for (65536 registers / (128 threads x blocks)): 1 and 2 allow 255
+// registers a thread, 3 168, 4 128. The render's shipped values are the
+// fastest of chip_smoke.py phase 14's sweep, which rebuilds this file with
+// others (-DVSPG_RENDER_MIN_BLOCKS=...). The record instantiations take 2:
+// a record launch's time is its longest path's iterations in series, and
+// budgets of 1 to 4 moved it by no more than the turns' spread, 4 making
+// it slower (PERF.md).
 #ifndef VSPG_RENDER_MIN_BLOCKS
-#define VSPG_RENDER_MIN_BLOCKS 3
+#define VSPG_RENDER_MIN_BLOCKS 4
 #endif
 #ifndef VSPG_RENDER_TRIS_MIN_BLOCKS
-#define VSPG_RENDER_TRIS_MIN_BLOCKS 2
+#define VSPG_RENDER_TRIS_MIN_BLOCKS 4
 #endif
 
 constexpr int THREADS = 128;
@@ -453,22 +466,37 @@ constexpr int THREADS = 128;
 template <bool RECORD, bool TRIS>
 struct MinBlocks {
   static constexpr int value =
-      RECORD ? 1
+      RECORD ? 2
              : (TRIS ? VSPG_RENDER_TRIS_MIN_BLOCKS : VSPG_RENDER_MIN_BLOCKS);
 };
 
-// One work item is one (pixel, sample) path. The record variant runs one
-// item a thread, item = pixel (spp 1), and writes out = L * out_scale. The
-// render variant runs the n_items items of one chunk of samples, item i
-// being sample samp0 + i / npix of pixel i % npix (sample-major, so a
-// warp's lanes start on neighbouring pixels of one sample): each lane
-// takes its next item from the counter *next_item when its path ends, until
-// the items run out, and writes the item's radiance L to out[i] and its
-// iterations to n_iter[i] (the scratch that vspg_reduce_kernel sums per
-// pixel in sample order). Every item has the whole pixel's iteration cap,
-// spp * max_events * 12, the per-pixel loop's; an item that reaches it
-// writes zero radiance and cap + 1 iterations and counts itself in
-// *at_cap.
+// The record variant's next pixel: the lanes of a warp that ask together
+// take consecutive items with one atomicAdd on the counter (all 32 at a
+// launch's start, so a warp's first pixels are neighbours).
+static __device__ __forceinline__ long long take_items(
+    unsigned long long* next_item) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31, leader = __ffs(mask) - 1;
+  unsigned long long base = 0;
+  if (lane == leader)
+    base = atomicAdd(next_item, (unsigned long long)__popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return (long long)(base + __popc(mask & ((1u << lane) - 1u)));
+}
+
+// One work item is one (pixel, sample) path, and each lane takes its next
+// item from the counter *next_item (zeroed by the caller) when its path
+// ends, until the items run out. The record variant's items are the
+// pixels (spp 1, item = pixel, taken a warp's worth at a time by
+// take_items): it writes out = L * out_scale and the pixel's record rows.
+// The render variant runs the n_items items of one chunk of samples, item
+// i being sample samp0 + i / npix of pixel i % npix (sample-major, so a
+// warp's lanes start on neighbouring pixels of one sample), and writes the
+// item's radiance L to out[i] and its iterations to n_iter[i] (the scratch
+// that vspg_reduce_kernel sums per pixel in sample order). Every item has
+// the whole pixel's iteration cap, spp * max_events * 12, the per-pixel
+// loop's; an item that reaches it writes zero radiance (and cap + 1
+// iterations) and counts itself in *at_cap.
 template <bool RECORD, bool RIS, int METHOD, bool TRIS>
 __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
     vspg_kernel(const float* __restrict__ fc_g, const int* __restrict__ ic_g,
@@ -506,7 +534,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
   __syncthreads();
   long long item;
   if constexpr (RECORD)
-    item = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    item = take_items(next_item);
   else
     item = (long long)atomicAdd(next_item, 1ull);
   if (item >= n_items) return;
@@ -714,7 +742,9 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
       if (alive && outside && hit && !entering) alive = false;
     }
     const bool in_med = alive && mode == 0 && med == 0 && !enter && !stall;
-    const float wall = hit ? t_wall : BIG;
+    // a walk in the medium ends at the exit, also one nearer than box_hit's
+    // 1e-4 (ROADMAP.md section C 4)
+    const float wall = hit ? t_wall : (med == 0 ? box_exit(fc, o, d) : BIG);
     // walks end at the nearer of the wall and the next surface
     const float plim = TRIS ? fminf(wall, t_surf) : wall;
 
@@ -1221,9 +1251,8 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
           use_guide ? gc[G_1MPG_NEE] * f_hg +
                           gc[G_PG_NEE] * mixture_pdf(fc, prod, K, wi)
                     : f_hg;
-      float t_exit_s;
-      bool ent_s;
-      box_hit(fc, s, wi, &t_exit_s, &ent_s);
+      // a scatter vertex lies in the medium: its shadow walk ends at the exit
+      const float t_exit_s = box_exit(fc, s, wi);
       const float t_med = sel_pt ? fminf(dist, t_exit_s) : t_exit_s;
 
       // direction: one-sample MIS or RIS of the phase function and the
@@ -1346,9 +1375,14 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
         float ephi = fc[F_TWO_PI] * up.z;
         wi = v3(er * cosf(ephi), er * sinf(ephi), ez);
       }
+      // from a hit inside the box the shadow walk ends at the exit; from
+      // one outside, at the face box_hit reports
       float t_exit_s;
       bool ent_s;
-      box_hit(fc, hpos, wi, &t_exit_s, &ent_s);
+      if (outside_box(fc, hpos))
+        box_hit(fc, hpos, wi, &t_exit_s, &ent_s);
+      else
+        t_exit_s = box_exit(fc, hpos, wi);
       const float t_med = sel_pt ? fminf(dist, t_exit_s) : t_exit_s;
       const bool use_gs = surf_guide && S.df && svalid;
       Lobes sprod;
@@ -1622,17 +1656,17 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
       out[3 * pix_i + 0] = (0.0f + Li.x) * out_scale;
       out[3 * pix_i + 1] = (0.0f + Li.y) * out_scale;
       out[3 * pix_i + 2] = (0.0f + Li.z) * out_scale;
-      return;
+      item = take_items(next_item);
     } else {
       out[3 * item + 0] = Li.x;
       out[3 * item + 1] = Li.y;
       out[3 * item + 2] = Li.z;
       n_iter[item] = (int)n_it;  // the wrapper keeps max_iters < 2^31 - 1
       item = (long long)atomicAdd(next_item, 1ull);
-      if (item >= n_items) return;
-      begin();
-      it = 0;
     }
+    if (item >= n_items) return;
+    begin();
+    it = 0;
   }
 }
 
@@ -1784,6 +1818,16 @@ bool bad_args(int method, int n_tri, int n_mat) {
          n_tri > MAX_TRIS || (n_tri > 0 && (n_mat < 1 || n_mat > 16));
 }
 
+// the grid of `blocks` persistent blocks, 0 for the SMs times the
+// instantiation's resident blocks an SM
+cudaError_t persistent_blocks(const InstFns& f, size_t smem, int* blocks) {
+  if (*blocks != 0) return cudaSuccess;
+  int g[4];
+  cudaError_t e = f.info(smem, g);
+  if (e == cudaSuccess) *blocks = g[0] * g[1];
+  return e;
+}
+
 }  // namespace
 
 // B3a-d, one chunk of samples: the n_samp samples from samp0 of every
@@ -1806,12 +1850,8 @@ extern "C" int vspg_render_launch(
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(nmaj, n_tri, n_mat);
   const InstFns f = pick<false>(ris, method, n_tri);
-  if (blocks == 0) {
-    int g[4];
-    cudaError_t e = f.info(smem, g);
-    if (e != cudaSuccess) return (int)e;
-    blocks = g[0] * g[1];
-  }
+  const cudaError_t e = persistent_blocks(f, smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
   const Args a = {fconst, iconst, gconst, giconst, density, majorant, ftab,
                   itab, cells, tris, mats, lbuf, nbuf, nullptr, next_item,
                   at_cap, npix, spp, samp0, (long long)npix * n_samp, seed,
@@ -1849,27 +1889,39 @@ extern "C" int vspg_reduce_launch(const float* lbuf, const int* nbuf,
 }
 
 #ifndef VSPG_RENDER_ONLY  // builds that time the render variant alone
-// B4a-d: one training sample per pixel plus its record rows, one thread a
-// pixel
-extern "C" int vspg_record_launch(const float* fconst, const int* iconst,
-                                  const float* gconst, const int* giconst,
-                                  const float* density, const float* majorant,
-                                  const float* ftab, const float* itab,
-                                  const int* cells, const float* tris,
-                                  const float* mats, float* out, float* rec,
-                                  int npix, int spp, unsigned int seed,
-                                  float out_scale, int nmaj, int rec_depth,
-                                  int ris, int method, int n_tri, int n_mat,
-                                  void* stream) {
-  if (bad_args(method, n_tri, n_mat) || spp != 1)
+// B4a-d: one training sample per pixel plus its record rows, the npix
+// pixels as work items on `blocks` persistent blocks (0: the SMs times the
+// instantiation's resident blocks an SM); next_item (zeroed by the caller)
+// hands them out a warp's worth at a time, and at_cap counts the pixels
+// that reached the iteration cap, max_events * 12.
+extern "C" int vspg_record_launch(
+    const float* fconst, const int* iconst, const float* gconst,
+    const int* giconst, const float* density, const float* majorant,
+    const float* ftab, const float* itab, const int* cells, const float* tris,
+    const float* mats, float* out, float* rec, unsigned long long* next_item,
+    int* at_cap, int npix, unsigned int seed, float out_scale, int nmaj,
+    int rec_depth, int ris, int method, int n_tri, int n_mat, int blocks,
+    void* stream) {
+  if (bad_args(method, n_tri, n_mat) || npix < 1 || rec_depth < 1 ||
+      blocks < 0)
     return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(nmaj, n_tri, n_mat);
+  const InstFns f = pick<true>(ris, method, n_tri);
+  const cudaError_t e = persistent_blocks(f, smem, &blocks);
+  if (e != cudaSuccess) return (int)e;
   const Args a = {fconst, iconst, gconst, giconst, density, majorant, ftab,
-                  itab, cells, tris, mats, out, nullptr, rec, nullptr,
-                  nullptr, npix, 1, 0, npix, seed, out_scale, nmaj,
+                  itab, cells, tris, mats, out, nullptr, rec, next_item,
+                  at_cap, npix, 1, 0, npix, seed, out_scale, nmaj,
                   rec_depth, n_tri, n_tri > 0 ? n_mat : 0};
-  pick<true>(ris, method, n_tri)
-      .launch((npix + THREADS - 1) / THREADS,
-              smem_bytes(nmaj, n_tri, n_mat), (cudaStream_t)stream, a);
+  f.launch(blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
+}
+
+// the record instantiation's grid: out4 as vspg_render_info's
+extern "C" int vspg_record_info(int ris, int method, int n_tri, int nmaj,
+                                int n_mat, int* out4) {
+  if (bad_args(method, n_tri, n_mat)) return (int)cudaErrorInvalidValue;
+  return (int)pick<true>(ris, method, n_tri)
+      .info(smem_bytes(nmaj, n_tri, n_mat), out4);
 }
 #endif

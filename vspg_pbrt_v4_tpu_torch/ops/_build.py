@@ -113,7 +113,8 @@ SIGNATURES = {
     "vspg_render_launch": [_P] * 15 + [_I] * 4 + [_U] + [_I] * 6 + [_P],
     "vspg_render_info": [_I] * 5 + [_P],
     "vspg_reduce_launch": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _P],
-    "vspg_record_launch": [_P] * 13 + [_I, _I, _U, _F] + [_I] * 6 + [_P],
+    "vspg_record_launch": [_P] * 15 + [_I, _U, _F] + [_I] * 7 + [_P],
+    "vspg_record_info": [_I] * 5 + [_P],
     "path_surface_launch": [_P, _P, _P, _I, _I, _U, _F, _I, _I, _P],
     "gather_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -417,6 +417,24 @@ def _box_hit(o, d, bmin, bmax):
     return ok, torch.where(ok, t_hit, _BIG), entering
 
 
+def _box_exit(o, d, bmin, bmax):
+    """The exit of rays whose origin lies in the box: the far face,
+    clamped at 0, with ``_box_hit``'s arithmetic (its t_hit wherever that
+    reports one). A walk in the medium ends there, as the XLA path clips
+    every walk to the grid's bounds with no epsilon (``media.seg_init``'s
+    t1); ``_box_hit`` reports no face nearer than 1e-4 (``csrc/common.cuh``
+    box_exit is the kernels' twin)."""
+    t_f = torch.full_like(o[:, 0], _BIG)
+    for k in range(3):
+        dc = d[:, k]
+        inv = 1.0 / torch.where(torch.abs(dc) < 1e-12,
+                                torch.where(dc >= 0, 1e-12, -1e-12), dc)
+        t0 = (bmin[k] - o[:, k]) * inv
+        t1 = (bmax[k] - o[:, k]) * inv
+        t_f = torch.minimum(t_f, torch.maximum(t0, t1))
+    return torch.clamp(t_f, min=0.0)
+
+
 def _camera_ray(K, px, py):
     """Continuous raster coordinates -> normalized world direction."""
     rc, cw = K.rc, K.cw
@@ -547,16 +565,26 @@ def _where3(m, new, old):
 # ---------------------------------------------------------------------------
 
 
-def _homog_event(K, seed, S):
+def _inside(K, p):
+    """Whether each point of p lies in the box."""
+    return ~((p < p.new_tensor(K.bmin)) | (p > p.new_tensor(K.bmax))).any(-1)
+
+
+def _homog_event(K, seed, S, counts=None):
     """One event of ``pallas_volpath._make_kernel`` for every lane of S
     (updated in place). Dimensions: collision/absorb/light-select/env-z,
-    then env-phi/phase-u0, then phase-u1."""
+    then env-phi/phase-u0, then phase-u1. `counts` gathers the flights
+    and shadow rays that start within 1e-4 of the box's exit."""
     o, d, hero = S["o"], S["d"], S["hero"]
     beta, ru, rl, L = S["beta"], S["ru"], S["rl"], S["L"]
     st_h, sa_h, ss_h = K.st[hero], K.sa[hero], K.ss[hero]
     hit, t_wall, entering = _box_hit(o, d, K.bmin, K.bmax)
     in_med = S["med"] == 0
     seg = torch.where(hit, t_wall, _BIG)
+    # such a flight collides beyond the box, as the XLA path's does in a
+    # homogeneous medium (its box intersection has the same 1e-4)
+    if counts is not None:
+        _count(counts, "exit_walks", (in_med & ~hit & _inside(K, o)).sum())
 
     ua, ub, uc, ud = rng.uniform4(seed, S["pix"], S["samp"], S["dim"])
     t_coll = -torch.log1p(-ua) / torch.clamp(st_h, min=1e-30)
@@ -597,12 +625,15 @@ def _homog_event(K, seed, S):
         dist = torch.sqrt(dist2)
         wi = -pl * (1.0 / dist)[:, None]
         f_hg = _hg_value(K, _dot(wo, wi))
-        _, t_exit, _ = _box_hit(sp, wi, K.bmin, K.bmax)
+        hit_x, t_exit, _ = _box_hit(sp, wi, K.bmin, K.bmax)
         Tr = torch.exp(K.nst * torch.minimum(dist, t_exit)[:, None])
         denom = torch.clamp(_avg3(ru * K.pmf), min=1e-30)
         okp = scat & (f_hg > 0)
         if K.has_env:
             okp = okp & (uc < K.pmf)
+        if counts is not None:
+            _count(counts, "exit_shadows",
+                   (okp & ~hit_x & _inside(K, sp)).sum())
         w = f_hg / (dist2 * denom)
         L = _where3(okp, L + beta * Tr * K.lI * w[:, None], L)
     if K.has_env:
@@ -611,13 +642,16 @@ def _homog_event(K, seed, S):
         ephi = K.two_pi * un0
         wi = torch.stack([er * torch.cos(ephi), er * torch.sin(ephi), ez], -1)
         f_hg = _hg_value(K, _dot(wo, wi))
-        _, t_exit, _ = _box_hit(sp, wi, K.bmin, K.bmax)
+        hit_x, t_exit, _ = _box_hit(sp, wi, K.bmin, K.bmax)
         Tr = torch.exp(K.nst * torch.clamp(t_exit, max=_BIG)[:, None])
         denom = torch.clamp(_avg3(ru * K.penv + ru * f_hg[:, None]),
                             min=1e-30)
         oke = scat & (f_hg > 0)
         if K.has_point:
             oke = oke & (uc >= K.pmf)
+        if counts is not None:
+            _count(counts, "exit_shadows",
+                   (oke & ~hit_x & _inside(K, sp)).sum())
         w = f_hg / denom
         L = _where3(oke, L + beta * Tr * K.envL * w[:, None], L)
 
@@ -648,8 +682,12 @@ def _homog_event(K, seed, S):
 
 def render_homog_plain(c: KernelConstants, spp, seed, counts=None):
     """Plain PyTorch version of ``csrc/volpath_homog.cu``: (ny, nx, 3).
-    `counts` gathers the lane-events run (key "events")."""
-    return _render_plain(c, spp, seed, _homog_event, counts)
+    `counts` gathers the lane-events run (key "events") and the flights
+    and shadow rays that start within 1e-4 of the box's exit
+    ("exit_walks", "exit_shadows")."""
+    return _render_plain(
+        c, spp, seed,
+        lambda K, seed, S: _homog_event(K, seed, S, counts), counts)
 
 
 # ---------------------------------------------------------------------------
@@ -938,7 +976,7 @@ def _nee(K, media, seed, P, p, wi, use_point, dist, dist2, f_hat, spdf, ok,
     the BSDF or phase value times the cosine, spdf the scattering pdf for
     MIS against env hits. Opaque triangles block; lanes in the medium
     ratio-track their shadow ray to the box exit. Updates P's dim."""
-    _, t_exit, _ = _box_hit(p, wi, K.bmin, K.bmax)
+    hit_x, t_exit, _ = _box_hit(p, wi, K.bmin, K.bmax)
     seg = torch.where(use_point, dist, _BIG)
     if tris is not None:
         n_ok = ok.sum()
@@ -951,6 +989,8 @@ def _nee(K, media, seed, P, p, wi, use_point, dist, dist2, f_hat, spdf, ok,
     P.update(o=p, wi=wi, seg=torch.minimum(seg, t_exit))
     T_ray = torch.where(ok_t[:, None], 1.0, torch.zeros_like(p))
     tr_l = tr_u = torch.ones_like(p)
+    # the walk's DDA clips it to the grid's bounds (seg_init's t1)
+    _count(counts, "exit_shadows", (ok_t & in_med & ~hit_x).sum())
     j = torch.nonzero(ok_t & in_med)[:, 0]
     if j.numel():
         Q = {k: v[j] for k, v in P.items()}
@@ -1096,6 +1136,8 @@ def _grid_event(K, media, seed, S, tris=None, mats=None, counts=None):
     S["med"] = torch.where((S["med"] == 0) & outside, -1, S["med"])
     hit, t_wall, entering = _box_hit(o, d, K.bmin, K.bmax)
     wall = torch.where(hit, t_wall, _BIG)
+    # such a flight's DDA clips it to the grid's bounds (seg_init's t1)
+    _count(counts, "exit_walks", ((S["med"] == 0) & ~hit).sum())
     if tris is not None:
         _count(counts, "tri_queries", n)
         _count(counts, "tri_tests", n * tris.shape[0])
@@ -1181,7 +1223,9 @@ def render_grid_plain(c: KernelConstants, spp, seed, counts=None,
     steps and shadow-walk steps run, and with triangles the surface events,
     the closest-hit and shadow queries and their ray-triangle tests (keys
     "events", "flight_steps", "shadow_steps", "surface_events",
-    "tri_queries", "shadow_queries", "tri_tests"). `pixels` (flat
+    "tri_queries", "shadow_queries", "tri_tests"), and the flights and
+    shadow walks that start within 1e-4 of the box's exit ("exit_walks",
+    "exit_shadows"; the DDA clips them there). `pixels` (flat
     indices), when given, renders only those pixels; the rest stay 0."""
     K = _Consts(c)
     media = _grid_media(K, c)

@@ -38,14 +38,23 @@ iteration counts to a scratch, which a second kernel (``vspg_reduce``)
 sums per pixel in sample order while the pixel's running count stays
 within its iteration cap: the per-pixel loop's order and cap, so the image
 is the same float for float; ``render_items_plain`` is the plain version
-of the items, ``reduce_samples_plain`` of the sum.
+of the items, ``reduce_samples_plain`` of the sum. The record variant runs
+its pixels as work items on persistent blocks too, each lane writing its
+pixel's image entry and record rows, so its output is the per-pixel
+kernel's whatever lane runs a pixel. Both variants count the items that
+reach the iteration cap. A walk that starts within 1e-4 of the box's exit
+ends there (``volpath_kernels._box_exit``), as the XLA path's clip to the
+grid's bounds ends it (ROADMAP.md section C 4); the Pallas kernel steps on
+beyond the box.
 
 A wrapper runs the plain version only when its tensors lie on the CPU; on
 a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts the
 kernel launches; while ``LAUNCH_EVENTS`` is a list, each kernel call (a
 render call: its memsets, item kernel and reduce) appends (name, start,
 end) CUDA events around itself, so that a caller can take the kernels'
-share of a whole render (chip_smoke.py does).
+share of a whole render (chip_smoke.py does); while ``AT_CAP`` and
+``RECORD_AT_CAP`` are lists, each render call and each record launch
+appends its count of items at the cap.
 """
 
 from __future__ import annotations
@@ -64,9 +73,10 @@ from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX,
                               I_MAX_EVENTS, I_MX,
                               M_ALB, M_ETA, M_KIND, M_ROUGH, MAT_COLS,
                               T_MAT, T_MED_IN, T_MED_OUT, T_NG, TRI_COLS,
-                              _BIG, _box_hit, _camera_ray, _check, _Consts,
-                              _count, _dot, _hg_value, _keep, _normalize,
-                              _sample_hg, _tri_hit, extract_constants)
+                              _BIG, _box_exit, _box_hit, _camera_ray,
+                              _check, _Consts, _count, _dot,
+                              _hg_value, _keep, _normalize, _sample_hg,
+                              _tri_hit, extract_constants)
 
 # the TRIS instantiations (scenes with triangles) and the launches on an
 # adaptive field count apart
@@ -78,6 +88,9 @@ LAUNCH_EVENTS = None
 # while a list, each render call appends its count of items stopped at the
 # iteration cap (a (1,) int32 tensor on the card)
 AT_CAP = None
+# while a list, each record launch appends its count of pixels stopped at
+# the iteration cap (a (1,) int32 tensor on the card)
+RECORD_AT_CAP = None
 # bytes of the render variant's per-item scratch, radiance (samples, npix,
 # 3) float32 and iterations (samples, npix) int32: 64 MiB holds 64 samples
 # at 256^2; larger renders run their samples in chunks
@@ -1128,7 +1141,11 @@ def _body(K, G, T, S, seed, rec, counts):
         stuck = alive & outside & hit & ~entering
         alive = alive & ~stuck
     in_med = alive & (mode == 0) & (med == 0) & ~enter & ~stall
-    wall = torch.where(hit, t_wall, _BIG)
+    # a walk in the medium ends at the exit, also one nearer than
+    # _box_hit's 1e-4 (ROADMAP.md section C 4)
+    wall = torch.where(hit, t_wall, torch.where(
+        med == 0, _box_exit(o, d, K.bmin, K.bmax), _BIG))
+    _count(counts, "exit_walks", (in_med & ~hit).sum())
     # walks are bounded by the nearer of the wall and the next surface
     plim = torch.minimum(wall, t_surf) if TR else wall
     has_c = S["has_c"]
@@ -1527,7 +1544,14 @@ def _body(K, G, T, S, seed, rec, counts):
     f_hg = _hg_value(K, _dot(wo, wi))
     spdf_l = torch.where(use_guide, G.one_m_pg_nee * f_hg
                          + G.pg_nee * _mixture_pdf(K, prod, wi), f_hg)
-    _, t_exit_s, _ = _box_hit(sp, wi, K.bmin, K.bmax)
+    # a shadow walk from a scatter vertex or a hit inside the box ends at
+    # the exit; from a hit outside it, at the face _box_hit reports
+    t_exit_s = _box_exit(sp, wi, K.bmin, K.bmax)
+    if TR:
+        away = (SF["shade_df"] | SF["glossy"]) & (
+            (sp < K.bmin_t) | (sp > K.bmax_t)).any(-1)
+        t_exit_s = torch.where(away, _box_hit(sp, wi, K.bmin, K.bmax)[1],
+                               t_exit_s)
     t_med = torch.where(sel_pt, torch.minimum(dist, t_exit_s), t_exit_s)
     nee_act = scat & (f_hg > 0)
     if TR:
@@ -1660,6 +1684,7 @@ def _body(K, G, T, S, seed, rec, counts):
         nee_gs = SF["nee_srf"] & alive & SF["shade_df"]
         nee_gl = SF["nee_glo"] & alive
         nee_all = nee_go | nee_gs | nee_gl
+    _count(counts, "exit_shadows", (nee_all & (t_exit_s <= 1e-4)).sum())
     mode = torch.where(nee_all, torch.where(sel_pt, 4, 5), mode)
     sh = _W(nee_all, wi, sh)
     sh_t = torch.where(nee_all, 0.0, sh_t)
@@ -1785,6 +1810,7 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None,
     for it in range(max_iters):
         if S["lane"].numel() == 0:
             break
+        _count(counts, "lockstep_iters", 1)
         _body(K, G, T, S, seed, rec, counts)
         done = ~S["alive"]
         if bool(done.any()):
@@ -1813,8 +1839,11 @@ def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None,
     dict) gathers the work run: lane-iterations ("iters"), walk and shadow
     steps ("steps"), NDS prepass steps ("pre_steps") and ODS candidate
     draws ("draws"), scatters, walk-start field queries, the lanes stopped
-    at the cap ("capped"); on an adaptive field also the scatters whose
-    leaf is a refined cell's child ("child_scatters")."""
+    at the cap ("capped"), the walks and shadow walks that start within
+    1e-4 of the box's exit ("exit_walks", "exit_shadows"), the lockstep
+    iterations run, the longest lane's ("lockstep_iters"); on an adaptive
+    field also the scatters whose leaf is a refined cell's child
+    ("child_scatters")."""
     return _plain(c, gconst, ftab, itab, spp, seed, None, counts,
                   first_sample, pixels=pixels)
 
@@ -1860,7 +1889,8 @@ def reduce_samples_plain(L, n_iter, max_iters, out_scale, acc=None):
 def train_wave_plain(c, gconst, ftab, itab, seed, rec_depth, counts=None):
     """Plain PyTorch version of the record variant of ``csrc/vspg.cu``: one
     sample per pixel; returns (image, record (REC_ROWS, rec_depth, npix)).
-    `counts` as for ``render_vspg_plain``."""
+    `counts` as for ``render_vspg_plain``, with "capped" counting the
+    pixels stopped at the iteration cap (the kernel's at-cap count)."""
     return _plain(c, gconst, ftab, itab, 1, seed, rec_depth, counts)
 
 
@@ -1939,11 +1969,15 @@ def _end_events(events, name, stream):
         LAUNCH_EVENTS.append((name, *events))
 
 
-def _record_launch(c, g, ftab, itab, seed, rec_depth):
-    """Launch the record variant, one thread a pixel, on the current stream
-    of the constants' card."""
+def _record_launch(c, g, ftab, itab, seed, rec_depth, blocks=None):
+    """Launch the record variant on the current stream of the constants'
+    card: the pixels as work items on `blocks` persistent blocks (None: the
+    SMs times the resident blocks an SM), taken from a zeroed counter.
+    Returns (image, record, pixels at the cap (a (1,) int32 tensor))."""
     from . import _build
 
+    if blocks is not None and int(blocks) < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
     npix, nmaj, n_tri, n_mat, adaptive = _check_inputs(c, g, ftab, itab,
                                                        "vspg_record")
     lib = _build.load()
@@ -1955,19 +1989,24 @@ def _record_launch(c, g, ftab, itab, seed, rec_depth):
         out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
         rec = torch.zeros((REC_ROWS, D, npix), dtype=torch.float32,
                           device=dev)
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        at_cap = torch.zeros(1, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev)
         events = _start_events(stream)
         err = lib.vspg_record_launch(
             *_table_ptrs(c, g, ftab, itab, adaptive), out.data_ptr(),
-            rec.data_ptr(), npix, 1, int(seed) & 0xFFFFFFFF, c.imaging_ratio,
-            nmaj, D, int(g.ris), int(g.method), n_tri, n_mat,
+            rec.data_ptr(), counter.data_ptr(), at_cap.data_ptr(), npix,
+            int(seed) & 0xFFFFFFFF, c.imaging_ratio, nmaj, D, int(g.ris),
+            int(g.method), n_tri, n_mat, 0 if blocks is None else int(blocks),
             stream.cuda_stream)
         if err != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error "
                                f"{err}")
         _end_events(events, name, stream)
     LAUNCHES[name] += 1
-    return out, rec
+    if RECORD_AT_CAP is not None:
+        RECORD_AT_CAP.append(at_cap)
+    return out, rec, at_cap
 
 
 def scratch_samples(npix, spp):
@@ -1976,22 +2015,23 @@ def scratch_samples(npix, spp):
     return max(1, min(int(spp), SCRATCH_BYTES // (16 * int(npix))))
 
 
-def render_grid(c, g, lib=None):
-    """The render instantiation's persistent grid on the constants' card:
-    blocks (the SMs times the resident blocks an SM), per_sm, sms, and the
-    build's registers and local-memory bytes a thread (``lib`` as for
-    ``render_vspg_items``)."""
+def render_grid(c, g, lib=None, variant="render"):
+    """The render (or with `variant` "record" the record) instantiation's
+    persistent grid on the constants' card: blocks (the SMs times the
+    resident blocks an SM), per_sm, sms, and the build's registers and
+    local-memory bytes a thread (``lib`` as for ``render_vspg_items``)."""
     from . import _build
 
     lib = _build.load() if lib is None else lib
     n_tri = c.n_tri
     n_mat = 0 if c.mats is None else int(c.mats.shape[0])
     info = (ctypes.c_int * 4)()
+    entry = f"vspg_{variant}_info"
     with torch.cuda.device(c.fconst.device):
-        err = lib.vspg_render_info(int(g.ris), int(g.method), n_tri,
-                                   c.majorant.numel(), n_mat, info)
+        err = getattr(lib, entry)(int(g.ris), int(g.method), n_tri,
+                                  c.majorant.numel(), n_mat, info)
     if err != 0:
-        raise RuntimeError(f"vspg_render_info failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     per_sm, sms, regs, local = info
     return dict(blocks=per_sm * sms, per_sm=per_sm, sms=sms, regs=regs,
                 local_bytes=local)
@@ -2118,15 +2158,27 @@ def render_vspg_kernel(c, gconst, ftab, itab, spp, seed):
     return render_vspg_items(c, gconst, ftab, itab, spp, seed)[0]
 
 
-def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
+def train_wave_items(c, gconst, ftab, itab, seed, rec_depth, blocks=None):
     """B4a-d: one training sample per pixel; (image, record (REC_ROWS,
-    rec_depth, npix)). The CUDA kernel on a card, the plain version for
-    tensors on the CPU."""
-    if c.fconst.device.type == "cpu":
-        return train_wave_plain(c, gconst, ftab, itab, seed, rec_depth)
+    rec_depth, npix), pixels at the cap (a (1,) int32 tensor)). On a card
+    the pixels run as work items on `blocks` persistent blocks (None: the
+    SMs times the resident blocks an SM); for CPU tensors the plain
+    version."""
     if int(rec_depth) < 1:
         raise ValueError("rec_depth must be at least 1")
-    return _record_launch(c, gconst, ftab, itab, seed, rec_depth)
+    if c.fconst.device.type == "cpu":
+        counts = {}
+        img, rec = train_wave_plain(c, gconst, ftab, itab, seed, rec_depth,
+                                    counts)
+        return img, rec, torch.tensor([counts["capped"]], dtype=torch.int32)
+    return _record_launch(c, gconst, ftab, itab, seed, rec_depth, blocks)
+
+
+def train_wave_kernel(c, gconst, ftab, itab, seed, rec_depth):
+    """B4a-d: one training sample per pixel; (image, record (REC_ROWS,
+    rec_depth, npix)): ``train_wave_items``'s (the CUDA kernel on a card,
+    the plain version for tensors on the CPU)."""
+    return train_wave_items(c, gconst, ftab, itab, seed, rec_depth)[:2]
 
 
 # ---------------------------------------------------------------------------
