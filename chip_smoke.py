@@ -2,12 +2,17 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Run from the repository root: ``python3 chip_smoke.py``. It builds the
-kernels of ``vspg_pbrt_v4_tpu_torch/csrc`` with nvcc, checks each against
-its plain PyTorch version and in a furnace, then renders the two bench
-scenes at bench size through ``render_persistent(backend="auto")``,
-checks that the main path went through both kernels, and holds each
-kernel's bench-size image against its plain version pixel for pixel at the
-same shape, spp and seed. Phase 7 does the same for the VSP-guided path:
+kernels of ``vspg_pbrt_v4_tpu_torch/csrc`` with nvcc (phase 2 prints every
+kernel's registers and spills by name), checks each against its plain
+PyTorch version and in a furnace, then renders the bench scenes at bench
+size through ``render_persistent(backend="auto")`` (phase 6: the fogbox at
+256x256x64 and at 1920x1088x16, bench_config5b's wave, through B1; cloud64
+through B2a), checks that each main path went through its kernel (one
+item launch and one reduce a chunk of samples, and nothing else), and
+holds each kernel's bench-size image against its plain version pixel for
+pixel at the same shape, spp and seed, and B1's sums of each group of
+samples against its plain per-sample version's. Phase 7 does the same for
+the VSP-guided path:
 the VSPG kernel's record and render variants (RIS and MIS) against their
 plain versions, a guided furnace, and ``render_vspg`` on the bench's pyro
 cloud at 256^2 (48 training waves, then 64 frozen spp), its time split by
@@ -25,9 +30,13 @@ also with rough surfaces. Phase 10 does it for the mesh class (the bench's
 3072-triangle PLY machines in the pyro cloud, walked through their BVH):
 the grid kernel's mesh build against its plain version, a mesh furnace and
 ``render_persistent`` at 1920x1088. Phase 11 does it for the Cornell
-surface class in vacuum (bench_config6): the surface kernel against its
-plain version on three scenes, a floor furnace, and ``render_persistent``
-on the Cornell box at 256x256x64 against the torch wavefront's mean.
+surface class in vacuum (bench_config6): the surface kernel (B5) against
+its plain versions per pixel and per group of samples on three scenes, a
+floor furnace, and ``render_persistent`` on the Cornell box at 256x256x64
+(per pixel and per group at that shape) against the torch wavefront's
+mean. B1 and B5 run items of one pixel and a group of samples on
+persistent blocks; each prints its grid, registers, spills, group and
+chunks beside its time and the one-thread-a-pixel design's.
 Phase 12 does it for the adaptive guiding field (the VSPG kernel's
 two-stage coarse-cell -> leaf lookup): the record and render variants
 against their plain versions on refined fields, an adaptive furnace,
@@ -273,11 +282,24 @@ EARLIER_MS.update(volpath_grid=18.829, volpath_grid_tris=243.842,
 # around a synchronised call, best of 3)
 EARLIER_MS.update(vspg_record=5.669, vspg_record_nds=2.041,
                   vspg_record_tris=4.252, vspg_record_adaptive=5.856)
+# B1's and B5's times at the main paths' shapes with one thread a pixel,
+# before they ran work items (PERF.md section 6; NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside the new ones, and how each was taken
+EARLIER_MS.update({"volpath_homog fogbox": 0.990,
+                   "volpath_homog fogbox 1080p": 3.879,
+                   "path_surface": 1.357})
+EARLIER_NOTE = {"volpath_homog fogbox": "the host's clock around a "
+                "synchronised call",
+                "volpath_homog fogbox 1080p": "CUDA events, "
+                "vspg_pbrt_v4_tpu_torch/benchmarks/group_items.py --turns",
+                "path_surface": "CUDA events"}
 # ptxas's registers and spill bytes of the shipped build's VSPG kernels, by
 # (record, ris, method, tris), and of its grid kernels, by (geometry mode,)
 # (phase 2)
 PTXAS = {}
 PTXAS_GRID = {}
+# every kernel's, by _kernel_label (phase 2)
+PTXAS_ALL = {}
 VSPG_ENTRY = r"vspg_kernelILb(\d)ELb(\d)ELi(\d)ELb(\d)E"
 GRID_ENTRY = r"volpath_grid_kernelILi(\d)E"
 # the grid kernel's sources, by kernels-line name, and the minimum blocks an
@@ -328,6 +350,56 @@ def _ptxas_table(log, entry=VSPG_ENTRY):
     return rows
 
 
+def _kernel_label(mangled):
+    """A kernel's name and template arguments, e.g. ``vspg_kernel<1,0,0,0>``,
+    from its mangled name (the length-prefixed identifier ending in
+    ``_kernel`` and the integer template arguments after it)."""
+    import re
+
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"(\d+)", mangled[i:])
+        if m is None:
+            i += 1
+            continue
+        start = i + len(m.group(1))
+        name = mangled[start:start + int(m.group(1))]
+        i = start + len(name)
+        if re.fullmatch(r"[A-Za-z_]\w*_kernel", name):
+            rest = mangled[i:]
+            args = []
+            if rest.startswith("I"):
+                args = re.findall(r"L\w(-?\d+)E", rest[:rest.find("EE") + 2])
+            return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def _ptxas_rows(log):
+    """[(label, {"regs", "stack", "st", "ld"})] of every entry function in
+    an ``-Xptxas -v`` log, in its order (``_kernel_label``)."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {}
+            rows.append((_kernel_label(m.group(1)), cur))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), st=int(m.group(2)),
+                       ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+            cur = None
+    return rows
+
+
 def _lowest_priority():
     """Run a build started beside the checks at the lowest CPU priority:
     the plain versions are bound by the host's dispatch, and the builds
@@ -335,6 +407,21 @@ def _lowest_priority():
     import os
 
     os.nice(19)
+
+
+# the builds started beside the checks, stopped when the script ends
+BACKGROUND = []
+
+
+def _background(cmd):
+    """Start a build beside the checks, at the lowest CPU priority, in a
+    process group of its own (nvcc's compilers are its children)."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=_lowest_priority,
+                            start_new_session=True)
+    BACKGROUND.append(proc)
+    return proc
 
 
 def _render_variant_cmd(out, flags):
@@ -413,7 +500,7 @@ def _grid_report(label, name, c, ms, bound, tag):
     grid = vk.grid_info(c)
     geom = 0 if c.tris is None else (1 if c.nodes is None else 2)
     pt = PTXAS_GRID.get((geom,), {})
-    chunks = -(-GRID_CELLS[name][1] // vk.grid_chunk_samples(
+    chunks = -(-GRID_CELLS[name][1] // vk.chunk_samples(
         c.nx * c.ny, GRID_CELLS[name][1]))
     print(f"{label} {name} items: {grid['blocks']} blocks ({grid['per_sm']} "
           f"an SM on {grid['sms']} SMs), {grid['regs']} registers a thread, "
@@ -703,33 +790,23 @@ def main():
     _build.load()
     print(f"phase 2 build: nvcc {_build.last_build_seconds:.2f} s {tag}",
           flush=True)
-    for line in _build.last_build_log.splitlines():
-        if ("vspg_kernel" in line or "path_surface" in line
-                or "registers" in line or "spill" in line):
-            print(f"  ptxas: {line.strip()}", flush=True)
+    # every kernel's registers and spills, labelled by its name and
+    # template arguments
+    for label, v in _ptxas_rows(_build.last_build_log):
+        PTXAS_ALL[label] = v
+        print(f"phase 2 ptxas {label}: {v.get('regs')} registers, "
+              f"{v.get('stack')} bytes stack frame, {v.get('st')} bytes spill "
+              f"stores, {v.get('ld')} bytes spill loads {tag}", flush=True)
     PTXAS.update(_ptxas_table(_build.last_build_log))
     PTXAS_GRID.update(_ptxas_table(_build.last_build_log, GRID_ENTRY))
-    for (geom,), v in sorted(PTXAS_GRID.items()):
-        print(f"phase 2 ptxas grid kernel geometry {geom} (-O3): "
-              f"{v.get('regs')} registers, {v.get('stack')} bytes stack "
-              f"frame, {v.get('st')} bytes spill stores, {v.get('ld')} bytes "
-              f"spill loads {tag}", flush=True)
     assert len(PTXAS_GRID) == 3, PTXAS_GRID
-    for (rec, ris, method, tris), v in sorted(PTXAS.items()):
-        if rec:
-            print(f"phase 2 ptxas vspg record ris={ris} method={method} "
-                  f"tris={tris}: {v.get('regs')} registers, {v.get('stack')} "
-                  f"bytes stack frame, {v.get('st')} bytes spill stores, "
-                  f"{v.get('ld')} bytes spill loads {tag}", flush=True)
     # phase 14's render-only builds of vspg.cu (the register-budget sweep)
     # compile while phases 3-13 run
     variants = {}
     for name, flags in SWEEP.items():
         out = _build.BUILD_DIR / f"libvspg_{name}.so"
-        variants[name] = (subprocess.Popen(
-            _render_variant_cmd(out, ["-fmad=false", *flags]),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            preexec_fn=_lowest_priority), out)
+        variants[name] = (_background(
+            _render_variant_cmd(out, ["-fmad=false", *flags])), out)
     # phase 15's builds of each grid source at 2, 3 and 4 minimum blocks
     # with its shipped vote, and at its shipped budget with the vote flipped
     # (the shipped build is the package's own)
@@ -739,10 +816,8 @@ def main():
             if (k, v) == (k0, v0):
                 continue
             out = _build.BUILD_DIR / f"lib{name}_min{k}_vote{v}.so"
-            variants[name, k, v] = (subprocess.Popen(
-                _grid_variant_cmd(out, src, k, v), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True,
-                preexec_fn=_lowest_priority), out)
+            variants[name, k, v] = (_background(
+                _grid_variant_cmd(out, src, k, v)), out)
 
     bench_cfg = volpath.VolPathConfig(max_depth=32, max_events=128,
                                       max_collisions=2048)
@@ -808,75 +883,7 @@ def main():
     # paths deeper than max_depth=16 hold ~1.2% of the furnace energy
     assert abs(m_cloud - 0.6) / 0.6 < 0.025, m_cloud
 
-    # ---- phase 6: the main path at bench size -------------------------------
-    cells = (("homog", "fogbox", fog, 64), ("grid", "cloud64", cloud, 32))
-    res = 256
-    cam = vk.bench_camera(res, device=dev)
-    film = RGBFilm.make((res, res), device=dev)
-    for key in vk.LAUNCHES:
-        vk.LAUNCHES[key] = 0
-    timed = {}
-    for kind, name, scene, spp in cells:
-        def run(scene=scene, spp=spp):
-            return volpath.render_persistent(
-                scene, cam, film, spp=spp, cfg=bench_cfg, seed=5,
-                backend="auto", device=dev)
-        timed[kind] = _best_of_3(run)
-    launches = dict(vk.LAUNCHES)
-    assert all(launches[k] > 0 for k in ("homog", "grid")), launches
-
-    kernels = []
-    for kind, name, scene, spp in cells:
-        t_main, img = timed[kind]
-        c = consts(scene, res)
-        counts = {}
-        ref8 = plain[kind](c, 8, 5, counts)
-        t_kernel, k_img = _best_of_3(lambda: vk.render(c, spp, 5))
-        if kind == "grid":  # by CUDA events, as the other grid kernels
-            GRID_CELLS["volpath_grid"] = (c, spp)
-            t_kernel = _events_best_of_3(lambda: vk.render(c, spp, 5)) / 1e3
-        # the plain version timed once (it repeats the kernel's arithmetic
-        # lane by lane and is no yardstick of speed)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p_img = plain[kind](c, spp, 5)
-        torch.cuda.synchronize()
-        t_plain = time.perf_counter() - t0
-        # the main path's image is the kernel's (deterministic, same seed)
-        assert torch.equal(img, k_img), name
-        max_abs = check_parity(f"phase 6 parity {name} {res}x{res}x{spp}",
-                               kind, k_img, p_img)
-        mean, mean8 = img.mean().item(), ref8.mean().item()
-        print(f"phase 6 {name} {res}x{res}x{spp} via render_persistent: "
-              f"{res * res * spp / t_main / 1e6:.2f} Mpaths/s, kernel "
-              f"{res * res * spp / t_kernel / 1e6:.2f} Mpaths/s "
-              f"({t_kernel * 1e3:.3f} ms), plain "
-              f"{res * res * spp / t_plain / 1e6:.3f} Mpaths/s "
-              f"({t_plain * 1e3:.1f} ms), mean {mean:.5f} vs plain 8 spp "
-              f"{mean8:.5f}, launches {launches[kind]} {tag}", flush=True)
-        assert tuple(img.shape) == (res, res, 3)
-        assert bool(torch.isfinite(img).all()) and mean > 0
-        assert abs(mean - mean8) / mean8 < 0.03, (name, mean, mean8)
-        # the work of `spp` samples: the 8-spp plain run's counts, scaled
-        nbytes = _nbytes(c.fconst, c.iconst, k_img) + (
-            _nbytes(c.density, c.majorant) if kind == "grid" else 0)
-        bound, bound_by, pipes = _bound_ms(f"volpath_{kind}", counts,
-                                           spp / 8, nbytes)
-        print(f"phase 6 {name} bound {bound:.4f} ms ({bound_by}; ms by "
-              f"pipe {pipes}), kernel at {bound / (t_kernel * 1e3):.4f} of "
-              f"it; counted work at 8 spp {counts} {tag}", flush=True)
-        extra = ({} if kind == "homog" else _grid_report(
-            "phase 6", "volpath_grid", c, t_kernel * 1e3, bound, tag))
-        kernels.append(dict(
-            name=f"volpath_{kind}", route="cuda",
-            source=f"vspg_pbrt_v4_tpu_torch/csrc/volpath_{kind}.cu",
-            replaces=("vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1045"
-                      if kind == "homog" else
-                      "vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380"),
-            launches=launches[kind], max_abs_err=max_abs,
-            ms=t_kernel * 1e3, plain_ms=t_plain * 1e3, bound_ms=bound,
-            bound_pipe=max(pipes, key=pipes.get),
-            bound_by=bound_by, library_ms=None, **extra))
+    kernels = _phase6(dev, tag, check_parity, bench_cfg, fog, cloud)
 
     print(f"phase 6 done {_at()}", flush=True)
     # each plain VSPG version steps every lane in lockstep (10-50 s a call
@@ -927,6 +934,172 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _group_check(label, kind, c, spp, group, check_parity):
+    """B1's item sums in groups of `group` samples, or B5's per-sample
+    radiances (`group` 1), on a grid cut to ITEMS_PER_THREAD or more items
+    a thread against the plain per-sample version's group sums, at the
+    kernel's bar; returns the max abs difference."""
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+
+    n = c.nx * c.ny * -(-spp // group)
+    blocks = _check_blocks(n)
+    if kind == "homog":
+        k = vk.homog_items(c, 5, 0, spp, group, blocks=blocks)
+        p = vk.group_sums_plain(vk.render_homog_items_plain(c, spp, 5),
+                                group)
+    else:
+        assert group == 1, group
+        k = pk.surface_items(c, 5, 0, spp, blocks=blocks)
+        p = pk.render_surface_items_plain(c, spp, 5)
+    torch.cuda.synchronize()
+    return check_parity(f"{label} per group of {group} samples ({blocks} "
+                        f"blocks, {n / (blocks * 128):.1f} items a thread; "
+                        "fractions of items)", kind, k, p)
+
+
+def _group_report(label, name, kind, c, spp, ms, tag):
+    """Print B1's or B5's grid, group, chunks, the shipped build's
+    registers and spills; returns them as keys of its kernels-line
+    entry."""
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+
+    grid = (vk.homog_info(c) if kind == "homog" else pk.surface_info(c))
+    npix = c.nx * c.ny
+    group = (vk.group_size(npix, spp, grid["threads"]) if kind == "homog"
+             else 1)
+    chunks = -(-spp // vk.chunk_samples(npix, spp, group))
+    label_k = ("volpath_homog_kernel" if kind == "homog" else
+               f"path_surface_kernel<{int(c.has_point)},{int(c.has_env)}>")
+    pt = PTXAS_ALL.get(label_k, {})
+    print(f"{label} {name} items: {grid['blocks']} blocks ({grid['per_sm']} "
+          f"an SM on {grid['sms']} SMs), {grid['regs']} registers a thread, "
+          f"spill stores {pt.get('st')} / loads {pt.get('ld')} bytes, "
+          f"{grid['local_bytes']} bytes local, groups "
+          f"of {group} samples, {chunks} chunks; {ms:.4f} ms against "
+          f"{EARLIER_MS[name]:.3f} ms for one thread a pixel "
+          f"({EARLIER_NOTE[name]}) {tag}", flush=True)
+    return dict(grid=[grid["blocks"], grid["per_sm"]], regs=grid["regs"],
+                spill_bytes=pt.get("st"), K=group, chunks=chunks)
+
+
+def _phase6(dev, tag, check_parity, cfg, fog, cloud):
+    """Phase 6, the baseline arm's main paths at bench size through
+    render_persistent: the fogbox at 256x256x64 (bench_config1) and at
+    1920x1088x16 (bench_config5b's wave), both B1, and cloud64 at
+    256x256x32 (B2a). For each: every launch count set to 0 just before
+    one call and read just after (one item launch and one reduce a
+    chunk), the call's time, the kernel's by CUDA events, the main path's
+    image against the kernel's and two launches against each other bit for
+    bit, the per-pixel plain version at the same shape (its counts give
+    the bound), and for B1 each group's sum against the plain per-sample
+    version's. Returns the kernels-line entries of B1 (with the 1080p
+    wave's numbers) and B2a."""
+    from vspg_pbrt_v4_tpu_torch.models.cameras import PerspectiveCamera
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.utils import transform as tr
+
+    plain = {"homog": vk.render_homog_plain, "grid": vk.render_grid_plain}
+    wave = PerspectiveCamera.make(
+        tr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=dev), 35.0,
+        (1920, 1088), device=dev)
+    cells = (("homog", "fogbox", fog, vk.bench_camera(256, device=dev), 64),
+             ("homog", "fogbox 1080p", fog, wave, 16),
+             ("grid", "cloud64", cloud, vk.bench_camera(256, device=dev),
+              32))
+    entries = {}
+    for kind, name, scene, cam, spp in cells:
+        nx, ny = cam.resolution
+        film = RGBFilm.make((nx, ny), device=dev)
+        c = vk.extract_constants(scene, cam, film, cfg)
+        assert c is not None and c.kind == kind, name
+        npix = nx * ny
+
+        def run(scene=scene, cam=cam, film=film, spp=spp):
+            return volpath.render_persistent(
+                scene, cam, film, spp=spp, cfg=cfg, seed=5, backend="auto",
+                device=dev)
+
+        for counter in (vk.LAUNCHES, sk.LAUNCHES, pk.LAUNCHES):
+            for key in counter:
+                counter[key] = 0
+        img = run()
+        torch.cuda.synchronize()
+        launches = {k: v for counter in (vk.LAUNCHES, sk.LAUNCHES,
+                                         pk.LAUNCHES)
+                    for k, v in counter.items() if v}
+        group = (vk.group_size(npix, spp, vk.homog_info(c)["threads"])
+                 if kind == "homog" else 1)
+        chunks = -(-spp // vk.chunk_samples(npix, spp, group))
+        assert launches == {kind: chunks, "vspg_reduce": chunks}, (
+            name, launches)
+        t_main, _ = _best_of_3(run)
+        k_ms = _events_best_of_3(lambda: vk.render(c, spp, 5))
+        k_img = vk.render(c, spp, 5)
+        # the main path's image is the kernel's, and two launches agree
+        assert torch.equal(img, k_img), name
+        assert torch.equal(vk.render(c, spp, 5), k_img), name
+        # the plain version timed once (it repeats the kernel's arithmetic
+        # lane by lane and is no yardstick of speed)
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_img = plain[kind](c, spp, 5, counts)
+        torch.cuda.synchronize()
+        t_plain = time.perf_counter() - t0
+        max_abs = check_parity(f"phase 6 parity {name} {nx}x{ny}x{spp}",
+                               kind, k_img, p_img)
+        if kind == "homog":
+            max_abs = max(max_abs, _group_check(
+                f"phase 6 {name} {nx}x{ny}x{spp}", kind, c, spp, group,
+                check_parity))
+        mean = img.mean().item()
+        paths = npix * spp
+        print(f"phase 6 {name} {nx}x{ny}x{spp} via render_persistent: "
+              f"{paths / t_main / 1e6:.2f} Mpaths/s ({t_main * 1e3:.3f} ms "
+              f"the call), kernel {paths / k_ms / 1e3:.2f} Mpaths/s "
+              f"({k_ms:.4f} ms by CUDA events), plain "
+              f"{paths / t_plain / 1e6:.3f} Mpaths/s ({t_plain * 1e3:.1f} "
+              f"ms), mean {mean:.5f}, launches {launches} {tag}", flush=True)
+        assert tuple(img.shape) == (ny, nx, 3)
+        assert bool(torch.isfinite(img).all()) and mean > 0
+        nbytes = _nbytes(c.fconst, c.iconst, k_img) + (
+            _nbytes(c.density, c.majorant) if kind == "grid" else 0)
+        bound, bound_by, pipes = _bound_ms(f"volpath_{kind}", counts, 1.0,
+                                           nbytes)
+        print(f"phase 6 {name} bound {bound:.4f} ms ({bound_by}; ms by "
+              f"pipe {pipes}), kernel at {bound / k_ms:.4f} of it; counted "
+              f"work {counts} {tag}", flush=True)
+        if kind == "grid":
+            GRID_CELLS["volpath_grid"] = (c, spp)
+            extra = _grid_report("phase 6", "volpath_grid", c, k_ms, bound,
+                                 tag)
+        else:
+            extra = _group_report("phase 6", f"volpath_homog {name}", kind,
+                                  c, spp, k_ms, tag)
+        entries[name] = dict(
+            name=f"volpath_{kind}", route="cuda",
+            source=f"vspg_pbrt_v4_tpu_torch/csrc/volpath_{kind}.cu",
+            replaces=("vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1045"
+                      if kind == "homog" else
+                      "vspg_pbrt_v4_tpu/ops/pallas_volpath.py:1380"),
+            launches=launches[kind], max_abs_err=max_abs, ms=k_ms,
+            plain_ms=t_plain * 1e3, bound_ms=bound,
+            bound_pipe=max(pipes, key=pipes.get), bound_by=bound_by,
+            library_ms=None, **extra)
+    # B1's entry: the 256^2 x 64 main path, with the 1080p wave beside it
+    b1 = entries["fogbox"]
+    b1["wave_1080p"] = {k: entries["fogbox 1080p"][k] for k in (
+        "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "grid", "K",
+        "chunks")}
+    return [b1, entries["cloud64"]]
 
 
 def _phase7(dev, tag, check_parity, fma_lib):
@@ -1576,7 +1749,7 @@ def _phase9(dev, tag, check_parity):
     launches_m = dict(vk.LAUNCHES)
     launches_r = dict(sk.LAUNCHES)
     # one item launch and one ordered reduce a chunk of samples
-    chunks = -(-spp_m // vk.grid_chunk_samples(nx * ny, spp_m))
+    chunks = -(-spp_m // vk.chunk_samples(nx * ny, spp_m))
     assert launches_m == dict({k: 0 for k in vk.LAUNCHES},
                               grid_tris=chunks), launches_m
     assert launches_r == dict({k: 0 for k in sk.LAUNCHES},
@@ -1867,7 +2040,7 @@ def _phase10(dev, tag, check_parity, b2b_ms):
     launches = dict(vk.LAUNCHES)
     launches_r = dict(sk.LAUNCHES)
     # one item launch and one ordered reduce a chunk of samples
-    chunks = -(-spp // vk.grid_chunk_samples(nx * ny, spp))
+    chunks = -(-spp // vk.chunk_samples(nx * ny, spp))
     assert launches == dict({k: 0 for k in vk.LAUNCHES},
                             grid_mesh=chunks), launches
     assert launches_r == dict({k: 0 for k in sk.LAUNCHES},
@@ -1960,11 +2133,16 @@ def _phase10(dev, tag, check_parity, b2b_ms):
 
 def _phase11(dev, tag, check_parity):
     """Phase 11, the Cornell surface class in vacuum (bench_config6). 11a
-    holds B5 (path_surface) against its plain version on three scenes at
+    holds B5 (path_surface) against its per-pixel plain version and its
+    (pixel, sample) items against the per-sample plain version on three
+    scenes at
     4 spp (the grid header's -O3 builds lost warps from the third sample
     on); 11b is a floor furnace; 11c renders the bench line through
-    render_persistent at 256x256x64 and checks the kernel's mean against
-    the torch wavefront's. Returns B5's entry of the kernels line."""
+    render_persistent at 256x256x64 (every launch count set to 0 just
+    before: one item launch and one reduce a chunk), holds it per pixel
+    and per item against the plain versions at that shape, and checks
+    the kernel's mean against the torch wavefront's. Returns B5's entry of
+    the kernels line."""
     from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
     from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
     from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
@@ -1992,6 +2170,10 @@ def _phase11(dev, tag, check_parity):
         max_a = max(max_a, check_parity(
             f"phase 11a parity path_surface ({name}) {res_a}x{res_a}x{spp_a}",
             "surface", k, p))
+        # per (pixel, sample) item
+        max_a = max(max_a, _group_check(
+            f"phase 11a path_surface ({name}) {res_a}x{res_a}x{spp_a}",
+            "surface", c, spp_a, 1, check_parity))
 
     # ---- 11b: floor furnace: albedo (0.7, 0.5, 0.3) under a unit env ------
     res, spp = 256, 64
@@ -2018,15 +2200,19 @@ def _phase11(dev, tag, check_parity):
             counter[key] = 0
     img = call()
     torch.cuda.synchronize()
-    launches = dict(pk.LAUNCHES)
-    assert launches == {"surface": 1}, launches
-    assert all(v == 0 for v in vk.LAUNCHES.values()), vk.LAUNCHES
-    assert all(v == 0 for v in sk.LAUNCHES.values()), sk.LAUNCHES
+    launches = {k: v for counter in (vk.LAUNCHES, sk.LAUNCHES, pk.LAUNCHES)
+                for k, v in counter.items() if v}
+    c = pk.extract_constants(cornell, cam, film, cfg)
+    group = 1
+    chunks = -(-spp // vk.chunk_samples(res * res, spp, group))
+    # one item launch and one reduce a chunk, and nothing else
+    assert launches == {"surface": chunks, "vspg_reduce": chunks}, launches
     assert tuple(img.shape) == (res, res, 3)
     assert bool(torch.isfinite(img).all()) and img.mean().item() > 0
     t_call, _ = _best_of_3(call)
-    c = pk.extract_constants(cornell, cam, film, cfg)
     k_ms = _events_best_of_3(lambda: pk.render_surface(c, spp, 5))
+    # the main path's image is the kernel's, and two launches agree
+    assert torch.equal(img, pk.render_surface(c, spp, 5))
     assert torch.equal(img, pk.render_surface(c, spp, 5))
     # the plain version at the bench shape on the same inputs, timed once
     counts = {}
@@ -2037,6 +2223,9 @@ def _phase11(dev, tag, check_parity):
     t_plain = time.perf_counter() - t0
     max_c = check_parity(f"phase 11c parity path_surface {res}x{res}x{spp}",
                          "surface", img, p)
+    max_c = max(max_c, _group_check(
+        f"phase 11c path_surface {res}x{res}x{spp}", "surface", c, spp,
+        group, check_parity))
     bound, bound_by, pipes = _bound_ms(
         "path_surface", counts, 1.0, _nbytes(c.fconst, c.tris, img))
     paths = res * res * spp
@@ -2044,7 +2233,7 @@ def _phase11(dev, tag, check_parity):
           f"render_persistent: call {t_call * 1e3:.3f} ms "
           f"({paths / t_call / 1e6:.3f} Mpaths/s), kernel {k_ms:.4f} ms by "
           f"CUDA events ({paths / k_ms / 1e3:.3f} Mpaths/s), mean "
-          f"{img.mean().item():.5f}, launches {launches['surface']}; plain "
+          f"{img.mean().item():.5f}, launches {launches}; plain "
           f"version {t_plain * 1e3:.1f} ms; counted work {counts}; bound "
           f"{bound:.4f} ms ({bound_by}; ms by pipe {pipes}), kernel at "
           f"{bound / k_ms:.4f} of it, {_at()} {tag}", flush=True)
@@ -2073,13 +2262,15 @@ def _phase11(dev, tag, check_parity):
           f"{(m_k - m_t) / err:+.2f} standard errors of the per-pixel "
           f"differences (bound 4), {_at()} {tag}", flush=True)
     assert abs(m_k - m_t) <= 4.0 * err, (m_k, m_t, err)
+    extra = _group_report("phase 11c", "path_surface", "surface", c, spp,
+                          k_ms, tag)
     return [dict(name="path_surface", route="cuda",
                  source="vspg_pbrt_v4_tpu_torch/csrc/path_surface.cu",
                  replaces="vspg_pbrt_v4_tpu/ops/pallas_surface.py:195",
                  launches=launches["surface"], max_abs_err=max(max_a, max_c),
                  ms=k_ms, plain_ms=t_plain * 1e3, bound_ms=bound,
                  bound_pipe=max(pipes, key=pipes.get), bound_by=bound_by,
-                 library_ms=None)]
+                 library_ms=None, **extra)]
 
 
 
@@ -2618,4 +2809,14 @@ def _phase13(dev, tag):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        import os
+        import signal
+
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+    sys.exit(rc)

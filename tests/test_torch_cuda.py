@@ -588,3 +588,128 @@ def test_surface_kernel_matches_plain(dev, scene):
         pk.render_surface(c, 0, 3)
     with pytest.raises(ValueError):
         pk.render_surface(dataclasses.replace(c, tris=c.tris.double()), 1, 3)
+
+
+def _group_case(dev, scene, res=64):
+    """(constants, item launcher (seed, samp0, n_samp, group, blocks), render,
+    per-pixel plain version, per-sample plain version, LAUNCHES dict and
+    key) of B1 (`scene` "fog") or B5, whose items are groups of one
+    sample."""
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
+
+    if scene == "fog":
+        c = _consts(vk.make_fog_box_scene, res, dev)
+        return (c, lambda *a, **k: vk.homog_items(c, *a, **k),
+                vk.render_homog, vk.render_homog_plain,
+                vk.render_homog_items_plain, vk.LAUNCHES, "homog")
+    make, eye, at = {
+        "cornell": (tv.make_cornell_box_scene, pk.CORNELL_EYE,
+                    pk.CORNELL_AT),
+        "cornell lit": (pk.make_cornell_lit_scene, pk.CORNELL_EYE,
+                        pk.CORNELL_AT),
+        "floor": (pk.make_floor_scene, pk.FLOOR_EYE, pk.FLOOR_AT),
+    }[scene]
+    c = pk.extract_constants(make(device=dev),
+                             *pk.cornell_view(res, res, eye, at, device=dev),
+                             tv.VolPathConfig(max_depth=8, max_events=24))
+
+    def items(seed, samp0, n_samp, group, **kw):
+        assert group == 1
+        return pk.surface_items(c, seed, samp0, n_samp, **kw)
+
+    return (c, items, pk.render_surface, pk.render_surface_plain,
+            pk.render_surface_items_plain, pk.LAUNCHES, "surface")
+
+
+def _bar(k, p):
+    """B1's and B5's bar: 0.99 of pixels (or items) within 1e-3 relative or
+    1e-5 absolute, means within 1e-3."""
+    diff = (k - p).abs()
+    ok = ((diff <= 1e-3 * p.abs()) | (diff <= 1e-5)).all(-1)
+    assert ok.float().mean().item() >= 0.99
+    assert abs(k.mean().item() - p.mean().item()) <= 1e-3 * p.mean().item()
+
+
+@pytest.mark.parametrize("scene,group", [
+    ("fog", 1), ("fog", 3), ("cornell", 1), ("cornell lit", 1),
+    ("floor", 1)])
+def test_group_kernels_match_plain(dev, scene, group):
+    """B1 and B5 at 64^2 x 4 on the same random stream: the image against
+    the per-pixel plain version, and each (group, pixel) item's sum, on a
+    grid cut to 4 items a thread, against the per-sample plain version's
+    group sums (B1's groups of 3: one of 3 samples and one of 1)."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, items, render, pixel_plain, items_plain, launches, key = _group_case(
+        dev, scene)
+    spp, npix = 4, c.nx * c.ny
+    n_items = npix * -(-spp // group)
+    k = items(3, 0, spp, group, blocks=max(1, n_items // (128 * 4)))
+    p = vk.group_sums_plain(items_plain(c, spp, 3), group)
+    before = launches[key]
+    img = (render(c, spp, 3, group=group) if key == "homog"
+           else render(c, spp, 3))
+    torch.cuda.synchronize()
+    assert launches[key] == before + 1
+    _bar(k, p)
+    _bar(img, pixel_plain(c, spp, 3))
+    # the kernel's own sums, reduced in order, are its image
+    red = sk.reduce_samples(k, None, 0, c.imaging_ratio / spp)
+    assert torch.equal(red.reshape(img.shape), img)
+
+
+@pytest.mark.parametrize("scene", ["fog", "cornell lit"])
+def test_group_chunks_blocks_runs_agree(dev, scene, monkeypatch):
+    """B1's and B5's image at 32^2 x 5 (B1 in groups of 2: 2 + 2 + 1): one
+    chunk against three (the sum carried across chunks), one and three
+    persistent blocks against the full grid, and two runs, each bit for
+    bit; one item launch and one reduce a chunk; nothing falls back to a
+    plain version on a card."""
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels as pk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, _, render, _, _, launches, key = _group_case(dev, scene, res=32)
+    kw = dict(group=2) if key == "homog" else {}
+    monkeypatch.setattr(vk, "render_homog_plain", None)
+    monkeypatch.setattr(pk, "render_surface_plain", None)
+    before, red0 = launches[key], sk.LAUNCHES["vspg_reduce"]
+    one = render(c, 5, 9, **kw)
+    assert launches[key] == before + 1
+    assert sk.LAUNCHES["vspg_reduce"] == red0 + 1
+    assert torch.equal(render(c, 5, 9, **kw), one)
+    assert torch.equal(render(c, 5, 9, blocks=1, **kw), one)
+    assert torch.equal(render(c, 5, 9, blocks=3, **kw), one)
+    # a scratch of two samples: chunks of one group of 2 (B1) or of two
+    # samples (B5), three chunks either way
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 2 * 12 * c.nx * c.ny
+                        // (2 if key == "homog" else 1))
+    before, red0 = launches[key], sk.LAUNCHES["vspg_reduce"]
+    assert torch.equal(render(c, 5, 9, **kw), one)
+    assert launches[key] == before + 3
+    assert sk.LAUNCHES["vspg_reduce"] == red0 + 3
+    assert bool(torch.isfinite(one).all()) and one.mean().item() > 0
+    if key == "homog":
+        # one group of all samples: the per-pixel loop's sum
+        whole = render(c, 5, 9, group=5)
+        diff = (whole - one).abs()
+        assert bool((diff <= 1e-6 * one.abs() + 1e-12).all())
+
+
+@pytest.mark.parametrize("scene", ["fog", "cornell"])
+def test_group_wrappers_check_inputs(dev, scene):
+    c, items, render, _, _, _, _ = _group_case(dev, scene, res=16)
+    with pytest.raises(ValueError):
+        render(c, 0, 0)
+    with pytest.raises(ValueError):
+        items(0, -1, 2, 1)
+    with pytest.raises(ValueError):
+        items(0, 0, 2, 1, blocks=0)
+    with pytest.raises(ValueError):
+        render(c, 2, 0, blocks=0)
+    with pytest.raises(ValueError):
+        items(0, 0, 2, 1, out=torch.empty((1, c.nx * c.ny, 3), device=dev))
+    with pytest.raises(ValueError):
+        render(dataclasses.replace(c, fconst=c.fconst.double()), 1, 0)
+    if scene == "fog":
+        with pytest.raises(ValueError):
+            items(0, 0, 2, 0)

@@ -334,4 +334,52 @@ static __device__ __forceinline__ void load_consts(const float* fc_g,
   for (int i = threadIdx.x; i < N_ICONST; i += blockDim.x) ic[i] = ic_g[i];
 }
 
+// The next work item of a persistent lane: the lanes of a warp that ask
+// together take consecutive items with one atomicAdd on the counter
+// *next_item, zeroed by the caller (all 32 at a launch's start, so a
+// warp's first items are neighbours).
+static __device__ __forceinline__ long long take_items(
+    unsigned long long* next_item) {
+  const unsigned mask = __activemask();
+  const int lane = threadIdx.x & 31, leader = __ffs(mask) - 1;
+  unsigned long long base = 0;
+  if (lane == leader)
+    base = atomicAdd(next_item, (unsigned long long)__popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return (long long)(base + __popc(mask & ((1u << lane) - 1u)));
+}
+
+// A persistent kernel's grid on the current card: out4 = [resident blocks
+// an SM of `threads` threads at `smem` dynamic shared bytes (from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached in `cache` with
+// the registers and local bytes, which the build fixes), SMs, registers a
+// thread, local memory bytes a thread].
+static inline cudaError_t persistent_grid(const void* kernel, int threads,
+                                          size_t smem, int cache[3],
+                                          int* out4) {
+  if (cache[0] == 0) {
+    cudaFuncAttributes fa;
+    cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+    if (e != cudaSuccess) return e;
+    int nb = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, kernel, threads,
+                                                      smem);
+    if (e != cudaSuccess) return e;
+    if (nb < 1) return cudaErrorInvalidConfiguration;
+    cache[1] = fa.numRegs;
+    cache[2] = (int)fa.localSizeBytes;
+    cache[0] = nb;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  out4[0] = cache[0];
+  out4[1] = sms;
+  out4[2] = cache[1];
+  out4[3] = cache[2];
+  return cudaSuccess;
+}
+
 }  // namespace vp

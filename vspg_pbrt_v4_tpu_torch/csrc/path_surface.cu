@@ -1,4 +1,5 @@
-// B5: persistent surface path tracing of the Cornell class, in vacuum.
+// B5: surface path tracing of the Cornell class, in vacuum, in (pixel,
+// sample) work items on persistent blocks.
 //
 // Replaces pallas_surface._make_kernel (vspg_pbrt_v4_tpu/ops/
 // pallas_surface.py), the TPU megakernel behind render_surface_pallas.
@@ -11,19 +12,54 @@
 // roulette. The random stream is the Pallas kernel's: dimension 0 jitters
 // the camera, then every iteration draws two uniform4 (NEE, then bounce
 // and roulette) at dimensions that restart at 1 with each sample, so a
-// pixel's samples match the plain version
-// ops/surface_kernels.render_surface_plain and the Pallas kernel.
+// pixel's samples match the plain versions ops/surface_kernels.
+// render_surface_plain (per pixel) and render_surface_items_plain (per
+// sample) and the Pallas kernel. The Pallas kernel caps a block's
+// iterations at spp * (max_depth + 2); here each path runs at most
+// max_depth + 2, which it never reaches: an iteration that does not end
+// the path shades once, and a hit at depth max_depth ends it, so a path
+// ends within max_depth + 1 iterations.
 //
-// Work layout: one thread per pixel loops over its samples; no lockstep
-// and no lane regeneration, which the TPU needed for its vector lanes.
-// Each block copies the triangle table (at most 128 rows of 16 floats, 8
-// KB) and the constant table into shared memory; every thread of a warp
-// reads the same triangle row in the same sweep step, so those reads are
-// broadcasts. Templated on the structural switches only (a point light,
-// an environment); materials, lights and camera come from the table. The
-// Pallas kernel caps a block's iterations at spp * (max_depth + 2); a
-// thread runs at most that many, which a path of at most max_depth + 1
-// iterations a sample never reaches.
+// What bounds it on the H100: chains of dependent latency. A closest-hit
+// step is a Moller-Trumbore test per triangle (one reciprocal) on a row
+// read from shared memory; a path runs about 2.6 iterations of 12 tests
+// and a shadow sweep at the bench box. The first design ran one thread a
+// pixel over all its samples: 65,536 threads at 256^2, about 496 an SM at
+// 94-117 registers, four warps a scheduler, too few to hide that latency.
+//
+// Work layout: a work item is one (pixel, sample) path of a chunk of
+// samples, item = (sample - samp0) * npix + pixel (B2's items, groups of
+// K = 1 sample). A lane writes its path's radiance to an (n_samp, npix, 3)
+// scratch, which vspg_kernels.reduce_samples (vspg_reduce_kernel,
+// csrc/vspg.cu) adds per pixel in sample order and scales, so the image
+// is deterministic. A lane runs one flat loop of path iterations, as the
+// one-thread-a-pixel design did: when its path ends it takes its next item
+// in the same step, so no lane of a warp idles while another finishes a
+// longer path (a loop a path inside a loop over samples ran slower than
+// the one-thread-a-pixel design, PERF.md section 6). Each block copies the
+// triangle table (at most 128 rows of 16 floats, 8 KB) and the constant
+// table into shared memory once; the lanes of a warp read the same
+// triangle row in the same sweep step, so those reads are broadcasts, of
+// three float4 a row. SMs x B persistent blocks of 128 threads, B from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor under
+// __launch_bounds__(128, PATH_SURFACE_MIN_BLOCKS); the lanes of a warp
+// that ask together take consecutive items with one atomicAdd on a
+// zeroed counter (take_items, common.cuh). Templated on the structural
+// switches only (a point light, an environment); materials, lights and
+// camera come from the table.
+//
+// Shipped: PATH_SURFACE_MIN_BLOCKS 4, which leaves ptxas at 69-76
+// registers with no spills, so the card holds 7 blocks an SM; chosen by
+// `python -m vspg_pbrt_v4_tpu_torch.benchmarks.group_items --sweep` on an
+// NVIDIA H100 80GB HBM3 at 700 W: 0.933 ms at 256^2 x 64 against 0.938 at
+// 6 (the same registers) and 0.941 at 8 (64 registers, 20-40 bytes of
+// spill stores); one thread a pixel took 1.368-1.374 ms in the same call
+// (`--turns`; PERF.md section 6). Groups of 2-16 samples, a static stride
+// instead of the counter and nine scalar reads a row instead of three
+// float4 ran no faster on that card and are not kept.
+#ifndef PATH_SURFACE_MIN_BLOCKS
+#define PATH_SURFACE_MIN_BLOCKS 4
+#endif
 #include "common.cuh"
 #include "surface.cuh"
 
@@ -73,6 +109,7 @@ enum STriCol {
 };
 
 constexpr int MAX_SURF_TRIS = 128;
+constexpr int SURF_THREADS = 128;
 constexpr float TWO_PI_F = (float)(2.0 * 3.14159265358979323846);
 constexpr float INV_4PI_F = (float)(1.0 / (4.0 * 3.14159265358979323846));
 
@@ -81,37 +118,64 @@ constexpr float INV_4PI_F = (float)(1.0 / (4.0 * 3.14159265358979323846));
 static_assert((int)S_RC == (int)F_RC && (int)S_CW == (int)F_CW,
               "camera matrices misplaced");
 
+// corner p0 and edges e1, e2 (columns 0-8) of triangle i of the shared
+// table, read as three float4
+static __device__ __forceinline__ void tri_row(const float* tris, int i,
+                                               V3* p0, V3* e1, V3* e2) {
+  static_assert(ST_P0 == 0 && ST_E1 == 3 && ST_E2 == 6 && ST_COLS % 4 == 0,
+                "triangle rows misplaced");
+  const float4* r = reinterpret_cast<const float4*>(tris + i * ST_COLS);
+  const float4 a = r[0], b = r[1], c = r[2];
+  *p0 = v3(a.x, a.y, a.z);
+  *e1 = v3(a.w, b.x, b.y);
+  *e2 = v3(b.z, b.w, c.x);
+}
+
 // any triangle of the table hit along (o, d) in (1e-4, t_max); stops at
 // the first
 static __device__ __forceinline__ bool occluded(const float* tris, int n_tri,
                                                 V3 o, V3 d, float t_max) {
   for (int i = 0; i < n_tri; ++i) {
-    const float* r = tris + i * ST_COLS;
+    V3 p0, e1, e2;
+    tri_row(tris, i, &p0, &e1, &e2);
     float tt, b1, b2;
-    if (tri_test(v3(r + ST_P0), v3(r + ST_E1), v3(r + ST_E2), o, d, t_max,
-                 &tt, &b1, &b2))
-      return true;
+    if (tri_test(p0, e1, e2, o, d, t_max, &tt, &b1, &b2)) return true;
   }
   return false;
 }
 
+// one path's state
+struct SPath {
+  V3 o, d, beta, L;
+  float rl;  // 1 / pdf of the last bounce (vacuum: r_u == 1)
+  uint32_t dim;
+  int depth, it;
+};
+
+// a fresh camera path of sample `samp` of pixel `pix`
+static __device__ __forceinline__ void surface_start(const float* fc,
+                                                     uint32_t seed,
+                                                     uint32_t pix,
+                                                     uint32_t samp,
+                                                     SPath& P) {
+  int hero;  // unused: vacuum transport has no hero channel
+  start_path(fc, (int)fc[S_NX], seed, pix, samp, &P.o, &P.d, &hero);
+  P.dim = 1;
+  P.beta = v3(1.f, 1.f, 1.f);
+  P.L = v3(0.f, 0.f, 0.f);
+  P.rl = 1.f;
+  P.depth = 0;
+  P.it = 0;
+}
+
+// One iteration of the path P of sample `samp` of pixel `pix`; returns
+// whether the path goes on.
 template <bool HAS_POINT, bool HAS_ENV>
-__global__ void __launch_bounds__(128)
-    path_surface_kernel(const float* __restrict__ fc_g,
-                        const float* __restrict__ tris_g,
-                        float* __restrict__ out, int npix, int spp,
-                        uint32_t seed, float out_scale) {
-  __shared__ float fc[N_SCONST];
-  __shared__ float tris[MAX_SURF_TRIS * ST_COLS];
-  const int n_tri = min((int)__ldg(fc_g + S_N_TRI), MAX_SURF_TRIS);
-  for (int i = threadIdx.x; i < N_SCONST; i += blockDim.x) fc[i] = fc_g[i];
-  for (int i = threadIdx.x; i < n_tri * ST_COLS; i += blockDim.x)
-    tris[i] = tris_g[i];
-  __syncthreads();
-  const int pix_i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix_i >= npix) return;
-  const uint32_t pix = (uint32_t)pix_i;
-  const int nx = (int)fc[S_NX];
+static __device__ __forceinline__ bool surface_step(const float* fc,
+                                                    const float* tris,
+                                                    int n_tri, uint32_t seed,
+                                                    uint32_t pix,
+                                                    uint32_t samp, SPath& P) {
   const int n_area = (int)fc[S_N_AREA];
   const int n_mat = (int)fc[S_N_MAT];
   const int n_lights = (int)fc[S_N_LIGHTS];
@@ -119,25 +183,20 @@ __global__ void __launch_bounds__(128)
   const int rr_start = (int)fc[S_RR_START];
   const float pmf = fc[S_PMF], penv = fc[S_PENV];
   const V3 envL = v3(fc + S_ENV);
-  const int max_iters = spp * (max_depth + 2);
-
-  uint32_t samp = 0, dim = 1;
-  V3 o, d;
-  int hero;  // unused: vacuum transport has no hero channel
-  start_path(fc, nx, seed, pix, samp, &o, &d, &hero);
-  V3 beta = v3(1.f, 1.f, 1.f), L = v3(0.f, 0.f, 0.f), acc = L;
-  float rl = 1.f;  // 1 / pdf of the last bounce (vacuum: r_u == 1)
-  int depth = 0;
+  V3 o = P.o, d = P.d, beta = P.beta, L = P.L;
+  float rl = P.rl;
+  int depth = P.depth;
+  const uint32_t dim = P.dim;
   bool alive = true;
-  for (int it = 0; it < max_iters && alive; ++it) {
+  {
     // ---- closest hit: the first of equal distances in table order ------
     float t_h = BIG;
     int k = -1;
     for (int i = 0; i < n_tri; ++i) {
-      const float* r = tris + i * ST_COLS;
+      V3 p0, e1, e2;
+      tri_row(tris, i, &p0, &e1, &e2);
       float tt, b1, b2;
-      if (tri_test(v3(r + ST_P0), v3(r + ST_E1), v3(r + ST_E2), o, d, t_h,
-                   &tt, &b1, &b2)) {
+      if (tri_test(p0, e1, e2, o, d, t_h, &tt, &b1, &b2)) {
         t_h = tt;
         k = i;
       }
@@ -297,50 +356,114 @@ __global__ void __launch_bounds__(128)
     // NaN/Inf scrub of the path's radiance, every iteration
     if (!(isfinite(L.x) && isfinite(L.y) && isfinite(L.z)))
       L = v3(0.f, 0.f, 0.f);
-    dim += 2;
-    if (!alive) {
-      acc = add(acc, L);
-      samp += 1;
-      if ((int)samp < spp) {
-        start_path(fc, nx, seed, pix, samp, &o, &d, &hero);
-        dim = 1;
-        beta = v3(1.f, 1.f, 1.f);
-        rl = 1.f;
-        L = v3(0.f, 0.f, 0.f);
-        depth = 0;
-        alive = true;
-      }
-    }
   }
-  out[3 * pix_i + 0] = acc.x * out_scale;
-  out[3 * pix_i + 1] = acc.y * out_scale;
-  out[3 * pix_i + 2] = acc.z * out_scale;
+  P.o = o;
+  P.d = d;
+  P.beta = beta;
+  P.L = L;
+  P.rl = rl;
+  P.depth = depth;
+  P.dim = dim + 2;
+  return alive;
+}
+
+// Samples samp0, ..., samp0 + n_samp - 1 of every pixel as n_samp * npix
+// items, item = (sample - samp0) * npix + pixel; gbuf[item] = the
+// sample's radiance. One flat loop of path iterations a lane: a lane whose
+// path ends writes its radiance and takes its next item in the same step,
+// so the lanes of a warp stay busy whatever their paths' lengths.
+template <bool HAS_POINT, bool HAS_ENV>
+__global__ void __launch_bounds__(SURF_THREADS, PATH_SURFACE_MIN_BLOCKS)
+    path_surface_kernel(const float* __restrict__ fc_g,
+                        const float* __restrict__ tris_g,
+                        float* __restrict__ gbuf,
+                        unsigned long long* __restrict__ next_item, int npix,
+                        int samp0, int n_samp, uint32_t seed) {
+  __shared__ float fc[N_SCONST];
+  __shared__ __align__(16) float tris[MAX_SURF_TRIS * ST_COLS];
+  const int n_tri = min((int)__ldg(fc_g + S_N_TRI), MAX_SURF_TRIS);
+  for (int i = threadIdx.x; i < N_SCONST; i += blockDim.x) fc[i] = fc_g[i];
+  for (int i = threadIdx.x; i < n_tri * ST_COLS; i += blockDim.x)
+    tris[i] = tris_g[i];
+  __syncthreads();
+  // a path ends within max_depth + 1 iterations, so this cap never binds
+  const int cap = (int)fc[S_MAX_DEPTH] + 2;
+  const long long n_items = (long long)npix * n_samp;
+  long long item = take_items(next_item);
+  if (item >= n_items) return;
+  // the lane's item: its pixel and sample
+  uint32_t pix, samp;
+  auto begin_item = [&]() {
+    const int s = (int)(item / npix);
+    pix = (uint32_t)(item - (long long)s * npix);
+    samp = (uint32_t)(samp0 + s);
+  };
+  SPath P;
+  begin_item();
+  surface_start(fc, seed, pix, samp, P);
+  for (;;) {
+    const bool alive = surface_step<HAS_POINT, HAS_ENV>(fc, tris, n_tri, seed,
+                                                        pix, samp, P);
+    if (alive && ++P.it < cap) continue;
+    gbuf[3 * item + 0] = P.L.x;
+    gbuf[3 * item + 1] = P.L.y;
+    gbuf[3 * item + 2] = P.L.z;
+    item = take_items(next_item);
+    if (item >= n_items) return;
+    begin_item();
+    surface_start(fc, seed, pix, samp, P);
+  }
 }
 
 template <bool P, bool E>
-static void launch(const float* fconst, const float* tris, float* out,
-                   int npix, int spp, uint32_t seed, float out_scale,
-                   cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (npix + threads - 1) / threads;
-  path_surface_kernel<P, E><<<blocks, threads, 0, stream>>>(
-      fconst, tris, out, npix, spp, seed, out_scale);
+int grid(int* out4) {
+  static int cache[3] = {0, 0, 0};
+  return (int)persistent_grid((const void*)path_surface_kernel<P, E>,
+                              SURF_THREADS, 0, cache, out4);
+}
+
+template <bool P, bool E>
+int launch(const float* fconst, const float* tris, float* gbuf,
+           unsigned long long* next_item, int npix, int samp0, int n_samp,
+           uint32_t seed, int blocks, cudaStream_t stream) {
+  path_surface_kernel<P, E><<<blocks, SURF_THREADS, 0, stream>>>(
+      fconst, tris, gbuf, next_item, npix, samp0, n_samp, seed);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the persistent grid of the (point light, environment) instantiation:
+// out4 = [resident blocks an SM, SMs, registers a thread, local memory
+// bytes a thread]
+extern "C" int path_surface_info(int has_point, int has_env, int* out4) {
+  if (has_point && has_env) return grid<true, true>(out4);
+  if (has_point) return grid<true, false>(out4);
+  if (has_env) return grid<false, true>(out4);
+  return grid<false, false>(out4);
+}
+
+// One chunk of samples on `blocks` persistent blocks, its items taken from
+// *next_item (zeroed by the caller).
 extern "C" int path_surface_launch(const float* fconst, const float* tris,
-                                   float* out, int npix, int spp,
-                                   unsigned int seed, float out_scale,
-                                   int has_point, int has_env, void* stream) {
+                                   float* gbuf,
+                                   unsigned long long* next_item, int npix,
+                                   int samp0, int n_samp, unsigned int seed,
+                                   int has_point, int has_env, int blocks,
+                                   void* stream) {
+  if (npix < 1 || n_samp < 1 || samp0 < 0 || blocks < 1 ||
+      next_item == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (has_point && has_env)
-    launch<true, true>(fconst, tris, out, npix, spp, seed, out_scale, s);
-  else if (has_point)
-    launch<true, false>(fconst, tris, out, npix, spp, seed, out_scale, s);
-  else if (has_env)
-    launch<false, true>(fconst, tris, out, npix, spp, seed, out_scale, s);
-  else
-    launch<false, false>(fconst, tris, out, npix, spp, seed, out_scale, s);
-  return (int)cudaGetLastError();
+    return launch<true, true>(fconst, tris, gbuf, next_item, npix, samp0,
+                              n_samp, seed, blocks, s);
+  if (has_point)
+    return launch<true, false>(fconst, tris, gbuf, next_item, npix, samp0,
+                               n_samp, seed, blocks, s);
+  if (has_env)
+    return launch<false, true>(fconst, tris, gbuf, next_item, npix, samp0,
+                               n_samp, seed, blocks, s);
+  return launch<false, false>(fconst, tris, gbuf, next_item, npix, samp0,
+                              n_samp, seed, blocks, s);
 }

@@ -767,30 +767,9 @@ size_t grid_smem(int nmaj, int n_tri, int n_mat) {
 // memory bytes a thread]
 template <int GEOM>
 cudaError_t grid_info(size_t smem, int* out4) {
-  static int cached[3] = {0, 0, 0};
-  if (cached[0] == 0) {
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, volpath_grid_kernel<GEOM>);
-    if (e != cudaSuccess) return e;
-    int nb = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &nb, volpath_grid_kernel<GEOM>, GRID_THREADS, smem);
-    if (e != cudaSuccess) return e;
-    if (nb < 1) return cudaErrorInvalidConfiguration;
-    cached[1] = fa.numRegs;
-    cached[2] = (int)fa.localSizeBytes;
-    cached[0] = nb;
-  }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  out4[0] = cached[0];
-  out4[1] = sms;
-  out4[2] = cached[1];
-  out4[3] = cached[2];
-  return cudaSuccess;
+  static int cache[3] = {0, 0, 0};
+  return persistent_grid((const void*)volpath_grid_kernel<GEOM>, GRID_THREADS,
+                         smem, cache, out4);
 }
 
 // One chunk of samples: the n_samp samples from samp0 of every pixel as

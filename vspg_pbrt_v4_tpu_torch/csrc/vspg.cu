@@ -470,20 +470,6 @@ struct MinBlocks {
              : (TRIS ? VSPG_RENDER_TRIS_MIN_BLOCKS : VSPG_RENDER_MIN_BLOCKS);
 };
 
-// The record variant's next pixel: the lanes of a warp that ask together
-// take consecutive items with one atomicAdd on the counter (all 32 at a
-// launch's start, so a warp's first pixels are neighbours).
-static __device__ __forceinline__ long long take_items(
-    unsigned long long* next_item) {
-  const unsigned mask = __activemask();
-  const int lane = threadIdx.x & 31, leader = __ffs(mask) - 1;
-  unsigned long long base = 0;
-  if (lane == leader)
-    base = atomicAdd(next_item, (unsigned long long)__popc(mask));
-  base = __shfl_sync(mask, base, leader);
-  return (long long)(base + __popc(mask & ((1u << lane) - 1u)));
-}
-
 // One work item is one (pixel, sample) path, and each lane takes its next
 // item from the counter *next_item (zeroed by the caller) when its path
 // ends, until the items run out. The record variant's items are the
@@ -1745,31 +1731,10 @@ struct Inst {
         a.nmaj, a.rec_depth, a.n_tri, a.n_mat);
   }
   static cudaError_t info(size_t smem, int* out4) {
-    static int cached[3] = {0, 0, 0};
-    if (cached[0] == 0) {
-      cudaFuncAttributes fa;
-      cudaError_t e =
-          cudaFuncGetAttributes(&fa, vspg_kernel<RECORD, RIS, METHOD, TRIS>);
-      if (e != cudaSuccess) return e;
-      int n = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, vspg_kernel<RECORD, RIS, METHOD, TRIS>, THREADS, smem);
-      if (e != cudaSuccess) return e;
-      if (n < 1) return cudaErrorInvalidConfiguration;
-      cached[1] = fa.numRegs;
-      cached[2] = (int)fa.localSizeBytes;
-      cached[0] = n;
-    }
-    int dev = 0, sms = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    out4[0] = cached[0];
-    out4[1] = sms;
-    out4[2] = cached[1];
-    out4[3] = cached[2];
-    return cudaSuccess;
+    static int cache[3] = {0, 0, 0};
+    return persistent_grid(
+        (const void*)vspg_kernel<RECORD, RIS, METHOD, TRIS>, THREADS, smem,
+        cache, out4);
   }
 };
 

@@ -749,7 +749,7 @@ def render_persistent(scene: Scene, camera, film, spp=16,
     kernel that fails to build or launch raises. Otherwise, and with
     backend "torch", it runs the lockstep wavefront of this module with a
     pool of npix * lanes_per_pixel lanes. `lanes_per_pixel` sizes that
-    pool only: a kernel runs one thread per pixel."""
+    pool only: a kernel sizes its own work items."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
     if cfg.spectral or cfg.sss:

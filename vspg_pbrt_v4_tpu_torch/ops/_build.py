@@ -106,7 +106,8 @@ GRID_NAMES = ("grid", "grid_tris", "grid_mesh")
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # argument types of each C entry point (all return an int CUDA error code)
 SIGNATURES = {
-    "volpath_homog_launch": [_P, _P, _P, _I, _I, _U, _F, _P],
+    "volpath_homog_launch": [_P] * 4 + [_I] * 4 + [_U, _I, _P],
+    "volpath_homog_info": [_P],
     **{f"volpath_{g}_launch": [_P] * 9 + [_I, _I, _I, _U] + [_I] * 5 + [_P]
        for g in GRID_NAMES},
     **{f"volpath_{g}_info": [_I, _I, _I, _P] for g in GRID_NAMES},
@@ -115,7 +116,8 @@ SIGNATURES = {
     "vspg_reduce_launch": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _P],
     "vspg_record_launch": [_P] * 15 + [_I, _U, _F] + [_I] * 7 + [_P],
     "vspg_record_info": [_I] * 5 + [_P],
-    "path_surface_launch": [_P, _P, _P, _I, _I, _U, _F, _I, _I, _P],
+    "path_surface_launch": [_P] * 4 + [_I] * 3 + [_U] + [_I] * 3 + [_P],
+    "path_surface_info": [_I, _I, _P],
     "gather_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
 }
 

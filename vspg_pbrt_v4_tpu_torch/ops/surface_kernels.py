@@ -21,9 +21,16 @@ triangle test, a fixed ``1e-4`` spawn offset, area samples as ``p0 + b0
 e1 + b1 e2``), so it meets the interpret-mode Pallas kernel per pixel and
 the wavefront within Monte Carlo error only.
 
-The wrapper ``render_surface`` renders with the plain version only when
-its constant tensor lies on the CPU; on a CUDA tensor it launches the
-kernel or raises. ``LAUNCHES`` counts the launches.
+The kernel runs (pixel, sample) work items on persistent blocks and
+writes each path's radiance to a scratch that
+``vspg_kernels.reduce_samples`` adds per pixel in sample order
+(``volpath_kernels.render_groups``). ``render_surface_plain`` is the plain
+version per pixel (one lane a pixel, its samples in sequence), and
+``render_surface_items_plain`` per sample (a lane a (pixel, sample)), which
+is what the kernel writes. The wrapper ``render_surface`` renders with the plain version
+only when its constant tensor lies on the CPU; on a CUDA tensor it
+launches the kernel or raises. ``LAUNCHES`` counts the item launches, one
+a chunk of samples (the reduce counts in ``vspg_kernels.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch
 
 from ..utils import rng
 from ..utils.math import INV_4PI, INV_PI
-from .volpath_kernels import _camera_ray, _check, _count
+from .volpath_kernels import (_PLAIN_CHUNK, _camera_ray, _check, _count,
+                              _keep)
 
 LAUNCHES = {"surface": 0}
 
@@ -224,8 +232,9 @@ def supports(scene, camera, film, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Plain version: one lane per pixel, its samples in sequence, every live
-# lane stepping one path iteration in lockstep (the Pallas kernel's loop)
+# Plain versions: every live lane steps one path iteration in lockstep (the
+# Pallas kernel's loop); per pixel one lane a pixel runs its samples in
+# sequence, per sample every (pixel, sample) is a lane of its own
 # ---------------------------------------------------------------------------
 
 
@@ -461,110 +470,149 @@ def _shade(K, seed, pix, samp, dim, o, d, t_h, ng, mat, beta, L, depth,
     return o_new, d_new, beta, rl, L, alive
 
 
+def _fresh(K, seed, pix, samp, counts):
+    """The lane state of fresh paths, samples `samp` of pixels `pix`."""
+    o, d = _start(K, seed, pix, samp)
+    _count(counts, "samples", pix.shape[0])
+    n = pix.shape[0]
+    return dict(pix=pix, samp=samp, dim=torch.ones_like(samp), o=o, d=d,
+                beta=torch.ones((n, 3), device=K.dev),
+                rl=torch.ones(n, device=K.dev),
+                L=torch.zeros((n, 3), device=K.dev),
+                depth=torch.zeros_like(samp))
+
+
+def _iterate(K, seed, S, counts):
+    """One path iteration of every lane of S (updated in place): the
+    closest hit, escape or emission with MIS, shading, and the radiance
+    scrub. Returns the lanes' alive mask."""
+    pix, samp, d, depth = S["pix"], S["samp"], S["d"], S["depth"]
+    beta, rl, L = S["beta"], S["rl"], S["L"]
+    n = pix.shape[0]
+    _count(counts, "iters", n)
+    _count(counts, "tri_tests", n * K.tris.shape[0])
+    t_h, k = _closest(K, S["o"], d)
+    hit = k >= 0
+    row = K.tris[torch.clamp(k, min=0)]
+    ng = torch.where(hit[:, None], row[:, ST_NG:ST_NG + 3], 0.0)
+    mat = torch.where(hit, row[:, ST_MAT].to(torch.int64), -1)
+    li = torch.where(hit, row[:, ST_LIGHT].to(torch.int64), -1)
+    first = depth == 0
+
+    # ---- escaped: the environment with MIS ------------------------------
+    escaped = ~hit
+    if K.has_env:
+        env = torch.tensor(K.env, device=K.dev)
+        L = torch.where((escaped & first)[:, None], L + beta * env, L)
+        den = torch.clamp(1.0 + rl * K.penv, min=1e-30)
+        L = torch.where((escaped & ~first)[:, None],
+                        L + beta * env / den[:, None], L)
+    alive = ~escaped
+
+    # ---- emissive hit (one-sided unless two-sided) ----------------------
+    if K.n_area:
+        cos_o = -(ng[:, 0] * d[:, 0] + ng[:, 1] * d[:, 1]
+                  + ng[:, 2] * d[:, 2])
+        known = (li >= 0) & (li < K.n_area)
+        ai = torch.clamp(li, 0, K.n_area - 1)
+        front = (cos_o > 0) | K.atwo[ai]
+        Le = torch.where((known & front)[:, None], K.aL[ai], 0.0)
+        area_l = torch.where(known, K.aarea[ai], 1.0)
+        emissive = alive & (li >= 0)
+        L = torch.where((emissive & first)[:, None], L + beta * Le, L)
+        # pdf_li_area: pmf * dist^2 / (|cos_l| * area)
+        p_l_area = (K.pmf * t_h * t_h
+                    / torch.clamp(torch.abs(cos_o) * area_l, min=1e-30))
+        den_s = torch.clamp(1.0 + rl * p_l_area, min=1e-30)
+        L = torch.where((emissive & ~first)[:, None],
+                        L + beta * Le / den_s[:, None], L)
+
+    # ---- shading --------------------------------------------------------
+    shade = alive & (mat >= 0)
+    alive = alive & ~(hit & (mat < 0))
+    too_deep = shade & (depth >= K.max_depth)
+    alive = alive & ~too_deep
+    shade = shade & ~too_deep
+    S["depth"] = depth = torch.where(shade, depth + 1, depth)
+    if bool(shade.any()):
+        _count(counts, "shades", int(shade.sum()))
+        s = shade
+        o_s, d_s, beta_s, rl_s, L_s, alive_s = _shade(
+            K, seed, pix[s], samp[s], S["dim"][s], S["o"][s], d[s], t_h[s],
+            ng[s], mat[s], beta[s], L[s], depth[s], counts)
+        S["o"][s], d[s], beta[s], rl[s], L[s] = o_s, d_s, beta_s, rl_s, L_s
+        alive[s] = alive_s
+    S["dim"] = S["dim"] + 2
+    S.update(beta=beta, rl=rl,
+             L=torch.where(torch.isfinite(L).all(-1)[:, None], L, 0.0))
+    return alive
+
+
 def render_surface_plain(c: SurfaceConstants, spp, seed, counts=None):
-    """B5's plain version. `counts` (a dict), when given, gathers the work
-    the bound needs: lane-iterations ("iters"), closest-hit triangle tests
-    ("tri_tests"), shading iterations ("shades"), shadow-sweep triangle
-    tests ("shadow_tests", stopping at the first occluder) and camera
-    samples ("samples")."""
+    """B5's plain version per pixel: one lane a pixel runs its samples in
+    sequence, summed in sample order; (ny, nx, 3). `counts` (a dict), when
+    given, gathers the work the bound needs: lane-iterations ("iters"),
+    closest-hit triangle tests ("tri_tests"), shading iterations
+    ("shades"), shadow-sweep triangle tests ("shadow_tests", stopping at
+    the first occluder) and camera samples ("samples")."""
     K = _K(c)
     spp = int(spp)
     if spp < 1:
         raise ValueError("spp must be at least 1")
     seed = int(seed) & 0xFFFFFFFF
     npix = K.nx * K.ny
-    dev = K.dev
-    n_tri = K.tris.shape[0]
-    pix = torch.arange(npix, device=dev)
-    acc = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-    n = pix.shape[0]
-    samp = torch.zeros(n, dtype=torch.int64, device=dev)
-    o, d = _start(K, seed, pix, samp)
-    _count(counts, "samples", n)
-    dim = torch.ones_like(samp)
-    beta = torch.ones((n, 3), device=dev)
-    rl = torch.ones(n, device=dev)
-    L = torch.zeros((n, 3), device=dev)
-    depth = torch.zeros_like(samp)
-    env = torch.tensor(K.env, device=dev)
+    acc = torch.zeros((npix, 3), dtype=torch.float32, device=K.dev)
+    pix = torch.arange(npix, device=K.dev)
+    S = _fresh(K, seed, pix, torch.zeros_like(pix), counts)
     it = 0
     max_iters = spp * (K.max_depth + 2)
-    while pix.numel() and it < max_iters:
-        n = pix.shape[0]
-        _count(counts, "iters", n)
-        _count(counts, "tri_tests", n * n_tri)
-        t_h, k = _closest(K, o, d)
-        hit = k >= 0
-        row = K.tris[torch.clamp(k, min=0)]
-        ng = torch.where(hit[:, None], row[:, ST_NG:ST_NG + 3], 0.0)
-        mat = torch.where(hit, row[:, ST_MAT].to(torch.int64), -1)
-        li = torch.where(hit, row[:, ST_LIGHT].to(torch.int64), -1)
-        first = depth == 0
-
-        # ---- escaped: the environment with MIS --------------------------
-        escaped = ~hit
-        if K.has_env:
-            L = torch.where((escaped & first)[:, None], L + beta * env, L)
-            den = torch.clamp(1.0 + rl * K.penv, min=1e-30)
-            L = torch.where((escaped & ~first)[:, None],
-                            L + beta * env / den[:, None], L)
-        alive = ~escaped
-
-        # ---- emissive hit (one-sided unless two-sided) ------------------
-        if K.n_area:
-            cos_o = -(ng[:, 0] * d[:, 0] + ng[:, 1] * d[:, 1]
-                      + ng[:, 2] * d[:, 2])
-            known = (li >= 0) & (li < K.n_area)
-            ai = torch.clamp(li, 0, K.n_area - 1)
-            front = (cos_o > 0) | K.atwo[ai]
-            Le = torch.where((known & front)[:, None], K.aL[ai], 0.0)
-            area_l = torch.where(known, K.aarea[ai], 1.0)
-            emissive = alive & (li >= 0)
-            L = torch.where((emissive & first)[:, None], L + beta * Le, L)
-            # pdf_li_area: pmf * dist^2 / (|cos_l| * area)
-            p_l_area = (K.pmf * t_h * t_h
-                        / torch.clamp(torch.abs(cos_o) * area_l, min=1e-30))
-            den_s = torch.clamp(1.0 + rl * p_l_area, min=1e-30)
-            L = torch.where((emissive & ~first)[:, None],
-                            L + beta * Le / den_s[:, None], L)
-
-        # ---- shading ----------------------------------------------------
-        shade = alive & (mat >= 0)
-        alive = alive & ~(hit & (mat < 0))
-        too_deep = shade & (depth >= K.max_depth)
-        alive = alive & ~too_deep
-        shade = shade & ~too_deep
-        depth = torch.where(shade, depth + 1, depth)
-        if bool(shade.any()):
-            _count(counts, "shades", int(shade.sum()))
-            s = shade
-            o_s, d_s, beta_s, rl_s, L_s, alive_s = _shade(
-                K, seed, pix[s], samp[s], dim[s], o[s], d[s], t_h[s], ng[s],
-                mat[s], beta[s], L[s], depth[s], counts)
-            o[s], d[s], beta[s], rl[s], L[s] = o_s, d_s, beta_s, rl_s, L_s
-            alive[s] = alive_s
-        dim = dim + 2
+    while S["pix"].numel() and it < max_iters:
+        alive = _iterate(K, seed, S, counts)
 
         # ---- commit + regenerate ----------------------------------------
-        L = torch.where(torch.isfinite(L).all(-1)[:, None], L, 0.0)
         died = ~alive
-        acc.index_add_(0, pix[died], L[died])
-        samp = torch.where(died, samp + 1, samp)
+        acc.index_add_(0, S["pix"][died], S["L"][died])
+        samp = torch.where(died, S["samp"] + 1, S["samp"])
         fresh = died & (samp < spp)
+        S["samp"] = samp
         if bool(fresh.any()):
-            _count(counts, "samples", int(fresh.sum()))
-            o[fresh], d[fresh] = _start(K, seed, pix[fresh], samp[fresh])
-            dim[fresh] = 1
-            beta[fresh] = 1.0
-            rl[fresh] = 1.0
-            L[fresh] = 0.0
-            depth[fresh] = 0
-        keep = alive | fresh
-        pix, samp, dim, o, d = pix[keep], samp[keep], dim[keep], o[keep], \
-            d[keep]
-        beta, rl, L, depth = beta[keep], rl[keep], L[keep], depth[keep]
+            F = _fresh(K, seed, S["pix"][fresh], samp[fresh], counts)
+            for key in ("o", "d", "dim", "beta", "rl", "L", "depth"):
+                S[key][fresh] = F[key]
+        S = _keep(S, alive | fresh)
         it += 1
     return (acc * (c.imaging_ratio / spp)).reshape(K.ny, K.nx, 3)
+
+
+def render_surface_items_plain(c: SurfaceConstants, spp, seed, pixels=None):
+    """B5's plain version per sample: the raw radiance (spp, npix, 3) of
+    every (sample, pixel), each a lane of its own from a fresh path that
+    runs at most max_depth + 2 iterations (the kernel's cap, which no path
+    reaches); with `pixels` (flat indices) the (spp, len(pixels), 3) of
+    those pixels: what the kernel writes."""
+    K = _K(c)
+    spp = int(spp)
+    if spp < 1:
+        raise ValueError("spp must be at least 1")
+    seed = int(seed) & 0xFFFFFFFF
+    pixels = (torch.arange(K.nx * K.ny, device=K.dev) if pixels is None
+              else torch.as_tensor(pixels, dtype=torch.int64, device=K.dev))
+    n = pixels.numel()
+    total = n * spp
+    acc = torch.zeros((total, 3), dtype=torch.float32, device=K.dev)
+    for start in range(0, total, _PLAIN_CHUNK):
+        lane = torch.arange(start, min(total, start + _PLAIN_CHUNK),
+                            device=K.dev)
+        S = _fresh(K, seed, pixels[lane % n], lane // n, None)
+        S["lane"] = lane
+        for _ in range(K.max_depth + 2):
+            if S["pix"].numel() == 0:
+                break
+            alive = _iterate(K, seed, S, None)
+            acc[S["lane"][~alive]] = S["L"][~alive]
+            S = _keep(S, alive)
+        acc[S["lane"]] = S["L"]
+    return acc.reshape(spp, n, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -572,37 +620,80 @@ def render_surface_plain(c: SurfaceConstants, spp, seed, counts=None):
 # ---------------------------------------------------------------------------
 
 
-def render_surface(c: SurfaceConstants, spp, seed):
-    """B5: render the Cornell class; the CUDA kernel on a card, the plain
-    version for constants on the CPU. Returns the (ny, nx, 3) image."""
+def _surface_args(c: SurfaceConstants):
     dev = c.fconst.device
-    if dev.type == "cpu":
-        return render_surface_plain(c, spp, seed)
     if dev.type != "cuda":
         raise ValueError(f"path_surface: no kernel for device {dev}")
-    from . import _build
-
     n_tri = c.n_tri
     if not 1 <= n_tri <= MAX_TRIS:
         raise ValueError(f"{n_tri} triangles: the kernel takes 1-{MAX_TRIS}")
     _check(c.fconst, torch.float32, (N_SCONST,), dev, "fconst")
     _check(c.tris, torch.float32, (n_tri, ST_COLS), dev, "tris")
-    if int(spp) < 1:
-        raise ValueError("spp must be at least 1")
-    lib = _build.load()
+    return dev
+
+
+def surface_info(c: SurfaceConstants):
+    """B5's persistent grid for the constants' instantiation on their card
+    (``volpath_kernels.item_grid``)."""
+    from .volpath_kernels import cached_item_grid
+
+    return cached_item_grid("path_surface_info",
+                            (int(c.has_point), int(c.has_env)),
+                            _surface_args(c))
+
+
+def _surface_launch(c, seed, samp0, n_samp, blocks, out, counter):
+    """One launch of B5's item kernel on checked arguments."""
+    from . import _build
+
+    dev = c.fconst.device
     with torch.cuda.device(dev):
-        out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.path_surface_launch(
+        err = _build.load().path_surface_launch(
             c.fconst.data_ptr(), c.tris.data_ptr(), out.data_ptr(),
-            c.nx * c.ny, int(spp), int(seed) & 0xFFFFFFFF,
-            c.imaging_ratio / int(spp), int(c.has_point), int(c.has_env),
-            stream)
+            counter.data_ptr(), c.nx * c.ny, samp0, n_samp,
+            int(seed) & 0xFFFFFFFF, int(c.has_point), int(c.has_env), blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"path_surface kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["surface"] += 1
     return out
+
+
+def surface_items(c: SurfaceConstants, seed, samp0, n_samp, blocks=None,
+                  out=None):
+    """B5's item kernel alone: the radiance (n_samp, npix, 3) of samples
+    samp0, ..., samp0 + n_samp - 1 of every pixel, one (pixel, sample)
+    item at a time on `blocks` persistent blocks (None: the SMs times the
+    resident blocks an SM), written to `out` (allocated when None)."""
+    from .volpath_kernels import item_blocks, item_out
+
+    dev = _surface_args(c)
+    samp0, n_samp = int(samp0), int(n_samp)
+    blocks = item_blocks(samp0, n_samp, 1, blocks, surface_info(c))
+    out = item_out(out, n_samp, c.nx * c.ny, dev)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _surface_launch(c, seed, samp0, n_samp, blocks, out, counter)
+
+
+def render_surface(c: SurfaceConstants, spp, seed, blocks=None):
+    """B5: render the Cornell class, (ny, nx, 3). On a card the item kernel
+    writes each (pixel, sample)'s radiance (``surface_items``; `blocks` as
+    there) and ``volpath_kernels.render_groups`` reduces them in sample
+    order; for constants on the CPU the per-pixel plain version."""
+    from .volpath_kernels import item_blocks, render_groups
+
+    dev = c.fconst.device
+    if dev.type == "cpu":
+        return render_surface_plain(c, spp, seed)
+    spp = int(spp)
+    if spp < 1:
+        raise ValueError("spp must be at least 1")
+    blocks = item_blocks(0, spp, 1, blocks, surface_info(c))
+    return render_groups(
+        lambda s0, n, out, counter: _surface_launch(c, seed, s0, n, blocks,
+                                                    out, counter),
+        c.nx, c.ny, spp, 1, c.imaging_ratio / spp, dev)
 
 
 # ---------------------------------------------------------------------------

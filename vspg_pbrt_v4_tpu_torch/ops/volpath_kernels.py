@@ -20,16 +20,18 @@ Two scene classes, each with one kernel (sources under ``csrc/``):
   documents it), so it agrees with the JAX package within Monte Carlo
   error.
 
-B1's threads each render all samples of one pixel. B2a-c run every (pixel,
-sample) as a work item of its own on persistent blocks, one flat step loop
-a lane, and write each item's radiance to a scratch that
-``vspg_kernels.reduce_samples`` sums per pixel in sample order
-(``render_grid``; ``render_grid_items_plain`` is the plain version of the
-items). A sample runs at most ``cfg.max_events`` path events. A wrapper
-renders with the plain version only when its constant tensor lies on the
-CPU; on a CUDA tensor it launches its kernel or raises. ``LAUNCHES``
-counts the kernel launches: one a render for B1, one a chunk of samples
-for B2a-c (whose reduce counts in ``vspg_kernels.LAUNCHES``).
+Both run work items on persistent blocks and write each item's radiance
+to a scratch that ``vspg_kernels.reduce_samples`` sums per pixel in order
+(``render_groups``). A B1 item is one pixel and a group of consecutive
+samples (``group_size``), run in sample order by one thread, which writes
+their sum (``render_homog``; ``render_homog_items_plain`` and
+``group_sums_plain`` are the plain version of the items). B2a-c run every
+(pixel, sample) as an item of its own, one flat step loop a lane
+(``render_grid``; ``render_grid_items_plain``). A sample runs at most
+``cfg.max_events`` path events. A wrapper renders with the plain version
+only when its constant tensor lies on the CPU; on a CUDA tensor it
+launches its kernel or raises. ``LAUNCHES`` counts the item launches, one
+a chunk of samples (the reduce counts in ``vspg_kernels.LAUNCHES``).
 """
 
 from __future__ import annotations
@@ -681,13 +683,41 @@ def _homog_event(K, seed, S, counts=None):
 
 
 def render_homog_plain(c: KernelConstants, spp, seed, counts=None):
-    """Plain PyTorch version of ``csrc/volpath_homog.cu``: (ny, nx, 3).
+    """Plain PyTorch version of ``csrc/volpath_homog.cu``, per pixel: (ny,
+    nx, 3), each pixel's samples summed in the order their paths end.
     `counts` gathers the lane-events run (key "events") and the flights
     and shadow rays that start within 1e-4 of the box's exit
     ("exit_walks", "exit_shadows")."""
     return _render_plain(
         c, spp, seed,
         lambda K, seed, S: _homog_event(K, seed, S, counts), counts)
+
+
+def render_homog_items_plain(c: KernelConstants, spp, seed, pixels=None):
+    """Plain PyTorch version of B1 per sample: the raw radiance (spp, npix,
+    3) of every (sample, pixel), each a lane of its own from a fresh path
+    (``render_homog_plain``'s lanes, each stored at its slot); with
+    `pixels` (flat indices) the (spp, len(pixels), 3) of those pixels.
+    ``group_sums_plain`` of them is what the kernel writes."""
+    if pixels is not None:
+        pixels = torch.as_tensor(pixels, dtype=torch.int64,
+                                 device=c.fconst.device)
+    return _render_plain(c, spp, seed, _homog_event, pixels=pixels,
+                         items=True)
+
+
+def group_sums_plain(items, group):
+    """Plain version of what B1's item kernel writes: from the per-sample
+    radiances `items` (S, n, 3), the sum of each group of `group`
+    consecutive samples (the last group shorter), from zero in sample
+    order, (ceil(S / group), n, 3)."""
+    sums = []
+    for g in range(0, items.shape[0], int(group)):
+        acc = torch.zeros_like(items[0])
+        for s in range(g, min(g + int(group), items.shape[0])):
+            acc = acc + items[s]
+        sums.append(acc)
+    return torch.stack(sums)
 
 
 # ---------------------------------------------------------------------------
@@ -1266,36 +1296,185 @@ def _check(t, dtype, shape, device, name):
                          f"{tuple(t.shape)} on {t.device}")
 
 
-def render_homog(c: KernelConstants, spp, seed):
-    """B1: render the homogeneous-fog class; the CUDA kernel on a card (on
-    the current stream of the constants' card), the plain version for
-    constants on the CPU."""
+# B1's work items: a group of samples of one pixel each, as many samples a
+# group as leave at least this many items a resident thread (``group_size``;
+# groups of 3-6 ran fastest at 256^2 x 64, 8-16 at 1920x1088x16; PERF.md
+# section 6)
+ITEMS_PER_THREAD = 8
+
+
+def group_size(npix, spp, threads):
+    """Samples a work item of B1 runs, for `spp` samples of `npix`
+    pixels on a card that holds `threads` resident threads: the largest
+    group that leaves ITEMS_PER_THREAD items a thread, npix * spp //
+    (ITEMS_PER_THREAD * threads), within 1..spp."""
+    return max(1, min(int(spp), int(npix) * int(spp)
+                      // (ITEMS_PER_THREAD * int(threads))))
+
+
+def chunk_samples(npix, spp, group=1):
+    """Samples per chunk of an item render: whole groups of `group`
+    samples, as many as ``vspg_kernels.SCRATCH_BYTES`` of per-item
+    radiance hold, at least one group."""
+    from . import vspg_kernels as sk
+
+    n_groups = -(-int(spp) // int(group))
+    return int(group) * max(1, min(n_groups,
+                                   sk.SCRATCH_BYTES // (12 * int(npix))))
+
+
+def render_groups(launch, nx, ny, spp, group, out_scale, dev):
+    """The (ny, nx, 3) image of an item render on card `dev`: per chunk of
+    samples (``chunk_samples``), ``launch(samp0, n_samp, out, counter)``
+    writes the sums of the chunk's items of `group` samples,
+    (ceil(n_samp / group), npix, 3), to `out`, taking its items from the
+    zeroed one-element int64 `counter` (one a chunk, zeroed together), and
+    ``vspg_kernels.reduce_samples`` adds them to the image in order, then
+    scales it by `out_scale`."""
+    from . import vspg_kernels as sk
+
+    npix = nx * ny
+    chunk = chunk_samples(npix, spp, group)
+    n_chunks = -(-spp // chunk)
+    with torch.cuda.device(dev):
+        buf = torch.empty((chunk // group, npix, 3), dtype=torch.float32,
+                          device=dev)
+        out = torch.empty((ny, nx, 3), dtype=torch.float32, device=dev)
+        counters = torch.zeros(n_chunks, dtype=torch.int64, device=dev)
+        for k in range(n_chunks):
+            n = min(chunk, spp - k * chunk)
+            g = -(-n // group)
+            launch(k * chunk, n, buf[:g], counters[k:k + 1])
+            sk.reduce_samples(buf[:g], None, 0, out_scale, out, None, k == 0,
+                              k == n_chunks - 1)
+    return out
+
+
+def item_grid(info):
+    """The dict of an item kernel's ``_info`` entry point's four ints."""
+    per_sm, sms, regs, local = info
+    return dict(blocks=per_sm * sms, per_sm=per_sm, sms=sms, regs=regs,
+                local_bytes=local, threads=per_sm * sms * 128)
+
+
+# item_grid of B1's and B5's builds, by (library, entry point, arguments,
+# card); the build and the card fix it, so each is queried once
+_ITEM_GRIDS = {}
+
+
+def cached_item_grid(entry, args, dev):
+    """``item_grid`` of the library's `entry`(*args, out) on card `dev`."""
     from . import _build
 
+    lib = _build.load()
+    key = (lib, entry, args, dev.index)
+    grid = _ITEM_GRIDS.get(key)
+    if grid is None:
+        info = (ctypes.c_int * 4)()
+        with torch.cuda.device(dev):
+            err = getattr(lib, entry)(*args, info)
+        if err != 0:
+            raise RuntimeError(f"{entry} failed: CUDA error {err}")
+        grid = _ITEM_GRIDS[key] = item_grid(info)
+    return grid
+
+
+def item_blocks(samp0, n_samp, group, blocks, grid):
+    """Check one chunk of an item launch of B1 or B5 (samples samp0, ...,
+    samp0 + n_samp - 1 in groups of `group`); returns its persistent
+    blocks: `blocks`, or the card's full `grid` when None."""
+    if n_samp < 1 or samp0 < 0 or group < 1:
+        raise ValueError(f"samples {samp0}..{samp0 + n_samp - 1} in groups "
+                         f"of {group}")
+    if blocks is None:
+        return grid["blocks"]
+    if int(blocks) < 1:
+        raise ValueError(f"blocks must be at least 1, got {blocks}")
+    return int(blocks)
+
+
+def item_out(out, n_items, npix, dev):
+    """The (n_items, npix, 3) output of one item launch (`out`, allocated
+    when None), checked."""
+    shape = (n_items, npix, 3)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+    _check(out, torch.float32, shape, dev, "out")
+    return out
+
+
+def _homog_args(c: KernelConstants):
+    dev = c.fconst.device
     if c.kind != "homog":
         raise ValueError(f"render_homog got a {c.kind!r} scene")
-    dev = c.fconst.device
-    if dev.type == "cpu":
-        return render_homog_plain(c, spp, seed)
     if dev.type != "cuda":
         raise ValueError(f"homog: no kernel for device {dev}")
     _check(c.fconst, torch.float32, (N_FCONST,), dev, "fconst")
     _check(c.iconst, torch.int32, (N_ICONST,), dev, "iconst")
-    if int(spp) < 1:
-        raise ValueError("spp must be at least 1")
-    lib = _build.load()
+    return dev
+
+
+def homog_info(c: KernelConstants):
+    """B1's persistent grid on the constants' card (``item_grid``)."""
+    return cached_item_grid("volpath_homog_info", (), _homog_args(c))
+
+
+def _homog_launch(c, seed, samp0, n_samp, group, blocks, out, counter):
+    """One launch of B1's item kernel on checked arguments."""
+    from . import _build
+
+    dev = c.fconst.device
     with torch.cuda.device(dev):
-        out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
-        err = lib.volpath_homog_launch(
+        err = _build.load().volpath_homog_launch(
             c.fconst.data_ptr(), c.iconst.data_ptr(), out.data_ptr(),
-            c.nx * c.ny, int(spp), int(seed) & 0xFFFFFFFF,
-            c.imaging_ratio / int(spp),
+            counter.data_ptr(), c.nx * c.ny, samp0, n_samp, group,
+            int(seed) & 0xFFFFFFFF, blocks,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"volpath_homog kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["homog"] += 1
     return out
+
+
+def homog_items(c: KernelConstants, seed, samp0, n_samp, group, blocks=None,
+                out=None):
+    """B1's item kernel alone: for samples samp0, ..., samp0 + n_samp - 1
+    of every pixel in groups of `group`, the sum of each (group, pixel)
+    item's radiances (ceil(n_samp / group), npix, 3), on `blocks`
+    persistent blocks (None: the SMs times the resident blocks an SM),
+    written to `out` (allocated when None)."""
+    dev = _homog_args(c)
+    samp0, n_samp, group = int(samp0), int(n_samp), int(group)
+    blocks = item_blocks(samp0, n_samp, group, blocks, homog_info(c))
+    out = item_out(out, -(-n_samp // group), c.nx * c.ny, dev)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    return _homog_launch(c, seed, samp0, n_samp, group, blocks, out, counter)
+
+
+def render_homog(c: KernelConstants, spp, seed, blocks=None, group=None):
+    """B1: render the homogeneous-fog class, (ny, nx, 3). On a card (on the
+    current stream of the constants' card) the item kernel writes each
+    (group, pixel) item's sum (``homog_items``; groups of `group` samples,
+    None: ``group_size`` on the card's resident threads; `blocks` as
+    there) and ``render_groups`` reduces them in order; for constants on
+    the CPU the per-pixel plain version."""
+    if c.kind != "homog":
+        raise ValueError(f"render_homog got a {c.kind!r} scene")
+    if c.fconst.device.type == "cpu":
+        return render_homog_plain(c, spp, seed)
+    spp = int(spp)
+    if spp < 1:
+        raise ValueError("spp must be at least 1")
+    grid = homog_info(c)
+    npix = c.nx * c.ny
+    group = (group_size(npix, spp, grid["threads"]) if group is None
+             else int(group))
+    blocks = item_blocks(0, spp, group, blocks, grid)
+    return render_groups(
+        lambda s0, n, out, counter: _homog_launch(c, seed, s0, n, group,
+                                                  blocks, out, counter),
+        c.nx, c.ny, spp, group, c.imaging_ratio / spp, c.fconst.device)
 
 
 def _grid_args(c: KernelConstants):
@@ -1356,24 +1535,16 @@ def grid_info(c: KernelConstants, lib=None):
                 local_bytes=local)
 
 
-def grid_chunk_samples(npix, spp):
-    """Samples per chunk of a grid render: as many as
-    ``vspg_kernels.SCRATCH_BYTES`` of per-item radiance hold, at least
-    one."""
-    from . import vspg_kernels as sk
-
-    return max(1, min(int(spp), sk.SCRATCH_BYTES // (12 * int(npix))))
-
-
 def grid_items(c: KernelConstants, seed, samp0, n_samp, blocks=None,
-               lib=None, out=None):
+               lib=None, out=None, counter=None):
     """B2a-c's item kernel alone: the raw radiances (n_samp, npix, 3) of
     samples samp0, ..., samp0 + n_samp - 1 of every pixel, one (pixel,
     sample) item at a time on `blocks` persistent blocks (None: the SMs
     times the resident blocks an SM), written to `out` (allocated when
-    None). `lib`: the package's library (None) or another build of the
-    grid sources bound with their entry points (chip_smoke.py times
-    some)."""
+    None), the items taken from the zeroed one-element int64 `counter`
+    (allocated when None). `lib`: the package's library (None) or another
+    build of the grid sources bound with their entry points (chip_smoke.py
+    times some)."""
     from . import _build
 
     name, ptrs, (nmaj, n_tri, n_node, n_mat) = _grid_args(c)
@@ -1390,7 +1561,8 @@ def grid_items(c: KernelConstants, seed, samp0, n_samp, blocks=None,
             out = torch.empty((n_samp, npix, 3), dtype=torch.float32,
                               device=dev)
         _check(out, torch.float32, (n_samp, npix, 3), dev, "out")
-        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        if counter is None:
+            counter = torch.zeros(1, dtype=torch.int64, device=dev)
         err = getattr(lib, f"volpath_{name}_launch")(
             *ptrs, out.data_ptr(), counter.data_ptr(), npix, int(samp0),
             n_samp, int(seed) & 0xFFFFFFFF, nmaj, n_tri, n_node, n_mat,
@@ -1406,13 +1578,10 @@ def grid_items(c: KernelConstants, seed, samp0, n_samp, blocks=None,
 def render_grid(c: KernelConstants, spp, seed, blocks=None, lib=None):
     """B2a / B2b / B2c: render the grid-cloud class, with its triangles
     (swept, or through the BVH in the mesh class) when it has any, (ny, nx,
-    3). On a card, per chunk of samples (``grid_chunk_samples``) the item
-    kernel writes each (pixel, sample)'s radiance to the scratch
-    (``grid_items``; `blocks` and `lib` as there) and
-    ``vspg_kernels.reduce_samples`` adds it to the image in sample order;
-    for constants on the CPU the plain version."""
-    from . import vspg_kernels as sk
-
+    3). On a card the item kernel writes each (pixel, sample)'s radiance
+    (``grid_items``; `blocks` and `lib` as there) and ``render_groups``
+    reduces them in sample order; for constants on the CPU the plain
+    version."""
     if c.kind != "grid":
         raise ValueError(f"render_grid got a {c.kind!r} scene")
     if c.fconst.device.type == "cpu":
@@ -1420,19 +1589,10 @@ def render_grid(c: KernelConstants, spp, seed, blocks=None, lib=None):
     spp = int(spp)
     if spp < 1:
         raise ValueError("spp must be at least 1")
-    npix = c.nx * c.ny
-    dev = c.fconst.device
-    chunk = grid_chunk_samples(npix, spp)
-    n_chunks = -(-spp // chunk)
-    with torch.cuda.device(dev):
-        lbuf = torch.empty((chunk, npix, 3), dtype=torch.float32, device=dev)
-        out = torch.empty((c.ny, c.nx, 3), dtype=torch.float32, device=dev)
-        for k in range(n_chunks):
-            n = min(chunk, spp - k * chunk)
-            grid_items(c, seed, k * chunk, n, blocks, lib, lbuf[:n])
-            sk.reduce_samples(lbuf[:n], None, 0, c.imaging_ratio / spp, out,
-                              None, k == 0, k == n_chunks - 1)
-    return out
+    return render_groups(
+        lambda s0, n, out, counter: grid_items(c, seed, s0, n, blocks, lib,
+                                               out, counter),
+        c.nx, c.ny, spp, 1, c.imaging_ratio / spp, c.fconst.device)
 
 
 def render(c: KernelConstants, spp, seed):
