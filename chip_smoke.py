@@ -54,7 +54,14 @@ with max_events cut to 1 at 16 spp, where the cap cuts samples in many
 pixels, against the per-pixel plain version on a crop. Phase 15 holds the
 grid kernel's register budget and warp vote: each grid source built alone
 at 2, 3 and 4 minimum blocks an SM, and with its vote flipped, timed in
-turns on the main paths' inputs of phases 6, 9c and 10c. The grid kernel (B2a-c) runs (pixel, sample) items too:
+turns on the main paths' inputs of phases 6, 9c and 10c. Phase 16, run
+before 14, drives scene files through the port's own parser, builder and
+CLI (``python -m vspg_pbrt_v4_tpu_torch``): the fog box through the CLI
+against the API bit for bit, the parsed fog against the same fog as one
+box through B1, the Cornell box (spheres, an area light), and a guided
+fog box with an emissive quad, storing then loading its guiding cache,
+against the same scene under volpath. The grid kernel (B2a-c) runs
+(pixel, sample) items too:
 9a and 10a hold B2b and B2c per item against the plain per-item version
 at 4 spp, printing the items the kernel reads as 0 (a lost sample), and
 every B2b/B2c image check uses the mesh bar (0.9999 of pixels). Every
@@ -919,6 +926,7 @@ def main():
     kernels += _phase13(dev, tag)
     print(f"phase 13 done {_at()}, the phase {time.perf_counter() - t13:.1f} "
           "s", flush=True)
+    _phase16(dev, tag)
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -2806,6 +2814,200 @@ def _phase13(dev, tag):
             library_ms=None, shape=f"C={C}, 1 block, {gm.E_HI} events",
             full_card_ms=timed[variant, C, full]))
     return entries
+
+
+# phase 16's guided scene: scenes/fogbox.pbrt with the paper's integrator
+# and a 0.2-wide emissive quad in the fog, facing the camera
+VSPG_INTEGRATOR = ('Integrator "guidedvolpathvspg" "integer maxdepth" [32] '
+                   '"string isgbdenoiser" "atrous"')
+EMISSIVE_QUAD = """
+AttributeBegin
+  MediumInterface "fog" "fog"
+  AreaLightSource "diffuse" "rgb L" [4 4 4]
+  Material "diffuse" "rgb reflectance" [0.5 0.5 0.5]
+  Shape "trianglemesh"
+    "point3 P" [-0.1 -0.5 0  0.1 -0.5 0  0.1 -0.3 0  -0.1 -0.3 0]
+    "integer indices" [0 2 1  0 3 2]
+AttributeEnd
+"""
+
+
+def _outward(text):
+    """`text` with every triangle's corners in the other order. The
+    shipped fog box winds its interface inward, so under pbrt's
+    MediumInterface rule (the inside medium lies opposite the normal) its
+    fog fills everything outside the cube, in both packages; wound outward,
+    the fog fills the cube, as in B1's box."""
+    import re
+
+    def flip(m):
+        v = m.group(2).split()
+        return m.group(1) + "  ".join(
+            f"{v[i]} {v[i + 2]} {v[i + 1]}" for i in range(0, len(v), 3)) + "]"
+
+    return re.sub(r'("integer indices"\s*\[)([^\]]*)\]', flip, text)
+
+
+def _cli(args, label, tag):
+    """Run ``python -m vspg_pbrt_v4_tpu_torch`` on `args` from the
+    repository root; returns (image, the --stats record, seconds)."""
+    import os
+
+    from vspg_pbrt_v4_tpu_torch.utils.image import read_image
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vspg_pbrt_v4_tpu_torch",
+                        *args, "--stats", "--quiet"], cwd=root,
+                       capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    assert r.returncode == 0, (label, r.stderr[-3000:])
+    stats = json.loads(r.stderr.strip().splitlines()[-1])
+    img = read_image(args[args.index("--outfile") + 1])
+    assert np.isfinite(img).all(), label
+    print(f"phase 16{label}: {stats['seconds']:.2f} s in the CLI "
+          f"({dt:.2f} s with the interpreter's start), parse and build "
+          f"{stats['build_seconds']:.4f} s, {stats['mpaths_per_s']:.4f} "
+          f"Mpaths/s, {stats['spp']} spp at {stats['resolution']}, device "
+          f"{stats['device']}, mean {img.mean():.6f} {tag}", flush=True)
+    assert stats["device"] == "cuda", stats
+    return img, stats, dt
+
+
+def _z(a, b):
+    """(difference of the image means, the same in standard errors of the
+    per-pixel differences)."""
+    diff = (np.asarray(a, np.float64) - np.asarray(b, np.float64)).mean(-1)
+    err = diff.std() / np.sqrt(diff.size)
+    return diff.mean(), diff.mean() / err
+
+
+def _phase16(dev, tag):
+    """Scene files through the port's own parser, builder and CLI: (a) the
+    fog box through ``python -m vspg_pbrt_v4_tpu_torch`` against
+    ``build_render_setup`` + ``volpath.render`` in this process, bit for
+    bit; (b) the parsed fog against the same fog as one box through
+    ``render_persistent`` (B1) within 4 standard errors; (c) the Cornell box (spheres, an area
+    light) through the CLI, its walls on their sides; (d) the fog box with
+    an emissive quad under ``guidedvolpathvspg`` through the CLI, storing
+    then loading a guiding cache, within 4 standard errors of the same
+    scene under volpath. (b) and (d) wind the fog box's interface outward
+    (``_outward``)."""
+    import os
+    import tempfile
+
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.scene import (build_render_setup,
+                                              parse_pbrt_file,
+                                              parse_pbrt_string)
+
+    t16 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    fogbox = os.path.join(root, "scenes", "fogbox.pbrt")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the real entry point against the API on the same seed
+        img_cli, _, _ = _cli([fogbox, "--spp", "16", "--outfile",
+                              os.path.join(tmp, "fogbox.exr")], "a fogbox",
+                             tag)
+        t0 = time.perf_counter()
+        setup = build_render_setup(parse_pbrt_file(fogbox), spp_override=16,
+                                   device=dev)
+        t_build = time.perf_counter() - t0
+        img_api = volpath.render(setup.scene, setup.camera, setup.film,
+                                 spp=16, cfg=volpath.VolPathConfig(
+                                     max_depth=32), seed=0, spp_per_pass=4,
+                                 device=dev)
+        where = img_api.device
+        img_api = img_api.cpu().numpy()
+        same = np.array_equal(img_cli, img_api)
+        print(f"phase 16a fogbox: the CLI's image and build_render_setup + "
+              f"volpath.render's (built in {t_build:.4f} s, tensors on "
+              f"{where}) equal bit for bit: {same} {tag}", flush=True)
+        assert same and where.type == "cuda"
+
+        # (b) the fog wound outward (so that it fills the cube) through the
+        # parser, the builder and volpath.render, against the same fog as
+        # one box through B1
+        with open(fogbox) as f:
+            fog_text = _outward(f.read())
+        fog_in = build_render_setup(parse_pbrt_string(fog_text),
+                                    spp_override=16, device=dev)
+        img_tri = volpath.render(fog_in.scene, fog_in.camera, fog_in.film,
+                                 spp=16, cfg=volpath.VolPathConfig(
+                                     max_depth=32), seed=4, spp_per_pass=4,
+                                 device=dev).cpu().numpy()
+        box = Geometry.build(boxes=[dict(bmin=(-1, -1, -1), bmax=(1, 1, 1),
+                                         mat=-1, light=-1, med_in=0,
+                                         med_out=-1)], device=dev)
+        fog_box = dataclasses.replace(fog_in.scene, geometry=box)
+        for key in vk.LAUNCHES:
+            vk.LAUNCHES[key] = 0
+        img_b1 = volpath.render_persistent(
+            fog_box, fog_in.camera, fog_in.film, spp=64,
+            cfg=volpath.VolPathConfig(max_depth=32), seed=5, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(vk.LAUNCHES)
+        assert launches["homog"] >= 1 and launches["grid"] == 0, launches
+        d, z = _z(img_b1.cpu().numpy(), img_tri)
+        print(f"phase 16b fogbox as one box via render_persistent (B1 "
+              f"launches {launches['homog']}) at 64 spp against the parsed "
+              f"fog box wound outward at 16 spp: means "
+              f"{img_b1.mean().item():.6f} and {img_tri.mean():.6f}, "
+              f"difference {d:+.6f} = {z:+.2f} standard errors (bound 4); "
+              f"the shipped winding, fog outside the cube, reads "
+              f"{img_cli.mean():.6f} {tag}", flush=True)
+        assert abs(z) <= 4.0, z
+
+        # (c) the Cornell box through the CLI at the file's own size
+        img_c, _, _ = _cli([os.path.join(root, "scenes", "cornell.pbrt"),
+                            "--outfile", os.path.join(tmp, "cornell.exr")],
+                           "c cornell", tag)
+        ny, nx = img_c.shape[:2]
+        rows = slice(ny // 4, 3 * ny // 4)
+        left = img_c[rows, nx // 16:nx * 5 // 16].mean((0, 1))
+        right = img_c[rows, nx * 11 // 16:nx * 15 // 16].mean((0, 1))
+        print(f"phase 16c cornell walls: left {left.round(4).tolist()} "
+              f"(green), right {right.round(4).tolist()} (red) {tag}",
+              flush=True)
+        assert right[0] > right[1] and left[1] > left[0], (left, right)
+
+        # (d) the guided scene (the fog wound outward, so that the quad is
+        # in the fog), storing then loading its guiding cache, against the
+        # same scene under volpath
+        body = "\n".join(ln for ln in fog_text.splitlines()
+                         if not ln.startswith("Integrator")) + EMISSIVE_QUAD
+        scenes = {}
+        for name, integ in (("vspg", VSPG_INTEGRATOR),
+                            ("volpath", 'Integrator "volpath" '
+                                        '"integer maxdepth" [32]')):
+            scenes[name] = os.path.join(tmp, f"quad_{name}.pbrt")
+            with open(scenes[name], "w") as f:
+                f.write(integ + "\n" + body)
+        cache = os.path.join(tmp, "field.npz")
+        imgs = {}
+        for label, extra, seed in (
+                ("store", ["--store-guiding-cache", cache], 1),
+                ("load", ["--load-guiding-cache", cache], 2)):
+            imgs[label] = _cli([scenes["vspg"], "--spp", "16", "--seed",
+                                str(seed), "--outfile",
+                                os.path.join(tmp, f"vspg_{label}.exr"),
+                                *extra], f"d vspg {label} guiding cache",
+                               tag)[0]
+            assert os.path.exists(cache)
+        img_v = _cli([scenes["volpath"], "--spp", "16", "--seed", "3",
+                      "--outfile", os.path.join(tmp, "quad_volpath.exr")],
+                     "d volpath", tag)[0]
+        for label in ("store", "load"):
+            d, z = _z(imgs[label], img_v)
+            print(f"phase 16d vspg ({label}) against volpath with the "
+                  f"emissive quad: means {imgs[label].mean():.6f} and "
+                  f"{img_v.mean():.6f}, difference {d:+.6f} = {z:+.2f} "
+                  f"standard errors (bound 4) {tag}", flush=True)
+            assert abs(z) <= 4.0, (label, z)
+    dt = time.perf_counter() - t16
+    print(f"phase 16 done {_at()}, the phase {dt:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,223 @@
+"""The port's scene-file entry point: its ``volpath.render`` against the
+JAX package's on the parsed fog box, and the CLI
+(``python -m vspg_pbrt_v4_tpu_torch``) on the CPU against the API bit for
+bit, with --time, a --checkpoint resume, --mse-reference-image, the
+probes and the guiding caches of both packages. Without --cpu and without
+a card the CLI exits non-zero; the CLI and the scene package import with
+JAX blocked."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from vspg_pbrt_v4_tpu.models.guiding import field as jfield
+from vspg_pbrt_v4_tpu.models.integrators import volpath as jv
+from vspg_pbrt_v4_tpu.scene import build_render_setup as jbuild
+from vspg_pbrt_v4_tpu.scene import parse_pbrt_file as jparse_file
+from vspg_pbrt_v4_tpu_torch import cli, convert
+from vspg_pbrt_v4_tpu_torch.models.guiding import field as tfield
+from vspg_pbrt_v4_tpu_torch.models.integrators import volpath as tv
+from vspg_pbrt_v4_tpu_torch.scene import build_render_setup as tbuild
+from vspg_pbrt_v4_tpu_torch.scene import parse_pbrt_file as tparse_file
+from vspg_pbrt_v4_tpu_torch.utils.image import read_image, write_exr
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FOGBOX = os.path.join(REPO, "scenes", "fogbox.pbrt")
+RES = (8, 8)
+
+
+def _api(spp, spp_per_pass, seed=3, res=RES):
+    s = tbuild(tparse_file(FOGBOX), spp, res, device="cpu")
+    return tv.render(s.scene, s.camera, s.film, spp=spp,
+                     cfg=tv.VolPathConfig(max_depth=32), seed=seed,
+                     spp_per_pass=spp_per_pass, device="cpu").numpy()
+
+
+def _cli(tmp_path, name, *extra, spp=4, per_pass=2):
+    out = str(tmp_path / name)
+    rc = cli.main([FOGBOX, "--cpu", "--quiet", "--spp", str(spp),
+                   "--spp-per-pass", str(per_pass), "--resolution",
+                   f"{RES[0]}x{RES[1]}", "--seed", "3", "--outfile", out,
+                   *extra])
+    assert rc == 0
+    return read_image(out)
+
+
+def test_render_matches_jax_on_the_parsed_fogbox():
+    """The port's render against JAX's on the parsed scene at 8x8, 4 spp,
+    2 a pass, pixel for pixel (test_torch_volpath_render.py's bar)."""
+    js = jbuild(jparse_file(FOGBOX), 4, RES)
+    ref = np.asarray(jv.render(js.scene, js.camera, js.film, spp=4,
+                               cfg=jv.VolPathConfig(max_depth=32), seed=3,
+                               spp_per_pass=2))
+    img = _api(4, 2)
+    diff = np.abs(img - ref)
+    ok = ((diff <= 1e-3 * np.abs(ref)) | (diff <= 1e-6)).all(-1)
+    assert ok.mean() >= 0.99, ok.mean()
+    assert ref.mean() > 0
+
+
+def test_cli_equals_the_api(tmp_path):
+    img = _cli(tmp_path, "a.exr")
+    np.testing.assert_array_equal(img, _api(4, 2))
+    # render_wave is render_pass at one sample a pixel
+    s = tbuild(tparse_file(FOGBOX), 1, RES, device="cpu")
+    cfg = tv.VolPathConfig(max_depth=32)
+    wave = tv.render_wave(s.scene, s.camera, s.film, s.film.init_state(),
+                          cfg, 3, 0)
+    np.testing.assert_array_equal(s.film.image(wave).numpy(), _api(1, 1))
+    png = _cli(tmp_path, "a.png")
+    assert png.shape == (RES[1], RES[0], 3) and np.isfinite(png).all()
+
+
+def test_cli_time_checkpoint_and_mse(tmp_path, capsys):
+    """--time stops after the pass that runs out of time; a checkpoint
+    resumes to the image of one uninterrupted run; --mse-reference-image
+    prints the MSE against a reference."""
+    full = _api(4, 2)
+    img = _cli(tmp_path, "t.exr", "--time", "0")
+    np.testing.assert_array_equal(img, _api(2, 2))
+    ck = str(tmp_path / "ck.npz")
+    _cli(tmp_path, "c1.exr", "--checkpoint", ck, spp=2)
+    resumed = _cli(tmp_path, "c2.exr", "--checkpoint", ck, spp=4)
+    np.testing.assert_array_equal(resumed, full)
+    ref = str(tmp_path / "ref.exr")
+    write_exr(ref, full)
+    capsys.readouterr()
+    _cli(tmp_path, "m.exr", "--mse-reference-image", ref)
+    assert capsys.readouterr().out.strip().splitlines()[-1] == "MSE,4,0"
+
+
+def test_cli_probes(tmp_path, capsys):
+    """--pixelmaterial prints the center ray's hits (the JAX CLI test's
+    scene); --debugstart replays one sample."""
+    scene = tmp_path / "probe.pbrt"
+    scene.write_text('''
+Film "rgb" "integer xresolution" [16] "integer yresolution" [16]
+LookAt 0 0 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [40]
+WorldBegin
+Material "diffuse" "rgb reflectance" [.6 .3 .2]
+Shape "sphere" "float radius" [1]
+''')
+    assert cli.main([str(scene), "--cpu", "--pixelmaterial", "8,8",
+                     "--quiet"]) == 0
+    out = capsys.readouterr().out
+    assert "Intersection depth 1" in out and "Intersection depth 2" in out
+    assert "diffuse" in out and "albedo=(0.6" in out
+    assert "Distance from camera: 3" in out  # the sphere's front, z = -1
+    assert cli.main([str(scene), "--cpu", "--pixelmaterial", "0,0",
+                     "--quiet"]) == 1
+    assert cli.main([FOGBOX, "--cpu", "--debugstart", "32,32,0"]) == 0
+    assert "[debugstart] pixel (32,32) sample 0: L = (" in \
+        capsys.readouterr().out
+
+
+def test_cli_refusals(tmp_path, capsys, monkeypatch):
+    """No silent fallback to the CPU; integrators and options the port
+    does not serve, and unported scene content, exit with code 1."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([FOGBOX, "--quiet"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert cli.main([FOGBOX, "--cpu", "--interactive"]) == 1
+    assert "--interactive is not ported" in capsys.readouterr().err
+    bdpt = tmp_path / "bdpt.pbrt"
+    bdpt.write_text('Integrator "bdpt"\nWorldBegin\n')
+    assert cli.main([str(bdpt), "--cpu", "--quiet"]) == 1
+    assert "ROADMAP.md §A" in capsys.readouterr().err
+    assert cli.main([os.path.join(REPO, "scenes", "cloud_vspg.pbrt"),
+                     "--cpu", "--quiet"]) == 1
+    assert 'MakeNamedMedium type "cloud"' in capsys.readouterr().err
+
+
+def test_field_caches_load_across_packages(tmp_path):
+    """A field stored by JAX's save_field loads in the port equal to
+    convert.field_from_jax, and one stored by the port loads in JAX with
+    the same leaves (an adaptive field, so every array is there)."""
+    jf = jfield.GuidingField.make((-1,) * 3, (1,) * 3, res=4, n_lobes=8,
+                                  n_extra=16)
+    jf = jf.replace(surface=jf.surface.replace(
+        weights=jf.surface.weights * 0.5), iteration=jf.iteration + 3)
+    jfield.save_field(jf, str(tmp_path / "j.npz"))
+    tf = tfield.load_field(str(tmp_path / "j.npz"), device="cpu")
+    want = convert.field_from_jax(jf, "cpu")
+    assert tf.iteration == 3
+    for name in ("b_min", "b_max", "leaf_of", "refined", "child_base",
+                 "leaf_center"):
+        a, b = getattr(tf, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for half in ("surface", "volume"):
+        for name, a in vars(getattr(tf, half)).items():
+            assert torch.equal(a, getattr(getattr(want, half), name)), name
+    assert (tf.res, tf.n_lobes, tf.n_extra, tf.n_leaves) == (
+        want.res, want.n_lobes, want.n_extra, want.n_leaves)
+    tfield.save_field(tf, str(tmp_path / "t.npz"))
+    back = jfield.load_field(str(tmp_path / "t.npz"))
+    for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(jf)):
+        x, y = np.asarray(x), np.asarray(y)
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+
+
+def test_checkpoints_load_across_packages(tmp_path):
+    """A film state checkpointed by either package loads in the other."""
+    import jax.numpy as jnp
+
+    from vspg_pbrt_v4_tpu.models.film import FilmState as JFilmState
+    from vspg_pbrt_v4_tpu.utils import checkpoint as jck
+    from vspg_pbrt_v4_tpu_torch.models.film import FilmState
+    from vspg_pbrt_v4_tpu_torch.utils import checkpoint as tck
+
+    rng = np.random.default_rng(4)
+    rgb = rng.uniform(0, 2, (12, 3)).astype(np.float32)
+    w = rng.uniform(0, 4, 12).astype(np.float32)
+    jck.save_render_state(str(tmp_path / "j.npz"), JFilmState(
+        jnp.asarray(rgb), jnp.asarray(w), jnp.zeros((12, 3))), 8, 3)
+    st, spp, seed = tck.load_render_state(str(tmp_path / "j.npz"))
+    assert (spp, seed) == (8, 3)
+    np.testing.assert_array_equal(st.rgb_sum.numpy(), rgb)
+    np.testing.assert_array_equal(st.weight_sum.numpy(), w)
+    tck.save_render_state(str(tmp_path / "t.npz"), FilmState(
+        torch.as_tensor(rgb), torch.as_tensor(w)), 4, 5)
+    jst, spp, seed = jck.load_render_state(str(tmp_path / "t.npz"))
+    assert (spp, seed) == (4, 5)
+    for a, b in zip(jst, (rgb, w, np.zeros((12, 3), np.float32))):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_port_entry_points_import_without_jax():
+    """With JAX blocked in a fresh interpreter, the CLI and the scene
+    package import."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import vspg_pbrt_v4_tpu_torch.cli\n"
+            "import vspg_pbrt_v4_tpu_torch.scene\n"
+            "assert 'vspg_pbrt_v4_tpu' not in sys.modules\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=REPO, timeout=120,
+                       env={**os.environ, "PYTHONPATH": REPO})
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+
+
+@pytest.mark.parametrize("scene", ["cornell.pbrt"])
+def test_cli_renders_a_scene_with_spheres(tmp_path, scene):
+    """The Cornell box (two spheres, an area light) through the CLI: the
+    red wall on the image's right, the green on its left (pbrt's LookAt
+    puts world -x on screen-right), as tests/test_parser_cli.py checks for
+    the JAX package."""
+    out = str(tmp_path / "c.exr")
+    assert cli.main([os.path.join(REPO, "scenes", scene), "--cpu",
+                     "--quiet", "--spp", "8", "--resolution", "32x32",
+                     "--outfile", out]) == 0
+    img = read_image(out)
+    assert np.isfinite(img).all()
+    left = img[8:24, 2:10].mean((0, 1))
+    right = img[8:24, 22:30].mean((0, 1))
+    assert right[0] > right[1], right
+    assert left[1] > left[0], left

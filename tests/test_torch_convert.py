@@ -67,9 +67,11 @@ def test_from_jax_refuses_unported_objects():
     scene = fog_scene()
     cam, film = camera_film()
     cfg = jv.VolPathConfig()
-    sph = JGeometry.build(spheres=[dict(c=(0, 0, 0), r=1.0, mat=-1)])
+    # spheres convert; disks are not ported
+    disk = JGeometry.build(disks=[dict(c=(0, 0, 0), n=(0, 0, 1), r=1.0,
+                                       mat=-1)])
     with pytest.raises(NotImplementedError):
-        from_jax(scene._replace(geometry=sph), cam, film, cfg, "cpu")
+        from_jax(scene._replace(geometry=disk), cam, film, cfg, "cpu")
     # area lights convert; distant lights are not ported
     distant = JLights.make(distant_dir=[(0, -1, 0)], distant_L=[(1, 1, 1)])
     with pytest.raises(NotImplementedError):

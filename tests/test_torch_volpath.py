@@ -19,6 +19,13 @@ from vspg_pbrt_v4_tpu.utils import transform as jtr
 from vspg_pbrt_v4_tpu_torch.convert import from_jax
 from vspg_pbrt_v4_tpu_torch.models.integrators import volpath as tv
 
+# One torch thread a test process. pytest-xdist imports every test module
+# in every worker, so this line sets the count of each worker: six workers
+# of one thread per core each oversubscribe the host, and the port's
+# lockstep plain versions (many small ops a path event) then wait on their
+# threads far longer than they compute.
+torch.set_num_threads(1)
+
 RES = 16
 
 

@@ -13,7 +13,6 @@ from vspg_pbrt_v4_tpu.models.integrators import vspg as jvspg
 from vspg_pbrt_v4_tpu_torch import convert
 from vspg_pbrt_v4_tpu_torch.models.guiding.isgb import ISGB
 from vspg_pbrt_v4_tpu_torch.models.integrators import vspg as tvspg
-from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
 from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
 
 from test_torch_vspg_kernel import CFG, GOPT, QUADRANTS, VOPT, jax_setup
@@ -71,15 +70,7 @@ def _box(ts):
 def _refusal(case):
     """A call outside the port's scope."""
     scene, cam, film = jax_setup()
-    ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, CFG, "cpu")
-    tg, tv = convert.options_from_jax(GOPT, VOPT)
-    if case == "triangles":
-        # the mesh class: more triangles than brute force serves; the VSPG
-        # arm does not take their BVH yet
-        ts = type(ts)(Geometry.build([_box(ts)], _mesh_tris(), device="cpu"),
-                      ts.materials, ts.media, ts.lights)
-        return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
-                                         gopt=tg, vopt=tv, device="cpu")
+    ts = convert.from_jax(scene, cam, film, CFG, "cpu")[0]
     if case == "kd-tree":
         # the mesh class under a kd-tree (Accelerator "kdtree"): only the
         # BVH is ported
@@ -89,26 +80,10 @@ def _refusal(case):
                              accelerator="kdtree")
         return lambda: convert.from_jax(scene._replace(geometry=jg), cam,
                                         film, CFG, "cpu")
-    if case == "area light":
-        # an emissive triangle in the cloud: vspg_bounce shades no emission
-        # yet, so the VSPG arm refuses area lights rather than lose them
-        from vspg_pbrt_v4_tpu_torch.models.lights import Lights
-
-        tri = dict(p0=(-0.2, 0.9, -0.2), p1=(0.2, 0.9, -0.2),
-                   p2=(0.0, 0.9, 0.2))
-        ts = type(ts)(Geometry.build([_box(ts)], [dict(tri, mat=0, light=0)],
-                                     device="cpu"),
-                      ts.materials, ts.media,
-                      Lights.make(env_L=[0.2] * 3, world_radius=100.0,
-                                  area_tris=[dict(tri, L=(5.0,) * 3)],
-                                  device="cpu"))
-        return lambda: tvspg.render_vspg(ts, tc, tf, spp=2, cfg=tcfg,
-                                         gopt=tg, vopt=tv, device="cpu")
     return lambda: ISGB.make((4, 4), "variance", "unet", device="cpu")
 
 
-@pytest.mark.parametrize("case", ["triangles", "kd-tree", "unet",
-                                  "area light"])
+@pytest.mark.parametrize("case", ["kd-tree", "unet"])
 def test_unported_routes_raise(case):
     with pytest.raises(NotImplementedError):
         _refusal(case)()

@@ -37,10 +37,11 @@ def _count(x):
 
 
 def _geometry(g, device):
-    others = (_count(g.sph_c) + _count(g.dsk_c) + _count(g.cyl_c)
-              + _count(g.blp_p00) + _count(g.crv_p0))
+    others = (_count(g.dsk_c) + _count(g.cyl_c) + _count(g.blp_p00)
+              + _count(g.crv_p0))
     if others or getattr(g, "inst", None) is not None:
-        raise NotImplementedError("only boxes and triangles are ported")
+        raise NotImplementedError("only boxes, spheres and triangles are "
+                                  "ported")
     T = _count(g.tri_p0)
 
     def uv(x, default):
@@ -61,7 +62,11 @@ def _geometry(g, device):
         _t(g.tri_mat, device, torch.int32),
         _t(g.tri_light, device, torch.int32),
         _t(g.tri_med_in, device, torch.int32),
-        _t(g.tri_med_out, device, torch.int32), _tri_bvh(g.tri_bvh, device))
+        _t(g.tri_med_out, device, torch.int32),
+        _t(g.sph_c, device, torch.float32), _t(g.sph_r, device, torch.float32),
+        _t(g.sph_mat, device, torch.int32), _t(g.sph_light, device, torch.int32),
+        _t(g.sph_med_in, device, torch.int32),
+        _t(g.sph_med_out, device, torch.int32), _tri_bvh(g.tri_bvh, device))
 
 
 def _tri_bvh(bvh, device):

@@ -63,6 +63,23 @@ class RGBFilm(OnDevice):
         state.weight_sum.index_add_(0, pixel_id, weight)
         return state
 
+    def add_pass(self, state: FilmState, L, weight) -> FilmState:
+        """Add a pass of k samples a pixel laid out pixel by pixel (lane
+        p * k + j holds sample j of pixel p), each pixel's samples in lane
+        order: the order of ``add_samples`` on the CPU, and the same bits
+        on every run on a card, where ``index_add_`` adds in no fixed
+        order."""
+        bad = torch.any(~torch.isfinite(L), dim=-1)
+        L = torch.where(bad[..., None], 0.0, L)
+        L = torch.clamp(L, max=self.max_component)
+        rgb = (self.imaging_ratio * L * weight[..., None]).reshape(
+            self.npix, -1, 3)
+        w = weight.reshape(self.npix, -1)
+        for j in range(w.shape[1]):
+            state.rgb_sum.add_(rgb[:, j])
+            state.weight_sum.add_(w[:, j])
+        return state
+
     def image(self, state: FilmState):
         """Final (ny, nx, 3) image."""
         w = torch.clamp(state.weight_sum, min=1e-12)[..., None]

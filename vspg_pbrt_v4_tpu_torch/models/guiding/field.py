@@ -8,8 +8,9 @@ With ``n_extra > 0`` the field is adaptive and two-level (the JAX
 package's analog of OpenPGL's sample-adaptive kd-tree): between waves,
 ``refine_field`` splits dense coarse cells into 2^3 child leaves, and a
 coarse cell resolves to its leaf through the indirection arrays
-``leaf_of``, ``refined`` and ``child_base``. ``save_field``/``load_field``
-are not ported.
+``leaf_of``, ``refined`` and ``child_base``. ``save_field`` and
+``load_field`` store and load a field in the JAX package's npz layout, so
+that a guiding cache written by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -367,3 +368,54 @@ def refine_field(field: GuidingField, threshold=256.0, max_splits=16):
         refined=torch.as_tensor(refined, device=dev),
         child_base=torch.as_tensor(child_base, device=dev),
         n_leaves=n_leaves + 8 * len(picks), leaf_center=leaf_center)
+
+
+# the JAX package's npz layout of a field: its leaves in the order of
+# jax.tree.flatten(GuidingField) (the dataclass's array fields in order,
+# each half's fields in order), then the static res, n_lobes and n_extra
+_HALF_FIELDS = ("weights", "mu", "kappa", "stats_w", "stats_s",
+                "stats_dist", "vsp_c_vol", "vsp_c_surf", "vsp_c2_vol",
+                "vsp_c2_surf", "vsp_n", "flux", "flux_w", "vsp_lobe_vol",
+                "vsp_lobe_surf")
+
+
+def save_field(field: GuidingField, path):
+    """Store the field (storeGuidingCache analog) as an npz."""
+    def half(h):
+        return [getattr(h, k).cpu().numpy() for k in _HALF_FIELDS]
+
+    arrays = ([field.b_min.cpu().numpy(), field.b_max.cpu().numpy()]
+              + half(field.surface) + half(field.volume)
+              + [np.int32(field.iteration),
+                 field.leaf_of.cpu().numpy().astype(np.int32),
+                 field.refined.cpu().numpy(),
+                 field.child_base.cpu().numpy().astype(np.int32),
+                 np.int32(field.n_leaves), field.leaf_center.cpu().numpy()])
+    np.savez(path, *arrays, res=field.res, n_lobes=field.n_lobes,
+             n_extra=field.n_extra)
+
+
+def load_field(path, device="cuda") -> GuidingField:
+    """A field stored by either package's ``save_field``, on `device`."""
+    data = np.load(path)
+    n_meta = 3 if "n_extra" in data.files else 2
+    a = [data[f"arr_{i}"] for i in range(len(data.files) - n_meta)]
+    n_h = len(_HALF_FIELDS)
+    if len(a) != 2 + 2 * n_h + 6:
+        raise ValueError(f"{path}: {len(a)} arrays, not a guiding field")
+
+    def t(x, dtype=None):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    def half(xs):
+        return FieldHalf(*(t(x, torch.float32) for x in xs))
+
+    it, leaf_of, refined, child_base, n_leaves, leaf_center = a[2 + 2 * n_h:]
+    return GuidingField(
+        t(a[0], torch.float32), t(a[1], torch.float32),
+        half(a[2:2 + n_h]), half(a[2 + n_h:2 + 2 * n_h]), int(it),
+        int(data["res"]), int(data["n_lobes"]),
+        n_extra=int(data["n_extra"]) if "n_extra" in data.files else 0,
+        leaf_of=t(leaf_of, torch.int64), refined=t(refined, torch.bool),
+        child_base=t(child_base, torch.int64), n_leaves=int(n_leaves),
+        leaf_center=t(leaf_center, torch.float32))

@@ -9,10 +9,17 @@ EVERY lane. A lane's random stream therefore depends on its batch; keeping
 the same lane pool and the same regeneration order is what lets this
 module match the JAX wavefront lane for lane.
 
-Scope: homogeneous and grid media inside box interfaces, flat triangles
-with the materials of ``models/materials.py`` (by brute force up to 64,
-through the geometry's BVH above), point lights, triangle area lights
-and a constant environment, a pinhole camera, RGB hero-channel mode.
+``render`` (and ``render_pass`` and ``render_progressive``, which the
+scene-file CLI calls) runs passes of ``spp_per_pass`` samples a pixel
+through this wavefront on the JAX package's random streams;
+``render_persistent`` keeps a lane pool busy and dispatches to the
+kernels where a scene is of their class.
+
+Scope: homogeneous and grid media inside box or triangle interfaces, flat
+triangles (by brute force up to 64, through the geometry's BVH above)
+and spheres with the materials of ``models/materials.py``, point lights,
+triangle area lights and a constant environment, a pinhole camera, RGB
+hero-channel mode.
 """
 
 from __future__ import annotations
@@ -600,8 +607,17 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
 
 
 # ---------------------------------------------------------------------------
-# Camera paths + the persistent-wavefront driver
+# Camera paths, the pass loops and the persistent wavefront
 # ---------------------------------------------------------------------------
+
+
+def trace_paths(scene, cfg, s: PathState) -> PathState:
+    """Run the bounce loop until every lane dies (or max_events)."""
+    it = 0
+    while bool(s.alive.any()) and it < cfg.max_events:
+        s = volpath_bounce(scene, cfg, s)
+        it += 1
+    return s
 
 
 def start_camera_paths(camera, film, seed, sample_index, pixel_id,
@@ -620,6 +636,98 @@ def start_camera_paths(camera, film, seed, sample_index, pixel_id,
                       device=pixel_id.device)
     return make_path_state(sampler, o, d, hero_idx, med0,
                            pixel_id.to(torch.int32)), filter_w
+
+
+def _check_sampler(sampler):
+    if sampler != "independent":
+        raise NotImplementedError(f"sampler {sampler!r} is not ported yet "
+                                  "(only \"independent\")")
+
+
+def render_wave(scene, camera, film, film_state, cfg, seed, sample_index,
+                camera_medium=-1):
+    """Trace one 1-spp wave over all pixels and add it to the film."""
+    pixel_id = torch.arange(film.npix, device=film.device)
+    s, fw = start_camera_paths(camera, film, int(seed) & 0xFFFFFFFF,
+                               torch.full_like(pixel_id, int(sample_index)),
+                               pixel_id, int(camera_medium))
+    s = trace_paths(scene, cfg, s)
+    return film.add_pass(film_state, s.L, fw)
+
+
+def render_pass(scene, camera, film, film_state, cfg, seed, wave_idx,
+                camera_medium, spp_per_pass, sampler_kind="independent"):
+    """One pass of spp_per_pass samples a pixel added to film_state, on the
+    film's device: lane l renders pixel l // spp_per_pass, sample
+    wave_idx * spp_per_pass + l % spp_per_pass (the JAX package's random
+    streams). Returns (film_state, the traced PathState)."""
+    _check_sampler(sampler_kind)
+    lane = torch.arange(film.npix * spp_per_pass, device=film.device)
+    pixel_id = lane // spp_per_pass
+    sample_index = int(wave_idx) * spp_per_pass + lane % spp_per_pass
+    s, fw = start_camera_paths(camera, film, int(seed) & 0xFFFFFFFF,
+                               sample_index, pixel_id, int(camera_medium))
+    s = trace_paths(scene, cfg, s)
+    return film.add_pass(film_state, s.L, fw), s
+
+
+def render_progressive(scene, camera, film, cfg=VolPathConfig(), seed=0,
+                       camera_medium=-1, spp_per_pass=4, max_spp=1 << 16,
+                       time_budget=None, sampler="independent",
+                       wave_callback=None, resume_state=None, *,
+                       device="cuda"):
+    """Pass loop on `device` with a time budget (--time): returns (image,
+    spp rendered, FilmState). wave_callback(wave, spp_done, image_fn) runs
+    after every pass; resume_state (FilmState, spp_done) continues an
+    interrupted render from ``utils.checkpoint``."""
+    import time as _time
+
+    _check_sampler(sampler)
+    scene, camera, film = scene.to(device), camera.to(device), film.to(device)
+    t0 = _time.perf_counter()
+    if resume_state is not None:
+        state, spp_done = resume_state
+        state = type(state)(*(x.to(film.device) for x in state))
+        wave = spp_done // spp_per_pass
+    else:
+        state, spp_done, wave = film.init_state(), 0, 0
+    while spp_done < max_spp:
+        state, _ = render_pass(scene, camera, film, state, cfg, seed, wave,
+                               camera_medium, spp_per_pass, sampler)
+        spp_done += spp_per_pass
+        wave += 1
+        if wave_callback is not None:
+            wave_callback(wave, spp_done,
+                          lambda: film.image(state).cpu().numpy())
+        if time_budget is not None:
+            float(state.weight_sum[0])  # wait for the pass before the clock
+            if _time.perf_counter() - t0 > time_budget:
+                break
+    return film.image(state), spp_done, state
+
+
+def render(scene: Scene, camera, film, spp=16, cfg=VolPathConfig(), seed=0,
+           camera_medium=-1, spp_per_pass=None, sampler="independent", *,
+           device="cuda"):
+    """Render on `device` through the lockstep wavefront, spp_per_pass
+    samples a pixel a pass (default min(spp, 8)), the JAX package's
+    ``render``; returns the (ny, nx, 3) image. Only the "independent"
+    sampler is ported."""
+    _check_sampler(sampler)
+    if spp_per_pass is None:
+        spp_per_pass = min(spp, 8)
+    if spp % spp_per_pass:
+        raise ValueError(f"spp {spp} is not a multiple of spp_per_pass "
+                         f"{spp_per_pass}")
+    if cfg.spectral or cfg.sss:
+        raise NotImplementedError("spectral and subsurface modes are not "
+                                  "ported yet")
+    scene, camera, film = scene.to(device), camera.to(device), film.to(device)
+    state = film.init_state()
+    for i in range(spp // spp_per_pass):
+        state, _ = render_pass(scene, camera, film, state, cfg, seed, i,
+                               camera_medium, spp_per_pass)
+    return film.image(state)
 
 
 def make_fog_box_scene(sigma_a, sigma_s, g=0.0, Le=None, env_L=None,

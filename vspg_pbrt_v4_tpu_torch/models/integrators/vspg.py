@@ -25,7 +25,10 @@ homogeneous closed form (VSP-warped or plain), delta tracking, the
 resampling route and NDS/NDS+ optical-depth-space sampling. At a surface
 with a material the wave takes NEE with the BSDF, the guided BSDF draw
 from the field's surface half and guided surface roulette (the teaser
-class: the materials of ``models/materials.py``).
+class: the materials of ``models/materials.py``). It intersects through
+the geometry's BVH above 64 triangles (the mesh class), and adds the
+emission of a triangle area light it hits, with MIS against the light's
+NEE after the first hit; both stay outside the kernel's class.
 """
 
 from __future__ import annotations
@@ -840,9 +843,25 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
                                    torch.full_like(denom_esc, 1e6))
     alive = alive & ~escaped
 
-    # ---- surfaces: an emissive hit adds nothing here (render_vspg refuses
-    # scenes with area lights); interfaces switch the medium -----------------
+    # ---- surfaces: emission of an area light, with MIS after the first
+    # hit; interfaces switch the medium ---------------------------------------
     surf = flew & h.hit
+    emissive = surf & (h.light_id >= 0)
+    Le_surf = scene.lights.le_area(h.light_id, -s.d, h.n)
+    has_le = average(Le_surf) > 0
+    L = _m(emissive & first & has_le, L + beta * Le_surf / ru_avg[..., None],
+           L)
+    r_l_area = r_l * scene.lights.pdf_li_area(h.light_id, s.prev_p, h.p,
+                                              h.n)[..., None]
+    denom_s = torch.clamp(average(r_u + r_l_area), min=1e-30)
+    L = _m(emissive & ~first & has_le, L + beta * Le_surf / denom_s[..., None],
+           L)
+    if train:
+        w_mis_srf = torch.where(first, torch.ones_like(denom_s),
+                                average(r_u) / denom_s)
+        rec = grec.record_emission(rec, emissive & has_le,
+                                   _to3(Le_surf * w_mis_srf[..., None]), h.t)
+
     iface = surf & (h.mat_id < 0)
     new_med_skip = torch.where(dot(s.d, h.n) < 0, h.med_in, h.med_out)
     medium_id = torch.where(iface, new_med_skip, s.medium_id)
@@ -1029,10 +1048,15 @@ def vspg_wave(scene, camera, film, film_state, field, isgb, cfg, gopt, vopt,
 
 
 def _scene_field(scene, gopt, device):
-    """A fresh field over the scene's box bounds, padded by 1e-3."""
+    """A fresh field over the bounds of the scene's triangles, spheres and
+    boxes, padded by 1e-3."""
     g = scene.geometry
-    pts = np.concatenate([a.cpu().numpy() for a in (
-        g.tri_p0, g.tri_p1, g.tri_p2, g.box_min, g.box_max)], 0)
+    pts = [a.cpu().numpy() for a in (g.tri_p0, g.tri_p1, g.tri_p2, g.box_min,
+                                     g.box_max)]
+    if g.n_sph:
+        c, r = g.sph_c.cpu().numpy(), g.sph_r.cpu().numpy()[:, None]
+        pts += [c - r, c + r]
+    pts = np.concatenate(pts, 0)
     return GuidingField.make(pts.min(0) - 1e-3, pts.max(0) + 1e-3,
                              res=gopt.field_res, n_lobes=gopt.n_lobes,
                              n_extra=gopt.adaptive_extra, device=device)
@@ -1054,14 +1078,6 @@ def render_vspg(scene, camera, film, spp=16, cfg=VolPathConfig(),
     if cfg.spectral or cfg.sss:
         raise NotImplementedError("spectral and subsurface modes are not "
                                   "ported yet")
-    if scene.geometry.tri_bvh is not None:
-        raise NotImplementedError("the VSPG arm on the mesh class (more than "
-                                  "64 triangles, through a BVH) is not "
-                                  "ported yet")
-    if scene.lights.n_area:
-        raise NotImplementedError("area lights in the VSPG arm are not "
-                                  "ported yet (vspg_bounce shades no "
-                                  "emissive hit)")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     field = (_scene_field(scene, gopt, device) if field is None
              else field.to(device))

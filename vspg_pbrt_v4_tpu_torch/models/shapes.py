@@ -1,16 +1,17 @@
-"""Scene geometry (counterpart of ``models/shapes.py``): flat triangles and
-axis-aligned boxes, the shapes of the medium-container, teaser and mesh
-scenes.
+"""Scene geometry (counterpart of ``models/shapes.py``): flat triangles,
+spheres and axis-aligned boxes, the shapes of the medium-container,
+teaser, mesh and Cornell scenes.
 
 Triangles are intersected by brute force, as the JAX package does for
 scenes of at most ``MAX_BRUTE_TRIS`` triangles; above that
 ``Geometry.build`` builds a BVH over them (``ops/bvh.py``, the native
 builder above 512 triangles when it loads, as in the JAX package), which
-``intersect`` and ``intersect_p`` traverse. Spheres, the kd-tree, the
-two-level BVH and the other shapes of the JAX package are not ported yet.
+``intersect`` and ``intersect_p`` traverse. Spheres and boxes are always
+tested by brute force. The kd-tree, the two-level BVH and the other
+shapes of the JAX package are not ported yet.
 
 Primitive ids are global, as in the JAX package: [0, T) triangles, then
-[T, T + B) boxes.
+[T, T + S) spheres, then [T + S, T + S + B) boxes.
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ import numpy as np
 import torch
 
 from ..ops.bvh import BVH, build_bvh, bvh_from_arrays, bvh_traverse
-from ..ops.intersect import aabb_normal, ray_aabb, ray_triangle
+from ..ops.intersect import aabb_normal, ray_aabb, ray_sphere, ray_triangle
 from ..utils.device import OnDevice
-from ..utils.math import nanmax, nanmin
-from ..utils.vecmath import cross, normalize
+from ..utils.math import PI, nanmax, nanmin
+from ..utils.vecmath import cross, normalize, spherical_phi, spherical_theta
 
 # the JAX package intersects up to this many triangles by brute force and
 # builds a BVH above it, natively above NATIVE_BVH_TRIS when it can
@@ -98,17 +99,29 @@ class Geometry(OnDevice):
     tri_light: torch.Tensor  # (T,) int32
     tri_med_in: torch.Tensor  # (T,) int32
     tri_med_out: torch.Tensor  # (T,) int32
+    sph_c: torch.Tensor  # (S,3) centres
+    sph_r: torch.Tensor  # (S,) radii
+    sph_mat: torch.Tensor  # (S,) int32
+    sph_light: torch.Tensor  # (S,) int32
+    sph_med_in: torch.Tensor  # (S,) int32
+    sph_med_out: torch.Tensor  # (S,) int32
     tri_bvh: BVH = None  # over the triangles; None = brute force
 
     @staticmethod
-    def build(boxes=(), triangles=(), *, device):
+    def build(boxes=(), triangles=(), spheres=(), tri_meshes=(), *,
+              device):
         """boxes: list of dicts {bmin, bmax, [mat], [light], [med_in],
         [med_out]}; triangles: list of dicts {p0, p1, p2, [n0, n1, n2],
-        [uv0, uv1, uv2], [mat], [light], [med_in], [med_out]}. Ids default
-        to -1, uvs to the barycentric map, shading normals to the
-        geometric normal, as in the JAX package; more than MAX_BRUTE_TRIS
-        triangles get a BVH (``build_tri_bvh``)."""
-        b, t = list(boxes), list(triangles)
+        [uv0, uv1, uv2], [mat], [light], [med_in], [med_out]}; spheres:
+        list of dicts {c, r, [mat], [light], [med_in], [med_out]};
+        tri_meshes: whole meshes as array bundles {p0, p1, p2 (T,3)
+        [, n0, n1, n2 (T,3)] [, uv0, uv1, uv2 (T,2)], mat, med_in,
+        med_out}, placed after `triangles` (the JAX package's vectorised
+        path for big meshes). Ids default to -1, uvs to the barycentric
+        map, shading normals to the geometric normal, as in the JAX
+        package; more than MAX_BRUTE_TRIS triangles get a BVH
+        (``build_tri_bvh``)."""
+        b, t, sp = list(boxes), list(triangles), list(spheres)
 
         def stack(items, key, default, width):
             if not items:
@@ -116,39 +129,73 @@ class Geometry(OnDevice):
             return np.stack([np.asarray(it.get(key, default), np.float32)
                              for it in items])
 
+        def ids_np(items, key):
+            return np.asarray([int(it.get(key, -1)) for it in items],
+                              np.int32)
+
         def ids(items, key):
-            return torch.as_tensor([int(it.get(key, -1)) for it in items],
-                                   dtype=torch.int32, device=device)
+            return torch.as_tensor(ids_np(items, key), device=device)
+
+        def geometric(p0, p1, p2):
+            ng = np.cross(p1 - p0, p2 - p0)
+            return (ng / np.maximum(np.linalg.norm(ng, axis=-1,
+                                                   keepdims=True),
+                                    1e-20)).astype(np.float32)
 
         p0 = stack(t, "p0", (0, 0, 0), 3)
         p1 = stack(t, "p1", (0, 0, 0), 3)
         p2 = stack(t, "p2", (0, 0, 0), 3)
-        ng = np.cross(p1 - p0, p2 - p0)
-        ng = (ng / np.maximum(np.linalg.norm(ng, axis=-1, keepdims=True),
-                              1e-20)).astype(np.float32)
+        ng = geometric(p0, p1, p2)
         if any("n0" in it for it in t):
             ns = [np.stack([np.asarray(it.get(k, ng[i]), np.float32)
                             for i, it in enumerate(t)])
                   for k in ("n0", "n1", "n2")]
         else:
             ns = [ng, ng, ng]
+        uvs = [stack(t, "uv0", (1, 0), 2), stack(t, "uv1", (0, 1), 2),
+               stack(t, "uv2", (0, 0), 2)]
+        tid = [ids_np(t, k) for k in ("mat", "light", "med_in", "med_out")]
+        for bund in tri_meshes:
+            q = [np.asarray(bund[k], np.float32) for k in ("p0", "p1", "p2")]
+            T = q[0].shape[0]
+            bng = geometric(*q)
+            p0, p1, p2 = (np.concatenate([a, c]) for a, c in
+                          zip((p0, p1, p2), q))
+            ns = [np.concatenate([a, np.asarray(bund.get(k, bng),
+                                                np.float32)])
+                  for a, k in zip(ns, ("n0", "n1", "n2"))]
+            uvs = [np.concatenate([a, np.asarray(bund[k], np.float32)
+                                   if k in bund else
+                                   np.tile(np.float32(dflt), (T, 1))])
+                   for a, k, dflt in zip(uvs, ("uv0", "uv1", "uv2"),
+                                         ((1, 0), (0, 1), (0, 0)))]
+            tid = [np.concatenate([a, np.broadcast_to(np.asarray(
+                bund.get(k, -1), np.int32), (T,))])
+                for a, k in zip(tid, ("mat", "light", "med_in", "med_out"))]
 
         def f(a):
-            return torch.as_tensor(a, device=device)
+            return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
         return Geometry(
             f(stack(b, "bmin", (0, 0, 0), 3)), f(stack(b, "bmax", (0, 0, 0), 3)),
             ids(b, "mat"), ids(b, "light"), ids(b, "med_in"),
             ids(b, "med_out"), f(p0), f(p1), f(p2), *(f(n) for n in ns),
-            f(stack(t, "uv0", (1, 0), 2)), f(stack(t, "uv1", (0, 1), 2)),
-            f(stack(t, "uv2", (0, 0), 2)), ids(t, "mat"), ids(t, "light"),
-            ids(t, "med_in"), ids(t, "med_out"),
+            *(f(uv) for uv in uvs), *(f(i) for i in tid),
+            f(stack(sp, "c", (0, 0, 0), 3)),
+            torch.as_tensor([float(it["r"]) for it in sp],
+                            dtype=torch.float32, device=device),
+            ids(sp, "mat"), ids(sp, "light"), ids(sp, "med_in"),
+            ids(sp, "med_out"),
             (build_tri_bvh(p0, p1, p2, device=device)[0]
-             if len(t) > MAX_BRUTE_TRIS else None))
+             if p0.shape[0] > MAX_BRUTE_TRIS else None))
 
     @property
     def n_box(self):
         return self.box_min.shape[0]
+
+    @property
+    def n_sph(self):
+        return self.sph_c.shape[0]
 
     @property
     def n_tri(self):
@@ -162,8 +209,8 @@ class Geometry(OnDevice):
 
     def intersect(self, o, d, t_max=None, time=None, counts=None):
         """Closest hit of every lane (o, d: (R, 3)) against the triangles,
-        by brute force or through the BVH, then against every box, in the
-        JAX package's order.
+        by brute force or through the BVH, then against every sphere and
+        every box, in the JAX package's order.
 
         As in the JAX package, `t_max` does not bound the search: callers
         compare ``hit.t`` with their own limit. `time` is unused (no
@@ -197,6 +244,24 @@ class Geometry(OnDevice):
                           nsk, uvk, self.tri_mat[k], self.tri_light[k],
                           self.tri_med_in[k], self.tri_med_out[k],
                           k.to(torch.int32))
+        if self.n_sph:
+            hs, ts, ps, ns_ = ray_sphere(o[..., None, :], d[..., None, :],
+                                         best.t[..., None], self.sph_c,
+                                         self.sph_r)  # (R, S)
+            ts = torch.where(hs, ts, torch.inf)
+            k = torch.argmin(ts, dim=-1)
+            t_k = take(ts, k)
+            closer = torch.isfinite(t_k) & (t_k < best.t)
+            kk = k[..., None, None].expand(R + (1, 3))
+            p_k = torch.gather(ps, -2, kk)[..., 0, :]
+            n_k = torch.gather(ns_, -2, kk)[..., 0, :]
+            # the spherical uv of shapes.h's Sphere parameterization
+            uv_s = torch.stack([spherical_phi(n_k) / (2 * PI),
+                                spherical_theta(n_k) / PI], -1)
+            best = _merge(best, closer, t_k, p_k, n_k, n_k, uv_s,
+                          self.sph_mat[k], self.sph_light[k],
+                          self.sph_med_in[k], self.sph_med_out[k],
+                          (self.n_tri + k).to(torch.int32))
         if self.n_box:
             eps = 1e-4
             inv_d = 1.0 / d[..., None, :]
@@ -216,7 +281,7 @@ class Geometry(OnDevice):
                           torch.zeros(R + (2,), device=dev), self.box_mat[k],
                           self.box_light[k], self.box_med_in[k],
                           self.box_med_out[k],
-                          (self.n_tri + k).to(torch.int32))
+                          (self.n_tri + self.n_sph + k).to(torch.int32))
         return best
 
     def _tri_attrs(self, k, b0, b1):
@@ -282,6 +347,10 @@ class Geometry(OnDevice):
                               t_max[..., None], self.tri_p0, self.tri_p1,
                               self.tri_p2)[0]
             occluded = occluded | torch.any(ht & (self.tri_mat >= 0), dim=-1)
+        if self.n_sph:
+            hs = ray_sphere(o[..., None, :], d[..., None, :],
+                            t_max[..., None], self.sph_c, self.sph_r)[0]
+            occluded = occluded | torch.any(hs & (self.sph_mat >= 0), dim=-1)
         if self.n_box:
             hb, t0, t1 = ray_aabb(o[..., None, :], d[..., None, :],
                                   t_max[..., None], self.box_min,

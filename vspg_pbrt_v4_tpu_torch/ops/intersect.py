@@ -1,5 +1,6 @@
 """Ray-primitive helpers (counterpart of ``ops/intersect.py``:
-``ray_aabb``, ``aabb_normal``, ``ray_triangle`` and ``offset_ray_origin``).
+``ray_aabb``, ``aabb_normal``, ``ray_sphere``, ``ray_triangle`` and
+``offset_ray_origin``).
 Misses are encoded as t = inf and every function broadcasts over leading
 ray dims."""
 
@@ -7,8 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.math import nanmax, nanmin, safe_div
-from ..utils.vecmath import cross, dot, normalize
+from ..utils.math import nanmax, nanmin, quadratic, safe_div
+from ..utils.vecmath import cross, dot, length_squared, normalize
 
 
 def ray_aabb(o, d, t_max, b_min, b_max):
@@ -36,6 +37,24 @@ def aabb_normal(p, b_min, b_max):
     sign = torch.sign(torch.gather(rel, -1, amax[..., None]))[..., 0]
     one_hot = torch.arange(3, device=p.device) == amax[..., None]
     return torch.where(one_hot, sign[..., None], torch.zeros_like(rel))
+
+
+def ray_sphere(o, d, t_max, center, radius):
+    """(hit, t, p, n) of the full sphere: the world-space quadratic, the
+    nearer root beyond 1e-4 * radius, the point reprojected onto the
+    surface (pbrt's p *= radius / Distance)."""
+    oc = o - center
+    a = length_squared(d)
+    b = 2.0 * dot(oc, d)
+    c = length_squared(oc) - radius * radius
+    has, t0, t1 = quadratic(a, b, c)
+    eps = 1e-4 * radius
+    t = torch.where(t0 > eps, t0, t1)
+    hit = has & (t > eps) & (t < t_max)
+    p = o + t[..., None] * d
+    pr = center + (p - center) * safe_div(
+        radius, torch.sqrt(length_squared(p - center)), 1.0)[..., None]
+    return hit, torch.where(hit, t, torch.inf), pr, normalize(pr - center)
 
 
 def ray_triangle(o, d, t_max, p0, p1, p2):

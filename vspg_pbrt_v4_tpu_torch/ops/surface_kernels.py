@@ -127,7 +127,7 @@ def extract_constants(scene, camera, film, cfg):
         return None
     g = scene.geometry
     n_tri = g.n_tri
-    if g.n_box or not (1 <= n_tri <= MAX_TRIS):
+    if g.n_box or g.n_sph or not (1 <= n_tri <= MAX_TRIS):
         return None
     if bool((g.tri_med_in >= 0).any()) or bool((g.tri_med_out >= 0).any()):
         return None

@@ -128,8 +128,8 @@ def extract_constants(scene, camera, film, cfg):
     if cfg.spectral or cfg.sss:
         return None
     g = scene.geometry
-    if g.n_box != 1:
-        return None
+    if g.n_box != 1 or g.n_sph:
+        return None  # the kernels see no sphere (pallas_volpath's n_other)
     if g.n_tri and not _tris_supported(scene):
         return None
     if int(g.box_mat[0]) >= 0:

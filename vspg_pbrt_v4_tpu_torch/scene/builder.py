@@ -1,0 +1,540 @@
+"""Graphics-state scene builder: directives -> this package's render setup
+(counterpart of the JAX package's ``scene/builder.py``, for the part of
+it this package serves).
+
+A CTM and attribute stack walks the directive list as the JAX builder
+does, collecting shapes with their material, area light and medium
+interface, lights and media, then builds the scene, camera and film on
+the requested device. It builds trianglemesh, plymesh, loopsubdiv and
+sphere shapes; the diffuse, conductor, smooth dielectric and cooktorrance
+materials with the checker and constant textures; point, constant
+infinite and triangle area lights; homogeneous and uniform-grid media
+(inline or from an ``.npz`` gridfile); the pinhole perspective camera,
+the ``rgb`` film, the box filter and the ``independent`` sampler.
+
+Where the JAX builder warns and degrades (an unknown shape, light,
+medium, texture or material type), this one warns in the same words.
+Where the JAX builder builds something this package does not serve yet
+(other shapes, lights, media, materials, cameras, filters and samplers,
+instancing, motion blur), it raises ``NotImplementedError`` naming the
+directive, its type and its ``file:line`` (ROADMAP.md §A 8).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..models.cameras import PerspectiveCamera
+from ..models.film import RGBFilm
+from ..models.filters import Filter
+from ..models.integrators.volpath import Scene
+from ..models.lights import Lights
+from ..models.materials import (CONDUCTOR, COOK_TORRANCE, DIELECTRIC, DIFFUSE,
+                                SMOOTH, Materials)
+from ..models.media import GridMedium, Media
+from ..models.shapes import Geometry
+from ..models.textures import CHECKER, CONSTANT, Textures
+from ..utils import transform as tr
+from .parser import ParameterDictionary, PbrtError
+
+# what the JAX builder builds and this package does not serve yet
+_UNPORTED_SHAPES = ("disk", "cylinder", "curve", "bilinearmesh", "bilinear")
+_UNPORTED_LIGHTS = ("spot", "goniometric", "projection", "distant")
+_UNPORTED_MEDIA = ("nanovdb", "rgbgrid", "cloud", "earth")
+_UNPORTED_MATERIALS = ("thindielectric", "diffusetransmission",
+                       "coateddiffuse", "plastic", "coatedconductor",
+                       "subsurface", "hair", "mix", "measured")
+_UNPORTED_TEXTURES = ("imagemap", "scale", "mix", "fbm", "wrinkled",
+                      "windy", "marble", "dots", "bilerp", "uv", "ptex")
+_UNPORTED_CAMERAS = ("orthographic", "spherical", "realistic")
+_UNPORTED_FILTERS = ("triangle", "gaussian", "mitchell")
+
+
+class RenderSetup(NamedTuple):
+    scene: Scene
+    camera: PerspectiveCamera
+    film: RGBFilm
+    integrator: str
+    integrator_params: dict
+    sampler: str
+    spp: int
+    camera_medium: int
+    outfile: str
+
+
+def _unported(d, what, kind):
+    return NotImplementedError(
+        f"{d.loc}: {d.name} {what} \"{kind}\" is not ported yet "
+        "(ROADMAP.md §A 8)")
+
+
+class _GState:
+    def __init__(self):
+        self.ctm = tr.identity(device="cpu")
+        self.material = 0
+        self.area_light = None  # pending AreaLightSource params
+        self.medium_in = -1
+        self.medium_out = -1
+
+    def copy(self):
+        g = _GState()
+        g.__dict__.update(self.__dict__)
+        return g
+
+
+def _xf_pts(ctm, pts):
+    """Points through the CTM in float32, as the JAX builder does."""
+    return tr.apply_point(ctm, torch.as_tensor(
+        np.asarray(pts, np.float32))).numpy()
+
+
+def _xf_nrm(ctm, ns):
+    n = tr.apply_normal(ctm, torch.as_tensor(
+        np.asarray(ns, np.float32))).numpy()
+    ln = np.linalg.norm(n, axis=-1, keepdims=True)
+    return n / np.maximum(ln, 1e-20)
+
+
+def _load_ply(fname):
+    from ..tools.plytool import read_ply
+
+    try:
+        return read_ply(fname)
+    except (OSError, ValueError):
+        return None
+
+
+def build_render_setup(directives, spp_override=None, res_override=None, *,
+                       device="cuda"):
+    """RenderSetup of this package's scene, camera and film on `device`,
+    with the integrator name and parameters, the sampler, spp, the camera
+    medium (-1: vacuum) and the film's file name."""
+    st = _GState()
+    stack = []
+
+    tris = []
+    tri_meshes = []  # whole-mesh array bundles (meshes without a light)
+    spheres = []
+    mats = [dict(type=DIFFUSE, albedo=(0.5, 0.5, 0.5))]  # default material
+    named_mats = {}
+    area_tris = []
+    point_lights = []
+    env_L = None
+    homog_media = []
+    grid_media = []
+    named_media = {}
+    camera_directive = None
+    cam_to_world = tr.identity(device="cpu")
+    film_params = None
+    integrator = "volpath"
+    integrator_params = {}
+    integrator_directive = None
+    sampler = "independent"
+    spp = 16
+    filter_directive = None
+    textures = []
+    named_textures = {}
+    named_coord_systems = {}
+
+    def warn(msg, loc):
+        warnings.warn(f"{loc}: {msg}")
+
+    def handle_shape(d, p, st):
+        stype = d.args[0]
+        has_light = st.area_light is not None
+        if has_light:
+            lp = st.area_light
+            L_area = (lp.get_rgb("L", np.asarray([1.0, 1, 1]))
+                      * lp.get_float("scale", 1.0))
+            two = lp.get_bool("twosided", False)
+        mat_id = st.material
+
+        def add_mesh(Pw, idx, Nw=None, UV=None):
+            if not has_light:
+                bund = dict(p0=Pw[idx[:, 0]], p1=Pw[idx[:, 1]],
+                            p2=Pw[idx[:, 2]], mat=mat_id,
+                            med_in=st.medium_in, med_out=st.medium_out)
+                if Nw is not None:
+                    bund.update(n0=Nw[idx[:, 0]], n1=Nw[idx[:, 1]],
+                                n2=Nw[idx[:, 2]])
+                if UV is not None:
+                    bund.update(uv0=UV[idx[:, 0]], uv1=UV[idx[:, 1]],
+                                uv2=UV[idx[:, 2]])
+                tri_meshes.append(bund)
+                return
+            for a, b, c in idx:
+                light_id = len(area_tris)
+                area_tris.append(dict(p0=Pw[a], p1=Pw[b], p2=Pw[c],
+                                      L=L_area, twosided=two))
+                trid = dict(p0=Pw[a], p1=Pw[b], p2=Pw[c], mat=mat_id,
+                            light=light_id, med_in=st.medium_in,
+                            med_out=st.medium_out)
+                if Nw is not None:
+                    trid.update(n0=Nw[a], n1=Nw[b], n2=Nw[c])
+                if UV is not None:
+                    trid.update(uv0=UV[a], uv1=UV[b], uv2=UV[c])
+                tris.append(trid)
+
+        if stype == "sphere":
+            r = p.get_float("radius", 1.0)
+            c = _xf_pts(st.ctm, np.zeros(3))
+            if has_light:
+                warn("sphere area light approximated by geometry only "
+                     "(NEE samples triangles)", d.loc)
+            spheres.append(dict(c=c, r=r, mat=mat_id, light=-1,
+                                med_in=st.medium_in, med_out=st.medium_out))
+        elif stype == "trianglemesh":
+            P = p.get_floats("P")
+            idx = p.get_ints("indices")
+            if P is None or idx is None:
+                raise PbrtError(
+                    "trianglemesh requires \"P\" and \"indices\"", d.loc)
+            N = p.get_floats("N")
+            UV = p.get_floats("uv")
+            if UV is None:
+                UV = p.get_floats("st")
+            add_mesh(_xf_pts(st.ctm, P.reshape(-1, 3)), idx.reshape(-1, 3),
+                     _xf_nrm(st.ctm, N.reshape(-1, 3)) if N is not None
+                     else None,
+                     UV.reshape(-1, 2) if UV is not None else None)
+        elif stype == "loopsubdiv":
+            from ..utils.loopsubdiv import subdivide
+
+            P = p.get_floats("P").reshape(-1, 3)
+            idx = p.get_ints("indices").reshape(-1, 3)
+            Pl, Fl, Nl = subdivide(P, idx, levels=p.get_int("levels", 3))
+            add_mesh(_xf_pts(st.ctm, Pl), np.asarray(Fl),
+                     _xf_nrm(st.ctm, Nl))
+        elif stype == "plymesh":
+            fname = p.get_string("filename")
+            mesh = _load_ply(fname) if fname else None
+            if mesh is None:
+                warn(f"plymesh '{fname}' could not be loaded; skipped",
+                     d.loc)
+            elif has_light:
+                # the JAX builder drops a light mesh's uvs here
+                add_mesh(_xf_pts(st.ctm, mesh["P"]), mesh["indices"],
+                         _xf_nrm(st.ctm, mesh["N"]) if "N" in mesh
+                         else None)
+            else:
+                add_mesh(_xf_pts(st.ctm, mesh["P"]), mesh["indices"],
+                         _xf_nrm(st.ctm, mesh["N"]) if "N" in mesh
+                         else None, mesh.get("uv"))
+        elif stype in _UNPORTED_SHAPES:
+            raise _unported(d, "shape", stype)
+        else:
+            warn(f"shape '{stype}' unsupported; skipped", d.loc)
+
+    for d in directives:
+        name = d.name
+        p = ParameterDictionary(d.params)
+        try:
+            if name == "LookAt":
+                a = d.args
+                st.ctm = st.ctm @ tr.look_at(a[0:3], a[3:6], a[6:9],
+                                             device="cpu").inverse()
+            elif name == "Translate":
+                st.ctm = st.ctm @ tr.translate(*d.args, device="cpu")
+            elif name == "Scale":
+                st.ctm = st.ctm @ tr.scale(*d.args, device="cpu")
+            elif name == "Rotate":
+                st.ctm = st.ctm @ tr.rotate(d.args[0], d.args[1:4],
+                                            device="cpu")
+            elif name in ("Transform", "ConcatTransform"):
+                m = np.asarray(d.args, np.float32).reshape(4, 4).T
+                t = tr.from_matrix(m, device="cpu")
+                st.ctm = t if name == "Transform" else st.ctm @ t
+            elif name == "Identity":
+                st.ctm = tr.identity(device="cpu")
+            elif name == "ActiveTransform":
+                if (d.args[0] if d.args else "All").lower() != "all":
+                    raise _unported(d, "(motion blur)", d.args[0])
+            elif name == "TransformTimes":
+                pass  # shutter times only matter with motion blur
+            elif name == "Camera":
+                camera_directive = (d.args[0], p, d)
+                cam_to_world = st.ctm.inverse()
+            elif name == "Film":
+                film_type = d.args[0] if d.args else "rgb"
+                if film_type == "spectral":
+                    raise _unported(d, "type", film_type)
+                if film_type not in ("rgb", "gbuffer"):
+                    warnings.warn(f"film '{film_type}' unsupported; using "
+                                  "rgb")
+                film_params = p
+            elif name == "Sampler":
+                if d.args[0] != "independent":
+                    raise _unported(d, "type", d.args[0])
+                sampler = d.args[0]
+                spp = p.get_int("pixelsamples", 16)
+            elif name == "Integrator":
+                integrator = d.args[0]
+                integrator_params = dict(d.params)
+                integrator_directive = d
+            elif name in ("Filter", "PixelFilter"):
+                filter_directive = (d.args[0] if d.args else "box", p, d)
+                if filter_directive[0] in _UNPORTED_FILTERS:
+                    raise _unported(d, "type", filter_directive[0])
+            elif name == "Accelerator":
+                accel = d.args[0] if d.args else "bvh"
+                if accel == "kdtree":
+                    raise _unported(d, "type", accel)
+                if accel != "bvh":
+                    warn(f"unknown accelerator '{accel}', using bvh", d.loc)
+            elif name in ("ColorSpace", "WorldEnd", "ReverseOrientation"):
+                pass  # sRGB built-in; the JAX builder flips no normal
+            elif name == "WorldBegin":
+                st = _GState()
+            elif name in ("AttributeBegin", "TransformBegin"):
+                stack.append(st.copy())
+            elif name in ("AttributeEnd", "TransformEnd"):
+                st = stack.pop()
+            elif name == "Material":
+                mtype = d.args[0] if d.args else ""
+                if mtype in ("", "none", "interface"):
+                    st.material = -1  # medium interface / no BSDF
+                else:
+                    mats.append(_make_material(d, mtype, p, warn,
+                                               named_textures))
+                    st.material = len(mats) - 1
+            elif name == "MakeNamedMaterial":
+                mats.append(_make_material(d, p.get_string("type", "diffuse"),
+                                           p, warn, named_textures))
+                named_mats[d.args[0]] = len(mats) - 1
+            elif name == "NamedMaterial":
+                st.material = named_mats.get(d.args[0], 0)
+            elif name == "AreaLightSource":
+                st.area_light = p
+            elif name == "LightSource":
+                ltype = d.args[0]
+                scale = p.get_float("scale", 1.0)
+                if ltype == "point":
+                    I_ = p.get_rgb("I", np.asarray([1.0, 1, 1])) * scale
+                    frm = p.get_point3("from", np.zeros(3))
+                    point_lights.append((_xf_pts(st.ctm, frm), I_))
+                elif ltype == "infinite":
+                    if p.get_string("filename") is not None:
+                        raise _unported(d, "(image environment)", ltype)
+                    if p.get_floats("portal") is not None:
+                        raise _unported(d, "(portal)", ltype)
+                    L = p.get_rgb("L", None)
+                    if L is None:
+                        L = p.get_rgb("radiance", np.asarray([1.0, 1, 1]))
+                    env_L = L * scale
+                elif ltype in _UNPORTED_LIGHTS:
+                    raise _unported(d, "type", ltype)
+                else:
+                    warn(f"light '{ltype}' unsupported; ignored", d.loc)
+            elif name == "MakeNamedMedium":
+                mname = d.args[0]
+                mtype = p.get_string("type", "homogeneous")
+                if mtype == "homogeneous":
+                    homog_media.append(dict(
+                        sigma_a=p.get_rgb("sigma_a", np.asarray([1.0, 1, 1]))
+                        * p.get_float("scale", 1.0),
+                        sigma_s=p.get_rgb("sigma_s", np.asarray([1.0, 1, 1]))
+                        * p.get_float("scale", 1.0),
+                        Le=p.get_rgb("Le", np.zeros(3)),
+                        g=p.get_float("g", 0.0)))
+                    named_media[mname] = ("homog", len(homog_media) - 1)
+                elif mtype in ("uniformgrid", "grid"):
+                    gridfile = p.get_string("gridfile",
+                                            p.get_string("filename", ""))
+                    if gridfile.endswith(".nvdb"):
+                        raise _unported(d, "type", "nanovdb")
+                    grid_media.append(_grid_medium(st.ctm, p, gridfile))
+                    named_media[mname] = ("grid", len(grid_media) - 1)
+                elif mtype in _UNPORTED_MEDIA:
+                    raise _unported(d, "type", mtype)
+                else:
+                    warn(f"medium '{mtype}' unsupported; ignored "
+                         "(nanovdb: convert offline with "
+                         "tools/nanovdb2grid)", d.loc)
+            elif name == "MediumInterface":
+                def mid(nm):
+                    if not nm or nm not in named_media:
+                        return -1
+                    kind, idx = named_media[nm]
+                    return idx if kind == "homog" else 10_000 + idx
+
+                st.medium_in = mid(d.args[0] if len(d.args) > 0 else "")
+                st.medium_out = mid(d.args[1] if len(d.args) > 1 else "")
+            elif name in ("ObjectBegin", "ObjectEnd", "ObjectInstance"):
+                raise _unported(d, "(instancing)",
+                                d.args[0] if d.args else "")
+            elif name == "Shape":
+                handle_shape(d, p, st)
+            elif name == "Texture":
+                tname, tclass = d.args[0], d.args[2]
+                if tclass == "constant":
+                    row = dict(kind=CONSTANT,
+                               c0=tuple(p.get_rgb("value", np.ones(3))))
+                elif tclass in ("checkerboard", "checker"):
+                    row = dict(kind=CHECKER,
+                               c0=tuple(p.get_rgb("tex1", np.ones(3))),
+                               c1=tuple(p.get_rgb("tex2", np.zeros(3))),
+                               uvscale=(p.get_float("uscale", 1.0),
+                                        p.get_float("vscale", 1.0)))
+                elif tclass in _UNPORTED_TEXTURES:
+                    raise _unported(d, "class", tclass)
+                else:
+                    warn(f"texture type '{tclass}' unsupported; constant "
+                         "grey", d.loc)
+                    row = dict(kind=CONSTANT, c0=(0.5, 0.5, 0.5))
+                textures.append(row)
+                named_textures[tname] = len(textures) - 1
+            elif name == "CoordinateSystem":
+                named_coord_systems[d.args[0]] = st.ctm
+            elif name == "CoordSysTransform":
+                if d.args[0] in named_coord_systems:
+                    st.ctm = named_coord_systems[d.args[0]]
+                else:
+                    warn(f"unknown coordinate system '{d.args[0]}'", d.loc)
+            else:
+                warn(f"unknown directive '{name}' ignored", d.loc)
+        except NotImplementedError as e:
+            if str(e).startswith(d.loc):
+                raise
+            raise NotImplementedError(f"{d.loc}: {name}: {e}") from None
+
+    # remap medium ids: the homogeneous block, then the grids
+    n_h = len(homog_media)
+
+    def remap(m):
+        return n_h + (m - 10_000) if m >= 10_000 else m
+
+    for it in (*tris, *spheres, *tri_meshes):
+        it["med_in"] = remap(it["med_in"])
+        it["med_out"] = remap(it["med_out"])
+
+    geometry = Geometry.build(triangles=tris, spheres=spheres,
+                              tri_meshes=tri_meshes, device=device)
+    materials = Materials.build(mats, device=device)
+    tex_bank = Textures.build(textures, device=device) if textures else None
+    media = Media.make(homogeneous=homog_media or None,
+                       grids=tuple(grid_media), device=device)
+    # world radius from the geometry's extent
+    pts = []
+    for lst, keys in ((tris, ("p0", "p1", "p2")), (spheres, ("c",))):
+        for it in lst:
+            for k in keys:
+                pts.append(np.asarray(it[k], np.float32))
+    for b in tri_meshes:
+        if np.asarray(b["p0"]).shape[0]:
+            for k in ("p0", "p1", "p2"):
+                pts.append(np.abs(np.asarray(b[k], np.float32)).max(0))
+    world_r = 2.0 * float(np.abs(np.asarray(pts)).max()) if pts else 100.0
+    lsampler = "uniform"
+    if "lightsampler" in integrator_params:
+        lsampler = str(integrator_params["lightsampler"][1][0])
+        if lsampler == "bvh":
+            raise _unported(integrator_directive, "lightsampler", lsampler)
+    lights = Lights.make(
+        point_p=[pl[0] for pl in point_lights] or None,
+        point_I=[pl[1] for pl in point_lights] or None,
+        area_tris=area_tris or None, env_L=env_L,
+        world_radius=max(world_r, 10.0), sampler=lsampler, device=device)
+    scene = Scene(geometry, materials, media, lights, tex_bank)
+
+    nx = res_override[0] if res_override else (
+        film_params.get_int("xresolution", 1280) if film_params else 1280)
+    ny = res_override[1] if res_override else (
+        film_params.get_int("yresolution", 720) if film_params else 720)
+    outfile = (film_params.get_string("filename", "out.exr")
+               if film_params else "out.exr")
+    radius = None
+    if filter_directive is not None:
+        radius = filter_directive[1].get_float("xradius", None)
+    film = RGBFilm.make((nx, ny), filter=Filter.make("box", radius=radius),
+                        device=device)
+    ctype, cp, cd = camera_directive if camera_directive else (
+        "perspective", None, None)
+    if ctype in _UNPORTED_CAMERAS:
+        raise _unported(cd, "type", ctype)
+    if ctype != "perspective":
+        warnings.warn(f"camera '{ctype}' unsupported; using perspective")
+        camera = PerspectiveCamera.make(cam_to_world, 90.0, (nx, ny),
+                                        device=device)
+    else:
+        fov = cp.get_float("fov", 90.0) if cp else 90.0
+        if cp and cp.get_float("lensradius", 0.0) > 0:
+            raise _unported(cd, "(thin lens)", ctype)
+        if cp and (cp.get_float("shutteropen", 0.0)
+                   != cp.get_float("shutterclose", 0.0)):
+            raise _unported(cd, "(motion blur)", ctype)
+        camera = PerspectiveCamera.make(cam_to_world, fov, (nx, ny),
+                                        device=device)
+    return RenderSetup(scene, camera, film, integrator, integrator_params,
+                       sampler, spp_override or spp, -1, outfile)
+
+
+def _grid_medium(ctm, p, gridfile):
+    """A uniform-grid medium, inline or from an npz gridfile (density,
+    bmin, bmax), with the JAX builder's majorant resolution: 64 from a
+    file, 16 inline (media.cpp:252 against :574)."""
+    if gridfile:
+        z = np.load(gridfile)
+        dens = np.asarray(z["density"], np.float32)
+        p0 = np.asarray(z["bmin"] if "bmin" in z.files else np.zeros(3),
+                        np.float32)
+        p1 = np.asarray(z["bmax"] if "bmax" in z.files else np.ones(3),
+                        np.float32)
+    else:
+        dens = p.get_floats("density")
+        nx, ny, nz = (p.get_int(k, 1) for k in ("nx", "ny", "nz"))
+        p0 = p.get_point3("p0", np.zeros(3))
+        p1 = p.get_point3("p1", np.ones(3))
+        dens = dens.reshape(nz, ny, nx).transpose(2, 1, 0)  # pbrt order
+    b0, b1 = _xf_pts(ctm, p0), _xf_pts(ctm, p1)
+    scale = p.get_float("scale", 1.0)
+    return GridMedium.make(
+        dens, p.get_rgb("sigma_a", np.asarray([1.0, 1, 1])) * scale,
+        p.get_rgb("sigma_s", np.asarray([1.0, 1, 1])) * scale,
+        np.minimum(b0, b1), np.maximum(b0, b1), g=p.get_float("g", 0.0),
+        maj_res=64 if gridfile else 16,
+        majorant_scale=p.get_float("majorantscale", 1.0), device="cpu")
+
+
+def _make_material(d, mtype, p, warn, named_textures):
+    """One material row (the JAX builder's ``_make_material`` for the
+    kinds this package serves)."""
+
+    def tex_of(pname):
+        if pname in p.params and p.params[pname][0] == "texture":
+            return named_textures.get(str(p.params[pname][1][0]), -1)
+        return -1
+
+    if mtype == "diffuse":
+        t = tex_of("reflectance")
+        if t >= 0:
+            return dict(type=DIFFUSE, albedo=(1.0, 1.0, 1.0), albedo_tex=t)
+        return dict(type=DIFFUSE, albedo=tuple(
+            p.get_rgb("reflectance", np.asarray([0.5] * 3))))
+    if mtype == "conductor":
+        refl = p.get_rgb("reflectance", None)
+        if refl is None:
+            refl = np.asarray([0.9, 0.7, 0.4])  # generic metal F0
+        return dict(type=CONDUCTOR, albedo=tuple(refl),
+                    roughness=p.get_float("roughness", 0.0))
+    if mtype == "dielectric":
+        rough = p.get_float("roughness", 0.0)
+        if rough >= SMOOTH:
+            raise _unported(d, "type (rough)", mtype)
+        return dict(type=DIELECTRIC, eta=p.get_float("eta", 1.5),
+                    roughness=rough)
+    if mtype == "cooktorrance":
+        t = tex_of("reflectance")
+        rough = p.get_float("roughness", 0.0)
+        rough = max(p.get_float("uroughness", rough),
+                    p.get_float("vroughness", rough))
+        return dict(type=COOK_TORRANCE, albedo=tuple(
+            p.get_rgb("reflectance", np.asarray([0.5] * 3))),
+            roughness=rough, eta=p.get_float("eta", 1.5), albedo_tex=t)
+    if mtype in _UNPORTED_MATERIALS:
+        raise _unported(d, "type", mtype)
+    warn(f"material '{mtype}' unsupported; using diffuse", d.loc)
+    return dict(type=DIFFUSE, albedo=(0.5, 0.5, 0.5))

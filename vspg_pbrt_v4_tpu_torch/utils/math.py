@@ -20,6 +20,10 @@ def safe_sqrt(x):
     return torch.sqrt(torch.clamp(x, min=0.0))
 
 
+def safe_acos(x):
+    return torch.arccos(torch.clamp(x, -1.0, 1.0))
+
+
 def safe_div(a, b, fill=0.0):
     """a/b with a zero denominator giving `fill`."""
     b_ok = b != 0
@@ -35,3 +39,26 @@ def nanmax(x, dim=-1):
 def nanmin(x, dim=-1):
     """Min over `dim` ignoring NaNs (jnp.nanmin)."""
     return torch.where(torch.isnan(x), torch.inf, x).amin(dim)
+
+
+def difference_of_products(a, b, c, d):
+    """a*b - c*d with the JAX package's compensation term (zero without
+    an FMA, as on the CPU)."""
+    cd = c * d
+    return (a * b - cd) + -(c * d - cd)
+
+
+def quadratic(a, b, c):
+    """Roots of a t^2 + b t + c = 0: (has_solution, t0, t1), t0 <= t1; a
+    linear equation (a == 0) puts its one root in both slots."""
+    disc = difference_of_products(b, b, 4.0 * a, c)
+    has = disc >= 0.0
+    root = safe_sqrt(disc)
+    q = -0.5 * (b + torch.where(b < 0, -root, root))
+    t0 = safe_div(q, a, fill=0.0)
+    t1 = safe_div(c, q, fill=0.0)
+    lin_t = safe_div(-c, b, fill=0.0)
+    is_lin = a == 0.0
+    tmin, tmax = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    return (torch.where(is_lin, b != 0.0, has),
+            torch.where(is_lin, lin_t, tmin), torch.where(is_lin, lin_t, tmax))

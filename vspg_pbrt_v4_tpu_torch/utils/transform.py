@@ -37,6 +37,11 @@ def _make(m, mi, device):
                      torch.as_tensor(np.asarray(mi, np.float32), device=device))
 
 
+def identity(*, device) -> Transform:
+    eye = np.eye(4, dtype=np.float32)
+    return _make(eye, eye.copy(), device)
+
+
 def from_matrix(m, *, device) -> Transform:
     m = np.asarray(m, np.float32).reshape(4, 4)
     return _make(m, np.linalg.inv(m).astype(np.float32), device)
@@ -54,6 +59,25 @@ def scale(sx, sy, sz, *, device) -> Transform:
     m = np.diag(np.array([sx, sy, sz, 1.0], np.float32))
     mi = np.diag(np.array([1.0 / sx, 1.0 / sy, 1.0 / sz, 1.0], np.float32))
     return _make(m, mi, device)
+
+
+def rotate(angle_deg, axis, *, device) -> Transform:
+    """Rotation by angle_deg about axis (pbrt Rotate), built in float64
+    and rounded to float32 as the JAX package does."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    s, c = np.sin(np.radians(angle_deg)), np.cos(np.radians(angle_deg))
+    m = np.eye(4, dtype=np.float64)
+    x, y, z = a
+    m[:3, :3] = [
+        [x * x + (1 - x * x) * c, x * y * (1 - c) - z * s,
+         x * z * (1 - c) + y * s],
+        [x * y * (1 - c) + z * s, y * y + (1 - y * y) * c,
+         y * z * (1 - c) - x * s],
+        [x * z * (1 - c) - y * s, y * z * (1 - c) + x * s,
+         z * z + (1 - z * z) * c],
+    ]
+    return _make(m.astype(np.float32), m.T.astype(np.float32), device)
 
 
 def look_at(eye, look, up, *, device) -> Transform:
@@ -106,4 +130,14 @@ def apply_vector(t: Transform, v):
         v[..., 0] * m[0, 0] + v[..., 1] * m[0, 1] + v[..., 2] * m[0, 2],
         v[..., 0] * m[1, 0] + v[..., 1] * m[1, 1] + v[..., 2] * m[1, 2],
         v[..., 0] * m[2, 0] + v[..., 1] * m[2, 1] + v[..., 2] * m[2, 2],
+    ], dim=-1)
+
+
+def apply_normal(t: Transform, n):
+    """Normals transform by the inverse transpose."""
+    mi = t.m_inv
+    return torch.stack([
+        n[..., 0] * mi[0, 0] + n[..., 1] * mi[1, 0] + n[..., 2] * mi[2, 0],
+        n[..., 0] * mi[0, 1] + n[..., 1] * mi[1, 1] + n[..., 2] * mi[2, 1],
+        n[..., 0] * mi[0, 2] + n[..., 1] * mi[1, 2] + n[..., 2] * mi[2, 2],
     ], dim=-1)

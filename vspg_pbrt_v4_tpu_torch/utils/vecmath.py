@@ -5,11 +5,15 @@ from __future__ import annotations
 
 import torch
 
-from .math import safe_div, sqr
+from .math import PI, safe_acos, safe_div, sqr
 
 
 def dot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def length_squared(v):
+    return dot(v, v)
 
 
 def cross(a, b):
@@ -59,3 +63,12 @@ def spherical_direction(sin_theta, cos_theta, phi):
     cos_theta = torch.clamp(cos_theta, -1.0, 1.0)
     return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
                         cos_theta], dim=-1)
+
+
+def spherical_theta(v):
+    return safe_acos(v[..., 2])
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0, p + 2.0 * PI, p)
