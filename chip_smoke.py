@@ -60,7 +60,14 @@ CLI (``python -m vspg_pbrt_v4_tpu_torch``): the fog box through the CLI
 against the API bit for bit, the parsed fog against the same fog as one
 box through B1, the Cornell box (spheres, an area light), and a guided
 fog box with an emissive quad, storing then loading its guiding cache,
-against the same scene under volpath. The grid kernel (B2a-c) runs
+against the same scene under volpath. Phase 17, run after 16, drives the
+repo's VSPG scene file and the modules around it: ``scenes/cloud_vspg.pbrt``
+(the procedural cloud, the U-Net ISGB denoiser) through the CLI as shipped
+and wound outward, against volpath; ``guidedvolpath`` (RIS, MIS) and
+``guidedpath`` through the CLI, each equal to ``render_guided`` bit for
+bit and within 4 standard errors of volpath; ``render_vspg`` with the
+U-Net through B4a and B3a against the à-trous filter; and the U-Net's
+update on the card twice and on the CPU. The grid kernel (B2a-c) runs
 (pixel, sample) items too:
 9a and 10a hold B2b and B2c per item against the plain per-item version
 at 4 spp, printing the items the kernel reads as 0 (a lost sample), and
@@ -416,7 +423,8 @@ def _lowest_priority():
     os.nice(19)
 
 
-# the builds started beside the checks, stopped when the script ends
+# the builds started beside the checks and the CLI runs, stopped when the
+# script ends
 BACKGROUND = []
 
 
@@ -904,7 +912,11 @@ def main():
           "own); 8a NDS-RIS and NDS+-MIS only (was all four); 14b at 16 spp "
           "(was 64); NDS+ training 3 torch waves (bench: 48); phase 6 plain "
           "versions timed once (was best of 3); 10c's plain version on a "
-          "256x128 crop of the 1920x1088x8 main path", flush=True)
+          "256x128 crop of the 1920x1088x8 main path; 17a "
+          f"scenes/cloud_vspg.pbrt at {P17_CLOUD_SPP} spp and maxdepth "
+          f"{P17_CLOUD_DEPTH} (the file's 32 and 32), 17b at "
+          f"{P17_GUIDED_SPP} spp, 17c {P17_UNET_WAVES} training waves + "
+          f"{P17_UNET_FROZEN} frozen spp (7c: 48 + 64)", flush=True)
     k7, inputs7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
     print(f"phase 7 done {_at()}", flush=True)
@@ -927,6 +939,7 @@ def main():
     print(f"phase 13 done {_at()}, the phase {time.perf_counter() - t13:.1f} "
           "s", flush=True)
     _phase16(dev, tag)
+    _phase17(dev, tag)
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -2851,21 +2864,35 @@ def _outward(text):
 def _cli(args, label, tag):
     """Run ``python -m vspg_pbrt_v4_tpu_torch`` on `args` from the
     repository root; returns (image, the --stats record, seconds)."""
+    return _cli_wait(_cli_start(args), args, label, tag)
+
+
+def _cli_start(args):
+    """Start the CLI on `args` from the repository root, with --stats."""
     import os
 
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vspg_pbrt_v4_tpu_torch", *args, "--stats",
+         "--quiet"], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    BACKGROUND.append(proc)  # stopped with the builds if the script fails
+    return proc, time.perf_counter()
+
+
+def _cli_wait(started, args, label, tag):
+    """Wait for a CLI run of `_cli_start`; returns (image, the --stats
+    record, seconds with the interpreter's start)."""
     from vspg_pbrt_v4_tpu_torch.utils.image import read_image
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "vspg_pbrt_v4_tpu_torch",
-                        *args, "--stats", "--quiet"], cwd=root,
-                       capture_output=True, text=True, timeout=600)
+    proc, t0 = started
+    _, err = proc.communicate(timeout=600)
     dt = time.perf_counter() - t0
-    assert r.returncode == 0, (label, r.stderr[-3000:])
-    stats = json.loads(r.stderr.strip().splitlines()[-1])
+    assert proc.returncode == 0, (label, err[-3000:])
+    stats = json.loads(err.strip().splitlines()[-1])
     img = read_image(args[args.index("--outfile") + 1])
     assert np.isfinite(img).all(), label
-    print(f"phase 16{label}: {stats['seconds']:.2f} s in the CLI "
+    print(f"phase {label}: {stats['seconds']:.2f} s in the CLI "
           f"({dt:.2f} s with the interpreter's start), parse and build "
           f"{stats['build_seconds']:.4f} s, {stats['mpaths_per_s']:.4f} "
           f"Mpaths/s, {stats['spp']} spp at {stats['resolution']}, device "
@@ -2909,8 +2936,8 @@ def _phase16(dev, tag):
     with tempfile.TemporaryDirectory() as tmp:
         # (a) the real entry point against the API on the same seed
         img_cli, _, _ = _cli([fogbox, "--spp", "16", "--outfile",
-                              os.path.join(tmp, "fogbox.exr")], "a fogbox",
-                             tag)
+                              os.path.join(tmp, "fogbox.exr")],
+                             "16a fogbox", tag)
         t0 = time.perf_counter()
         setup = build_render_setup(parse_pbrt_file(fogbox), spp_override=16,
                                    device=dev)
@@ -2963,7 +2990,7 @@ def _phase16(dev, tag):
         # (c) the Cornell box through the CLI at the file's own size
         img_c, _, _ = _cli([os.path.join(root, "scenes", "cornell.pbrt"),
                             "--outfile", os.path.join(tmp, "cornell.exr")],
-                           "c cornell", tag)
+                           "16c cornell", tag)
         ny, nx = img_c.shape[:2]
         rows = slice(ny // 4, 3 * ny // 4)
         left = img_c[rows, nx // 16:nx * 5 // 16].mean((0, 1))
@@ -2993,12 +3020,12 @@ def _phase16(dev, tag):
             imgs[label] = _cli([scenes["vspg"], "--spp", "16", "--seed",
                                 str(seed), "--outfile",
                                 os.path.join(tmp, f"vspg_{label}.exr"),
-                                *extra], f"d vspg {label} guiding cache",
+                                *extra], f"16d vspg {label} guiding cache",
                                tag)[0]
             assert os.path.exists(cache)
         img_v = _cli([scenes["volpath"], "--spp", "16", "--seed", "3",
                       "--outfile", os.path.join(tmp, "quad_volpath.exr")],
-                     "d volpath", tag)[0]
+                     "16d volpath", tag)[0]
         for label in ("store", "load"):
             d, z = _z(imgs[label], img_v)
             print(f"phase 16d vspg ({label}) against volpath with the "
@@ -3008,6 +3035,280 @@ def _phase16(dev, tag):
             assert abs(z) <= 4.0, (label, z)
     dt = time.perf_counter() - t16
     print(f"phase 16 done {_at()}, the phase {dt:.1f} s", flush=True)
+
+
+# phase 17's depths, cut to fit the phase in about 150 s (printed in the
+# cuts line): 17a's spp and path depth (the file's 32 and 32), 17b's spp,
+# 17c's training waves and frozen spp (phase 7c's 48 and 64)
+P17_CLOUD_SPP, P17_CLOUD_DEPTH = 8, 8
+P17_GUIDED_SPP = 8
+P17_UNET_WAVES, P17_UNET_FROZEN = 16, 16
+
+
+def _volpath_text(text):
+    """A scene text with its Integrator directive, and the parameter lines
+    that continue it, replaced by volpath's."""
+    import re
+
+    return re.sub(r'^Integrator "[a-z]+"[^\n]*(\n[ \t]+"[^\n]*)*',
+                  'Integrator "volpath" "integer maxdepth" [32]', text,
+                  count=1, flags=re.M)
+
+
+def _phase17(dev, tag):
+    """The paper's scene file and the modules around it on the card:
+    (a) ``scenes/cloud_vspg.pbrt`` (the procedural cloud, the U-Net ISGB
+    denoiser) through the CLI at its own 128^2, as shipped (its cube wound
+    inward, so the cloud lies outside it and renders as empty space) and
+    wound outward under ``guidedvolpathvspg``, against the outward file
+    under ``volpath.render`` within 4 standard errors; (b)
+    ``guidedvolpath`` (RIS and MIS) on phase 16d's fog box with its
+    emissive quad and ``guidedpath`` on the Cornell box through the CLI,
+    each equal to ``render_guided`` in this process bit for bit and within
+    4 standard errors of volpath; (c) ``render_vspg`` on pyro64 at 256^2
+    with the U-Net through B4a and B3a against the same call with the
+    à-trous filter, each ISGB update timed by CUDA events, and the à-trous
+    call again, bit for bit; (d) the U-Net's ``train_and_denoise`` at
+    256^2, width 12, 4 and 48 steps, on the card twice and on the CPU,
+    same inputs and weights."""
+    import copy
+    import os
+    import tempfile
+
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.guiding import denoiser as dn
+    from vspg_pbrt_v4_tpu_torch.models.guiding import isgb as gisgb
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.scene import (build_render_setup,
+                                              parse_pbrt_file)
+
+    t17 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        def write(name, text):
+            path = os.path.join(tmp, name)
+            with open(path, "w") as f:
+                f.write(text)
+            return path
+
+        def exr(name):
+            return os.path.join(tmp, name + ".exr")
+
+        # ---- 17a: the VSPG scene file at its own size ----------------------
+        shipped = os.path.join(root, "scenes", "cloud_vspg.pbrt")
+        with open(shipped) as f:
+            out_text = _outward(f.read())
+        cut = ["--spp", str(P17_CLOUD_SPP), "--maxdepth",
+               str(P17_CLOUD_DEPTH)]
+        img_ship = _cli([shipped, *cut, "--outfile", exr("shipped")],
+                        "17a cloud_vspg.pbrt as shipped", tag)[0]
+        outward = write("cloud_out.pbrt", out_text)
+        img_unet, st_unet, _ = _cli(
+            [outward, *cut, "--seed", "1", "--outfile", exr("cloud_unet")],
+            "17a cloud_vspg.pbrt wound outward (guidedvolpathvspg, unet)",
+            tag)
+        assert st_unet["resolution"] == [128, 128], st_unet
+        # the same file under volpath, in this process
+        spp_vol = P17_CLOUD_SPP // 2
+        setup = build_render_setup(parse_pbrt_file(outward),
+                                   spp_override=spp_vol, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img_vol = volpath.render(
+            setup.scene, setup.camera, setup.film, spp=spp_vol,
+            cfg=volpath.VolPathConfig(max_depth=P17_CLOUD_DEPTH), seed=2,
+            spp_per_pass=spp_vol, device=dev).cpu().numpy()
+        t_vol = time.perf_counter() - t0
+        d, z = _z(img_unet, img_vol)
+        d_c, z_c = _z(img_vol, img_ship)
+        print(f"phase 17a the cloud wound outward: guidedvolpathvspg with "
+              f"the U-Net mean {img_unet.mean():.6f} against volpath's "
+              f"{img_vol.mean():.6f} ({spp_vol} spp, {t_vol:.2f} s through "
+              f"volpath.render), "
+              f"difference {d:+.6f} = {z:+.2f} standard errors (bound 4); "
+              f"as shipped (no cloud in the cube) the mean reads "
+              f"{img_ship.mean():.6f}, the cloud moves it {d_c:+.6f} = "
+              f"{z_c:+.2f} standard errors {tag}", flush=True)
+        assert abs(z) <= 4.0, z
+        assert abs(z_c) > 8.0, z_c
+
+        # ---- 17b: the guided integrators through the CLI ------------------
+        def body(name):
+            # the file without its (one-line) Integrator directive
+            with open(os.path.join(root, "scenes", name)) as f:
+                return "\n".join(ln for ln in f.read().splitlines()
+                                 if not ln.startswith("Integrator"))
+
+        fog_body = _outward(body("fogbox.pbrt")) + EMISSIVE_QUAD
+        cases = (("guidedvolpath", "ris", fog_body, 32),
+                 ("guidedvolpath", "mis", fog_body, 32),
+                 ("guidedpath", "ris", body("cornell.pbrt"), 8))
+        spp_b = P17_GUIDED_SPP
+        runs = []
+        for name, mode, text, depth in cases:
+            head = (f'Integrator "{name}" "integer maxdepth" [{depth}] '
+                    f'"string guidingtype" "{mode}"\n')
+            path = write(f"{name}_{mode}.pbrt", head + text)
+            args = [path, "--spp", str(spp_b), "--seed", "1", "--outfile",
+                    exr(f"{name}_{mode}")]
+            runs.append((name, mode, depth, path, args, _cli_start(args)))
+        # the three CLI processes run at once; render_guided after them
+        clis = [_cli_wait(started, args, f"17b {name} ({mode}), three CLI "
+                          "processes at once", tag)[0]
+                for name, mode, _, _, args, started in runs]
+        for (name, mode, depth, path, _, _), img_cli in zip(runs, clis):
+            setup = build_render_setup(parse_pbrt_file(path),
+                                       spp_override=spp_b, device=dev)
+            per_pass = min(4, spp_b)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img_api, field = guided_volpath.render_guided(
+                setup.scene, setup.camera, setup.film, spp=spp_b,
+                cfg=volpath.VolPathConfig(max_depth=depth),
+                gopt=guided_volpath.GuidingOptions(mode=mode), seed=1,
+                camera_medium=setup.camera_medium, spp_per_pass=per_pass,
+                device=dev)
+            torch.cuda.synchronize()
+            t_api = time.perf_counter() - t0
+            img_api = img_api.cpu().numpy()
+            same = np.array_equal(img_cli, img_api)
+            ref = volpath.render(setup.scene, setup.camera, setup.film,
+                                 spp=4 * spp_b, cfg=volpath.VolPathConfig(
+                                     max_depth=depth), seed=3,
+                                 spp_per_pass=8, device=dev).cpu().numpy()
+            d, z = _z(img_api, ref)
+            waves = spp_b // per_pass
+            nx, ny = setup.film.resolution
+            print(f"phase 17b {name} ({mode}) {nx}x{ny}x{spp_b}: "
+                  f"render_guided {t_api:.3f} s ({t_api / waves:.3f} s a wave "
+                  f"of {per_pass} spp, {waves} waves, {field.iteration} "
+                  f"training updates), the CLI's image equal to it bit for "
+                  f"bit: {same}; mean {img_api.mean():.6f} against volpath's "
+                  f"{ref.mean():.6f} at {4 * spp_b} spp, difference "
+                  f"{d:+.6f} = {z:+.2f} standard errors (bound 4) {tag}",
+                  flush=True)
+            assert same and abs(z) <= 4.0, (name, mode, same, z)
+            assert field.iteration > 0, field.iteration
+
+    # ---- 17c: the U-Net between the record waves of the kernel route -----
+    cfg = volpath.VolPathConfig(max_depth=64, max_events=256,
+                                max_collisions=4096)
+    n_train, n_frozen = P17_UNET_WAVES, P17_UNET_FROZEN
+    gopt = guided_volpath.GuidingOptions(field_res=8, record_depth=6,
+                                         min_train_weight=16.0,
+                                         train_waves=n_train)
+    pyro = sk.make_pyro64_scene(device=dev)
+    res = 256
+    cam, film = vk.bench_camera(res, device=dev), RGBFilm.make((res, res),
+                                                              device=dev)
+    update = gisgb.isgb_update
+    imgs = {}
+    for name in ("unet", "atrous"):
+        vopt = vspg.VSPGOptions(vsp_criterion="contribution", denoiser=name)
+        updates = []
+
+        def timed_update(buf):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = update(buf)
+            end.record()
+            updates.append((start, end))
+            return out
+
+        gisgb.isgb_update = timed_update
+        try:
+            (img, field, isgb), t_call, launches, k_ms, cap, rcap = (
+                _main_path_calls(lambda: vspg.render_vspg(
+                    pyro, cam, film, spp=n_train + n_frozen, cfg=cfg,
+                    gopt=gopt, vopt=vopt, seed=5, spp_per_pass=1,
+                    device=dev)))
+        finally:
+            gisgb.isgb_update = update
+        ms = [s.elapsed_time(e) for s, e in updates]
+        imgs[name] = img.cpu().numpy()
+        print(f"phase 17c render_vspg pyro64 {res}x{res} {n_train} training "
+              f"waves + {n_frozen} frozen spp with the {name} denoiser: "
+              f"{t_call:.3f} s, mean {imgs[name].mean():.6f}, launches "
+              f"{launches}, B4a {k_ms['vspg_record']:.3f} ms in "
+              f"{launches['vspg_record']} launches, B3a (item kernel and "
+              f"reduce) {k_ms['vspg_render']:.3f} ms, render items at the "
+              f"cap {cap}, record lanes at the cap {rcap}; {len(ms)} ISGB "
+              f"updates by CUDA events: {[round(m, 3) for m in ms]} ms "
+              f"{tag}", flush=True)
+        assert isgb.denoiser == name and isgb.ready
+        assert (name == "unet") == (isgb.net is not None)
+        assert launches == dict({k: 0 for k in sk.LAUNCHES},
+                                vspg_record=n_train, vspg_render=1,
+                                vspg_reduce=1), launches
+        assert cap == 0 and rcap == 0, (cap, rcap)
+        assert np.isfinite(imgs[name]).all() and imgs[name].mean() > 0
+        assert len(ms) == sum(1 for w in vopt.isgb_update_waves
+                              if w <= n_train)
+    d, z = _z(imgs["unet"], imgs["atrous"])
+    # the guiding modules' scatter-adds take a fixed order on the card
+    # (utils/math.index_sum), so the whole call gives the same bits again
+    again = vspg.render_vspg(
+        pyro, cam, film, spp=n_train + n_frozen, cfg=cfg, gopt=gopt,
+        vopt=vspg.VSPGOptions(vsp_criterion="contribution"), seed=5,
+        spp_per_pass=1, device=dev)[0].cpu().numpy()
+    same = np.array_equal(again, imgs["atrous"])
+    print(f"phase 17c the U-Net against the à-trous filter: difference "
+          f"{d:+.6f} = {z:+.2f} standard errors (bound 4); the à-trous call "
+          f"again equal bit for bit: {same} {tag}", flush=True)
+    assert abs(z) <= 4.0 and same, (z, same)
+
+    # ---- 17d: the U-Net's update on the card and on the CPU ---------------
+    rng = np.random.default_rng(17)
+    n = 256
+
+    def img(*c):
+        return rng.uniform(0, 2, (n, n) + c).astype(np.float32)
+
+    args = [img(3), rng.integers(0, 3, (n, n)).astype(np.float32), img(3),
+            rng.integers(1, 3, (n, n)).astype(np.float32), img(3),
+            rng.integers(1, 5, (n, n)).astype(np.float32), img(3), img(3),
+            rng.uniform(-1, 1, (n, n)).astype(np.float32)]
+    net0 = dn.UNet(width=12)
+
+    def run(device, steps):
+        net = copy.deepcopy(net0).to(device)
+        tensors = [torch.as_tensor(a, device=device) for a in args]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        _, _, out_c, out_v = dn.train_and_denoise(net, None, *tensors,
+                                                  steps=steps)
+        end.record()
+        torch.cuda.synchronize()
+        ms = (start.elapsed_time(end) if device == "cuda"
+              else (time.perf_counter() - t0) * 1e3)
+        return out_c.cpu().numpy(), out_v.cpu().numpy(), ms
+
+    def share(a, b):
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
+        return (rel <= 1e-3).reshape(n, n, -1).all(-1).mean()
+
+    for steps in (4, 48):
+        c1, v1, ms1 = run("cuda", steps)
+        c2, v2, ms2 = run("cuda", steps)
+        c0, v0, ms_cpu = run("cpu", steps)
+        same = np.array_equal(c1, c2) and np.array_equal(v1, v2)
+        print(f"phase 17d train_and_denoise {n}x{n}, width 12, {steps} "
+              f"steps: card {ms1:.2f} and {ms2:.2f} ms by CUDA events, CPU "
+              f"{ms_cpu:.1f} ms; the two card runs equal bit for bit: "
+              f"{same}; against the CPU, pixels within 1e-3 relative: "
+              f"color {share(c1, c0):.5f}, VSP {share(v1, v0):.5f} {tag}",
+              flush=True)
+        assert same
+        assert np.isfinite(c1).all() and np.isfinite(v1).all()
+    print(f"phase 17 done {_at()}, the phase "
+          f"{time.perf_counter() - t17:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

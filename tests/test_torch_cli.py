@@ -2,9 +2,12 @@
 JAX package's on the parsed fog box, and the CLI
 (``python -m vspg_pbrt_v4_tpu_torch``) on the CPU against the API bit for
 bit, with --time, a --checkpoint resume, --mse-reference-image, the
-probes and the guiding caches of both packages. Without --cpu and without
-a card the CLI exits non-zero; the CLI and the scene package import with
-JAX blocked."""
+probes and the guiding caches of both packages; the guided integrators
+(``guidedvolpath``, ``guidedpath``) against ``render_guided``, the VSPG
+scene file with its cloud and U-Net against ``render_vspg``, and
+--guiding-gbuffer against the JAX package's. Without --cpu and without a
+card the CLI exits non-zero; the CLI and the scene package import with JAX
+blocked."""
 
 import os
 import subprocess
@@ -130,9 +133,17 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
     bdpt.write_text('Integrator "bdpt"\nWorldBegin\n')
     assert cli.main([str(bdpt), "--cpu", "--quiet"]) == 1
     assert "ROADMAP.md §A" in capsys.readouterr().err
-    assert cli.main([os.path.join(REPO, "scenes", "cloud_vspg.pbrt"),
-                     "--cpu", "--quiet"]) == 1
-    assert 'MakeNamedMedium type "cloud"' in capsys.readouterr().err
+    # the procedural cloud is ported; the planet-scale earth medium and RGB
+    # grids are not
+    with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
+        cloud_text = f.read()
+    for kind in ("earth", "rgbgrid"):
+        path = tmp_path / f"{kind}.pbrt"
+        path.write_text(cloud_text.replace('"string type" "cloud"',
+                                           f'"string type" "{kind}"'))
+        assert cli.main([str(path), "--cpu", "--quiet"]) == 1
+        assert f'MakeNamedMedium type "{kind}" is not ported' in \
+            capsys.readouterr().err
 
 
 def test_field_caches_load_across_packages(tmp_path):
@@ -191,12 +202,14 @@ def test_checkpoints_load_across_packages(tmp_path):
 
 
 def test_port_entry_points_import_without_jax():
-    """With JAX blocked in a fresh interpreter, the CLI and the scene
-    package import."""
-    code = ("import sys\n"
+    """With JAX blocked in a fresh interpreter, every module of the port
+    and chip_smoke.py import, and none imports the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
             "sys.modules['jax'] = None\n"
-            "import vspg_pbrt_v4_tpu_torch.cli\n"
-            "import vspg_pbrt_v4_tpu_torch.scene\n"
+            "import vspg_pbrt_v4_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "import chip_smoke\n"
             "assert 'vspg_pbrt_v4_tpu' not in sys.modules\n"
             "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -221,3 +234,115 @@ def test_cli_renders_a_scene_with_spheres(tmp_path, scene):
     right = img[8:24, 22:30].mean((0, 1))
     assert right[0] > right[1], right
     assert left[1] > left[0], left
+
+
+@pytest.mark.parametrize("name,scene,mode", [
+    ("guidedvolpath", "fogbox.pbrt", "mis"),
+    ("guidedvolpath", "fogbox.pbrt", "ris"),
+    ("guidedpath", "cornell.pbrt", "ris")])
+def test_cli_guided_equals_render_guided(tmp_path, name, scene, mode):
+    """guidedvolpath and guidedpath through the CLI equal render_guided on
+    the same file, seed and options, bit for bit."""
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+
+    import re
+
+    with open(os.path.join(REPO, "scenes", scene)) as f:
+        text, n = re.subn(
+            r'^Integrator "volpath" "integer maxdepth" \[(\d+)\]',
+            rf'Integrator "{name}" "integer maxdepth" [\1] '
+            f'"string guidingtype" "{mode}"', f.read(), flags=re.M)
+    assert n == 1
+    path = str(tmp_path / "g.pbrt")
+    with open(path, "w") as f:
+        f.write(text)
+    out = str(tmp_path / "g.exr")
+    assert cli.main([path, "--cpu", "--quiet", "--spp", "4",
+                     "--spp-per-pass", "2", "--resolution", "8x8", "--seed",
+                     "3", "--outfile", out]) == 0
+    s = tbuild(tparse_file(path), 4, RES, device="cpu")
+    assert s.integrator == name
+    depth = s.integrator_params["maxdepth"][1][0]
+    img, _ = guided_volpath.render_guided(
+        s.scene, s.camera, s.film, spp=4,
+        cfg=tv.VolPathConfig(max_depth=depth),
+        gopt=guided_volpath.GuidingOptions(mode=mode), seed=3,
+        spp_per_pass=2, device="cpu")
+    np.testing.assert_array_equal(read_image(out), img.numpy())
+    assert img.numpy().mean() > 0
+
+
+def _outward_cloud(tmp_path):
+    import re
+
+    with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
+        text = f.read()
+
+    def flip(m):
+        v = m.group(2).split()
+        return m.group(1) + "  ".join(
+            f"{v[i]} {v[i + 2]} {v[i + 1]}" for i in range(0, len(v), 3)) + "]"
+
+    path = tmp_path / "cloud_out.pbrt"
+    path.write_text(re.sub(r'("integer indices"\s*\[)([^\]]*)\]', flip,
+                           text))
+    return str(path)
+
+
+def test_cli_cloud_vspg_unet_equals_the_api(tmp_path):
+    """The shipped VSPG scene file (its procedural cloud, the U-Net ISGB
+    denoiser) wound outward, at 16x16x2 through the CLI, equals
+    render_vspg with the file's options; the guiding gbuffer comes out
+    beside the image."""
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import vspg
+
+    path = _outward_cloud(tmp_path)
+    out = str(tmp_path / "c.exr")
+    assert cli.main([path, "--cpu", "--quiet", "--spp", "2",
+                     "--resolution", "16x16", "--seed", "1", "--outfile",
+                     out, "--guiding-gbuffer"]) == 0
+    s = tbuild(tparse_file(path), 2, (16, 16), device="cpu")
+    assert len(s.scene.media.procedurals) == 1
+    img, _, isgb = vspg.render_vspg(
+        s.scene, s.camera, s.film, spp=2, cfg=tv.VolPathConfig(max_depth=32),
+        gopt=guided_volpath.GuidingOptions(),
+        vopt=vspg.VSPGOptions(denoiser="unet"), seed=1, spp_per_pass=2,
+        device="cpu")
+    assert isgb.denoiser == "unet" and isgb.ready
+    np.testing.assert_array_equal(read_image(out), img.numpy())
+    assert img.numpy().mean() > 0
+    assert os.path.exists(str(tmp_path / "c_guiding_ids.exr"))
+
+
+def test_cli_guiding_gbuffer_matches_jax(tmp_path):
+    """--guiding-gbuffer after a guidedvolpathvspg render with a loaded
+    guiding cache: the ids and colors equal the JAX package's
+    render_guiding_gbuffer on the same field, exactly."""
+    from vspg_pbrt_v4_tpu.models.integrators import extras as jextras
+    from vspg_pbrt_v4_tpu_torch.models.integrators import extras
+
+    path = _outward_cloud(tmp_path)
+    js = jbuild(jparse_file(path), 1, (16, 16))
+    jf = jfield.GuidingField.make((-1.001,) * 3, (1.001,) * 3, res=4,
+                                  n_lobes=8)
+    cache = str(tmp_path / "f.npz")
+    jfield.save_field(jf, cache)
+    out = str(tmp_path / "g.exr")
+    assert cli.main([path, "--cpu", "--quiet", "--spp", "1",
+                     "--resolution", "16x16", "--outfile", out,
+                     "--load-guiding-cache", cache,
+                     "--guiding-gbuffer"]) == 0
+    rgb_j, cid_j = (np.asarray(a) for a in jextras.render_guiding_gbuffer(
+        js.scene, js.camera, js.film, jf))
+    s = tbuild(tparse_file(path), 1, (16, 16), device="cpu")
+    rgb_t, cid_t = extras.render_guiding_gbuffer(
+        s.scene, s.camera, s.film, tfield.load_field(cache, device="cpu"))
+    # the cube fills the view: every camera ray hits
+    assert rgb_j.any(-1).all() and len(np.unique(cid_j)) > 1
+    np.testing.assert_array_equal(rgb_t.numpy(), rgb_j)
+    np.testing.assert_array_equal(cid_t.numpy(), cid_j)
+    write_exr(str(tmp_path / "want.exr"), rgb_j)
+    np.testing.assert_array_equal(read_image(str(tmp_path /
+                                                 "g_guiding_ids.exr")),
+                                  read_image(str(tmp_path / "want.exr")))

@@ -11,7 +11,6 @@ import torch
 from vspg_pbrt_v4_tpu.models.integrators import volpath as jv
 from vspg_pbrt_v4_tpu.models.integrators import vspg as jvspg
 from vspg_pbrt_v4_tpu_torch import convert
-from vspg_pbrt_v4_tpu_torch.models.guiding.isgb import ISGB
 from vspg_pbrt_v4_tpu_torch.models.integrators import vspg as tvspg
 from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
 
@@ -80,7 +79,12 @@ def _refusal(case):
                              accelerator="kdtree")
         return lambda: convert.from_jax(scene._replace(geometry=jg), cam,
                                         film, CFG, "cpu")
-    return lambda: ISGB.make((4, 4), "variance", "unet", device="cpu")
+    # the U-Net ISGB denoiser is ported; spectral mode, with it, is not
+    ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, CFG, "cpu")
+    tg, tv = convert.options_from_jax(GOPT, VOPT._replace(denoiser="unet"))
+    return lambda: tvspg.render_vspg(ts, tc, tf, spp=1,
+                                     cfg=tcfg._replace(spectral=True),
+                                     gopt=tg, vopt=tv, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["kd-tree", "unet"])

@@ -6,9 +6,12 @@ Parses the scene file, builds it on the card (or on the CPU under
 ``--cpu``) and renders it with the integrator the file names: ``volpath``
 and ``path`` through ``volpath.render`` (``render_progressive`` under
 ``--time``, ``--checkpoint`` or ``--write-partial-images``),
-``guidedvolpathvspg`` through ``vspg.render_vspg``. The options are the
-JAX CLI's; the integrators and options this package does not serve yet
-exit with code 1 and a message naming ROADMAP.md §A. There is no silent
+``guidedpath`` and ``guidedvolpath`` through
+``guided_volpath.render_guided``, ``guidedvolpathvspg`` through
+``vspg.render_vspg`` (``--guiding-gbuffer`` then also writes the guiding
+cache's cell ids as ``<out>_guiding_ids.exr``). The options are the JAX
+CLI's; the integrators and options this package does not serve yet exit
+with code 1 and a message naming ROADMAP.md §A. There is no silent
 fallback: without ``--cpu`` and without a card the CLI exits non-zero.
 """
 
@@ -25,10 +28,8 @@ import numpy as np
 
 # integrators the JAX CLI serves and this package does not yet
 _UNPORTED_INTEGRATORS = ("ao", "randomwalk", "simplepath", "simplevolpath",
-                         "sppm", "lightpath", "bdpt", "mlt", "guidedpath",
-                         "guidedvolpath")
-_UNPORTED_OPTIONS = ("interactive", "display_server", "pixelstats",
-                     "guiding_gbuffer")
+                         "sppm", "lightpath", "bdpt", "mlt")
+_UNPORTED_OPTIONS = ("interactive", "display_server", "pixelstats")
 
 
 def _parser():
@@ -58,7 +59,9 @@ def _parser():
     ap.add_argument("--load-guiding-cache", default=None,
                     help="pre-trained field npz (disables training)")
     ap.add_argument("--guiding-gbuffer", action="store_true",
-                    help="not ported yet (ROADMAP.md §A 8)")
+                    help="guidedvolpathvspg: also write the guiding cache's "
+                         "cell ids at each pixel's first hit as "
+                         "<out>_guiding_ids.exr")
     ap.add_argument("--pixelstats", action="store_true",
                     help="not ported yet (ROADMAP.md §A 8)")
     ap.add_argument("--log-level", default="warning",
@@ -130,7 +133,7 @@ def main(argv=None):
               f"{setup.integrator}, {setup.spp} spp", file=sys.stderr)
     if setup.integrator in _UNPORTED_INTEGRATORS:
         print(f"error: integrator '{setup.integrator}' is not ported yet "
-              "(ROADMAP.md §A 5, §A 8)", file=sys.stderr)
+              "(ROADMAP.md §A 8)", file=sys.stderr)
         return 1
 
     if args.volMajScale is not None:
@@ -243,12 +246,14 @@ def _render(args, setup, device, t0, build_s):
                              camera_medium=setup.camera_medium,
                              spp_per_pass=spp_per_pass,
                              sampler=setup.sampler, device=device)
+    elif name in ("guidedpath", "guidedvolpath"):
+        img, _ = gvp.render_guided(
+            setup.scene, setup.camera, setup.film, spp=setup.spp, cfg=cfg,
+            gopt=_guiding_options(ip), seed=args.seed,
+            camera_medium=setup.camera_medium, spp_per_pass=spp_per_pass,
+            device=device)
     elif name == "guidedvolpathvspg":
-        gopt = gvp.GuidingOptions(
-            mode=("ris" if ip.get_string("guidingtype", "ris") == "ris"
-                  else "mis"),
-            surface_guiding=ip.get_bool("surfaceguiding", True),
-            volume_guiding=ip.get_bool("volumeguiding", True))
+        gopt = _guiding_options(ip)
         method = ip.get_string("vspsamplingmethod", "resampling").lower()
         vopt = vspg.VSPGOptions(
             guide_vsp=ip.get_bool("vspguiding", True),
@@ -277,6 +282,16 @@ def _render(args, setup, device, t0, build_s):
             from .models.guiding.field import save_field
 
             save_field(field, args.store_guiding_cache)
+        if args.guiding_gbuffer:
+            from .models.integrators.extras import render_guiding_gbuffer
+
+            gb_rgb, _ = render_guiding_gbuffer(
+                setup.scene.to(device), setup.camera.to(device),
+                setup.film.to(device), field)
+            gb_out = out.rsplit(".", 1)[0] + "_guiding_ids.exr"
+            write_exr(gb_out, gb_rgb.cpu().numpy())
+            if not args.quiet:
+                print(f"[guiding-gbuffer] {gb_out}", file=sys.stderr)
     else:
         print(f"integrator '{name}' not supported; falling back to volpath",
               file=sys.stderr)
@@ -305,6 +320,17 @@ def _render(args, setup, device, t0, build_s):
                           "mpaths_per_s": npaths / dt / 1e6,
                           "device": str(device)}), file=sys.stderr)
     return 0
+
+
+def _guiding_options(ip):
+    """GuidingOptions from the integrator's scene-file parameters."""
+    from .models.integrators.guided_volpath import GuidingOptions
+
+    return GuidingOptions(
+        mode=("ris" if ip.get_string("guidingtype", "ris") == "ris"
+              else "mis"),
+        surface_guiding=ip.get_bool("surfaceguiding", True),
+        volume_guiding=ip.get_bool("volumeguiding", True))
 
 
 def _pixel_material_probe(setup, x, y, max_depth=16):

@@ -18,7 +18,7 @@ from .models.filters import Filter
 from .models.integrators.volpath import Scene, VolPathConfig
 from .models.lights import Lights
 from .models.materials import Materials
-from .models.media import GridMedium, Media
+from .models.media import CloudMedium, GridMedium, Media
 from .models.shapes import Geometry
 from .models.textures import Textures
 from .ops.bvh import bvh_from_arrays
@@ -100,8 +100,14 @@ def _textures(tex, device):
 
 
 def _media(m, device):
-    if len(getattr(m, "procedurals", ())):
-        raise NotImplementedError("procedural media are not ported yet")
+    """Homogeneous block, then grids, then procedurals: the JAX Media's
+    medium ids."""
+    procs = []
+    for pm in getattr(m, "procedurals", ()):
+        if type(pm).__name__ != "CloudMedium":
+            raise NotImplementedError(f"{type(pm).__name__} is not ported")
+        procs.append(CloudMedium(*(_t(getattr(pm, f), device, torch.float32)
+                                   for f in CloudMedium.__dataclass_fields__)))
     grids = []
     for gm in m.grids:
         if type(gm).__name__ != "GridMedium":
@@ -113,7 +119,8 @@ def _media(m, device):
             _t(gm.majorant, device), tuple(int(v) for v in gm.res),
             tuple(int(v) for v in gm.maj_res)))
     return Media(_t(m.h_sigma_a, device), _t(m.h_sigma_s, device),
-                 _t(m.h_Le, device), _t(m.h_g, device), tuple(grids))
+                 _t(m.h_Le, device), _t(m.h_g, device), tuple(grids),
+                 tuple(procs))
 
 
 def _lights(li, device):
@@ -198,20 +205,19 @@ def field_from_jax(field, device="cuda"):
 
 
 def isgb_from_jax(isgb, device="cuda"):
-    """This package's ISGB holding the values of a JAX one (à-trous
-    denoiser only)."""
-    from .models.guiding.isgb import ISGB
+    """This package's ISGB holding the values of a JAX one, the U-Net's
+    state (parameters and Adam's moments) included."""
+    from .models.guiding import denoiser as dn
+    from .models.guiding.isgb import _ARRAYS, ISGB
 
-    if isgb.denoiser != "atrous":
-        raise NotImplementedError(f"ISGB denoiser {isgb.denoiser!r} is not "
-                                  "ported yet")
-    names = ("contrib_sum", "albedo_sum", "normal_sum", "n", "c_vol",
-             "c_vol2", "c_surf", "c_surf2", "contrib_a", "n_a",
-             "contrib_est", "vsp_est")
+    net = None
+    if isgb.net is not None:
+        params, (m, v) = isgb.net
+        net = dn.state_from_jax(params, m, v, device)
     return ISGB(*(_t(getattr(isgb, f), device, torch.float32)
-                  for f in names), bool(isgb.ready),
+                  for f in _ARRAYS), bool(isgb.ready),
                 tuple(int(r) for r in isgb.resolution),
-                str(isgb.vsp_criterion), "atrous")
+                str(isgb.vsp_criterion), str(isgb.denoiser), net)
 
 
 def options_from_jax(gopt, vopt):

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ...utils.device import OnDevice
-from ...utils.math import INV_4PI
+from ...utils.math import INV_4PI, index_sum
 from ...utils.vecmath import normalize
 from . import vmf
 
@@ -277,7 +277,7 @@ def _update_half(field, half: FieldHalf, batch: TrainBatch, sel, decay):
     wd = torch.where(ok & d_ok, batch.weight, 0.0)
 
     def acc(old, add):
-        return old * decay + torch.zeros_like(old).index_add_(0, cid, add)
+        return old * decay + index_sum(torch.zeros_like(old), cid, add)
 
     wv = torch.where(ok, 1.0, 0.0)
     return FieldHalf(

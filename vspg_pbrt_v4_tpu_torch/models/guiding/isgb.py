@@ -3,18 +3,32 @@
 Per-pixel accumulators feeding two denoised estimates: the pixel
 contribution (guided Russian roulette) and the primary-ray volume scatter
 probability, by the contribution criterion Cv/(Cv+Cs) or the variance
-criterion (Cv^2+Vv)/(Cv^2+Vv+Cs^2+Vs). The denoiser is the edge-aware
-à-trous filter guided by albedo and normal; the learned U-Net denoiser
-(``denoiser="unet"``) is queued in ROADMAP.md §B.
+criterion (Cv^2+Vv)/(Cv^2+Vv+Cs^2+Vs). Two denoisers
+(``ISGB.make(denoiser=...)``):
+
+- "atrous": the edge-aware à-trous filter guided by albedo and normal;
+- "unet": the kernel-predicting U-Net of ``guiding/denoiser.py``, trained
+  per scene on the buffer's even/odd-wave split halves. Its state, the net
+  and Adam's moments, lives in the buffer (``net``) and keeps training
+  across updates.
+
+``save_isgb``/``load_isgb`` read and write the JAX package's file layout.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from ...utils.device import OnDevice
+from ...utils.math import index_sum
+from . import denoiser as dn
+
+# the array fields in the JAX package's leaf order
+_ARRAYS = ("contrib_sum", "albedo_sum", "normal_sum", "n", "c_vol", "c_vol2",
+           "c_surf", "c_surf2", "contrib_a", "n_a", "contrib_est", "vsp_est")
 
 
 @dataclass(frozen=True)
@@ -35,24 +49,26 @@ class ISGB(OnDevice):
     resolution: tuple  # (nx, ny)
     vsp_criterion: str  # "variance" | "contribution"
     denoiser: str = "atrous"
+    # "unet": (UNet, (m, v)), Adam's moments by parameter name; else None
+    net: object = None
 
     @staticmethod
     def make(resolution, vsp_criterion="variance", denoiser="atrous", *,
              device="cuda"):
-        if denoiser != "atrous":
-            raise NotImplementedError(
-                f"ISGB denoiser {denoiser!r} is not ported yet (ROADMAP.md "
-                "§B: the U-Net denoiser)")
         P = int(resolution[0] * resolution[1])
 
         def z(*shape):
             return torch.zeros(shape, device=device)
 
+        net = None
+        if denoiser == "unet":
+            unet = dn.UNet().to(device)
+            net = (unet, (dn.zeros_state(unet), dn.zeros_state(unet)))
         return ISGB(z(P, 3), z(P, 3), z(P, 3), z(P), z(P), z(P), z(P), z(P),
                     z(P, 3), z(P), z(P, 3),
                     torch.full((P,), -1.0, device=device), False,
                     tuple(int(r) for r in resolution), vsp_criterion,
-                    denoiser)
+                    denoiser, net)
 
 
 def isgb_add_samples(buf: ISGB, pixel_id, L, albedo, normal,
@@ -66,7 +82,7 @@ def isgb_add_samples(buf: ISGB, pixel_id, L, albedo, normal,
     ls = torch.where(first_event_volume, 0.0, lum)
 
     def add(acc, v):
-        return acc.index_add(0, pixel_id, v)
+        return index_sum(acc.clone(), pixel_id, v)
 
     return replace(
         buf,
@@ -141,6 +157,25 @@ def isgb_update(buf: ISGB) -> ISGB:
     vsp_raw = torch.where(den > 0, num / torch.clamp(den, min=1e-20), -1.0)
     vsp_raw = torch.where(vsp_raw >= 0, torch.clamp(vsp_raw, 0.0, 1.0), -1.0)
 
+    if buf.denoiser == "unet":
+        # train on the A half against B = total - A and back, then filter
+        # the full buffer and the VSP map with the predicted kernels
+        na = buf.n_a.reshape(ny, nx)
+        nb = (buf.n - buf.n_a).reshape(ny, nx)
+        ca = (buf.contrib_a / torch.clamp(buf.n_a, min=1.0)[..., None]
+              ).reshape(ny, nx, 3)
+        cb = ((buf.contrib_sum - buf.contrib_a)
+              / torch.clamp(buf.n - buf.n_a, min=1.0)[..., None]
+              ).reshape(ny, nx, 3)
+        unet, opt_state = buf.net
+        unet, opt_state, contrib_d, vsp_d = dn.train_and_denoise(
+            unet, opt_state, ca, na, cb, nb, contrib, buf.n.reshape(ny, nx),
+            albedo, normal, vsp_raw.reshape(ny, nx))
+        return replace(buf, contrib_est=contrib_d.reshape(-1, 3),
+                       vsp_est=torch.where(buf.n > 0, vsp_d.reshape(-1),
+                                           -1.0),
+                       ready=True, net=(unet, opt_state))
+
     contrib_d = _atrous(contrib, albedo, normal)
     vsp_img = torch.clamp(vsp_raw, 0.0, 1.0).reshape(ny, nx, 1)
     vsp_d = _atrous(vsp_img, albedo, normal).reshape(-1)
@@ -158,3 +193,51 @@ def isgb_contribution(buf: ISGB, pixel_id):
     """Pixel contribution estimate for guided Russian roulette."""
     c = buf.contrib_est[pixel_id]
     return c if buf.ready else torch.zeros_like(c)
+
+
+def _net_leaves(net):
+    """The U-Net state as the JAX package flattens it: params, then m, then
+    v, each by sorted layer name, bias before weight, weights HWIO."""
+    unet, (m, v) = net
+    out = []
+    for named in (dict(unet.named_parameters()), m, v):
+        tree = dn.named_to_jax(named)
+        for name in sorted(tree):
+            out += [tree[name]["b"], tree[name]["w"]]
+    return out
+
+
+def _net_from_leaves(leaves, device):
+    n = 2 * len(dn._NAMES)
+    params, m, v = ({name: {"b": leaves[k * n + 2 * i],
+                            "w": leaves[k * n + 2 * i + 1]}
+                     for i, name in enumerate(sorted(dn._NAMES))}
+                    for k in range(3))
+    return dn.state_from_jax(params, m, v, device)
+
+
+def save_isgb(buf: ISGB, path):
+    """Write the buffer in the JAX package's ``save_isgb`` layout: its
+    leaves as arr_0, arr_1, ... and the resolution, criterion and
+    denoiser."""
+    leaves = [getattr(buf, f).detach().cpu().numpy() for f in _ARRAYS]
+    leaves.append(np.asarray(bool(buf.ready)))
+    if buf.net is not None:
+        leaves += _net_leaves(buf.net)
+    np.savez(path, *leaves, res=buf.resolution, crit=buf.vsp_criterion,
+             dn=buf.denoiser)
+
+
+def load_isgb(path, device="cuda") -> ISGB:
+    """Read a buffer written by either package's ``save_isgb``."""
+    data = np.load(path, allow_pickle=True)
+    meta = {"res", "crit", "dn"} & set(data.files)
+    leaves = [data[f"arr_{i}"] for i in range(len(data.files) - len(meta))]
+    denoiser = str(data["dn"]) if "dn" in data.files else "atrous"
+    arrays = {f: torch.as_tensor(np.asarray(a, np.float32), device=device)
+              for f, a in zip(_ARRAYS, leaves)}
+    net = (_net_from_leaves(leaves[len(_ARRAYS) + 1:], device)
+           if denoiser == "unet" else None)
+    return ISGB(**arrays, ready=bool(leaves[len(_ARRAYS)]),
+                resolution=tuple(int(r) for r in data["res"]),
+                vsp_criterion=str(data["crit"]), denoiser=denoiser, net=net)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ...utils.math import INV_4PI, PI
+from ...utils.math import INV_4PI, PI, index_sum
 from ...utils.vecmath import coordinate_system, dot
 
 MAX_KAPPA = 2e3
@@ -130,9 +130,9 @@ def em_update(stats_w, stats_s, weights, mu, kappa, cell_id, n_cells,
     wr = resp * sample_w[..., None]
 
     # M-step: scatter-add into the per-cell statistics
-    batch_w = torch.zeros_like(stats_w).index_add_(0, cell_id, wr)
-    batch_s = torch.zeros_like(stats_s).index_add_(
-        0, cell_id, wr[..., None] * sample_dir[..., None, :])
+    batch_w = index_sum(torch.zeros_like(stats_w), cell_id, wr)
+    batch_s = index_sum(torch.zeros_like(stats_s), cell_id,
+                        wr[..., None] * sample_dir[..., None, :])
     stats_w = stats_w * decay + batch_w
     stats_s = stats_s * decay + batch_s
 

@@ -15,11 +15,11 @@ through this wavefront on the JAX package's random streams;
 ``render_persistent`` keeps a lane pool busy and dispatches to the
 kernels where a scene is of their class.
 
-Scope: homogeneous and grid media inside box or triangle interfaces, flat
-triangles (by brute force up to 64, through the geometry's BVH above)
-and spheres with the materials of ``models/materials.py``, point lights,
-triangle area lights and a constant environment, a pinhole camera, RGB
-hero-channel mode.
+Scope: homogeneous, grid and procedural cloud media inside box or
+triangle interfaces, flat triangles (by brute force up to 64, through the
+geometry's BVH above) and spheres with the materials of
+``models/materials.py``, point lights, triangle area lights and a constant
+environment, a pinhole camera, RGB hero-channel mode.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def sample_medium_interaction(scene, cfg, o, d, seg_end, medium_id, hero_idx,
     with the per-lane majorant segment iterator (VolPathIntegrator's
     SampleT_maj callback, cpu/integrators.cpp:1022-1124)."""
     media = scene.media
-    if len(media.grids) == 0:
+    if len(media.grids) == 0 and len(media.procedurals) == 0:
         return _homogeneous_medium_interaction(
             scene, cfg, o, d, seg_end, medium_id, hero_idx, sampler, beta,
             r_u, r_l, L, depth, active)
@@ -291,7 +291,8 @@ def transmittance_ratio_tracking(scene, cfg, o, wi, t_max, medium_start,
     t_cur = torch.zeros_like(o[..., 0])
     med_id = medium_start
     seg_active = active
-    homog_only = len(scene.media.grids) == 0
+    homog_only = (len(scene.media.grids) == 0
+                  and len(scene.media.procedurals) == 0)
     it = 0
     while bool(seg_active.any()) and it < cfg.max_shadow_segments:
         p_cur = o + t_cur[..., None] * wi
@@ -388,6 +389,17 @@ def _combine_ld(ls, f_hat, scatter_pdf, T_ray, tr_l, tr_u, r_p, beta, ok):
     contrib = (beta * f_hat * T_ray * ls.L
                / torch.clamp(denom, min=1e-30)[..., None])
     return torch.where((ok & (denom > 0))[..., None], contrib, 0.0)
+
+
+def _local_ld(ls, f_hat, scatter_pdf, T_ray, tr_l, tr_u, ok):
+    """The NEE estimate without the path prefix (beta, r_p = 1): what the
+    training records take as scattered direct light (guiding.h:729)."""
+    p_l = ls.select_pmf * ls.pdf_dir
+    r_l = tr_l * p_l[..., None]
+    r_u = tr_u * scatter_pdf[..., None]
+    denom = torch.where(ls.is_delta, average(r_l), average(r_l + r_u))
+    local = f_hat * T_ray * ls.L / torch.clamp(denom, min=1e-30)[..., None]
+    return torch.where((ok & (denom > 0))[..., None], local, 0.0)
 
 
 def sample_ld_volume(scene, cfg, p, wo, g, medium_id, hero_idx, sampler,

@@ -1,12 +1,16 @@
 """Participating media (counterpart of ``models/media.py``).
 
-- ``Media``: a block of homogeneous media plus a tuple of ``GridMedium``
-  (medium ids: [0, n_homog) homogeneous | n_homog + i for grids[i]).
+- ``Media``: a block of homogeneous media, a tuple of ``GridMedium`` and a
+  tuple of procedural media (medium ids: [0, n_homog) homogeneous |
+  n_homog + i for grids[i] | base_procedural + j for procedurals[j]).
 - ``GridMedium``: a dense density grid with a conservative max-pooled
   majorant supergrid, walked by a per-lane 3D DDA (``SegIter``,
   ``seg_init``/``seg_next``) in the collision loops.
+- ``CloudMedium``: pbrt's procedural cumulus (fBm Perlin density with a
+  domain warp), one constant-majorant segment clipped to its bounds.
 
-RGB grids and the procedural media of the JAX package are not ported yet.
+RGB grids and the planet-scale ``EarthMedium`` of the JAX package are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 
 from ..utils.device import OnDevice
 from ..utils.math import nanmax, nanmin
+from ..utils.noise import perlin
 
 
 class MediumProperties(NamedTuple):
@@ -122,17 +127,81 @@ class GridMedium(OnDevice):
 
 
 @dataclass(frozen=True)
+class CloudMedium(OnDevice):
+    """Procedural cumulus cloud (pbrt's CloudMedium): fBm Perlin density
+    with a two-octave domain warp (wispiness) and altitude shaping,
+    clamped to [0, 1], zero outside [b_min, b_max]; the majorant is the
+    constant sigma_a + sigma_s."""
+
+    sigma_a: torch.Tensor  # (3,)
+    sigma_s: torch.Tensor  # (3,)
+    g: torch.Tensor  # ()
+    b_min: torch.Tensor  # (3,)
+    b_max: torch.Tensor  # (3,)
+    density: torch.Tensor  # () overall density scale
+    wispiness: torch.Tensor  # ()
+    frequency: torch.Tensor  # ()
+
+    @staticmethod
+    def make(sigma_a=(1, 1, 1), sigma_s=(1, 1, 1), g=0.0, p0=(0, 0, 0),
+             p1=(1, 1, 1), density=1.0, wispiness=1.0, frequency=5.0, *,
+             device):
+        def f32(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+        return CloudMedium(f32(sigma_a), f32(sigma_s), f32(g), f32(p0),
+                           f32(p1), f32(density), f32(wispiness),
+                           f32(frequency))
+
+    def density_at(self, p):
+        pp = self.frequency * p
+        # wispiness: two octaves of vector noise from three decorrelated
+        # Perlin channels perturb the lookup point
+        dev = p.device
+        shifts = [torch.tensor(v, device=dev) for v in
+                  ((31.7, 0.0, 0.0), (0.0, 57.3, 0.0), (0.0, 0.0, 91.1))]
+        vomega = 0.05 * self.wispiness
+        vlam = 10.0
+        for _ in range(2):
+            dn = torch.stack([perlin(vlam * pp + sh) for sh in shifts], -1)
+            pp = pp + vomega * dn
+            vomega = vomega * 0.5
+            vlam = vlam * 1.99
+        # five octaves of fBm
+        d = torch.zeros(p.shape[:-1], device=dev)
+        omega, lam = 0.5, 1.0
+        for _ in range(5):
+            d = d + omega * perlin(lam * pp)
+            omega *= 0.5
+            lam *= 1.99
+        # altitude shaping
+        d = torch.clamp((1.0 - p[..., 1]) * 4.5 * self.density * d, 0.0, 1.0)
+        d = d + 2.0 * torch.clamp(0.5 - p[..., 1], min=0.0)
+        inside = torch.all((p >= self.b_min) & (p <= self.b_max), -1)
+        return torch.where(inside, torch.clamp(d, 0.0, 1.0), 0.0)
+
+    def majorant_rgb(self):
+        return self.sigma_a + self.sigma_s  # density <= 1
+
+    def sigma_at(self, p):
+        d = self.density_at(p)[..., None]
+        return d * self.sigma_a, d * self.sigma_s
+
+
+@dataclass(frozen=True)
 class Media(OnDevice):
-    """All media of a scene: a homogeneous block + a tuple of grids."""
+    """All media of a scene: a homogeneous block, a tuple of grids and a
+    tuple of procedural media."""
 
     h_sigma_a: torch.Tensor  # (Mh,3)
     h_sigma_s: torch.Tensor  # (Mh,3)
     h_Le: torch.Tensor  # (Mh,3)
     h_g: torch.Tensor  # (Mh,)
     grids: tuple = ()  # tuple[GridMedium]
+    procedurals: tuple = ()  # tuple[CloudMedium]
 
     @staticmethod
-    def make(homogeneous=None, grids=(), *, device):
+    def make(homogeneous=None, grids=(), procedurals=(), *, device):
         """homogeneous: list of dicts {sigma_a, sigma_s, [Le], [g]}."""
         h = list(homogeneous or [])
 
@@ -146,11 +215,16 @@ class Media(OnDevice):
             f32([m["sigma_s"] for m in h], (n, 3)),
             f32([m.get("Le", (0, 0, 0)) for m in h], (n, 3)),
             f32([m.get("g", 0.0) for m in h], (n,)),
-            tuple(gm.to(device) for gm in grids))
+            tuple(gm.to(device) for gm in grids),
+            tuple(pm.to(device) for pm in procedurals))
 
     @property
     def n_homog(self):
         return self.h_sigma_a.shape[0]
+
+    @property
+    def base_procedural(self):
+        return self.n_homog + len(self.grids)
 
     def is_homogeneous(self, medium_id):
         return (medium_id >= 0) & (medium_id < self.n_homog)
@@ -181,6 +255,12 @@ class Media(OnDevice):
             sigma_s = torch.where(s3, dens[..., None] * gm.sigma_s, sigma_s)
             Le = torch.where(s3, gm.Le, Le)
             g = torch.where(sel, gm.g, g)
+        for j, pm in enumerate(self.procedurals):
+            sel = medium_id == self.base_procedural + j
+            sa_p, ss_p = pm.sigma_at(p)
+            sigma_a = torch.where(sel[..., None], sa_p, sigma_a)
+            sigma_s = torch.where(sel[..., None], ss_p, sigma_s)
+            g = torch.where(sel, pm.g, g)
         return MediumProperties(sigma_a, sigma_s, Le, g)
 
 
@@ -224,7 +304,8 @@ class SegIter(NamedTuple):
 def seg_init(media: Media, medium_id, o, d, t_max, active) -> SegIter:
     """Start the per-lane segment iterator over [0, t_max]: one segment for
     homogeneous lanes; grid lanes clip to the grid bounds and set up the
-    DDA over the majorant supergrid."""
+    DDA over the majorant supergrid; procedural lanes take one segment
+    clipped to their bounds."""
     R = tuple(o.shape[:-1])
     dev = o.device
     zero = torch.zeros_like(t_max)
@@ -236,7 +317,7 @@ def seg_init(media: Media, medium_id, o, d, t_max, active) -> SegIter:
                                 torch.zeros(R + (3,), device=dev))
     else:
         sigma_maj = torch.zeros(R + (3,), device=dev)
-    n_known = media.n_homog + len(media.grids)
+    n_known = media.base_procedural + len(media.procedurals)
     it = SegIter(
         t_seg_start=zero,
         t_seg_end=torch.where(is_h, t_max, zero),
@@ -289,13 +370,31 @@ def seg_init(media: Media, medium_id, o, d, t_max, active) -> SegIter:
             t_exit=torch.where(sel, t1, it.t_exit),
         )
         done = done | (sel & miss)
+    for j, pm in enumerate(media.procedurals):
+        sel = active & (medium_id == media.base_procedural + j)
+        inv_d = 1.0 / d
+        t_lo = (pm.b_min - o) * inv_d
+        t_hi = (pm.b_max - o) * inv_d
+        t0 = torch.clamp(nanmax(torch.minimum(t_lo, t_hi)), min=0.0)
+        t1 = torch.minimum(nanmin(torch.maximum(t_lo, t_hi)), t_max)
+        miss = t0 >= t1
+        smaj = torch.broadcast_to(pm.majorant_rgb(), it.sigma_maj.shape)
+        it = it._replace(
+            t_seg_start=torch.where(sel, t0, it.t_seg_start),
+            t_seg_end=torch.where(sel, torch.where(miss, t0, t1),
+                                  it.t_seg_end),
+            sigma_maj=torch.where(sel[..., None], smaj, it.sigma_maj),
+            t_exit=torch.where(sel, t1, it.t_exit))
+        done = done | (sel & miss)
     return it._replace(done=done)
 
 
 def seg_next(media: Media, medium_id, it: SegIter, want) -> SegIter:
     """Advance lanes in `want` (and not exhausted) to their next segment."""
     want = want & ~it.done
-    one_seg = media.is_homogeneous(medium_id)
+    # homogeneous and procedural lanes have one segment
+    one_seg = media.is_homogeneous(medium_id) | (
+        medium_id >= media.base_procedural)
     out = it._replace(done=it.done | (want & one_seg))
     for i, gm in enumerate(media.grids):
         sel = (medium_id == media.n_homog + i) & want

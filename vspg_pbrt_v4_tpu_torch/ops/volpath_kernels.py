@@ -137,6 +137,8 @@ def extract_constants(scene, camera, film, cfg):
     if int(g.box_med_in[0]) != 0 or int(g.box_med_out[0]) != -1:
         return None
     m = scene.media
+    if len(m.procedurals):
+        return None  # the kernels sample homogeneous media and one grid
     bmin = g.box_min[0].cpu().numpy()
     bmax = g.box_max[0].cpu().numpy()
     grid = None

@@ -8,9 +8,10 @@ interface, lights and media, then builds the scene, camera and film on
 the requested device. It builds trianglemesh, plymesh, loopsubdiv and
 sphere shapes; the diffuse, conductor, smooth dielectric and cooktorrance
 materials with the checker and constant textures; point, constant
-infinite and triangle area lights; homogeneous and uniform-grid media
-(inline or from an ``.npz`` gridfile); the pinhole perspective camera,
-the ``rgb`` film, the box filter and the ``independent`` sampler.
+infinite and triangle area lights; homogeneous, uniform-grid (inline or
+from an ``.npz`` gridfile) and procedural ``cloud`` media; the pinhole
+perspective camera, the ``rgb`` film, the box filter and the
+``independent`` sampler.
 
 Where the JAX builder warns and degrades (an unknown shape, light,
 medium, texture or material type), this one warns in the same words.
@@ -35,7 +36,7 @@ from ..models.integrators.volpath import Scene
 from ..models.lights import Lights
 from ..models.materials import (CONDUCTOR, COOK_TORRANCE, DIELECTRIC, DIFFUSE,
                                 SMOOTH, Materials)
-from ..models.media import GridMedium, Media
+from ..models.media import CloudMedium, GridMedium, Media
 from ..models.shapes import Geometry
 from ..models.textures import CHECKER, CONSTANT, Textures
 from ..utils import transform as tr
@@ -44,7 +45,7 @@ from .parser import ParameterDictionary, PbrtError
 # what the JAX builder builds and this package does not serve yet
 _UNPORTED_SHAPES = ("disk", "cylinder", "curve", "bilinearmesh", "bilinear")
 _UNPORTED_LIGHTS = ("spot", "goniometric", "projection", "distant")
-_UNPORTED_MEDIA = ("nanovdb", "rgbgrid", "cloud", "earth")
+_UNPORTED_MEDIA = ("nanovdb", "rgbgrid", "earth")
 _UNPORTED_MATERIALS = ("thindielectric", "diffusetransmission",
                        "coateddiffuse", "plastic", "coatedconductor",
                        "subsurface", "hair", "mix", "measured")
@@ -126,6 +127,7 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     env_L = None
     homog_media = []
     grid_media = []
+    proc_media = []
     named_media = {}
     camera_directive = None
     cam_to_world = tr.identity(device="cpu")
@@ -348,6 +350,22 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                         raise _unported(d, "type", "nanovdb")
                     grid_media.append(_grid_medium(st.ctm, p, gridfile))
                     named_media[mname] = ("grid", len(grid_media) - 1)
+                elif mtype == "cloud":
+                    b0 = _xf_pts(st.ctm, p.get_point3("p0", np.zeros(3)))
+                    b1 = _xf_pts(st.ctm, p.get_point3("p1", np.ones(3)))
+                    scale = p.get_float("scale", 1.0)
+                    proc_media.append(CloudMedium.make(
+                        sigma_a=p.get_rgb("sigma_a", np.asarray([1.0, 1, 1]))
+                        * scale,
+                        sigma_s=p.get_rgb("sigma_s", np.asarray([1.0, 1, 1]))
+                        * scale,
+                        g=p.get_float("g", 0.0),
+                        p0=np.minimum(b0, b1), p1=np.maximum(b0, b1),
+                        density=p.get_float("density", 1.0),
+                        wispiness=p.get_float("wispiness", 1.0),
+                        frequency=p.get_float("frequency", 5.0),
+                        device=device))
+                    named_media[mname] = ("proc", len(proc_media) - 1)
                 elif mtype in _UNPORTED_MEDIA:
                     raise _unported(d, "type", mtype)
                 else:
@@ -359,7 +377,9 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                     if not nm or nm not in named_media:
                         return -1
                     kind, idx = named_media[nm]
-                    return idx if kind == "homog" else 10_000 + idx
+                    if kind == "homog":
+                        return idx
+                    return (10_000 if kind == "grid" else 20_000) + idx
 
                 st.medium_in = mid(d.args[0] if len(d.args) > 0 else "")
                 st.medium_out = mid(d.args[1] if len(d.args) > 1 else "")
@@ -401,10 +421,12 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                 raise
             raise NotImplementedError(f"{d.loc}: {name}: {e}") from None
 
-    # remap medium ids: the homogeneous block, then the grids
-    n_h = len(homog_media)
+    # remap medium ids: the homogeneous block, the grids, the procedurals
+    n_h, n_g = len(homog_media), len(grid_media)
 
     def remap(m):
+        if m >= 20_000:
+            return n_h + n_g + (m - 20_000)
         return n_h + (m - 10_000) if m >= 10_000 else m
 
     for it in (*tris, *spheres, *tri_meshes):
@@ -416,7 +438,8 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     materials = Materials.build(mats, device=device)
     tex_bank = Textures.build(textures, device=device) if textures else None
     media = Media.make(homogeneous=homog_media or None,
-                       grids=tuple(grid_media), device=device)
+                       grids=tuple(grid_media),
+                       procedurals=tuple(proc_media), device=device)
     # world radius from the geometry's extent
     pts = []
     for lst, keys in ((tris, ("p0", "p1", "p2")), (spheres, ("c",))):

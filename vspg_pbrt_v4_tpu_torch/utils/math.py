@@ -1,9 +1,12 @@
 """Scalar math helpers (counterpart of ``vspg_pbrt_v4_tpu/utils/math.py``).
 
-Only the constants and ``safe_*`` helpers the ported integrators use.
+Only the constants, ``safe_*`` helpers and reductions the ported
+integrators use.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -39,6 +42,27 @@ def nanmax(x, dim=-1):
 def nanmin(x, dim=-1):
     """Min over `dim` ignoring NaNs (jnp.nanmin)."""
     return torch.where(torch.isnan(x), torch.inf, x).amin(dim)
+
+
+def index_sum(out, index, src):
+    """`out` with the rows of `src` added at `index` along dim 0, in place,
+    in the same order on every run. On the CPU ``index_add_`` (lane
+    order). On a card ``index_add_``'s atomics add in whatever order they
+    land, so the lanes are sorted by index (stably) and each column's
+    segments summed by one 1-D ``torch.segment_reduce`` (a tree a
+    segment): the same bits every run, though not the CPU's."""
+    if not out.is_cuda:
+        return out.index_add_(0, index, src)
+    n, r = out.shape[0], index.shape[0]
+    k = math.prod(src.shape[1:])
+    # the segment lengths by integer adds, exact in any order; no check
+    # that reads anything back, so nothing here waits for the card
+    lengths = torch.zeros(n, dtype=torch.int64, device=out.device)
+    lengths.index_add_(0, index, torch.ones_like(index))
+    cols = src[torch.argsort(index, stable=True)].reshape(r, k).T
+    sums = torch.segment_reduce(cols.reshape(-1), "sum",
+                                lengths=lengths.repeat(k), unsafe=True)
+    return out.add_(sums.reshape(k, n).T.reshape(out.shape))
 
 
 def difference_of_products(a, b, c, d):

@@ -79,3 +79,9 @@ def uniform4(seed, pixel_id, sample_index, dim):
     a, b, c, d = _pcg4d(pixel_id, sample_index, dim, seed)
     return (_to_unit_float(a), _to_unit_float(b), _to_unit_float(c),
             _to_unit_float(d))
+
+
+def uniform3(seed, pixel_id, sample_index, dim):
+    """Three U[0,1) floats stacked on a trailing axis."""
+    a, b, c, _ = uniform4(seed, pixel_id, sample_index, dim)
+    return torch.stack([a, b, c], dim=-1)
