@@ -67,7 +67,13 @@ and wound outward, against volpath; ``guidedvolpath`` (RIS, MIS) and
 ``guidedpath`` through the CLI, each equal to ``render_guided`` bit for
 bit and within 4 standard errors of volpath; ``render_vspg`` with the
 U-Net through B4a and B3a against the à-trous filter; and the U-Net's
-update on the card twice and on the CPU. The grid kernel (B2a-c) runs
+update on the card twice and on the CPU. Phase 18, run after 17, drives
+the port on several devices and the scene header: the dry run of
+``vspg_pbrt_v4_tpu_torch.parallel.dryrun`` in an NCCL world of one rank a
+card (the four sharded entry points), B3a, B3b and B3d at 256^2 x 64 as four
+row blocks with pixel bases, stitched equal to the unsharded render bit
+for bit, and the CLI on scene texts with the samplers, filters and
+cameras the port once refused. The grid kernel (B2a-c) runs
 (pixel, sample) items too:
 9a and 10a hold B2b and B2c per item against the plain per-item version
 at 4 spp, printing the items the kernel reads as 0 (a lost sample), and
@@ -905,22 +911,27 @@ def main():
     # at 64^2 and more at 256^2), so the parity renders are cut to fit the
     # script in its 1200 s
     print("cuts: the parity checks of 7a, 8a, 9a and 12a at max_events "
-          f"{PARITY_EVENTS} (bench: 256); the render checks of 7a, 8a and 9a "
-          "at 64x64x2 on a plain run of their own (was 64x64x4), each also "
-          "at 64x64x1 on its record check's plain run, as 12a's and the 1 "
+          f"{PARITY_EVENTS} (bench: 256); the render checks of 7a, 8a, 9a "
+          "and 12a at 64x64x1 on their record checks' plain runs, as the 1 "
           "spp checks of 7c, 8 (NDS), 9d and 12c (was a plain run of their "
-          "own); 8a NDS-RIS and NDS+-MIS only (was all four); 14b at 16 spp "
+          "own), 8a's also at 64x64x2 on a plain run of its own (7a's and "
+          "9a's were too, until phase 18 came; 64x64x4 before); 8a NDS-RIS "
+          "and NDS+-MIS only (was all four); 14b at 16 spp "
           "(was 64); NDS+ training 3 torch waves (bench: 48); phase 6 plain "
           "versions timed once (was best of 3); 10c's plain version on a "
           "256x128 crop of the 1920x1088x8 main path; 17a "
-          f"scenes/cloud_vspg.pbrt at {P17_CLOUD_SPP} spp and maxdepth "
-          f"{P17_CLOUD_DEPTH} (the file's 32 and 32), 17b at "
-          f"{P17_GUIDED_SPP} spp, 17c {P17_UNET_WAVES} training waves + "
-          f"{P17_UNET_FROZEN} frozen spp (7c: 48 + 64)", flush=True)
+          f"scenes/cloud_vspg.pbrt at {P17_CLOUD_SPP} spp (was 8) and "
+          f"maxdepth {P17_CLOUD_DEPTH} (the file's 32 and 32), 17b at "
+          f"{P17_GUIDED_SPP} spp (was 8), 17c {P17_UNET_WAVES} training "
+          f"waves + {P17_UNET_FROZEN} frozen spp (7c: 48 + 64; was 16 + 16), "
+          f"17d at {P17_DENOISE_STEPS} steps (was 4 and 48); 18b's plain "
+          f"check of one block at 1 spp and max_events {PARITY_EVENTS} "
+          "(bench: 256); 18c's CLI renders at 64x64x16", flush=True)
     k7, inputs7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
     print(f"phase 7 done {_at()}", flush=True)
-    kernels += _phase8(dev, tag, check_parity)
+    k8, inputs8 = _phase8(dev, tag, check_parity)
+    kernels += k8
     print(f"phase 8 done {_at()}", flush=True)
     k9, inputs9 = _phase9(dev, tag, check_parity)
     kernels += k9
@@ -931,7 +942,8 @@ def main():
     kernels += _phase11(dev, tag, check_parity)
     print(f"phase 11 done {_at()}", flush=True)
     t12 = time.perf_counter()
-    kernels += _phase12(dev, tag, check_parity, inputs7)
+    k12, inputs12 = _phase12(dev, tag, check_parity, inputs7)
+    kernels += k12
     print(f"phase 12 done {_at()}, the phase {time.perf_counter() - t12:.1f} "
           "s", flush=True)
     t13 = time.perf_counter()
@@ -940,6 +952,9 @@ def main():
           "s", flush=True)
     _phase16(dev, tag)
     _phase17(dev, tag)
+    _phase18(dev, tag, check_parity, kernels,
+             {"vspg_render": inputs7, "vspg_render_nds": inputs8,
+              "vspg_render_adaptive": inputs12})
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -1173,7 +1188,7 @@ def _phase7(dev, tag, check_parity, fma_lib):
         assert g.ris == (mode == "ris")
         c = _with_max_events(c, PARITY_EVENTS)
         _pair_check(f"phase 7a parity {{}} ({mode})", "vspg_record", c, g,
-                    ftab, itab, 21, check_parity, tag, render_spp=2)
+                    ftab, itab, 21, check_parity, tag)
 
     # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
     furnace = _guided_furnace(dev)
@@ -1374,7 +1389,8 @@ def _phase8(dev, tag, check_parity):
     under NDS+ (torch waves, then the render kernel with the TrBuffer), and
     the kernel's frozen render against the torch wave's at 128^2 x 64 spp.
     Returns the kernels-line entries of B3b (NDS and NDS+, one each)
-    and B4b."""
+    and B4b, and the NDS render kernel's inputs at the main path's shape
+    (phase 18 renders them in row blocks)."""
     from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
     from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
     from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
@@ -1603,6 +1619,7 @@ def _phase8(dev, tag, check_parity):
           f"{b_rec / ms_rk:.5f} of it {tag}", flush=True)
     extra_r = _record_report("phase 8 (nds)", "vspg_record_nds", c, g,
                              ms_rk, t_rk * 1e3, b_rec, rcap_n, counts_r, tag)
+    inputs_n = (c, g, ftab, itab)
     return [
         render_alone("nds", c, g, ftab, itab, launches_n["vspg_render"],
                      cap_n, counts_r, (img_rp, t_rp)),
@@ -1614,7 +1631,7 @@ def _phase8(dev, tag, check_parity):
              ms=ms_rk, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None, **extra_r),
-    ]
+    ], inputs_n
 
 
 def _phase9(dev, tag, check_parity):
@@ -1710,8 +1727,7 @@ def _phase9(dev, tag, check_parity):
         c = _with_max_events(c, PARITY_EVENTS)
         counts = {}
         _pair_check(f"phase 9a parity {{}} ({label})", "vspg_record_tris",
-                    c, g, ftab, itab, 21, check_parity, tag, counts,
-                    render_spp=2)
+                    c, g, ftab, itab, 21, check_parity, tag, counts)
         assert counts["surface_events"] > 0, counts
     print(f"phase 9a done {_at()} {tag}", flush=True)
 
@@ -2305,7 +2321,8 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
     refinement and the rest, and times B3d on its inputs beside B3a on
     phase 7c's uniform field (`uniform_inputs`); 12d holds the kernel's
     frozen render against the torch wave's. Returns the two adaptive
-    kernels' entries of the kernels line."""
+    kernels' entries of the kernels line and B3d's inputs at the main
+    path's shape (phase 18 renders them in row blocks)."""
     from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
     from vspg_pbrt_v4_tpu_torch.models.guiding import field as gfield
     from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
@@ -2453,6 +2470,7 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
     # B3d on this call's inputs beside B3a on phase 7c's uniform field, in
     # turns, then each variant against its plain version at 1 spp
     c, g, ftab, itab = inputs(pyro, res, field, isgb)
+    inputs_ad = (c, g, ftab, itab)
     t_ad, t_un = [], []
     for first in (True, False):
         order = ((t_ad, (c, g, ftab, itab)), (t_un, uniform_inputs))
@@ -2563,7 +2581,7 @@ def _phase12(dev, tag, check_parity, uniform_inputs):
              max_abs_err=max_rec, ms=ms_rk, plain_ms=t_rp * 1e3,
              bound_ms=b_rec, bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None, **extra_r),
-    ]
+    ], inputs_ad
 
 
 def _phase14(dev, tag, inputs7, inputs9, variants, check_parity):
@@ -2919,7 +2937,8 @@ def _phase16(dev, tag):
     an emissive quad under ``guidedvolpathvspg`` through the CLI, storing
     then loading a guiding cache, within 4 standard errors of the same
     scene under volpath. (b) and (d) wind the fog box's interface outward
-    (``_outward``)."""
+    (``_outward``). The CLI processes that wait on no other run at once,
+    beside this process's own renders."""
     import os
     import tempfile
 
@@ -2934,10 +2953,44 @@ def _phase16(dev, tag):
     root = os.path.dirname(os.path.abspath(__file__))
     fogbox = os.path.join(root, "scenes", "fogbox.pbrt")
     with tempfile.TemporaryDirectory() as tmp:
+        with open(fogbox) as f:
+            fog_text = _outward(f.read())
+        # (d)'s scenes: the guided scene (the fog wound outward, so that the
+        # quad is in the fog) and the same scene under volpath
+        body = "\n".join(ln for ln in fog_text.splitlines()
+                         if not ln.startswith("Integrator")) + EMISSIVE_QUAD
+        scenes = {}
+        for name, integ in (("vspg", VSPG_INTEGRATOR),
+                            ("volpath", 'Integrator "volpath" '
+                                        '"integer maxdepth" [32]')):
+            scenes[name] = os.path.join(tmp, f"quad_{name}.pbrt")
+            with open(scenes[name], "w") as f:
+                f.write(integ + "\n" + body)
+        cache = os.path.join(tmp, "field.npz")
+
+        def vspg_args(label, extra, seed):
+            return [scenes["vspg"], "--spp", "16", "--seed", str(seed),
+                    "--outfile", os.path.join(tmp, f"vspg_{label}.exr"),
+                    *extra]
+
+        runs = {
+            "16a fogbox": [fogbox, "--spp", "16", "--outfile",
+                           os.path.join(tmp, "fogbox.exr")],
+            "16c cornell": [os.path.join(root, "scenes", "cornell.pbrt"),
+                            "--outfile", os.path.join(tmp, "cornell.exr")],
+            "16d vspg store guiding cache": vspg_args(
+                "store", ["--store-guiding-cache", cache], 1),
+            "16d volpath": [scenes["volpath"], "--spp", "16", "--seed", "3",
+                            "--outfile",
+                            os.path.join(tmp, "quad_volpath.exr")]}
+        started = {label: _cli_start(args) for label, args in runs.items()}
+
+        def wait(label):
+            return _cli_wait(started[label], runs[label],
+                             f"{label}, {len(runs)} CLI processes at once",
+                             tag)[0]
+
         # (a) the real entry point against the API on the same seed
-        img_cli, _, _ = _cli([fogbox, "--spp", "16", "--outfile",
-                              os.path.join(tmp, "fogbox.exr")],
-                             "16a fogbox", tag)
         t0 = time.perf_counter()
         setup = build_render_setup(parse_pbrt_file(fogbox), spp_override=16,
                                    device=dev)
@@ -2948,6 +3001,7 @@ def _phase16(dev, tag):
                                  device=dev)
         where = img_api.device
         img_api = img_api.cpu().numpy()
+        img_cli = wait("16a fogbox")
         same = np.array_equal(img_cli, img_api)
         print(f"phase 16a fogbox: the CLI's image and build_render_setup + "
               f"volpath.render's (built in {t_build:.4f} s, tensors on "
@@ -2957,8 +3011,6 @@ def _phase16(dev, tag):
         # (b) the fog wound outward (so that it fills the cube) through the
         # parser, the builder and volpath.render, against the same fog as
         # one box through B1
-        with open(fogbox) as f:
-            fog_text = _outward(f.read())
         fog_in = build_render_setup(parse_pbrt_string(fog_text),
                                     spp_override=16, device=dev)
         img_tri = volpath.render(fog_in.scene, fog_in.camera, fog_in.film,
@@ -2988,9 +3040,7 @@ def _phase16(dev, tag):
         assert abs(z) <= 4.0, z
 
         # (c) the Cornell box through the CLI at the file's own size
-        img_c, _, _ = _cli([os.path.join(root, "scenes", "cornell.pbrt"),
-                            "--outfile", os.path.join(tmp, "cornell.exr")],
-                           "16c cornell", tag)
+        img_c = wait("16c cornell")
         ny, nx = img_c.shape[:2]
         rows = slice(ny // 4, 3 * ny // 4)
         left = img_c[rows, nx // 16:nx * 5 // 16].mean((0, 1))
@@ -3000,32 +3050,14 @@ def _phase16(dev, tag):
               flush=True)
         assert right[0] > right[1] and left[1] > left[0], (left, right)
 
-        # (d) the guided scene (the fog wound outward, so that the quad is
-        # in the fog), storing then loading its guiding cache, against the
-        # same scene under volpath
-        body = "\n".join(ln for ln in fog_text.splitlines()
-                         if not ln.startswith("Integrator")) + EMISSIVE_QUAD
-        scenes = {}
-        for name, integ in (("vspg", VSPG_INTEGRATOR),
-                            ("volpath", 'Integrator "volpath" '
-                                        '"integer maxdepth" [32]')):
-            scenes[name] = os.path.join(tmp, f"quad_{name}.pbrt")
-            with open(scenes[name], "w") as f:
-                f.write(integ + "\n" + body)
-        cache = os.path.join(tmp, "field.npz")
-        imgs = {}
-        for label, extra, seed in (
-                ("store", ["--store-guiding-cache", cache], 1),
-                ("load", ["--load-guiding-cache", cache], 2)):
-            imgs[label] = _cli([scenes["vspg"], "--spp", "16", "--seed",
-                                str(seed), "--outfile",
-                                os.path.join(tmp, f"vspg_{label}.exr"),
-                                *extra], f"16d vspg {label} guiding cache",
-                               tag)[0]
-            assert os.path.exists(cache)
-        img_v = _cli([scenes["volpath"], "--spp", "16", "--seed", "3",
-                      "--outfile", os.path.join(tmp, "quad_volpath.exr")],
-                     "16d volpath", tag)[0]
+        # (d) the guided scene storing, then loading its guiding cache,
+        # against the same scene under volpath
+        imgs = {"store": wait("16d vspg store guiding cache")}
+        assert os.path.exists(cache)
+        imgs["load"] = _cli(vspg_args("load", ["--load-guiding-cache", cache],
+                                      2), "16d vspg load guiding cache",
+                            tag)[0]
+        img_v = wait("16d volpath")
         for label in ("store", "load"):
             d, z = _z(imgs[label], img_v)
             print(f"phase 16d vspg ({label}) against volpath with the "
@@ -3037,12 +3069,14 @@ def _phase16(dev, tag):
     print(f"phase 16 done {_at()}, the phase {dt:.1f} s", flush=True)
 
 
-# phase 17's depths, cut to fit the phase in about 150 s (printed in the
-# cuts line): 17a's spp and path depth (the file's 32 and 32), 17b's spp,
-# 17c's training waves and frozen spp (phase 7c's 48 and 64)
-P17_CLOUD_SPP, P17_CLOUD_DEPTH = 8, 8
-P17_GUIDED_SPP = 8
-P17_UNET_WAVES, P17_UNET_FROZEN = 16, 16
+# phase 17's depths, cut to fit the phase in about 100 s (printed in the
+# cuts line) and leave room for phase 18: 17a's spp and path depth (the
+# file's 32 and 32), 17b's spp, 17c's training waves and frozen spp (phase
+# 7c's 48 and 64), 17d's U-Net training steps
+P17_CLOUD_SPP, P17_CLOUD_DEPTH = 4, 8
+P17_GUIDED_SPP = 4
+P17_UNET_WAVES, P17_UNET_FROZEN = 8, 8
+P17_DENOISE_STEPS = (4, 16)
 
 
 def _volpath_text(text):
@@ -3103,14 +3137,12 @@ def _phase17(dev, tag):
             out_text = _outward(f.read())
         cut = ["--spp", str(P17_CLOUD_SPP), "--maxdepth",
                str(P17_CLOUD_DEPTH)]
-        img_ship = _cli([shipped, *cut, "--outfile", exr("shipped")],
-                        "17a cloud_vspg.pbrt as shipped", tag)[0]
         outward = write("cloud_out.pbrt", out_text)
-        img_unet, st_unet, _ = _cli(
-            [outward, *cut, "--seed", "1", "--outfile", exr("cloud_unet")],
-            "17a cloud_vspg.pbrt wound outward (guidedvolpathvspg, unet)",
-            tag)
-        assert st_unet["resolution"] == [128, 128], st_unet
+        # both CLI processes at once, beside this process's volpath render
+        args_ship = [shipped, *cut, "--outfile", exr("shipped")]
+        args_unet = [outward, *cut, "--seed", "1", "--outfile",
+                     exr("cloud_unet")]
+        run_ship, run_unet = _cli_start(args_ship), _cli_start(args_unet)
         # the same file under volpath, in this process
         spp_vol = P17_CLOUD_SPP // 2
         setup = build_render_setup(parse_pbrt_file(outward),
@@ -3122,6 +3154,12 @@ def _phase17(dev, tag):
             cfg=volpath.VolPathConfig(max_depth=P17_CLOUD_DEPTH), seed=2,
             spp_per_pass=spp_vol, device=dev).cpu().numpy()
         t_vol = time.perf_counter() - t0
+        img_ship = _cli_wait(run_ship, args_ship, "17a cloud_vspg.pbrt as "
+                             "shipped, two CLI processes at once", tag)[0]
+        img_unet, st_unet, _ = _cli_wait(
+            run_unet, args_unet, "17a cloud_vspg.pbrt wound outward "
+            "(guidedvolpathvspg, unet), two CLI processes at once", tag)
+        assert st_unet["resolution"] == [128, 128], st_unet
         d, z = _z(img_unet, img_vol)
         d_c, z_c = _z(img_vol, img_ship)
         print(f"phase 17a the cloud wound outward: guidedvolpathvspg with "
@@ -3294,7 +3332,7 @@ def _phase17(dev, tag):
         rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-6)
         return (rel <= 1e-3).reshape(n, n, -1).all(-1).mean()
 
-    for steps in (4, 48):
+    for steps in P17_DENOISE_STEPS:
         c1, v1, ms1 = run("cuda", steps)
         c2, v2, ms2 = run("cuda", steps)
         c0, v0, ms_cpu = run("cpu", steps)
@@ -3309,6 +3347,179 @@ def _phase17(dev, tag):
         assert np.isfinite(c1).all() and np.isfinite(v1).all()
     print(f"phase 17 done {_at()}, the phase "
           f"{time.perf_counter() - t17:.1f} s", flush=True)
+
+
+# phase 18c's scene texts: scenes/fogbox.pbrt wound outward (the fog in
+# the cube) at 64x64x16, its Sampler, PixelFilter and Camera lines swapped;
+# "same" marks a render that estimates what the independent sampler's box-
+# filtered pinhole render does (its mean within 3 standard errors of it)
+P18_HEADERS = {
+    "independent": ('Sampler "independent" "integer pixelsamples" [16]', "",
+                    'Camera "perspective" "float fov" [30]', True),
+    "zsobol": ('Sampler "zsobol" "integer pixelsamples" [16]', "",
+               'Camera "perspective" "float fov" [30]', True),
+    "pmj02bn": ('Sampler "pmj02bn" "integer pixelsamples" [16]', "",
+                'Camera "perspective" "float fov" [30]', True),
+    "gaussian": ('Sampler "independent" "integer pixelsamples" [16]',
+                 'PixelFilter "gaussian"',
+                 'Camera "perspective" "float fov" [30]', False),
+    "thin lens": ('Sampler "independent" "integer pixelsamples" [16]', "",
+                  'Camera "perspective" "float fov" [30] '
+                  '"float lensradius" [0.2] "float focaldistance" [3]',
+                  False),
+    "orthographic": ('Sampler "independent" "integer pixelsamples" [16]', "",
+                     'Scale 1.2 1.2 1\nCamera "orthographic"', False),
+    "realistic": ('Sampler "independent" "integer pixelsamples" [16]', "",
+                  'Camera "realistic" "float aperturediameter" [4] '
+                  '"float focusdistance" [4]', False),
+}
+P18_BLOCKS = 4
+
+
+def _phase18(dev, tag, check_parity, kernels, inputs):
+    """Phase 18, several devices and the scene header (b first, then a and
+    c at once): (a) the dry run of
+    ``vspg_pbrt_v4_tpu_torch.parallel.dryrun`` in an NCCL world of
+    torch.cuda.device_count() ranks, one a card (one rank on a one-card
+    host): the four sharded entry points, the kernel route's launches counted
+    around that call alone, its image equal to the unsharded frozen render
+    bit for bit; (b) B3a, B3b (NDS) and B3d at the main path's 256^2 x 64
+    on phases 7c's, 8's and 12c's inputs as P18_BLOCKS row blocks with
+    pixel bases 0, npix/4, ...: the launches of the four blocks from zeroed
+    counts, each block's CUDA-event ms, the stitched image equal to the
+    unsharded render bit for bit, the last block of B3a against its plain
+    version; (c) the CLI on generated scene texts with the samplers,
+    filters and cameras of P18_HEADERS, each mean within 3 standard errors
+    of the independent/box/pinhole render where it estimates the same, and
+    finite. `inputs`: each render variant's (c, g, ftab, itab); the B3
+    entries of `kernels` gain their block times."""
+    import os
+    import tempfile
+
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    t18 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    # ---- 18b: B3 as row blocks with pixel bases ----------------------------
+    spp, seed = 64, 11
+    by_name = {k["name"]: k for k in kernels}
+    for name, (c, g, ftab, itab) in inputs.items():
+        whole = sk.render_vspg_kernel(c, g, ftab, itab, spp, seed)
+        blocks = [sk.block_constants(c, r, P18_BLOCKS)
+                  for r in range(P18_BLOCKS)]
+        n = blocks[0][0].nx * blocks[0][0].ny
+        tabs = [itab[:, base:base + n].contiguous() for _, base in blocks]
+        for counter in sk.LAUNCHES:
+            sk.LAUNCHES[counter] = 0
+        parts = [sk.render_vspg_items(cb, g, ftab, it, spp, seed,
+                                      pix_base=base)
+                 for (cb, base), it in zip(blocks, tabs)]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in sk.LAUNCHES.items() if v}
+        kernel = "vspg_render" + ("_adaptive" if name.endswith("adaptive")
+                                  else "")
+        assert launches == {kernel: P18_BLOCKS,
+                            "vspg_reduce": P18_BLOCKS}, launches
+        assert sum(int(cap) for _, cap in parts) == 0
+        stitched = torch.cat([img for img, _ in parts], 0)
+        same = torch.equal(stitched, whole)
+        ms = [_events_best_of_3(
+            lambda cb=cb, base=base, it=it: sk.render_vspg_items(
+                cb, g, ftab, it, spp, seed, pix_base=base))
+            for (cb, base), it in zip(blocks, tabs)]
+        ms_whole = _events_best_of_3(
+            lambda: sk.render_vspg_kernel(c, g, ftab, itab, spp, seed))
+        print(f"phase 18b {name} {c.nx}x{c.ny}x{spp} as {P18_BLOCKS} row "
+              f"blocks, pixel bases {[base for _, base in blocks]}: "
+              f"launches {launches}, block ms by CUDA events "
+              f"{[round(m, 3) for m in ms]} (sum {sum(ms):.3f}) against "
+              f"{ms_whole:.3f} ms unsharded; stitched image equal to the "
+              f"unsharded render bit for bit: {same} {tag}", flush=True)
+        assert same, name
+        entry = by_name[name]
+        entry.update(block_ms=ms, block_launches=launches[kernel])
+
+    # one block of B3a against its plain version, at 1 spp with max_events
+    # cut to PARITY_EVENTS: the last block, whose paths are shorter than
+    # the middle blocks' (it renders in a quarter of their time; the plain
+    # version steps in lockstep until its longest path ends)
+    c, g, ftab, itab = inputs["vspg_render"]
+    r = P18_BLOCKS - 1
+    cb, base = sk.block_constants(_with_max_events(c, PARITY_EVENTS), r,
+                                  P18_BLOCKS)
+    n = cb.nx * cb.ny
+    it = itab[:, base:base + n].contiguous()
+    k, cap = sk.render_vspg_items(cb, g, ftab, it, 1, seed,
+                                  blocks=_check_blocks(n), pix_base=base)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = {}
+    p = sk.render_vspg_plain(cb, g, ftab, it, 1, seed, counts,
+                             pix_base=base)
+    t_p = time.perf_counter() - t0
+    max_abs = check_parity(
+        f"phase 18b parity vspg_render block {r} of {P18_BLOCKS} (pixel base "
+        f"{base}) {cb.nx}x{cb.ny}x1, max_events {PARITY_EVENTS} (plain "
+        f"{t_p:.1f} s, {counts['lockstep_iters']} lockstep iterations; bit "
+        f"for bit: {torch.equal(k, p)}; items at the cap {int(cap)})",
+        "vspg", k, p)
+    assert int(cap) == counts["capped"], (int(cap), counts["capped"])
+    by_name["vspg_render"]["block_max_abs_err"] = max_abs
+
+    # ---- 18a: the four sharded entry points in an NCCL world, in a process of
+    # its own beside 18c's CLI processes -----------------------------------
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    dryrun = subprocess.Popen(
+        [sys.executable, "-m", "vspg_pbrt_v4_tpu_torch.parallel.dryrun",
+         "--world", str(world), "--res", "128"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    BACKGROUND.append(dryrun)  # stopped with the builds if the script fails
+
+    # ---- 18c: the scene header's samplers, filters and cameras -----------
+    with open(os.path.join(root, "scenes", "fogbox.pbrt")) as f:
+        fog = _outward(f.read())
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for name, (sampler, filt, camera, _) in P18_HEADERS.items():
+            text = fog.replace(
+                'Sampler "independent" "integer pixelsamples" [16]',
+                sampler + "\n" + filt).replace(
+                'Camera "perspective" "float fov" [30]', camera)
+            path = os.path.join(tmp, name.replace(" ", "_") + ".pbrt")
+            with open(path, "w") as f:
+                f.write(text)
+            args = [path, "--resolution", "64x64", "--seed", "5",
+                    "--outfile", path[:-5] + ".exr"]
+            runs[name] = (args, _cli_start(args))
+        imgs = {name: _cli_wait(started, args, f"18c {name}, "
+                                f"{len(runs)} CLI processes at once", tag)[0]
+                for name, (args, started) in runs.items()}
+    out, err = dryrun.communicate(timeout=600)
+    for line in out.strip().splitlines():
+        print(f"phase 18a {line} {tag}", flush=True)
+    assert dryrun.returncode == 0, err[-3000:]
+    assert f"dryrun_multichip({world}): ok;" in out, out
+    print(f"phase 18a NCCL world of {world} rank(s), one a card: the four "
+          f"sharded entry points in {time.perf_counter() - t0:.2f} s with the "
+          f"interpreters' start, beside 18c's CLI processes {tag}",
+          flush=True)
+    ref = imgs["independent"]
+    for name, (_, _, _, same) in P18_HEADERS.items():
+        if name == "independent":
+            continue
+        d, z = _z(imgs[name], ref)
+        print(f"phase 18c {name}: mean {imgs[name].mean():.6f} against the "
+              f"independent/box/pinhole render's {ref.mean():.6f}, "
+              f"difference {d:+.6f} = {z:+.2f} standard errors"
+              + (" (bound 3)" if same else " (another estimand: finite)")
+              + f" {tag}", flush=True)
+        assert np.isfinite(imgs[name]).all() and imgs[name].mean() > 0
+        assert not same or abs(z) <= 3.0, (name, z)
+    print(f"phase 18 done {_at()}, the phase "
+          f"{time.perf_counter() - t18:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

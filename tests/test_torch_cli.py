@@ -96,6 +96,53 @@ def test_cli_time_checkpoint_and_mse(tmp_path, capsys):
     assert capsys.readouterr().out.strip().splitlines()[-1] == "MSE,4,0"
 
 
+# scene headers with the samplers, filters and cameras the port once
+# refused, swapped into the fog box
+LIFTED = {
+    "zsobol, gaussian, thin lens": (
+        'Sampler "zsobol" "integer pixelsamples" [4]',
+        'PixelFilter "gaussian"\nCamera "perspective" "float fov" [30] '
+        '"float lensradius" [0.1] "float focaldistance" [4]'),
+    "halton, mitchell, orthographic": (
+        'Sampler "halton" "integer pixelsamples" [4]',
+        'PixelFilter "mitchell"\nScale 0.8 0.8 1\nCamera "orthographic"'),
+    "pmj02bn, triangle, realistic": (
+        'Sampler "pmj02bn" "integer pixelsamples" [4]',
+        'PixelFilter "triangle"\nCamera "realistic" '
+        '"float aperturediameter" [4] "float focusdistance" [4]'),
+    "sobol, spherical": ('Sampler "sobol" "integer pixelsamples" [4]',
+                         'Camera "spherical"'),
+}
+
+
+@pytest.mark.parametrize("case", list(LIFTED))
+def test_cli_renders_lifted_header_directives(tmp_path, case):
+    """The fog box with each once-refused sampler, filter and camera
+    renders through the CLI on the CPU, bit for bit the API's render of
+    the same setup; --pixelmaterial traces the camera's centre ray."""
+    sampler, camera = LIFTED[case]
+    with open(FOGBOX) as f:
+        text = f.read()
+    text = text.replace(
+        'Sampler "independent" "integer pixelsamples" [16]', sampler)
+    text = text.replace('Camera "perspective" "float fov" [30]', camera)
+    scene = tmp_path / "lifted.pbrt"
+    scene.write_text(text)
+    out = str(tmp_path / "lifted.exr")
+    assert cli.main([str(scene), "--cpu", "--quiet", "--resolution",
+                     f"{RES[0]}x{RES[1]}", "--seed", "3", "--outfile",
+                     out]) == 0
+    s = tbuild(tparse_file(str(scene)), None, RES, device="cpu")
+    assert s.sampler == sampler.split('"')[1] and s.spp == 4
+    img = tv.render(s.scene, s.camera, s.film, spp=s.spp,
+                    cfg=tv.VolPathConfig(max_depth=32), seed=3,
+                    sampler=s.sampler, device="cpu").numpy()
+    np.testing.assert_array_equal(read_image(out), img)
+    assert np.isfinite(img).all() and img.mean() > 0
+    assert cli.main([str(scene), "--cpu", "--quiet", "--pixelmaterial",
+                     "4,4"]) in (0, 1)
+
+
 def test_cli_probes(tmp_path, capsys):
     """--pixelmaterial prints the center ray's hits (the JAX CLI test's
     scene); --debugstart replays one sample."""

@@ -480,6 +480,37 @@ def test_vspg_render_chunks_and_grids_agree(dev):
     assert int(cap) == int(cap_c) == 0
 
 
+@pytest.mark.parametrize("scene,method", [("cloud", "resampling"),
+                                          ("cloud", "nds"),
+                                          ("machines", "resampling")])
+def test_vspg_render_row_blocks_stitch(dev, scene, method):
+    """B3 with a pixel base: the image's rows rendered as four blocks
+    (``block_constants``, bases 0, npix/4, ...) stitch into the whole
+    render float for float, one launch and one reduce a block; a block
+    against its plain version with the same base, bit for bit."""
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+
+    c, g, ftab, itab = _vspg_inputs(dev, res=32, waves=1, method=method,
+                                    scene=scene)
+    whole = sk.render_vspg_kernel(c, g, ftab, itab, 4, 3)
+    name = "vspg_render" + ("_tris" if scene == "machines" else "")
+    before = dict(sk.LAUNCHES)
+    parts = []
+    for r in range(4):
+        cb, base = sk.block_constants(c, r, 4)
+        n = cb.nx * cb.ny
+        it = itab[:, base:base + n].contiguous()
+        parts.append(sk.render_vspg_kernel(cb, g, ftab, it, 4, 3,
+                                           pix_base=base))
+        if r == 2:
+            p = sk.render_vspg_plain(cb, g, ftab, it, 4, 3, pix_base=base)
+            assert torch.equal(parts[-1], p)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES[name] == before[name] + 4
+    assert sk.LAUNCHES["vspg_reduce"] == before["vspg_reduce"] + 4
+    assert torch.equal(torch.cat(parts, 0), whole)
+
+
 @pytest.mark.parametrize("chunks", [1, 3])
 @pytest.mark.parametrize("scene,method,max_events", [
     ("cloud", "resampling", 1), ("machines", "nds", 2)])

@@ -187,6 +187,68 @@ def test_grid_string_builds_alike(tmp_path):
     assert s.geometry.n_sph == 2
 
 
+HEADER = '''
+Film "rgb" "integer xresolution" [12] "integer yresolution" [8]
+LookAt 0.2 0.1 -4  0 0 0  0 1 0
+{camera}
+{sampler}
+{filter}
+WorldBegin
+LightSource "point" "rgb I" [5 5 5] "point3 from" [0 2 0]
+Shape "trianglemesh" "point3 P" [-1 -1 0  1 -1 0  0 1 0]
+  "integer indices" [0 1 2]
+'''
+
+# the header directives the port builds since the samplers, filters and
+# cameras were ported (each was refused before)
+HEADERS = {
+    "zsobol": dict(sampler='Sampler "zsobol" "integer pixelsamples" [4]'),
+    "halton": dict(sampler='Sampler "halton"'),
+    "sobol": dict(sampler='Sampler "sobol" "integer pixelsamples" [8]'),
+    "paddedsobol": dict(sampler='Sampler "paddedsobol"'),
+    "pmj02bn": dict(sampler='Sampler "pmj02bn"'),
+    "stratified": dict(sampler='Sampler "stratified"'),
+    "gaussian": dict(filter='PixelFilter "gaussian" "float xradius" [1.2] '
+                            '"float sigma" [0.4]'),
+    "triangle": dict(filter='PixelFilter "triangle"'),
+    "mitchell": dict(filter='PixelFilter "mitchell" "float xradius" [1.5]'),
+    "unknown filter": dict(filter='PixelFilter "lanczos"'),
+    "thin lens": dict(camera='Camera "perspective" "float fov" [40] '
+                             '"float lensradius" [0.1] '
+                             '"float focaldistance" [3.5]'),
+    "orthographic": dict(camera='Camera "orthographic"'),
+    "spherical": dict(camera='Camera "spherical"'),
+    "realistic": dict(camera='Camera "realistic" "string lensfile" "LENS" '
+                             '"float aperturediameter" [8]'),
+    "simple lens": dict(camera='Camera "realistic" '
+                               '"float aperturediameter" [4] '
+                               '"float focusdistance" [2]'),
+}
+
+
+@pytest.mark.parametrize("case", list(HEADERS))
+def test_header_directives_build_alike(case, tmp_path):
+    """Each sampler, filter and camera that the port once refused builds
+    as the JAX builder builds it (converted field for field): the lens
+    file's rows read in millimetres, the singlet focused without one, an
+    unknown filter the box."""
+    lens = tmp_path / "lens.dat"
+    lens.write_text("# radius thickness eta aperture (mm)\n"
+                    "40 4 1.6 20\n0 3 0 12\n-40 50 1.5 20\n")
+    parts = dict(camera='Camera "perspective" "float fov" [35]',
+                 sampler='Sampler "independent"',
+                 filter='PixelFilter "box"')
+    parts.update(HEADERS[case])
+    text = HEADER.format(**parts).replace("LENS", str(lens))
+    ts = tbuild(tparse(text), device="cpu")
+    _check_alike(ts, jbuild(jparse(text)))
+    kind = {"camera": type(ts.camera).__name__, "filter": ts.film.filter.kind,
+            "sampler": ts.sampler}[next(iter(HEADERS[case]))]
+    assert kind.lower().startswith(
+        {"thin lens": "perspective", "simple lens": "realistic",
+         "unknown filter": "box"}.get(case, case)), kind
+
+
 def test_loopsubdiv_builds_alike():
     """192 triangles: the mesh class, its BVH array for array."""
     ts = tbuild(tparse(LOOP), device="cpu")
@@ -266,7 +328,8 @@ REFUSED = {
     "spot": 'LightSource "spot" "rgb I" [1 1 1]',
     "coateddiffuse": 'Material "coateddiffuse"',
     "instancing": 'ObjectBegin "a"',
-    "orthographic": 'Camera "orthographic"',
+    "motion blur": ('Camera "perspective" "float shutteropen" [0] '
+                    '"float shutterclose" [1]'),
     "rough dielectric": 'Material "dielectric" "float roughness" [0.3]',
     "imagemap": 'Texture "t" "spectrum" "imagemap" "string filename" "x.png"',
 }

@@ -356,7 +356,7 @@ def _pixel_material_probe(setup, x, y, max_depth=16):
     geom = setup.scene.geometry
     dev = geom.tri_p0.device
     p_raster = torch.as_tensor([[x + 0.5, y + 0.5]], device=dev)
-    o, d = camera.generate_rays(p_raster, torch.full_like(p_raster, 0.5))
+    o, d = camera.generate_rays(p_raster, torch.full_like(p_raster, 0.5))[:2]
     cam_o = o[0].cpu().numpy()
     mats = setup.scene.materials
     depth = 1

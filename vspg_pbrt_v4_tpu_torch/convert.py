@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.cameras import PerspectiveCamera
+from .models.cameras import (OrthographicCamera, PerspectiveCamera,
+                             RealisticCamera, SphericalCamera)
 from .models.film import RGBFilm
 from .models.filters import Filter
 from .models.integrators.volpath import Scene, VolPathConfig
@@ -145,29 +146,45 @@ def _transform(t, device):
 
 
 def _camera(cam, device):
-    if type(cam).__name__ != "PerspectiveCamera" or cam.lens_radius > 0:
-        raise NotImplementedError("only the pinhole perspective camera is "
-                                  "ported")
-    if cam.shutter_close > cam.shutter_open:
-        raise NotImplementedError("motion blur is not ported yet")
-    return PerspectiveCamera(_transform(cam.camera_to_world, device),
-                             _transform(cam.raster_to_camera, device),
-                             float(cam.lens_radius),
-                             float(cam.focal_distance),
-                             tuple(int(v) for v in cam.resolution))
+    kind = type(cam).__name__
+    if kind == "PerspectiveCamera":
+        if cam.shutter_close > cam.shutter_open:
+            raise NotImplementedError("motion blur is not ported yet")
+        return PerspectiveCamera(_transform(cam.camera_to_world, device),
+                                 _transform(cam.raster_to_camera, device),
+                                 float(cam.lens_radius),
+                                 float(cam.focal_distance),
+                                 tuple(int(v) for v in cam.resolution))
+    res = tuple(int(v) for v in cam.resolution)
+    c2w = _transform(cam.camera_to_world, device)
+    if kind == "OrthographicCamera":
+        return OrthographicCamera(c2w, _transform(cam.raster_to_camera,
+                                                  device), res)
+    if kind == "SphericalCamera":
+        return SphericalCamera(c2w, res)
+    if kind == "RealisticCamera":
+        return RealisticCamera(c2w, _t(cam.radius, device),
+                               _t(cam.z_apex, device),
+                               _t(cam.eta_behind, device),
+                               _t(cam.ap_radius, device), float(cam.film_w),
+                               float(cam.film_h), res)
+    raise NotImplementedError(f"camera {kind} is not ported")
 
 
 def _film(film, device):
-    if type(film).__name__ != "RGBFilm" or film.filter.kind != "box":
-        raise NotImplementedError("only RGBFilm with a box filter is ported")
+    if type(film).__name__ != "RGBFilm":
+        raise NotImplementedError("only RGBFilm is ported")
+    f = film.filter
+    tables = ((_t(f.table_cdf, device), _t(f.table_sign, device))
+              if f.kind == "mitchell" else (None, None))
     return RGBFilm(_t(film.sensor_matrix, device),
-                   Filter("box", float(film.filter.radius)),
+                   Filter(f.kind, float(f.radius), float(f.sigma), *tables),
                    tuple(int(v) for v in film.resolution),
                    float(film.imaging_ratio), float(film.max_component))
 
 
 def from_jax(scene, camera, film, cfg, device):
-    """(Scene, PerspectiveCamera, RGBFilm, VolPathConfig) of this package
+    """(Scene, camera, RGBFilm, VolPathConfig) of this package
     holding the values of the given JAX objects, on `device`."""
     port_scene = Scene(_geometry(scene.geometry, device),
                        _materials(scene.materials, device),

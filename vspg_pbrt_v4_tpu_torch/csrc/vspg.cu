@@ -482,7 +482,12 @@ struct MinBlocks {
 // that vspg_reduce_kernel sums per pixel in sample order). Every item has
 // the whole pixel's iteration cap, spp * max_events * 12, the per-pixel
 // loop's; an item that reaches it writes zero radiance (and cap + 1
-// iterations) and counts itself in *at_cap.
+// iterations) and counts itself in *at_cap. pix_base offsets the pixels of
+// the render variant (the record variant's is 0): item i is pixel i % npix
+// of a block of npix pixels that starts at pixel pix_base of the image
+// (iconst's nx wide), which keys the pixel's random stream and its camera
+// ray, while itab, the scratch and the reduce index the block's pixels
+// (the row blocks of parallel/mesh.render_vspg_pallas_sharded).
 template <bool RECORD, bool RIS, int METHOD, bool TRIS>
 __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
     vspg_kernel(const float* __restrict__ fc_g, const int* __restrict__ ic_g,
@@ -496,9 +501,9 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
                 const float* __restrict__ mats_g, float* __restrict__ out,
                 int* __restrict__ n_iter, float* __restrict__ rec,
                 unsigned long long* __restrict__ next_item,
-                int* __restrict__ at_cap, int npix, int spp, int samp0,
-                long long n_items, uint32_t seed, float out_scale, int nmaj,
-                int rec_depth, int n_tri, int n_mat) {
+                int* __restrict__ at_cap, int npix, int pix_base, int spp,
+                int samp0, long long n_items, uint32_t seed, float out_scale,
+                int nmaj, int rec_depth, int n_tri, int n_mat) {
   __shared__ float fc[N_FCONST];
   __shared__ int ic[N_ICONST];
   __shared__ float gc[N_GCONST];
@@ -548,7 +553,8 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
   const bool any_rough = TRIS && gi[GI_ANY_ROUGH] != 0;
   const int P_HALF = 8 * K + 8;
 
-  // the item's pixel and sample, and the pixel's ISGB entries
+  // the item's pixel (pix_i in the block, pix in the image) and sample,
+  // and the pixel's ISGB entries
   int pix_i;
   uint32_t pix, samp;
   float ivsp, ipel, ipem;
@@ -587,7 +593,7 @@ __global__ void __launch_bounds__(THREADS, (MinBlocks<RECORD, TRIS>::value))
   // gave it at its first sample
   auto begin = [&]() {
     pix_i = (int)(item % npix);
-    pix = (uint32_t)pix_i;
+    pix = (uint32_t)(pix_base + pix_i);
     samp = (uint32_t)samp0 + (uint32_t)(item / npix);
     ivsp = itab[pix_i];
     ipel = itab[npix + pix_i];
@@ -1708,7 +1714,7 @@ struct Args {
   float* rec;
   unsigned long long* next_item;
   int* at_cap;
-  int npix, spp, samp0;
+  int npix, pix_base, spp, samp0;
   long long n_items;
   unsigned int seed;
   float out_scale;
@@ -1727,7 +1733,8 @@ struct Inst {
         a.fconst, a.iconst, a.gconst, a.giconst, a.density, a.majorant,
         a.ftab, a.itab, a.cells, a.tris, a.mats, a.out, a.n_iter, a.rec,
         a.next_item,
-        a.at_cap, a.npix, a.spp, a.samp0, a.n_items, a.seed, a.out_scale,
+        a.at_cap, a.npix, a.pix_base, a.spp, a.samp0, a.n_items, a.seed,
+        a.out_scale,
         a.nmaj, a.rec_depth, a.n_tri, a.n_mat);
   }
   static cudaError_t info(size_t smem, int* out4) {
@@ -1801,17 +1808,19 @@ cudaError_t persistent_blocks(const InstFns& f, size_t smem, int* blocks) {
 // radiance goes to lbuf (n_samp, npix, 3) and its iterations to nbuf
 // (n_samp, npix). next_item (zeroed by the caller) hands out the items;
 // at_cap counts the items that reached the iteration cap of the whole
-// pixel, spp * max_events * 12.
+// pixel, spp * max_events * 12. The npix pixels are those of the image
+// from pix_base on (0: the whole image; a row block's first pixel
+// otherwise).
 extern "C" int vspg_render_launch(
     const float* fconst, const int* iconst, const float* gconst,
     const int* giconst, const float* density, const float* majorant,
     const float* ftab, const float* itab, const int* cells, const float* tris,
     const float* mats, float* lbuf, int* nbuf, unsigned long long* next_item,
-    int* at_cap, int npix, int spp, int samp0, int n_samp, unsigned int seed,
-    int nmaj, int ris, int method, int n_tri, int n_mat, int blocks,
-    void* stream) {
+    int* at_cap, int npix, int pix_base, int spp, int samp0, int n_samp,
+    unsigned int seed, int nmaj, int ris, int method, int n_tri, int n_mat,
+    int blocks, void* stream) {
   if (bad_args(method, n_tri, n_mat) || npix < 1 || n_samp < 1 ||
-      blocks < 0 || samp0 < 0 || samp0 + n_samp > spp)
+      blocks < 0 || samp0 < 0 || samp0 + n_samp > spp || pix_base < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(nmaj, n_tri, n_mat);
   const InstFns f = pick<false>(ris, method, n_tri);
@@ -1819,8 +1828,8 @@ extern "C" int vspg_render_launch(
   if (e != cudaSuccess) return (int)e;
   const Args a = {fconst, iconst, gconst, giconst, density, majorant, ftab,
                   itab, cells, tris, mats, lbuf, nbuf, nullptr, next_item,
-                  at_cap, npix, spp, samp0, (long long)npix * n_samp, seed,
-                  1.0f, nmaj, 0, n_tri, n_tri > 0 ? n_mat : 0};
+                  at_cap, npix, pix_base, spp, samp0, (long long)npix * n_samp,
+                  seed, 1.0f, nmaj, 0, n_tri, n_tri > 0 ? n_mat : 0};
   f.launch(blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();
 }
@@ -1876,7 +1885,7 @@ extern "C" int vspg_record_launch(
   if (e != cudaSuccess) return (int)e;
   const Args a = {fconst, iconst, gconst, giconst, density, majorant, ftab,
                   itab, cells, tris, mats, out, nullptr, rec, next_item,
-                  at_cap, npix, 1, 0, npix, seed, out_scale, nmaj,
+                  at_cap, npix, 0, 1, 0, npix, seed, out_scale, nmaj,
                   rec_depth, n_tri, n_tri > 0 ? n_mat : 0};
   f.launch(blocks, smem, (cudaStream_t)stream, a);
   return (int)cudaGetLastError();

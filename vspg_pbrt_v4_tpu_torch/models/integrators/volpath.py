@@ -633,27 +633,32 @@ def trace_paths(scene, cfg, s: PathState) -> PathState:
 
 
 def start_camera_paths(camera, film, seed, sample_index, pixel_id,
-                       camera_medium):
-    """Primary rays + fresh path state for the given pixel lanes."""
+                       camera_medium, sampler_kind="independent", spp=0):
+    """Primary rays + fresh path state for the given pixel lanes, their
+    sampler of `sampler_kind` (`spp` its samples a pixel, where the kind
+    stratifies over them). A lens system's ray weight multiplies the
+    throughput, and a vignetted ray starts dead."""
     pix = pixel_coords(film.resolution, device=pixel_id.device)[pixel_id]
-    sampler = LaneSampler.start(seed, pixel_id, sample_index)
+    sampler = LaneSampler.start(seed, pixel_id, sample_index,
+                                kind=sampler_kind, spp=spp,
+                                nx=film.resolution[0])
     sampler, u_pix = sampler.get_2d()
     offset, filter_w = film.filter.sample(u_pix)
     p_raster = pix.to(torch.float32) + 0.5 + offset
     sampler, u_lens = sampler.get_2d()
-    o, d = camera.generate_rays(p_raster, u_lens)
+    rays = camera.generate_rays(p_raster, u_lens)
+    o, d = rays[:2]
     sampler, u_wl = sampler.get_1d()
     hero_idx = sample_hero_channel(u_wl)
     med0 = torch.full(pixel_id.shape, camera_medium, dtype=torch.int32,
                       device=pixel_id.device)
-    return make_path_state(sampler, o, d, hero_idx, med0,
-                           pixel_id.to(torch.int32)), filter_w
-
-
-def _check_sampler(sampler):
-    if sampler != "independent":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet "
-                                  "(only \"independent\")")
+    state = make_path_state(sampler, o, d, hero_idx, med0,
+                            pixel_id.to(torch.int32))
+    if len(rays) == 3:  # lens-system cameras return a radiance weight
+        cam_w = rays[2]
+        state = replace(state, beta=state.beta * cam_w[..., None],
+                        alive=state.alive & (cam_w > 0))
+    return state, filter_w
 
 
 def render_wave(scene, camera, film, film_state, cfg, seed, sample_index,
@@ -668,17 +673,20 @@ def render_wave(scene, camera, film, film_state, cfg, seed, sample_index,
 
 
 def render_pass(scene, camera, film, film_state, cfg, seed, wave_idx,
-                camera_medium, spp_per_pass, sampler_kind="independent"):
+                camera_medium, spp_per_pass, sampler_kind="independent",
+                sampler_spp=0):
     """One pass of spp_per_pass samples a pixel added to film_state, on the
     film's device: lane l renders pixel l // spp_per_pass, sample
     wave_idx * spp_per_pass + l % spp_per_pass (the JAX package's random
-    streams). Returns (film_state, the traced PathState)."""
-    _check_sampler(sampler_kind)
+    streams), drawn by a sampler of `sampler_kind` stratifying over
+    `sampler_spp` samples a pixel. Returns (film_state, the traced
+    PathState)."""
     lane = torch.arange(film.npix * spp_per_pass, device=film.device)
     pixel_id = lane // spp_per_pass
     sample_index = int(wave_idx) * spp_per_pass + lane % spp_per_pass
     s, fw = start_camera_paths(camera, film, int(seed) & 0xFFFFFFFF,
-                               sample_index, pixel_id, int(camera_medium))
+                               sample_index, pixel_id, int(camera_medium),
+                               sampler_kind, int(sampler_spp))
     s = trace_paths(scene, cfg, s)
     return film.add_pass(film_state, s.L, fw), s
 
@@ -691,10 +699,11 @@ def render_progressive(scene, camera, film, cfg=VolPathConfig(), seed=0,
     """Pass loop on `device` with a time budget (--time): returns (image,
     spp rendered, FilmState). wave_callback(wave, spp_done, image_fn) runs
     after every pass; resume_state (FilmState, spp_done) continues an
-    interrupted render from ``utils.checkpoint``."""
+    interrupted render from ``utils.checkpoint``. `sampler` names the
+    sampler's kind (its passes stratify over no fixed sample count, as the
+    JAX package's)."""
     import time as _time
 
-    _check_sampler(sampler)
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     t0 = _time.perf_counter()
     if resume_state is not None:
@@ -723,9 +732,9 @@ def render(scene: Scene, camera, film, spp=16, cfg=VolPathConfig(), seed=0,
            device="cuda"):
     """Render on `device` through the lockstep wavefront, spp_per_pass
     samples a pixel a pass (default min(spp, 8)), the JAX package's
-    ``render``; returns the (ny, nx, 3) image. Only the "independent"
-    sampler is ported."""
-    _check_sampler(sampler)
+    ``render``; returns the (ny, nx, 3) image. `sampler` names the
+    sampler's kind: independent, stratified, halton, sobol, paddedsobol,
+    zsobol, pmj02bn (stratifying over the spp samples)."""
     if spp_per_pass is None:
         spp_per_pass = min(spp, 8)
     if spp % spp_per_pass:
@@ -738,7 +747,7 @@ def render(scene: Scene, camera, film, spp=16, cfg=VolPathConfig(), seed=0,
     state = film.init_state()
     for i in range(spp // spp_per_pass):
         state, _ = render_pass(scene, camera, film, state, cfg, seed, i,
-                               camera_medium, spp_per_pass)
+                               camera_medium, spp_per_pass, sampler, spp)
     return film.image(state)
 
 

@@ -999,15 +999,28 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
 
 def vspg_wave(scene, camera, film, film_state, field, isgb, cfg, gopt, vopt,
               seed, wave_idx, camera_medium, train, spp_per_pass,
-              tr_buffer=None):
+              tr_buffer=None, pixel_id=None, pixel_base=None):
     """One wave of `spp_per_pass` samples per pixel; lane l renders pixel
     l // spp_per_pass. Adds the samples to `film_state` (in place) and to
     the ISGB. Returns (film_state, isgb, TrainBatch or None, the lanes'
-    primary transmittance estimates (R, 3))."""
+    primary transmittance estimates (R, 3)).
+
+    With `pixel_id` (the sharded render, ``parallel/mesh.py``) the lanes
+    cover those image pixels, lane l sample l % spp_per_pass of its pixel,
+    and `film_state`, `isgb` and `tr_buffer` hold only the rows from image
+    pixel `pixel_base` on (default pixel_id[0]), which they index by
+    pixel_id - pixel_base."""
     dev = film.device
-    R = film.npix * spp_per_pass
-    lane = torch.arange(R, device=dev)
-    pixel_id = lane // spp_per_pass
+    if pixel_id is None:
+        R = film.npix * spp_per_pass
+        lane = torch.arange(R, device=dev)
+        pixel_id = lane // spp_per_pass
+        local_pid = pixel_id
+    else:
+        R = pixel_id.shape[0]
+        lane = torch.arange(R, device=dev)
+        base = pixel_id[0] if pixel_base is None else int(pixel_base)
+        local_pid = pixel_id - base
     sample_index = int(wave_idx) * spp_per_pass + lane % spp_per_pass
     s, fw = start_camera_paths(camera, film, int(seed) & 0xFFFFFFFF,
                                sample_index, pixel_id, int(camera_medium))
@@ -1016,15 +1029,16 @@ def vspg_wave(scene, camera, film, film_state, field, isgb, cfg, gopt, vopt,
     z3 = torch.zeros_like(s.o)
     f = pixel_id < 0
     tr_prev = (torch.ones_like(s.o) if tr_buffer is None
-               else tr_buffer[pixel_id])
-    gs = VState(s, rec, pixel_id, f, f, f, z3, z3, torch.ones_like(s.o),
+               else tr_buffer[local_pid])
+    # VState.pixel_id indexes the (possibly sharded) ISGB rows: local ids
+    gs = VState(s, rec, local_pid, f, f, f, z3, z3, torch.ones_like(s.o),
                 tr_prev)
     it = 0
     while bool(gs.s.alive.any()) and it < cfg.max_events:
         gs = vspg_bounce(scene, cfg, gopt, vopt, field, isgb, train, gs)
         it += 1
-    film_state = film.add_samples(film_state, pixel_id, gs.s.L, fw)
-    isgb = gisgb.isgb_add_samples(isgb, pixel_id, _to3(gs.s.L),
+    film_state = film.add_samples(film_state, local_pid, gs.s.L, fw)
+    isgb = gisgb.isgb_add_samples(isgb, local_pid, _to3(gs.s.L),
                                   gs.first_albedo, gs.first_normal,
                                   gs.first_vol, pixel_id >= 0,
                                   half=int(wave_idx) % 2)

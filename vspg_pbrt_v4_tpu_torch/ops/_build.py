@@ -111,7 +111,7 @@ SIGNATURES = {
     **{f"volpath_{g}_launch": [_P] * 9 + [_I, _I, _I, _U] + [_I] * 5 + [_P]
        for g in GRID_NAMES},
     **{f"volpath_{g}_info": [_I, _I, _I, _P] for g in GRID_NAMES},
-    "vspg_render_launch": [_P] * 15 + [_I] * 4 + [_U] + [_I] * 6 + [_P],
+    "vspg_render_launch": [_P] * 15 + [_I] * 5 + [_U] + [_I] * 6 + [_P],
     "vspg_render_info": [_I] * 5 + [_P],
     "vspg_reduce_launch": [_P] * 4 + [_I, _I, _I, _F, _I, _I, _P],
     "vspg_record_launch": [_P] * 15 + [_I, _U, _F] + [_I] * 7 + [_P],

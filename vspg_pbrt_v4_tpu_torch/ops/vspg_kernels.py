@@ -42,10 +42,14 @@ of the items, ``reduce_samples_plain`` of the sum. The record variant runs
 its pixels as work items on persistent blocks too, each lane writing its
 pixel's image entry and record rows, so its output is the per-pixel
 kernel's whatever lane runs a pixel. Both variants count the items that
-reach the iteration cap. A walk that starts within 1e-4 of the box's exit
-ends there (``volpath_kernels._box_exit``), as the XLA path's clip to the
-grid's bounds ends it (ROADMAP.md section C 4); the Pallas kernel steps on
-beyond the box.
+reach the iteration cap. The render variant also renders a block of the
+image's rows (``block_constants``) at a pixel base, each pixel keeping the
+random stream and camera ray of its place in the image, so that the
+blocks of ``parallel/mesh.render_vspg_pallas_sharded`` stitch into the
+whole render float for float. A walk that starts within 1e-4 of the box's
+exit ends there (``volpath_kernels._box_exit``), as the XLA path's clip to
+the grid's bounds ends it (ROADMAP.md section C 4); the Pallas kernel
+steps on beyond the box.
 
 A wrapper runs the plain version only when its tensors lie on the CPU; on
 a CUDA tensor it launches its kernel or raises. ``LAUNCHES`` counts the
@@ -60,6 +64,7 @@ appends its count of items at the cap.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,7 +75,7 @@ from ..models.guiding.recording import SegmentRecord
 from ..utils import rng
 from ..utils.math import INV_4PI, INV_PI, PI
 from .volpath_kernels import (F_BMAX, F_BMIN, F_SA, F_SS, I_GX,
-                              I_MAX_EVENTS, I_MX,
+                              I_MAX_EVENTS, I_MX, I_NY,
                               M_ALB, M_ETA, M_KIND, M_ROUGH, MAT_COLS,
                               T_MAT, T_MED_IN, T_MED_OUT, T_NG, TRI_COLS,
                               _BIG, _box_exit, _box_hit, _camera_ray,
@@ -683,12 +688,16 @@ def _start(K, seed, pix, samp):
     return o, d, hero
 
 
-def _init_lanes(K, seed, itab, pix, samp, n_samp):
-    """The lanes' state: lane i renders pixel pix[i] from sample samp[i]
-    (int64, one entry a lane each) to sample samp[i] + n_samp - 1."""
+def _init_lanes(K, seed, itab, pix, samp, n_samp, pix_base=0):
+    """The lanes' state: lane i renders pixel pix[i] of the block that
+    starts at image pixel `pix_base` from sample samp[i] (int64, one entry
+    a lane each) to sample samp[i] + n_samp - 1. The image pixel ("gpix")
+    keys the random stream and the camera ray; the block's ("pix") indexes
+    the ISGB table and the record."""
     n = samp.numel()
     dev = K.dev
-    o, d, hero = _start(K, seed, pix, samp)
+    gpix = pix + int(pix_base)
+    o, d, hero = _start(K, seed, gpix, samp)
 
     def z():
         return torch.zeros(n, device=dev)
@@ -704,7 +713,7 @@ def _init_lanes(K, seed, itab, pix, samp, n_samp):
 
     zi = torch.zeros(n, dtype=torch.int64, device=dev)
     return dict(
-        lane=torch.arange(n, device=dev), pix=pix, samp=samp,
+        lane=torch.arange(n, device=dev), pix=pix, gpix=gpix, samp=samp,
         end=samp + int(n_samp), dim=zi + 1,
         alive=torch.ones(n, dtype=torch.bool, device=dev), o=o, d=d,
         b=o3(), ru=o3(), rl=o3(), L=z3(), depth=zi.clone(), hero=hero,
@@ -1016,7 +1025,7 @@ def _body(K, G, T, S, seed, rec, counts):
     st, ss, envL, lI = K.st, K.ss, K.envL, K.lI
 
     def U():
-        u = rng.uniform4(seed, S["pix"], S["samp"], S["dim"])
+        u = rng.uniform4(seed, S["gpix"], S["samp"], S["dim"])
         S["dim"] = S["dim"] + 1
         return u
 
@@ -1736,7 +1745,7 @@ def _body(K, G, T, S, seed, rec, counts):
     dim = S["dim"]
     j = torch.nonzero(has_budget)[:, 0]
     if j.numel():
-        o_n, d_n, hero_n = _start(K, seed, pix[j], samp[j])
+        o_n, d_n, hero_n = _start(K, seed, S["gpix"][j], samp[j])
         o, d = o.index_put((j,), o_n), d.index_put((j,), d_n)
         hero = hero.index_put((j,), hero_n)
         dim = dim.index_put((j,), torch.ones_like(j))
@@ -1771,7 +1780,7 @@ def _body(K, G, T, S, seed, rec, counts):
 
 
 def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None,
-           first_sample=0, items=False, pixels=None):
+           first_sample=0, items=False, pixels=None, pix_base=0):
     """The lockstep loop of the plain versions: one lane a pixel running
     samples first_sample, ..., first_sample + spp - 1 in turn, returning the
     image (and the record of a record wave), or with `pixels` (int64 pixel
@@ -1780,7 +1789,9 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None,
     sample-major order, returning the items' raw radiances (spp, npix, 3)
     and iterations (spp, npix), cap + 1 for an item stopped at the cap.
     Either way the iteration cap is spp * max_events * 12, the whole
-    pixel's."""
+    pixel's. `c` may be a block of rows of the image that starts at image
+    pixel `pix_base` (``block_constants``); its pixels and `itab` are the
+    block's."""
     K = _Consts(c)
     K.bmin_t = torch.tensor(K.bmin, dtype=torch.float32, device=K.dev)
     K.bmax_t = torch.tensor(K.bmax, dtype=torch.float32, device=K.dev)
@@ -1797,12 +1808,13 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None,
     rec = None if rec_depth is None else _Rec(int(rec_depth), npix, K.dev)
     if items:
         lane = torch.arange(spp * npix, device=K.dev)
-        S = _init_lanes(K, seed, itab, lane % npix, lane // npix, 1)
+        S = _init_lanes(K, seed, itab, lane % npix, lane // npix, 1,
+                        pix_base)
     else:
         pix = (torch.arange(npix, device=K.dev) if pixels is None
                else torch.as_tensor(pixels, dtype=torch.int64, device=K.dev))
         samp = torch.full_like(pix, int(first_sample))
-        S = _init_lanes(K, seed, itab, pix, samp, spp)
+        S = _init_lanes(K, seed, itab, pix, samp, spp, pix_base)
     n = S["lane"].numel()
     out = torch.zeros((n, 3), device=K.dev)
     max_iters = spp * K.max_events * 12
@@ -1831,7 +1843,7 @@ def _plain(c, gconst, ftab, itab, spp, seed, rec_depth=None, counts=None,
 
 
 def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None,
-                      first_sample=0, pixels=None):
+                      first_sample=0, pixels=None, pix_base=0):
     """Plain PyTorch version of the render variant of ``csrc/vspg.cu``:
     the (ny, nx, 3) image of `spp` frozen-field samples per pixel, one lane
     a pixel running samples `first_sample`, ..., `first_sample + spp - 1`
@@ -1844,9 +1856,12 @@ def render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts=None,
     1e-4 of the box's exit ("exit_walks", "exit_shadows"), the lockstep
     iterations run, the longest lane's ("lockstep_iters"); on an adaptive
     field also the scatters whose leaf is a refined cell's child
-    ("child_scatters")."""
+    ("child_scatters"). With `c` a block of rows (``block_constants``)
+    and `itab` the block's ISGB columns, the block's image: its pixels'
+    random streams and camera rays are those of image pixels pix_base
+    on."""
     return _plain(c, gconst, ftab, itab, spp, seed, None, counts,
-                  first_sample, pixels=pixels)
+                  first_sample, pixels=pixels, pix_base=pix_base)
 
 
 def render_items_plain(c, gconst, ftab, itab, spp, seed, counts=None):
@@ -2084,7 +2099,7 @@ def reduce_samples(L, n_iter, max_iters, out_scale, out=None, used=None,
 
 
 def render_vspg_items(c, gconst, ftab, itab, spp, seed, blocks=None,
-                      lib=None):
+                      lib=None, pix_base=0):
     """B3a-d: `spp` frozen-field VSPG samples per pixel; returns (image
     (ny, nx, 3), items at cap (a (1,) int32 tensor)). On a card: zero the
     item counters and the cap count, then per chunk of samples
@@ -2096,10 +2111,16 @@ def render_vspg_items(c, gconst, ftab, itab, spp, seed, blocks=None,
     For CPU tensors the plain
     version, whose count is of pixels stopped at the cap. `lib`: the
     package's library (None) or another build of vspg.cu (chip_smoke.py
-    times one)."""
+    times one). `c` may be a block of the image's rows that starts at image
+    pixel `pix_base` (``block_constants``), with `itab` the block's ISGB
+    columns; the block's image is then the same float for float as those
+    rows of the whole image's render."""
+    if int(pix_base) < 0:
+        raise ValueError(f"pix_base must be at least 0, got {pix_base}")
     if c.fconst.device.type == "cpu":
         counts = {}
-        img = render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts)
+        img = render_vspg_plain(c, gconst, ftab, itab, spp, seed, counts,
+                                pix_base=pix_base)
         return img, torch.tensor([counts["capped"]], dtype=torch.int32)
     from . import _build
 
@@ -2135,7 +2156,7 @@ def render_vspg_items(c, gconst, ftab, itab, spp, seed, blocks=None,
             err = lib.vspg_render_launch(
                 *tables, lbuf.data_ptr(), nbuf.data_ptr(),
                 counters[k:].data_ptr(),
-                at_cap.data_ptr(), npix, spp, s0, n,
+                at_cap.data_ptr(), npix, int(pix_base), spp, s0, n,
                 int(seed) & 0xFFFFFFFF, nmaj, int(gconst.ris),
                 int(gconst.method), n_tri, n_mat,
                 0 if blocks is None else int(blocks), stream.cuda_stream)
@@ -2152,11 +2173,26 @@ def render_vspg_items(c, gconst, ftab, itab, spp, seed, blocks=None,
     return out, at_cap
 
 
-def render_vspg_kernel(c, gconst, ftab, itab, spp, seed):
+def render_vspg_kernel(c, gconst, ftab, itab, spp, seed, pix_base=0):
     """B3a-d: `spp` frozen-field VSPG samples per pixel, (ny, nx, 3): the
     image of ``render_vspg_items`` (the CUDA kernels on a card, the plain
     version for tensors on the CPU)."""
-    return render_vspg_items(c, gconst, ftab, itab, spp, seed)[0]
+    return render_vspg_items(c, gconst, ftab, itab, spp, seed,
+                             pix_base=pix_base)[0]
+
+
+def block_constants(c, rows, n_blocks):
+    """The constants of row block `rows` of `n_blocks` equal blocks of the
+    image of `c`: the block's height as ny, nx unchanged (the raster decode
+    of an image pixel), and the block's first image pixel. Returns (block
+    constants, pix_base)."""
+    if c.ny % n_blocks:
+        raise ValueError(f"{c.ny} rows do not split into {n_blocks} blocks")
+    ny_b = c.ny // n_blocks
+    ic = c.iconst.clone()
+    ic[I_NY] = ny_b
+    return (dataclasses.replace(c, ny=ny_b, iconst=ic),
+            int(rows) * ny_b * c.nx)
 
 
 def train_wave_items(c, gconst, ftab, itab, seed, rec_depth, blocks=None):

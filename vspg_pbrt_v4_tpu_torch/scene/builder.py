@@ -9,14 +9,17 @@ the requested device. It builds trianglemesh, plymesh, loopsubdiv and
 sphere shapes; the diffuse, conductor, smooth dielectric and cooktorrance
 materials with the checker and constant textures; point, constant
 infinite and triangle area lights; homogeneous, uniform-grid (inline or
-from an ``.npz`` gridfile) and procedural ``cloud`` media; the pinhole
-perspective camera, the ``rgb`` film, the box filter and the
-``independent`` sampler.
+from an ``.npz`` gridfile) and procedural ``cloud`` media; the
+perspective camera (pinhole or thin lens), the orthographic, spherical
+and realistic cameras (a ``lensfile`` read in millimetres, else the
+built-in singlet); the ``rgb`` film; the box, triangle, gaussian and
+mitchell filters; and every sampler the JAX package names (independent,
+stratified, halton, sobol, paddedsobol, zsobol, pmj02bn).
 
 Where the JAX builder warns and degrades (an unknown shape, light,
-medium, texture or material type), this one warns in the same words.
-Where the JAX builder builds something this package does not serve yet
-(other shapes, lights, media, materials, cameras, filters and samplers,
+medium, texture, material, camera or filter type), this one warns or
+degrades in the same way. Where the JAX builder builds something this
+package does not serve yet (other shapes, lights, media and materials,
 instancing, motion blur), it raises ``NotImplementedError`` naming the
 directive, its type and its ``file:line`` (ROADMAP.md §A 8).
 """
@@ -29,7 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.cameras import PerspectiveCamera
+from ..models.cameras import (OrthographicCamera, PerspectiveCamera,
+                              RealisticCamera, SphericalCamera)
 from ..models.film import RGBFilm
 from ..models.filters import Filter
 from ..models.integrators.volpath import Scene
@@ -51,13 +55,12 @@ _UNPORTED_MATERIALS = ("thindielectric", "diffusetransmission",
                        "subsurface", "hair", "mix", "measured")
 _UNPORTED_TEXTURES = ("imagemap", "scale", "mix", "fbm", "wrinkled",
                       "windy", "marble", "dots", "bilerp", "uv", "ptex")
-_UNPORTED_CAMERAS = ("orthographic", "spherical", "realistic")
-_UNPORTED_FILTERS = ("triangle", "gaussian", "mitchell")
+_FILTERS = ("box", "triangle", "gaussian", "mitchell")
 
 
 class RenderSetup(NamedTuple):
     scene: Scene
-    camera: PerspectiveCamera
+    camera: object  # one of models/cameras.py
     film: RGBFilm
     integrator: str
     integrator_params: dict
@@ -269,8 +272,6 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                                   "rgb")
                 film_params = p
             elif name == "Sampler":
-                if d.args[0] != "independent":
-                    raise _unported(d, "type", d.args[0])
                 sampler = d.args[0]
                 spp = p.get_int("pixelsamples", 16)
             elif name == "Integrator":
@@ -278,9 +279,7 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                 integrator_params = dict(d.params)
                 integrator_directive = d
             elif name in ("Filter", "PixelFilter"):
-                filter_directive = (d.args[0] if d.args else "box", p, d)
-                if filter_directive[0] in _UNPORTED_FILTERS:
-                    raise _unported(d, "type", filter_directive[0])
+                filter_directive = (d.args[0] if d.args else "box", p)
             elif name == "Accelerator":
                 accel = d.args[0] if d.args else "bvh"
                 if accel == "kdtree":
@@ -469,30 +468,61 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
         film_params.get_int("yresolution", 720) if film_params else 720)
     outfile = (film_params.get_string("filename", "out.exr")
                if film_params else "out.exr")
-    radius = None
+    film_filter = Filter.make("box", device=device)
     if filter_directive is not None:
-        radius = filter_directive[1].get_float("xradius", None)
-    film = RGBFilm.make((nx, ny), filter=Filter.make("box", radius=radius),
-                        device=device)
+        fname, fp = filter_directive
+        # an unknown filter is the box, as in the JAX builder
+        film_filter = Filter.make(fname if fname in _FILTERS else "box",
+                                  radius=fp.get_float("xradius", None),
+                                  sigma=fp.get_float("sigma", 0.5),
+                                  device=device)
+    film = RGBFilm.make((nx, ny), filter=film_filter, device=device)
+    camera = _camera(camera_directive, cam_to_world, (nx, ny), device)
+    return RenderSetup(scene, camera, film, integrator, integrator_params,
+                       sampler, spp_override or spp, -1, outfile)
+
+
+def _camera(camera_directive, cam_to_world, res, device):
+    """The Camera directive's camera, as the JAX builder makes it; a
+    perspective camera's shutter interval (motion blur) is refused."""
     ctype, cp, cd = camera_directive if camera_directive else (
         "perspective", None, None)
-    if ctype in _UNPORTED_CAMERAS:
-        raise _unported(cd, "type", ctype)
-    if ctype != "perspective":
-        warnings.warn(f"camera '{ctype}' unsupported; using perspective")
-        camera = PerspectiveCamera.make(cam_to_world, 90.0, (nx, ny),
-                                        device=device)
-    else:
+    if ctype == "perspective":
         fov = cp.get_float("fov", 90.0) if cp else 90.0
-        if cp and cp.get_float("lensradius", 0.0) > 0:
-            raise _unported(cd, "(thin lens)", ctype)
         if cp and (cp.get_float("shutteropen", 0.0)
                    != cp.get_float("shutterclose", 0.0)):
             raise _unported(cd, "(motion blur)", ctype)
-        camera = PerspectiveCamera.make(cam_to_world, fov, (nx, ny),
-                                        device=device)
-    return RenderSetup(scene, camera, film, integrator, integrator_params,
-                       sampler, spp_override or spp, -1, outfile)
+        return PerspectiveCamera.make(
+            cam_to_world, fov, res,
+            lens_radius=cp.get_float("lensradius", 0.0) if cp else 0.0,
+            focal_distance=cp.get_float("focaldistance", 1e6) if cp else 1e6,
+            device=device)
+    if ctype == "orthographic":
+        return OrthographicCamera.make(cam_to_world, res, device=device)
+    if ctype == "spherical":
+        return SphericalCamera(cam_to_world.to(device), tuple(res))
+    if ctype == "realistic":
+        lensfile = cp.get_string("lensfile") if cp else None
+        ap = cp.get_float("aperturediameter", 1.0) / 1000.0 if cp else 1e-3
+        focus = cp.get_float("focusdistance", 10.0) if cp else 10.0
+        if lensfile:
+            rows = []
+            with open(lensfile) as f:
+                for line in f:
+                    line = line.split("#")[0].strip()
+                    if line:
+                        v = [float(x) for x in line.split()]
+                        # lens files are in millimetres
+                        rows.append([v[0] / 1000, v[1] / 1000, v[2],
+                                     v[3] / 1000])
+            return RealisticCamera.make(cam_to_world, rows, res,
+                                        aperture_diameter=ap, device=device)
+        return RealisticCamera.simple_lens(cam_to_world, res,
+                                           aperture_diameter=ap,
+                                           focus_distance=focus,
+                                           device=device)
+    warnings.warn(f"camera '{ctype}' unsupported; using perspective")
+    return PerspectiveCamera.make(cam_to_world, 90.0, res, device=device)
 
 
 def _grid_medium(ctm, p, gridfile):

@@ -114,6 +114,12 @@ def perspective(fov_deg, z_near=1e-2, z_far=1000.0, *, device) -> Transform:
     return from_matrix(s @ persp, device=device)
 
 
+def orthographic(z_near=0.0, z_far=1.0, *, device) -> Transform:
+    """Camera-to-NDC orthographic projection (pbrt Orthographic)."""
+    return (scale(1.0, 1.0, 1.0 / (z_far - z_near), device=device)
+            @ translate(0, 0, -z_near, device=device))
+
+
 def apply_point(t: Transform, p):
     m = t.m
     xp = p[..., 0] * m[0, 0] + p[..., 1] * m[0, 1] + p[..., 2] * m[0, 2] + m[0, 3]
