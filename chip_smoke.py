@@ -914,8 +914,8 @@ def main():
           f"{PARITY_EVENTS} (bench: 256); the render checks of 7a, 8a, 9a "
           "and 12a at 64x64x1 on their record checks' plain runs, as the 1 "
           "spp checks of 7c, 8 (NDS), 9d and 12c (was a plain run of their "
-          "own), 8a's also at 64x64x2 on a plain run of its own (7a's and "
-          "9a's were too, until phase 18 came; 64x64x4 before); 8a NDS-RIS "
+          "own), 7a's, 8a's and 9a's also at 64x64x2 on a plain run of "
+          "their own (64x64x4 before); 8a NDS-RIS "
           "and NDS+-MIS only (was all four); 14b at 16 spp "
           "(was 64); NDS+ training 3 torch waves (bench: 48); phase 6 plain "
           "versions timed once (was best of 3); 10c's plain version on a "
@@ -927,7 +927,7 @@ def main():
           f"17d at {P17_DENOISE_STEPS} steps (was 4 and 48); 18b's plain "
           f"check of one block at 1 spp and max_events {PARITY_EVENTS} "
           "(bench: 256); 18c's CLI renders at 64x64x16", flush=True)
-    k7, inputs7 = _phase7(dev, tag, check_parity, fma_lib)
+    k7, inputs7, route7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
     print(f"phase 7 done {_at()}", flush=True)
     k8, inputs8 = _phase8(dev, tag, check_parity)
@@ -954,7 +954,7 @@ def main():
     _phase17(dev, tag)
     _phase18(dev, tag, check_parity, kernels,
              {"vspg_render": inputs7, "vspg_render_nds": inputs8,
-              "vspg_render_adaptive": inputs12})
+              "vspg_render_adaptive": inputs12}, route7)
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -1143,9 +1143,10 @@ def _phase7(dev, tag, check_parity, fma_lib):
     versions in both direction modes (RIS, MIS), a guided furnace, then
     ``render_vspg`` on the bench's pyro cloud at 256^2. `fma_lib` is
     vspg.cu built with FMA contraction, timed against the shipped build.
-    Returns the two kernels' entries of the kernels line and the render
+    Returns the two kernels' entries of the kernels line, the render
     kernel's inputs at the main path's shape (phase 12 times B3d beside
-    them)."""
+    them) and the main path's (scene, camera, film, cfg, gopt, vopt,
+    field, isgb) (phase 18a renders them sharded)."""
     from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
     from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
     from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
@@ -1188,7 +1189,7 @@ def _phase7(dev, tag, check_parity, fma_lib):
         assert g.ris == (mode == "ris")
         c = _with_max_events(c, PARITY_EVENTS)
         _pair_check(f"phase 7a parity {{}} ({mode})", "vspg_record", c, g,
-                    ftab, itab, 21, check_parity, tag)
+                    ftab, itab, 21, check_parity, tag, render_spp=2)
 
     # ---- 7b: furnace (albedo 1): any guiding distribution keeps it exact --
     furnace = _guided_furnace(dev)
@@ -1326,7 +1327,7 @@ def _phase7(dev, tag, check_parity, fma_lib):
              ms=ms_rk, plain_ms=t_rp * 1e3, bound_ms=b_rec,
              bound_pipe=max(p_rec, key=p_rec.get),
              bound_by=by_rec, library_ms=None, **extra_r),
-    ], (c, g, ftab, itab)
+    ], (c, g, ftab, itab), (pyro, cam, film, cfg, gopt, vopt, field, isgb)
 
 
 def _reduce_entry(dev, npix, spp, max_iters, launches, tag):
@@ -1727,7 +1728,8 @@ def _phase9(dev, tag, check_parity):
         c = _with_max_events(c, PARITY_EVENTS)
         counts = {}
         _pair_check(f"phase 9a parity {{}} ({label})", "vspg_record_tris",
-                    c, g, ftab, itab, 21, check_parity, tag, counts)
+                    c, g, ftab, itab, 21, check_parity, tag, counts,
+                    render_spp=2)
         assert counts["surface_events"] > 0, counts
     print(f"phase 9a done {_at()} {tag}", flush=True)
 
@@ -3376,7 +3378,7 @@ P18_HEADERS = {
 P18_BLOCKS = 4
 
 
-def _phase18(dev, tag, check_parity, kernels, inputs):
+def _phase18(dev, tag, check_parity, kernels, inputs, route):
     """Phase 18, several devices and the scene header (b first, then a and
     c at once): (a) the dry run of
     ``vspg_pbrt_v4_tpu_torch.parallel.dryrun`` in an NCCL world of
@@ -3392,11 +3394,17 @@ def _phase18(dev, tag, check_parity, kernels, inputs):
     filters and cameras of P18_HEADERS, each mean within 3 standard errors
     of the independent/box/pinhole render where it estimates the same, and
     finite. `inputs`: each render variant's (c, g, ftab, itab); the B3
-    entries of `kernels` gain their block times."""
+    entries of `kernels` gain their block times. `route`: 7c's (scene,
+    camera, film, cfg, gopt, vopt, field, isgb), on which 18a also runs
+    ``render_vspg_pallas_sharded`` at the main path's 256^2 x 64 in a world
+    of its own, its image equal to 18b's unsharded B3a render bit for
+    bit."""
     import os
     import tempfile
 
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.parallel import dryrun as pdryrun
+    from vspg_pbrt_v4_tpu_torch.parallel import mesh
 
     t18 = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3404,17 +3412,16 @@ def _phase18(dev, tag, check_parity, kernels, inputs):
     # ---- 18b: B3 as row blocks with pixel bases ----------------------------
     spp, seed = 64, 11
     by_name = {k["name"]: k for k in kernels}
+    wholes = {}
     for name, (c, g, ftab, itab) in inputs.items():
-        whole = sk.render_vspg_kernel(c, g, ftab, itab, spp, seed)
-        blocks = [sk.block_constants(c, r, P18_BLOCKS)
-                  for r in range(P18_BLOCKS)]
-        n = blocks[0][0].nx * blocks[0][0].ny
-        tabs = [itab[:, base:base + n].contiguous() for _, base in blocks]
+        whole = wholes[name] = sk.render_vspg_kernel(c, g, ftab, itab, spp,
+                                                     seed)
+        bases = [mesh.row_block(c, itab, r, P18_BLOCKS)[2]
+                 for r in range(P18_BLOCKS)]
         for counter in sk.LAUNCHES:
             sk.LAUNCHES[counter] = 0
-        parts = [sk.render_vspg_items(cb, g, ftab, it, spp, seed,
-                                      pix_base=base)
-                 for (cb, base), it in zip(blocks, tabs)]
+        parts = [mesh.render_block(c, g, ftab, itab, r, P18_BLOCKS, spp,
+                                   seed) for r in range(P18_BLOCKS)]
         torch.cuda.synchronize()
         launches = {k: v for k, v in sk.LAUNCHES.items() if v}
         kernel = "vspg_render" + ("_adaptive" if name.endswith("adaptive")
@@ -3425,14 +3432,14 @@ def _phase18(dev, tag, check_parity, kernels, inputs):
         stitched = torch.cat([img for img, _ in parts], 0)
         same = torch.equal(stitched, whole)
         ms = [_events_best_of_3(
-            lambda cb=cb, base=base, it=it: sk.render_vspg_items(
-                cb, g, ftab, it, spp, seed, pix_base=base))
-            for (cb, base), it in zip(blocks, tabs)]
+            lambda r=r: mesh.render_block(c, g, ftab, itab, r, P18_BLOCKS,
+                                          spp, seed))
+            for r in range(P18_BLOCKS)]
         ms_whole = _events_best_of_3(
             lambda: sk.render_vspg_kernel(c, g, ftab, itab, spp, seed))
         print(f"phase 18b {name} {c.nx}x{c.ny}x{spp} as {P18_BLOCKS} row "
-              f"blocks, pixel bases {[base for _, base in blocks]}: "
-              f"launches {launches}, block ms by CUDA events "
+              f"blocks, pixel bases {bases}: launches {launches}, block ms "
+              f"by CUDA events (each with its ISGB columns' slice) "
               f"{[round(m, 3) for m in ms]} (sum {sum(ms):.3f}) against "
               f"{ms_whole:.3f} ms unsharded; stitched image equal to the "
               f"unsharded render bit for bit: {same} {tag}", flush=True)
@@ -3445,13 +3452,11 @@ def _phase18(dev, tag, check_parity, kernels, inputs):
     # the middle blocks' (it renders in a quarter of their time; the plain
     # version steps in lockstep until its longest path ends)
     c, g, ftab, itab = inputs["vspg_render"]
+    c = _with_max_events(c, PARITY_EVENTS)
     r = P18_BLOCKS - 1
-    cb, base = sk.block_constants(_with_max_events(c, PARITY_EVENTS), r,
-                                  P18_BLOCKS)
-    n = cb.nx * cb.ny
-    it = itab[:, base:base + n].contiguous()
-    k, cap = sk.render_vspg_items(cb, g, ftab, it, 1, seed,
-                                  blocks=_check_blocks(n), pix_base=base)
+    cb, it, base = mesh.row_block(c, itab, r, P18_BLOCKS)
+    k, cap = mesh.render_block(c, g, ftab, itab, r, P18_BLOCKS, 1, seed,
+                               blocks=_check_blocks(cb.nx * cb.ny))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     counts = {}
@@ -3494,6 +3499,16 @@ def _phase18(dev, tag, check_parity, kernels, inputs):
             args = [path, "--resolution", "64x64", "--seed", "5",
                     "--outfile", path[:-5] + ".exr"]
             runs[name] = (args, _cli_start(args))
+        # meanwhile the kernel route through its entry point on 7c's
+        # inputs at the main path's 256^2 x 64, in a world of its own
+        t_route = time.perf_counter()
+        scene, cam, film, cfg, gopt, vopt, field, isgb = route
+        img, route_launches = pdryrun.spawn(
+            world, "vspg_pbrt_v4_tpu_torch.parallel.dryrun:kernel_route",
+            (scene.to("cpu"), cam.to("cpu"), film.to("cpu"), spp, cfg, gopt,
+             vopt, field.to("cpu"), isgb.to("cpu")), dict(seed=seed),
+            cpu=False, timeout=600)
+        t_route = time.perf_counter() - t_route
         imgs = {name: _cli_wait(started, args, f"18c {name}, "
                                 f"{len(runs)} CLI processes at once", tag)[0]
                 for name, (args, started) in runs.items()}
@@ -3506,6 +3521,16 @@ def _phase18(dev, tag, check_parity, kernels, inputs):
           f"sharded entry points in {time.perf_counter() - t0:.2f} s with the "
           f"interpreters' start, beside 18c's CLI processes {tag}",
           flush=True)
+    same = torch.equal(img, wholes["vspg_render"].cpu())
+    print(f"phase 18a render_vspg_pallas_sharded pyro64 "
+          f"{film.resolution[0]}x{film.resolution[1]}x{spp} (7c's field) in "
+          f"an NCCL world of {world} rank(s): {t_route:.2f} s with the "
+          f"interpreters' start, rank 0's launches {route_launches}, image "
+          f"equal to the unsharded render bit for bit: {same} {tag}",
+          flush=True)
+    assert route_launches == {"vspg_render": 1, "vspg_reduce": 1}, \
+        route_launches
+    assert same
     ref = imgs["independent"]
     for name, (_, _, _, same) in P18_HEADERS.items():
         if name == "independent":

@@ -10,6 +10,7 @@ card the CLI exits non-zero; the CLI and the scene package import with JAX
 blocked."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -114,12 +115,35 @@ LIFTED = {
                          'Camera "spherical"'),
 }
 
+# each camera's --pixelmaterial probe on the file's 64x64 film: pixel ->
+# the distances at which the pixel's centre ray crosses the fog cube's
+# faces (its origin to the first, then on to the second), or None where
+# it meets nothing. Down the axis from z = -4 the centre pixel's ray
+# enters at z = -1 and leaves at z = 1 (half a pixel off the axis: within
+# 1e-3). The realistic camera's ray starts on its front element, under
+# 0.1 nearer. The spherical camera is equirectangular: its centre pixel
+# looks along the camera's -x axis, and pixel (4, 4), at theta = pi 4.5 /
+# 64 from the +z axis and phi = 2 pi 4.5 / 64, enters at z = -1 and
+# leaves by the side x = +-1.
+_TH, _PH = np.pi * 4.5 / 64, 2 * np.pi * 4.5 / 64
+PROBES = {
+    "zsobol, gaussian, thin lens": {"32,32": (3.0, 2.0)},
+    "halton, mitchell, orthographic": {"32,32": (3.0, 2.0)},
+    "pmj02bn, triangle, realistic": {"32,32": (2.95, 2.0)},
+    "sobol, spherical": {
+        "32,32": None,
+        "4,4": (3 / np.cos(_TH),
+                1 / (np.sin(_TH) * np.cos(_PH)) - 3 / np.cos(_TH))},
+}
+
 
 @pytest.mark.parametrize("case", list(LIFTED))
-def test_cli_renders_lifted_header_directives(tmp_path, case):
+def test_cli_renders_lifted_header_directives(tmp_path, capsys, case):
     """The fog box with each once-refused sampler, filter and camera
     renders through the CLI on the CPU, bit for bit the API's render of
-    the same setup; --pixelmaterial traces the camera's centre ray."""
+    the same setup; --pixelmaterial traces the camera's ray through a
+    pixel's centre into the cube's faces where PROBES says (the realistic
+    camera's faces within 0.05), or exits 1 seeing nothing."""
     sampler, camera = LIFTED[case]
     with open(FOGBOX) as f:
         text = f.read()
@@ -139,8 +163,19 @@ def test_cli_renders_lifted_header_directives(tmp_path, case):
                     sampler=s.sampler, device="cpu").numpy()
     np.testing.assert_array_equal(read_image(out), img)
     assert np.isfinite(img).all() and img.mean() > 0
-    assert cli.main([str(scene), "--cpu", "--quiet", "--pixelmaterial",
-                     "4,4"]) in (0, 1)
+    for pixel, faces in PROBES[case].items():
+        capsys.readouterr()
+        rc = cli.main([str(scene), "--cpu", "--quiet", "--pixelmaterial",
+                       pixel])
+        out, err = capsys.readouterr()
+        if faces is None:
+            assert rc == 1 and "no geometry visible" in err, (pixel, err)
+            continue
+        assert rc == 0, (pixel, err)
+        t = [float(v) for v in re.findall(r"interface hit at t=([^,]+),",
+                                          out)]
+        atol = 0.05 if "realistic" in case else 1e-3
+        np.testing.assert_allclose(t, faces, atol=atol, err_msg=pixel)
 
 
 def test_cli_probes(tmp_path, capsys):

@@ -485,10 +485,11 @@ def test_vspg_render_chunks_and_grids_agree(dev):
                                           ("machines", "resampling")])
 def test_vspg_render_row_blocks_stitch(dev, scene, method):
     """B3 with a pixel base: the image's rows rendered as four blocks
-    (``block_constants``, bases 0, npix/4, ...) stitch into the whole
-    render float for float, one launch and one reduce a block; a block
-    against its plain version with the same base, bit for bit."""
+    (``parallel/mesh.render_block``, bases 0, npix/4, ...) stitch into the
+    whole render float for float, one launch and one reduce a block; a
+    block against its plain version with the same base, bit for bit."""
     from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.parallel import mesh
 
     c, g, ftab, itab = _vspg_inputs(dev, res=32, waves=1, method=method,
                                     scene=scene)
@@ -497,12 +498,9 @@ def test_vspg_render_row_blocks_stitch(dev, scene, method):
     before = dict(sk.LAUNCHES)
     parts = []
     for r in range(4):
-        cb, base = sk.block_constants(c, r, 4)
-        n = cb.nx * cb.ny
-        it = itab[:, base:base + n].contiguous()
-        parts.append(sk.render_vspg_kernel(cb, g, ftab, it, 4, 3,
-                                           pix_base=base))
+        parts.append(mesh.render_block(c, g, ftab, itab, r, 4, 4, 3)[0])
         if r == 2:
+            cb, it, base = mesh.row_block(c, itab, r, 4)
             p = sk.render_vspg_plain(cb, g, ftab, it, 4, 3, pix_base=base)
             assert torch.equal(parts[-1], p)
     torch.cuda.synchronize()

@@ -23,6 +23,7 @@ from vspg_pbrt_v4_tpu_torch import convert
 from vspg_pbrt_v4_tpu_torch.parallel import dryrun, mesh
 
 W = 2
+MESH = "vspg_pbrt_v4_tpu_torch.parallel.mesh:"  # spawn's job names
 RES = 16
 FOG_CFG = jv.VolPathConfig(max_depth=8, max_events=32)
 
@@ -58,7 +59,8 @@ def test_volpath_entry_points_match_jax(entry, spp):
     ref = np.asarray(getattr(jmesh, entry)(scene, cam, film, spp, FOG_CFG,
                                             3, mesh=_devices(axis)))
     port = convert.from_jax(scene, cam, film, FOG_CFG, "cpu")
-    img = dryrun.spawn(W, entry, (*port[:3], spp, port[3], 3)).numpy()
+    img = dryrun.spawn(W, MESH + entry,
+                       (*port[:3], spp, port[3], 3)).numpy()
     assert img.shape == ref.shape == (RES, RES, 3)
     frac = _close(img, ref)
     print(f"{entry}: {frac:.4f} of pixels within 1e-3 of JAX")

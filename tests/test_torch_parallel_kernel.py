@@ -16,9 +16,9 @@ from vspg_pbrt_v4_tpu.parallel import mesh as jmesh
 from vspg_pbrt_v4_tpu.utils import transform as jtr
 from vspg_pbrt_v4_tpu_torch import convert
 from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
-from vspg_pbrt_v4_tpu_torch.parallel import dryrun
+from vspg_pbrt_v4_tpu_torch.parallel import dryrun, mesh
 
-from test_torch_parallel import W, _close, _devices
+from test_torch_parallel import MESH, W, _close, _devices
 from test_torch_vspg_kernel import (CFG, GOPT, QUADRANTS, RES, VOPT,
                                     bf16_table, port_inputs, trained, wave)
 
@@ -40,11 +40,10 @@ def test_kernel_route_blocks_match_jax_sharded_kernel(trained):
     ftab = bf16_table(ftab)
     blocks = []
     for r in range(W):
-        cb, base = sk.block_constants(c, r, W)
-        n = cb.nx * cb.ny
-        assert base == r * RES * RES // W
-        blocks.append(sk.render_vspg_plain(cb, g, ftab, itab[:, base:base + n],
-                                           2, 9, pix_base=base))
+        assert mesh.row_block(c, itab, r, W)[2] == r * RES * RES // W
+        img, cap = mesh.render_block(c, g, ftab, itab, r, W, 2, 9)
+        assert int(cap) == 0
+        blocks.append(img)
     img = torch.cat(blocks, 0)
     assert torch.equal(img, sk.render_vspg_plain(c, g, ftab, itab, 2, 9))
     img = img.numpy()
@@ -65,7 +64,7 @@ def test_kernel_route_ranks_equal_unsharded(trained):
     tg, tv = convert.options_from_jax(GOPT, VOPT)
     tfield = convert.field_from_jax(field, "cpu")
     tisgb = convert.isgb_from_jax(isgb, "cpu")
-    img = dryrun.spawn(W, "render_vspg_pallas_sharded",
+    img = dryrun.spawn(W, MESH + "render_vspg_pallas_sharded",
                        (ts, tc, tf, 2, tcfg, tg, tv, tfield, tisgb),
                        dict(seed=9))
     whole = sk.render_frozen(ts, tc, tf, 2, tcfg, tg, tv, tfield, tisgb,
@@ -84,7 +83,7 @@ def test_kernel_route_refuses_split_rows(trained):
                                         CFG, "cpu")
     tg, tv = convert.options_from_jax(GOPT, VOPT)
     with pytest.raises(RuntimeError, match="whole rows"):
-        dryrun.spawn(W, "render_vspg_pallas_sharded",
+        dryrun.spawn(W, MESH + "render_vspg_pallas_sharded",
                      (ts, tc, tf, 1, tcfg, tg, tv,
                       convert.field_from_jax(field, "cpu"),
                       convert.isgb_from_jax(isgb, "cpu")))

@@ -14,7 +14,8 @@ from vspg_pbrt_v4_tpu.parallel import mesh as jmesh
 from vspg_pbrt_v4_tpu_torch import convert
 from vspg_pbrt_v4_tpu_torch.parallel import dryrun
 
-from test_torch_parallel import FOG_CFG, RES, W, _close, _devices, _fog
+from test_torch_parallel import (FOG_CFG, MESH, RES, W, _close, _devices,
+                                 _fog)
 from test_torch_vspg_kernel import QUADRANTS
 
 
@@ -37,7 +38,7 @@ def test_render_vspg_sharded_matches_jax():
     ts, tc, tf, tcfg = convert.from_jax(scene, cam, film, FOG_CFG, "cpu")
     tg, tv = convert.options_from_jax(gopt, vopt)
     img, field, isgb = dryrun.spawn(
-        W, "render_vspg_sharded", (ts, tc, tf, spp),
+        W, MESH + "render_vspg_sharded", (ts, tc, tf, spp),
         dict(cfg=tcfg, gopt=tg, vopt=tv, seed=5, spp_per_pass=1))
     img = img.numpy()
     assert field.iteration == int(jfield.iteration) > 0

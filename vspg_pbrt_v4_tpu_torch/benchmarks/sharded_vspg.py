@@ -11,11 +11,13 @@ Without ``--cpu`` it takes one NCCL rank a card (N defaults to the
 visible cards); with it, gloo ranks on the CPU through the render
 kernel's plain version (a rehearsal: ``--cpu --world 4 --res 16 --waves
 1 --spp 1``). Every rank trains the same field (the guiding modules'
-scatter-adds take a fixed order) and checks its copy against rank 0's.
-Then, each the best of 3 after one: every rank's block alone (its render
-call with the block's pixel base, by CUDA events on a card), the whole
-sharded call by the host's clock between barriers (the blocks and the
-gather), and on rank 0 the unsharded ``render_frozen``. The stitched
+scatter-adds take a fixed order): its field and ISGB tables must equal
+rank 0's bit for bit. Then, each the best of 3 after one: every rank's
+block alone (``mesh.render_block``, by CUDA events on a card), the whole
+sharded call (its tables, the blocks and the gather) by the host's clock
+between barriers, and on rank 0 the unsharded ``render_frozen`` (its
+tables and the render) by the host's clock too, and its render alone by
+CUDA events. The speed-up divides the two host-clock times. The stitched
 image must equal the unsharded one float for float. Prints a line a rank
 and a summary, with the card's name and power limit.
 """
@@ -31,6 +33,28 @@ import torch
 import torch.distributed as dist
 
 from ..parallel import dryrun, mesh
+
+
+def _host_best_of_3(fn, cuda):
+    """Best ms of 3 runs after one by the host's clock, from a
+    synchronised card to a synchronised card."""
+    fn()
+    best = float("inf")
+    for _ in range(3):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def _same_as_rank0(t):
+    """Whether this rank's `t` equals rank 0's bit for bit."""
+    parts = mesh.gather_rows(t[None])
+    return bool(torch.equal(parts[dist.get_rank()], parts[0]))
 
 
 def _best_of_3(fn, cuda):
@@ -78,15 +102,11 @@ def job(res, waves, spp, method, *, device):
                                       device=dev)
     c, g, ftab, itab = sk.kernel_inputs(pyro, cam, film, cfg, gopt, vopt,
                                         field, isgb)
-    sums = [None] * world
-    dist.all_gather_object(sums, (float(ftab.double().sum()),
-                                  float(itab.double().sum())))
-    cb, base = sk.block_constants(c, rank, world)
-    n = cb.nx * cb.ny
-    it = itab[:, base:base + n].contiguous()
+    same_field = _same_as_rank0(ftab) and _same_as_rank0(itab)
+    base = mesh.row_block(c, itab, rank, world)[2]
     block_ms = _best_of_3(
-        lambda: sk.render_vspg_items(cb, g, ftab, it, spp, 11,
-                                     pix_base=base), cuda)
+        lambda: mesh.render_block(c, g, ftab, itab, rank, world, spp, 11),
+        cuda)
 
     def sharded():
         return mesh.render_vspg_pallas_sharded(pyro, cam, film, spp, cfg,
@@ -104,14 +124,17 @@ def job(res, waves, spp, method, *, device):
         dist.barrier()
         call_ms = min(call_ms, (time.perf_counter() - t0) * 1e3)
     report = dict(rank=rank, device=str(dev), block_ms=block_ms,
-                  pix_base=base, same_field=sums[rank] == sums[0],
-                  call_ms=call_ms)
+                  pix_base=base, same_field=same_field, call_ms=call_ms)
     if rank == 0:
-        whole = sk.render_frozen(pyro, cam, film, spp, cfg, gopt, vopt,
-                                 field, isgb, seed=11)
-        report.update(equal=bool(torch.equal(img, whole)),
-                      whole_ms=_best_of_3(lambda: sk.render_vspg_kernel(
-                          c, g, ftab, itab, spp, 11), cuda),
+        def whole():
+            return sk.render_frozen(pyro, cam, film, spp, cfg, gopt, vopt,
+                                    field, isgb, seed=11)
+
+        report.update(equal=bool(torch.equal(img, whole())),
+                      whole_ms=_host_best_of_3(whole, cuda),
+                      whole_kernel_ms=_best_of_3(
+                          lambda: sk.render_vspg_kernel(c, g, ftab, itab,
+                                                        spp, 11), cuda),
                       mean=float(img.mean()))
     reports = [None] * world
     dist.all_gather_object(reports, report)
@@ -144,16 +167,19 @@ def main(argv=None):
         print(f"sharded_vspg {a.method} {a.res}x{a.res}x{a.spp} rank "
               f"{r['rank']} of {world} ({r['device']}): its block from pixel "
               f"{r['pix_base']} {r['block_ms']:.3f} ms, the sharded call "
-              f"{r['call_ms']:.3f} ms, field equal to rank 0's: "
-              f"{r['same_field']} [{card}]", flush=True)
+              f"{r['call_ms']:.3f} ms, field and ISGB tables equal to rank "
+              f"0's bit for bit: {r['same_field']} [{card}]", flush=True)
     r0 = reports[0]
     slowest = max(r["block_ms"] for r in reports)
     print(f"sharded_vspg {a.method} {a.res}x{a.res}x{a.spp} over {world} "
-          f"ranks: the sharded call {r0['call_ms']:.3f} ms (slowest block "
-          f"{slowest:.3f} ms) against {r0['whole_ms']:.3f} ms unsharded on "
-          f"one card ({r0['whole_ms'] / r0['call_ms']:.3f}x); stitched "
-          f"image equal to the unsharded render bit for bit: {r0['equal']}; "
-          f"mean {r0['mean']:.6f} [{card}]", flush=True)
+          f"ranks, by the host's clock with tables: the sharded call "
+          f"{r0['call_ms']:.3f} ms against {r0['whole_ms']:.3f} ms unsharded "
+          f"on one card ({r0['whole_ms'] / r0['call_ms']:.3f}x); by "
+          f"{'the host' if a.cpu else 'CUDA events'}, the render alone: "
+          f"the slowest block {slowest:.3f} ms against {r0['whole_kernel_ms']:.3f} ms unsharded "
+          f"({r0['whole_kernel_ms'] / slowest:.3f}x); stitched image equal "
+          f"to the unsharded render bit for bit: {r0['equal']}; mean "
+          f"{r0['mean']:.6f} [{card}]", flush=True)
     ok = r0["equal"] and all(r["same_field"] for r in reports)
     return 0 if ok else 1
 

@@ -15,10 +15,11 @@ float, and the first prints
 ``dryrun_multichip(N): ok; rays-sharded mean=... vspg-sharded mean=...
 vspg-kernel-sharded mean=...``.
 
-``spawn`` runs any entry point of ``mesh.py`` in such a world on a job
-file (the tests hold the sharded entry points against the JAX package's this
-way): every rank is a process of its own that imports torch and this
-package only.
+``spawn`` runs any function, named "module:function", in such a world
+on a job file (the tests hold the sharded entry points against the JAX
+package's this way): every rank is a process of its own that imports torch
+and this package only. ``kernel_route`` is such a job: the sharded kernel
+route with its launches counted.
 """
 
 from __future__ import annotations
@@ -99,12 +100,8 @@ def four_entry_points(res=32, *, device):
     img3, field, isgb = mesh.render_vspg_sharded(
         cloud, camera, film, 1, cfg=cfg, gopt=gopt, vopt=vopt, seed=0,
         spp_per_pass=1, device=device)
-    before = dict(sk.LAUNCHES)
-    img4 = mesh.render_vspg_pallas_sharded(cloud, camera, film, 1, cfg,
-                                           gopt, vopt, field, isgb, seed=1,
-                                           device=device)
-    launches = {k: v - before[k] for k, v in sk.LAUNCHES.items()
-                if v != before[k]}
+    img4, launches = kernel_route(cloud, camera, film, 1, cfg, gopt, vopt,
+                                  field, isgb, seed=1, device=device)
     whole = sk.render_frozen(cloud, camera, film, 1, cfg, gopt, vopt, field,
                              isgb, seed=1)
     imgs = (img1, img2, img3, img4)
@@ -115,10 +112,24 @@ def four_entry_points(res=32, *, device):
         shapes=[tuple(im.shape) for im in imgs],
         field_iteration=int(field.iteration), isgb_ready=bool(isgb.ready),
         kernel_launches=launches,
-        kernel_equals_unsharded=bool(torch.equal(img4, whole)))
+        kernel_equals_unsharded=bool(torch.equal(img4, whole.cpu())))
     reports = [None] * world
     dist.all_gather_object(reports, report)
     return reports
+
+
+def kernel_route(*args, device, **kwargs):
+    """``mesh.render_vspg_pallas_sharded(*args, **kwargs)`` with the VSPG
+    wrappers' launches counted around that call alone: (the whole image,
+    on the CPU, {wrapper: launches})."""
+    from ..ops import vspg_kernels as sk
+
+    before = dict(sk.LAUNCHES)
+    img = mesh.render_vspg_pallas_sharded(*args, device=device, **kwargs)
+    if img.is_cuda:
+        torch.cuda.synchronize(img.device)
+    return img.cpu(), {k: v - before[k] for k, v in sk.LAUNCHES.items()
+                       if v != before[k]}
 
 
 def _run_rank(rank, world, init, cpu, job, out):
@@ -133,12 +144,8 @@ def _run_rank(rank, world, init, cpu, job, out):
                             world_size=world)
     try:
         spec = torch.load(job, weights_only=False)
-        name = spec["fn"]
-        if ":" in name:  # "package.module:function"
-            module, attr = name.split(":")
-            fn = getattr(importlib.import_module(module), attr)
-        else:
-            fn = getattr(mesh, name, None) or globals()[name]
+        module, attr = spec["fn"].split(":")
+        fn = getattr(importlib.import_module(module), attr)
         result = fn(*spec.get("args", ()), device=device,
                     **spec.get("kwargs", {}))
         if rank == 0:
@@ -148,10 +155,13 @@ def _run_rank(rank, world, init, cpu, job, out):
 
 
 def spawn(world, fn, args=(), kwargs=None, cpu=True, timeout=900):
-    """Run `fn` (a name in ``mesh.py`` or here, or "module:function") with
-    `args`, `kwargs` and `device` on each of `world` ranks, each a process
-    of its own (gloo on the CPU or NCCL, one rank a card); returns rank
-    0's result. A rank that fails stops the others and raises."""
+    """Run `fn` ("module:function", e.g.
+    "vspg_pbrt_v4_tpu_torch.parallel.mesh:render_sharded") with `args`,
+    `kwargs` and `device` on each of `world` ranks, each a process of its
+    own (gloo on the CPU or NCCL, one rank a card); returns rank 0's
+    result. A rank that fails stops the others and raises."""
+    if fn.count(":") != 1:
+        raise ValueError(f"spawn takes a \"module:function\", not {fn!r}")
     with tempfile.TemporaryDirectory() as tmp:
         job = Path(tmp) / "job.pt"
         out = Path(tmp) / "out.pt"
@@ -221,7 +231,8 @@ def main(argv=None):
         print(f"dryrun: {world} NCCL ranks need {world} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 1
-    reports = spawn(world, "four_entry_points", (a.res,), cpu=a.cpu)
+    reports = spawn(world, "vspg_pbrt_v4_tpu_torch.parallel.dryrun:"
+                    "four_entry_points", (a.res,), cpu=a.cpu)
     # the kernel route launches the item kernel and the reduce once a rank
     # on a card, nothing on the CPU (the plain version)
     want = {} if a.cpu else {"vspg_render": 1, "vspg_reduce": 1}

@@ -13,7 +13,7 @@ the default process group).
   gathered for each of its updates.
 - The frozen-field VSPG render through the render kernel B3
   (``render_vspg_pallas_sharded``): each rank renders its block of rows
-  with a pixel base (``vspg_kernels.render_vspg_items(pix_base=...)``).
+  with a pixel base (``render_block``).
 
 The caller initialises the process group (NCCL with one rank a card, or
 gloo on the CPU: ``parallel/dryrun.py`` does both); every entry point runs
@@ -226,9 +226,30 @@ def render_vspg_pallas_sharded(scene, camera, film, spp, cfg, gopt, vopt,
                          "TPU lane tiling, which this kernel does not have)")
     c, g, ftab, itab = sk.kernel_inputs(scene, camera, film, cfg, gopt, vopt,
                                         field, isgb, tr_buffer)
+    return gather_rows(render_block(c, g, ftab, itab, rank, world, spp,
+                                    seed)[0])
+
+
+def row_block(c, itab, rank, world):
+    """Rank `rank`'s block of `world` equal blocks of whole rows of the
+    image of kernel constants `c`: (the block's constants, its columns of
+    the ISGB table `itab`, its first image pixel)."""
+    from ..ops import vspg_kernels as sk
+
     cb, base = sk.block_constants(c, rank, world)
     n = cb.nx * cb.ny
-    img = sk.render_vspg_kernel(cb, g, ftab,
-                                itab[:, base:base + n].contiguous(), spp,
-                                seed, pix_base=base)
-    return gather_rows(img)
+    return cb, itab[:, base:base + n].contiguous(), base
+
+
+def render_block(c, g, ftab, itab, rank, world, spp, seed, blocks=None):
+    """B3 on rank `rank`'s block of rows (``row_block``) with the block's
+    first pixel as its pixel base: (the block's (ny / world, nx, 3) image,
+    its items at the cap), as ``vspg_kernels.render_vspg_items`` gives them
+    (the kernel on a card, its plain version on the CPU). The blocks of
+    all ranks stitched in rank order are the whole render float for
+    float. Needs no process group."""
+    from ..ops import vspg_kernels as sk
+
+    cb, it, base = row_block(c, itab, rank, world)
+    return sk.render_vspg_items(cb, g, ftab, it, spp, seed, blocks=blocks,
+                                pix_base=base)
