@@ -73,7 +73,14 @@ the port on several devices and the scene header: the dry run of
 card (the four sharded entry points), B3a, B3b and B3d at 256^2 x 64 as four
 row blocks with pixel bases, stitched equal to the unsharded render bit
 for bit, and the CLI on scene texts with the samplers, filters and
-cameras the port once refused. The grid kernel (B2a-c) runs
+cameras the port once refused. Phase 19, run after 18, drives the other
+media at the sizes their users render: a 256^3 cloud written as a NanoVDB
+file and read back bit for bit, that file through the CLI against B2a on
+the same density in one box and under guidedvolpathvspg; a
+64^3 RGB grid against the same density as a grid medium, and an emissive
+RGB slab against its analytic radiance; the earth medium with a PNG
+heightmap under volpath and guidedvolpathvspg; and a CLI render with a
+PIZ EXR as its MSE reference. The grid kernel (B2a-c) runs
 (pixel, sample) items too:
 9a and 10a hold B2b and B2c per item against the plain per-item version
 at 4 spp, printing the items the kernel reads as 0 (a lost sample), and
@@ -541,8 +548,9 @@ def _grid_report(label, name, c, ms, bound, tag):
 # time (each check prints its lockstep iterations and seconds); kernel
 # and plain version cap the same paths, and the pixels at the cap are
 # held against the plain version's. The main paths' checks (7c, 8, 9d,
-# 12c) run at the bench's max_events.
-PARITY_EVENTS = 32
+# 12c) run at the bench's max_events. Cut from 32 to 8 to make room for
+# phase 19.
+PARITY_EVENTS = 8
 
 
 def _with_max_events(c, n):
@@ -911,7 +919,8 @@ def main():
     # at 64^2 and more at 256^2), so the parity renders are cut to fit the
     # script in its 1200 s
     print("cuts: the parity checks of 7a, 8a, 9a and 12a at max_events "
-          f"{PARITY_EVENTS} (bench: 256); the render checks of 7a, 8a, 9a "
+          f"{PARITY_EVENTS} (bench: 256; 32 before phase 19); the render "
+          "checks of 7a, 8a, 9a "
           "and 12a at 64x64x1 on their record checks' plain runs, as the 1 "
           "spp checks of 7c, 8 (NDS), 9d and 12c (was a plain run of their "
           "own), 7a's, 8a's and 9a's also at 64x64x2 on a plain run of "
@@ -926,7 +935,8 @@ def main():
           f"waves + {P17_UNET_FROZEN} frozen spp (7c: 48 + 64; was 16 + 16), "
           f"17d at {P17_DENOISE_STEPS} steps (was 4 and 48); 18b's plain "
           f"check of one block at 1 spp and max_events {PARITY_EVENTS} "
-          "(bench: 256); 18c's CLI renders at 64x64x16", flush=True)
+          "(bench: 256; 32 before phase 19); 18c's CLI renders at 64x64x16",
+          flush=True)
     k7, inputs7, route7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
     print(f"phase 7 done {_at()}", flush=True)
@@ -955,6 +965,7 @@ def main():
     _phase18(dev, tag, check_parity, kernels,
              {"vspg_render": inputs7, "vspg_render_nds": inputs8,
               "vspg_render_adaptive": inputs12}, route7)
+    _phase19(dev, tag)
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -2902,14 +2913,16 @@ def _cli_start(args):
 
 def _cli_wait(started, args, label, tag):
     """Wait for a CLI run of `_cli_start`; returns (image, the --stats
-    record, seconds with the interpreter's start)."""
+    record with the run's standard output under "stdout", seconds with the
+    interpreter's start)."""
     from vspg_pbrt_v4_tpu_torch.utils.image import read_image
 
     proc, t0 = started
-    _, err = proc.communicate(timeout=600)
+    out, err = proc.communicate(timeout=600)
     dt = time.perf_counter() - t0
     assert proc.returncode == 0, (label, err[-3000:])
     stats = json.loads(err.strip().splitlines()[-1])
+    stats["stdout"] = out
     img = read_image(args[args.index("--outfile") + 1])
     assert np.isfinite(img).all(), label
     print(f"phase {label}: {stats['seconds']:.2f} s in the CLI "
@@ -3545,6 +3558,371 @@ def _phase18(dev, tag, check_parity, kernels, inputs, route):
         assert not same or abs(z) <= 3.0, (name, z)
     print(f"phase 18 done {_at()}, the phase "
           f"{time.perf_counter() - t18:.1f} s", flush=True)
+
+
+# phase 19's sizes, those users of these media render at: 19a's cloud
+# sampled at 256^3 into a NanoVDB file, rendered at 256^2 x 16 through the
+# CLI (maxdepth 16) under volpath and guidedvolpathvspg (4 training waves
+# of 4 spp), B2a on the same density in one box at 16^3 majorants and 64
+# spp; 19b's 64^3 RGB grid against the same density as a grid medium at
+# 128^2 x 16; 19c's earth medium at 256^2 x 16
+P19_GRID, P19_RES, P19_SPP, P19_DEPTH = 256, 256, 16, 16
+P19_B2A_SPP = 64
+P19_RGB_GRID, P19_RGB_RES = 64, 128
+
+def _box_shape(lo, hi):
+    """The 12 triangles of the box [lo, hi] (3-vectors), wound outward
+    (the fog box's corners, in the other order: ``_outward``)."""
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    corners = ((x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+               (x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1))
+    return ('  Shape "trianglemesh" "point3 P" ['
+            + "  ".join(" ".join(f"{v:g}" for v in c) for c in corners)
+            + ']\n    "integer indices" [0 2 1  0 3 2  4 5 6  4 6 7  0 5 4'
+            '  0 1 5  3 6 2  3 7 6  0 7 3  0 4 7  1 6 5  1 2 6]\n')
+
+
+def _medium_scene(medium, res, spp, lo=(0, 0, 0), hi=(1, 1, 1),
+                  integrator='"volpath"',
+                  camera='LookAt 0.5 0.5 -2.2  0.5 0.5 0.5  0 1 0\n'
+                         'Camera "perspective" "float fov" [30]',
+                  lights='LightSource "point" "rgb I" [3 3 3] '
+                         '"point3 from" [0.5 1.6 0.2]\n'
+                         'LightSource "infinite" "rgb L" [0.15 0.18 0.22]'):
+    """A scene text: `medium` (the parameters of MakeNamedMedium "m") inside
+    the box [lo, hi] wound outward, under `lights`; `integrator` the
+    Integrator directive's name (quoted) and parameters."""
+    return (f'Integrator {integrator} "integer maxdepth" [{P19_DEPTH}]\n'
+            f'Sampler "independent" "integer pixelsamples" [{spp}]\n'
+            f'Film "rgb" "integer xresolution" [{res[0]}] '
+            f'"integer yresolution" [{res[1]}]\n{camera}\nWorldBegin\n'
+            f'{lights}\nMakeNamedMedium "m" {medium}\nAttributeBegin\n'
+            f'  Material "interface"\n  MediumInterface "m" ""\n'
+            + _box_shape(lo, hi) + "AttributeEnd\n")
+
+
+# The guided renders of phase 19 (the torch VSPG wave, the JAX XLA path's
+# twin) on the trained resampling route read 0.2-0.8% below volpath on a
+# grid cloud, beyond 4 standard errors at these sizes, in both packages
+# (ROADMAP.md section C 7; benchmarks/vspg_gap.py). They are held to this
+# share of volpath's mean, and their standard errors printed.
+P19_GUIDED_REL = 0.01
+
+
+def _guided_check(label, img, ref, tag):
+    """A guidedvolpathvspg CLI render (4 training waves of 4 spp) against
+    the same file's volpath render: finite, its mean within P19_GUIDED_REL
+    of volpath's; the difference in standard errors printed."""
+    d, z = _z(img, ref)
+    rel = d / ref.mean()
+    print(f"phase {label} under guidedvolpathvspg through the CLI (the "
+          f"resampling route, {P19_SPP // 4} training waves of 4 spp): mean "
+          f"{img.mean():.6f} against volpath's {ref.mean():.6f}, difference "
+          f"{d:+.6f} = {rel:+.4%} = {z:+.2f} standard errors (bound "
+          f"{P19_GUIDED_REL:.0%} of the mean; ROADMAP.md section C 7) {tag}",
+          flush=True)
+    assert np.isfinite(img).all() and abs(rel) <= P19_GUIDED_REL, (label,
+                                                                    rel, z)
+
+
+def _quadrants_z(a, b):
+    """_z of each image quadrant."""
+    ny, nx = a.shape[:2]
+    return [_z(a[ys, xs], b[ys, xs])[1]
+            for ys in (slice(0, ny // 2), slice(ny // 2, ny))
+            for xs in (slice(0, nx // 2), slice(nx // 2, nx))]
+
+
+def _phase19(dev, tag):
+    """The other media (NanoVDB grid files, RGB grids, the earth medium)
+    and the image readers on the card, at the sizes their users render:
+    (a) the port's CloudMedium sampled on a 256^3 grid, written with
+    ``write_nvdb`` and read back through ``scene.assets.get_volume`` bit
+    for bit; a scene file with that ``nanovdb`` medium in a cube wound
+    outward through ``python -m vspg_pbrt_v4_tpu_torch`` (volpath, the
+    torch wavefront) against B2a's ``render_persistent`` of the same
+    density in one box at 16^3 majorants, means and quadrant means within
+    4 standard errors; the file under guidedvolpathvspg through the CLI
+    (4 training waves of 4 spp) within P19_GUIDED_REL of the volpath
+    render. No kernel serves a parsed scene (it has no box) or an RGB grid
+    or the earth medium, in either package. (b) a 64^3 RGB grid whose channels
+    hold a density times a grid medium's sigma, through the CLI, within 4
+    standard errors of that grid medium's scene; an absorbing, emissive
+    RGB slab against the analytic Le (1 - exp(-sigma_a l)) at its centre
+    pixels. (c) the earth medium with a heightmap written by
+    ``write_png``, through the CLI under volpath and guidedvolpathvspg,
+    finite, the guided mean within P19_GUIDED_REL of volpath's. (d) a 64x40 CLI render with
+    ``--mse-reference-image tests/data/piz_64x40.exr`` (a PIZ EXR). The
+    CLI processes run at once, beside this process's renders."""
+    import os
+    import tempfile
+
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath
+    from vspg_pbrt_v4_tpu_torch.models.media import (CloudMedium, GridMedium,
+                                                     Media)
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.scene import (assets, build_render_setup,
+                                              parse_pbrt_file)
+    from vspg_pbrt_v4_tpu_torch.tools.nvdb import write_nvdb
+    from vspg_pbrt_v4_tpu_torch.utils.image import mse, read_image, write_png
+
+    t19 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def write(name, text):
+            path = os.path.join(tmp, name)
+            with open(path, "w") as f:
+                f.write(text)
+            return path
+
+        def exr(name):
+            return os.path.join(tmp, name + ".exr")
+
+        # ---- the files: the NanoVDB cloud, the RGB grids, the heightmap --
+        t0 = time.perf_counter()
+        n = P19_GRID
+        cloud = CloudMedium.make(p0=(0, 0, 0), p1=(1, 1, 1), device=dev)
+        x = (torch.arange(n, device=dev, dtype=torch.float32) + 0.5) / n
+        dens = np.empty((n, n, n), np.float32)
+        for i in range(0, n, 16):  # slabs of 16 x 256 x 256 points
+            X, Y, Z = torch.meshgrid(x[i:i + 16], x, x, indexing="ij")
+            dens[i:i + 16] = cloud.density_at(
+                torch.stack([X, Y, Z], -1)).cpu().numpy()
+        t_sample = time.perf_counter() - t0
+        nvdb = os.path.join(tmp, "cloud.nvdb")
+        t0 = time.perf_counter()
+        write_nvdb(nvdb, dens, index_origin=(0, 0, 0), voxel_size=1.0 / n)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, bmin, bmax = assets.get_volume(nvdb)
+        t_read = time.perf_counter() - t0
+        same = np.array_equal(back, dens)
+        print(f"phase 19a the cloud sampled at {n}^3 on the card in "
+              f"{t_sample:.2f} s (mean density {dens.mean():.4f}), written "
+              f"as NanoVDB in {t_write:.2f} s ({os.path.getsize(nvdb)} "
+              f"bytes), read back through get_volume in {t_read:.2f} s: "
+              f"equal bit for bit {same}, bounds {bmin.tolist()} .. "
+              f"{bmax.tolist()} {tag}", flush=True)
+        assert same and bmin.tolist() == [0, 0, 0] and \
+            bmax.tolist() == [1, 1, 1]
+        nano = (f'"string type" "nanovdb" "string filename" "{nvdb}" '
+                '"rgb sigma_a" [0.3 0.3 0.3] "rgb sigma_s" [1 1.3 1.6] '
+                '"float g" [0.4]')
+        res = (P19_RES, P19_RES)
+        vol_file = write("nanovdb.pbrt", _medium_scene(nano, res, P19_SPP))
+        vspg_file = write("nanovdb_vspg.pbrt", _medium_scene(
+            nano, res, P19_SPP, integrator='"guidedvolpathvspg"'))
+
+        # 19b: a 64^3 density as an RGB grid (its channels the density
+        # times sigma) and as a grid medium with those sigmas
+        m = P19_RGB_GRID
+        g = np.linspace(-1, 1, m)
+        GX, GY, GZ = np.meshgrid(g, g, g, indexing="ij")
+        d64 = np.clip(1.0 - np.sqrt(GX**2 + GY**2 + GZ**2), 0, 1).astype(
+            np.float32) * (1.0 + 0.5 * np.sin(6 * GX) * np.cos(4 * GY))
+        d64 = d64.astype(np.float32)
+        sa, ss = np.float32([0.3, 0.2, 0.1]), np.float32([2.0, 3.0, 4.0])
+
+        def floats(a):
+            # pbrt's order: x fastest, then y, then z
+            return " ".join(f"{v:.6g}" for v in a.transpose(
+                2, 1, 0, *range(3, a.ndim)).reshape(-1))
+
+        rgb = (f'"string type" "rgbgrid" "integer nx" [{m}] "integer ny" '
+               f'[{m}] "integer nz" [{m}] "point3 p0" [0 0 0] '
+               f'"point3 p1" [1 1 1] "float sigma_a" '
+               f'[{floats(d64[..., None] * sa)}] "float sigma_s" '
+               f'[{floats(d64[..., None] * ss)}]')
+        npz = os.path.join(tmp, "d64.npz")
+        np.savez(npz, density=d64, bmin=np.zeros(3, np.float32),
+                 bmax=np.ones(3, np.float32))
+        grid = (f'"string type" "uniformgrid" "string gridfile" "{npz}" '
+                f'"rgb sigma_a" [{" ".join(map(str, sa))}] "rgb sigma_s" '
+                f'[{" ".join(map(str, ss))}]')
+        res_b = (P19_RGB_RES, P19_RGB_RES)
+        rgb_file = write("rgb.pbrt", _medium_scene(rgb, res_b, P19_SPP))
+        grid_file = write("grid.pbrt", _medium_scene(grid, res_b, P19_SPP))
+        # the absorbing, emissive slab over [-1, 1]^2 x [0, 1] seen by an
+        # orthographic camera along +z, no light: Le (1 - exp(-sigma_a))
+        slab_sa, slab_le = np.float32([0.5, 1.0, 2.0]), np.float32([1, 2, 3])
+        k = 4
+        slab = (f'"string type" "rgbgrid" "integer nx" [{k}] "integer ny" '
+                f'[{k}] "integer nz" [{k}] "point3 p0" [-1 -1 0] '
+                f'"point3 p1" [1 1 1] "float sigma_a" '
+                f'[{" ".join(map(str, np.tile(slab_sa, k ** 3)))}] '
+                f'"float Le" [{" ".join(map(str, np.tile(slab_le, k ** 3)))}]')
+        slab_file = write("slab.pbrt", _medium_scene(
+            slab, (64, 64), 64, (-1, -1, 0), (1, 1, 1),
+            camera='LookAt 0 0 -3  0 0 0  0 1 0\nCamera "orthographic"',
+            lights=""))
+
+        # 19c: the earth medium with a generated heightmap
+        rng = np.random.default_rng(19)
+        hm = np.repeat(rng.uniform(0, 1, (16, 32, 1)), 3, -1)
+        hm_png = os.path.join(tmp, "heightmap.png")
+        write_png(hm_png, hm)
+        earth = ('"string type" "earth" "point3 p0" [-1 -1 -1] "point3 p1" '
+                 '[1 1 1] "rgb sigma_a_atmosphere" [0.05 0.05 0.05] '
+                 '"rgb sigma_s_atmosphere" [1 1.5 2] "rgb sigma_a_cloud" '
+                 '[0.1 0.1 0.1] "rgb sigma_s_cloud" [2 2 2] '
+                 '"float innerradius_atmosphere" [0.5] '
+                 '"float outerradius_atmosphere" [1] '
+                 '"float innerradius_cloud" [0.55] '
+                 '"float outerradius_cloud" [0.8] "float decay" [0.15] '
+                 '"float rotationy" [30] "float g" [0.3] '
+                 f'"string heightmap" "{hm_png}"')
+        earth_cam = ('LookAt 0 0 -3.6  0 0 0  0 1 0\n'
+                     'Camera "perspective" "float fov" [36]')
+        earth_lights = ('LightSource "point" "rgb I" [12 12 12] '
+                        '"point3 from" [2 1.5 -1.5]\n'
+                        'LightSource "infinite" "rgb L" [0.05 0.05 0.08]')
+        earth_files = {
+            integ: write(f"earth_{integ}.pbrt", _medium_scene(
+                earth, res, P19_SPP, (-1, -1, -1), (1, 1, 1), f'"{integ}"',
+                earth_cam, earth_lights))
+            for integ in ("volpath", "guidedvolpathvspg")}
+        secs["files"] = time.perf_counter() - t19
+
+        # ---- every CLI process at once ------------------------------------
+        runs = {
+            "19a nanovdb volpath": [vol_file, "--seed", "1", "--outfile",
+                                    exr("nanovdb")],
+            "19a nanovdb guidedvolpathvspg": [
+                vspg_file, "--seed", "9", "--outfile", exr("nanovdb_vspg")],
+            "19b rgbgrid": [rgb_file, "--seed", "2", "--outfile",
+                            exr("rgb")],
+            "19b grid": [grid_file, "--seed", "3", "--outfile", exr("grid")],
+            "19b slab": [slab_file, "--seed", "4", "--outfile",
+                         exr("slab")],
+            "19c earth volpath": [earth_files["volpath"], "--seed", "5",
+                                  "--outfile", exr("earth_volpath")],
+            "19c earth guidedvolpathvspg": [
+                earth_files["guidedvolpathvspg"], "--seed", "6",
+                "--outfile", exr("earth_vspg")],
+            "19d PIZ reference": [
+                os.path.join(root, "scenes", "fogbox.pbrt"), "--resolution",
+                "64x40", "--spp", "4", "--outfile", exr("piz"),
+                "--mse-reference-image",
+                os.path.join(root, "tests", "data", "piz_64x40.exr")]}
+        started = {label: _cli_start(args) for label, args in runs.items()}
+
+        def wait(label):
+            return _cli_wait(started[label], runs[label],
+                             f"{label}, {len(runs)} CLI processes at once",
+                             tag)
+
+        # ---- 19a: B2a on the same density in one box -------------------
+        t0 = time.perf_counter()
+        setup = build_render_setup(parse_pbrt_file(vol_file), device=dev)
+        t_build = time.perf_counter() - t0
+        fg = setup.scene.media.grids[0]
+        assert fg.res == (n, n, n) and fg.maj_res == (64, 64, 64), fg.res
+        gm16 = GridMedium.make(dens, fg.sigma_a.cpu().numpy(),
+                               fg.sigma_s.cpu().numpy(), (0, 0, 0),
+                               (1, 1, 1), g=float(fg.g), maj_res=16,
+                               device=dev)
+        box = Geometry.build(boxes=[dict(bmin=(0, 0, 0), bmax=(1, 1, 1),
+                                         mat=-1, light=-1, med_in=0,
+                                         med_out=-1)], device=dev)
+        box_scene = dataclasses.replace(setup.scene, geometry=box,
+                                        media=Media.make(grids=(gm16,),
+                                                         device=dev))
+        cfg = volpath.VolPathConfig(max_depth=P19_DEPTH)
+        assert vk.extract_constants(setup.scene, setup.camera, setup.film,
+                                    cfg) is None  # parsed: no box
+        counters = (vk.LAUNCHES, sk.LAUNCHES)
+        for counter in counters:
+            for key in counter:
+                counter[key] = 0
+        img_b2a = volpath.render_persistent(
+            box_scene, setup.camera, setup.film, spp=P19_B2A_SPP, cfg=cfg,
+            seed=7, device=dev)
+        torch.cuda.synchronize()
+        launches = {k: v for counter in counters for k, v in counter.items()
+                    if v}
+        assert launches == {"grid": 1, "vspg_reduce": 1}, launches
+        ms_b2a = _events_best_of_3(lambda: volpath.render_persistent(
+            box_scene, setup.camera, setup.film, spp=P19_B2A_SPP, cfg=cfg,
+            seed=7, device=dev))
+        img_b2a = img_b2a.cpu().numpy()
+        print(f"phase 19a B2a on the file's density in one box ({n}^3, 16^3 "
+              f"majorants) {res[0]}x{res[1]}x{P19_B2A_SPP} via "
+              f"render_persistent: {ms_b2a:.3f} ms the call by CUDA events, "
+              f"launches {launches}, mean {img_b2a.mean():.6f}; the file "
+              f"parsed and built in {t_build:.2f} s ({n}^3 grid, 64^3 "
+              f"majorants) {tag}", flush=True)
+
+        img_vol, st_vol, _ = wait("19a nanovdb volpath")
+        assert st_vol["resolution"] == [P19_RES, P19_RES], st_vol
+        d, z = _z(img_b2a, img_vol)
+        zq = _quadrants_z(img_b2a, img_vol)
+        print(f"phase 19a the NanoVDB file through the CLI (volpath) "
+              f"{res[0]}x{res[1]}x{P19_SPP}: mean {img_vol.mean():.6f} "
+              f"against B2a's {img_b2a.mean():.6f}, difference {d:+.6f} = "
+              f"{z:+.2f} standard errors, quadrants "
+              f"{[round(float(v), 2) for v in zq]} (bound 4) {tag}",
+              flush=True)
+        assert abs(z) <= 4.0 and max(abs(v) for v in zq) <= 4.0, (z, zq)
+        img_v = wait("19a nanovdb guidedvolpathvspg")[0]
+        _guided_check("19a the NanoVDB file", img_v, img_vol, tag)
+        secs["19a"] = time.perf_counter() - t19 - secs["files"]
+
+        # ---- 19b: the RGB grid ------------------------------------------
+        t0 = time.perf_counter()
+        img_rgb = wait("19b rgbgrid")[0]
+        img_grid = wait("19b grid")[0]
+        d, z = _z(img_rgb, img_grid)
+        print(f"phase 19b the {m}^3 RGB grid (channels the density times "
+              f"sigma) through the CLI {res_b[0]}x{res_b[1]}x{P19_SPP}: mean "
+              f"{img_rgb.mean():.6f} against the grid medium's "
+              f"{img_grid.mean():.6f}, difference {d:+.6f} = {z:+.2f} "
+              f"standard errors (bound 4) {tag}", flush=True)
+        assert abs(z) <= 4.0 and img_rgb.mean() > 0, z
+        img_slab = wait("19b slab")[0]
+        centre = img_slab[24:40, 24:40].reshape(-1, 3).astype(np.float64)
+        want = (slab_le * (1.0 - np.exp(-slab_sa))).astype(np.float64)
+        err = centre.std(0) / np.sqrt(centre.shape[0])
+        zs = (centre.mean(0) - want) / np.maximum(err, 1e-12)
+        print(f"phase 19b the absorbing, emissive RGB slab (sigma_a "
+              f"{slab_sa.tolist()}, Le {slab_le.tolist()}, 1 thick) at its "
+              f"16x16 centre pixels: {centre.mean(0).round(5).tolist()} "
+              f"against Le (1 - exp(-sigma_a l)) = {want.round(5).tolist()}, "
+              f"{zs.round(2).tolist()} standard errors (bound 4) {tag}",
+              flush=True)
+        assert np.all(np.abs(zs) <= 4.0), zs
+        secs["19b"] = time.perf_counter() - t0
+
+        # ---- 19c: the earth medium ----------------------------------------
+        t0 = time.perf_counter()
+        img_ev = wait("19c earth volpath")[0]
+        img_eg = wait("19c earth guidedvolpathvspg")[0]
+        assert np.isfinite(img_ev).all() and img_ev.mean() > 0
+        _guided_check(f"19c the earth medium with a {hm.shape[1]}x"
+                      f"{hm.shape[0]} PNG heightmap", img_eg, img_ev, tag)
+        secs["19c"] = time.perf_counter() - t0
+
+        # ---- 19d: a PIZ reference image -----------------------------------
+        t0 = time.perf_counter()
+        img_p, st_p, _ = wait("19d PIZ reference")
+        ref = read_image(os.path.join(root, "tests", "data",
+                                      "piz_64x40.exr"))
+        line = st_p["stdout"].strip().splitlines()[-1]
+        printed = float(line.split(",")[2])
+        print(f"phase 19d a 64x40 CLI render with --mse-reference-image "
+              f"tests/data/piz_64x40.exr (PIZ, {ref.shape[1]}x{ref.shape[0]}"
+              f"): the CLI printed {line!r}, this process reads "
+              f"{mse(img_p, ref):.6g} {tag}", flush=True)
+        assert line.startswith("MSE,4,") and np.isfinite(printed)
+        assert abs(printed - mse(img_p, ref)) <= 1e-5 * mse(img_p, ref)
+        secs["19d"] = time.perf_counter() - t0
+    print(f"phase 19 seconds: the files {secs['files']:.1f}, 19a "
+          f"{secs['19a']:.1f}, then waiting on the CLI: 19b {secs['19b']:.1f}, "
+          f"19c {secs['19c']:.1f}, 19d {secs['19d']:.1f} {tag}", flush=True)
+    print(f"phase 19 done {_at()}, the phase "
+          f"{time.perf_counter() - t19:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The port's scene-file entry point: its ``volpath.render`` against the
 JAX package's on the parsed fog box, and the CLI
 (``python -m vspg_pbrt_v4_tpu_torch``) on the CPU against the API bit for
-bit, with --time, a --checkpoint resume, --mse-reference-image, the
-probes and the guiding caches of both packages; the guided integrators
+bit, with --time, a --checkpoint resume, --mse-reference-image (a PIZ
+EXR too), PFM and QOI outfiles, the probes and the guiding caches of
+both packages; scene texts with NanoVDB, RGB-grid and earth media; the guided integrators
 (``guidedvolpath``, ``guidedpath``) against ``render_guided``, the VSPG
 scene file with its cloud and U-Net against ``render_vspg``, and
 --guiding-gbuffer against the JAX package's. Without --cpu and without a
@@ -215,17 +216,80 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
     bdpt.write_text('Integrator "bdpt"\nWorldBegin\n')
     assert cli.main([str(bdpt), "--cpu", "--quiet"]) == 1
     assert "ROADMAP.md §A" in capsys.readouterr().err
-    # the procedural cloud is ported; the planet-scale earth medium and RGB
-    # grids are not
+    # every medium is ported; a disk and a spot light in the VSPG scene
+    # file are not
     with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
         cloud_text = f.read()
-    for kind in ("earth", "rgbgrid"):
+    for kind, line in (("disk", 'Shape "disk" "float radius" [1]'),
+                       ("spot", 'LightSource "spot" "rgb I" [1 1 1]')):
         path = tmp_path / f"{kind}.pbrt"
-        path.write_text(cloud_text.replace('"string type" "cloud"',
-                                           f'"string type" "{kind}"'))
+        path.write_text(cloud_text + "\n" + line + "\n")
         assert cli.main([str(path), "--cpu", "--quiet"]) == 1
-        assert f'MakeNamedMedium type "{kind}" is not ported' in \
-            capsys.readouterr().err
+        assert f'"{kind}" is not ported' in capsys.readouterr().err
+    # an output image type the writers do not know
+    assert cli.main([FOGBOX, "--cpu", "--quiet", "--resolution", "4x4",
+                     "--spp", "1", "--outfile",
+                     str(tmp_path / "x.jpg")]) == 1
+    assert "unsupported image extension" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case,ext", [("nanovdb", "exr"),
+                                      ("rgbgrid", "pfm"), ("earth", "qoi")])
+def test_cli_renders_the_other_media(tmp_path, capsys, monkeypatch, case,
+                                     ext):
+    """A scene text with a NanoVDB grid, an emissive RGB grid or the earth
+    medium with its heightmap renders through the CLI on the CPU (--cpu),
+    its image the API's render of the same setup (bit for bit where the
+    output is float: EXR and PFM; QOI to its 8-bit sRGB step); without
+    --cpu and without a card the CLI exits non-zero."""
+    from test_torch_scene_builder import MEDIA_BODY, _media_text
+
+    scene = tmp_path / f"{case}.pbrt"
+    scene.write_text(MEDIA_BODY.format(medium=_media_text(case, tmp_path)))
+    out = str(tmp_path / f"{case}.{ext}")
+    assert cli.main([str(scene), "--cpu", "--quiet", "--spp", "4",
+                     "--seed", "3", "--outfile", out]) == 0
+    s = tbuild(tparse_file(str(scene)), 4, None, device="cpu")
+    img = tv.render(s.scene, s.camera, s.film, spp=4,
+                    cfg=tv.VolPathConfig(max_depth=32), seed=3,
+                    spp_per_pass=4, device="cpu").numpy()
+    assert np.isfinite(img).all() and img.mean() > 0
+    got = read_image(out)
+    if ext == "qoi":
+        np.testing.assert_allclose(got, np.clip(img, 0, 1), atol=1e-2)
+    else:
+        np.testing.assert_array_equal(got, img)
+    if case == "earth":
+        # --volMajScale scales the earth's majorant_scale, as in JAX's CLI
+        # (a majorant is any bound: the estimate stays unbiased)
+        assert cli.main([str(scene), "--cpu", "--quiet", "--spp", "4",
+                         "--volMajScale", "2", "--outfile", out]) == 0
+        assert np.isfinite(read_image(out)).all()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    capsys.readouterr()
+    assert cli.main([str(scene), "--quiet"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_cli_pfm_outfile_and_piz_reference(tmp_path, capsys):
+    """--outfile x.pfm writes the image losslessly, and
+    --mse-reference-image reads a PIZ EXR (tests/data/piz_64x40.exr, its
+    R, G and B) for the MSE of a 64x40 render."""
+    from vspg_pbrt_v4_tpu_torch.utils.image import mse, read_pfm
+
+    ref = os.path.join(REPO, "tests", "data", "piz_64x40.exr")
+    out = str(tmp_path / "m.pfm")
+    capsys.readouterr()
+    assert cli.main([FOGBOX, "--cpu", "--quiet", "--spp", "2",
+                     "--spp-per-pass", "2", "--resolution", "64x40",
+                     "--seed", "3", "--outfile", out,
+                     "--mse-reference-image", ref]) == 0
+    img = _api(2, 2, res=(64, 40))
+    np.testing.assert_array_equal(read_pfm(out), img)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    want = mse(img, read_image(ref))
+    assert line.startswith("MSE,2,") and want > 0
+    assert float(line.split(",")[2]) == pytest.approx(want, rel=1e-5)
 
 
 def test_field_caches_load_across_packages(tmp_path):
@@ -271,7 +335,8 @@ def test_checkpoints_load_across_packages(tmp_path):
     w = rng.uniform(0, 4, 12).astype(np.float32)
     jck.save_render_state(str(tmp_path / "j.npz"), JFilmState(
         jnp.asarray(rgb), jnp.asarray(w), jnp.zeros((12, 3))), 8, 3)
-    st, spp, seed = tck.load_render_state(str(tmp_path / "j.npz"))
+    st, spp, seed = tck.load_render_state(str(tmp_path / "j.npz"),
+                                          device="cpu")
     assert (spp, seed) == (8, 3)
     np.testing.assert_array_equal(st.rgb_sum.numpy(), rgb)
     np.testing.assert_array_equal(st.weight_sum.numpy(), w)

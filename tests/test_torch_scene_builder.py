@@ -321,9 +321,6 @@ def test_spheres_lane_for_lane():
 
 
 REFUSED = {
-    "cloud": None,
-    "rgbgrid": 'MakeNamedMedium "m" "string type" "rgbgrid"',
-    "nanovdb": 'MakeNamedMedium "m" "string type" "nanovdb"',
     "disk": 'Shape "disk" "float radius" [1]',
     "spot": 'LightSource "spot" "rgb I" [1 1 1]',
     "coateddiffuse": 'Material "coateddiffuse"',
@@ -339,22 +336,113 @@ REFUSED = {
 def test_unported_directives_raise(case):
     """What the JAX builder builds and the port does not serve raises
     NotImplementedError naming the directive, its type and its
-    file:line. ("cloud": the shipped cloud scene file with its procedural
-    cloud, which the port builds, swapped for the planet-scale "earth"
-    medium, which it does not.)"""
-    if case == "cloud":
-        with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
-            text = f.read().replace('"string type" "cloud"',
-                                    '"string type" "earth"')
-        ds = tparse(text, "cloud_vspg.pbrt")
-        want = 'cloud_vspg.pbrt:23: MakeNamedMedium type "earth"'
-    else:
-        ds = tparse("WorldBegin\n" + REFUSED[case] + "\n")
-        want = f"<string>:2: {REFUSED[case].split()[0]}"
+    file:line."""
+    ds = tparse("WorldBegin\n" + REFUSED[case] + "\n")
+    want = f"<string>:2: {REFUSED[case].split()[0]}"
     with pytest.raises(NotImplementedError) as e:
         tbuild(ds, device="cpu")
     assert str(e.value).startswith(want), str(e.value)
     assert case.split()[-1] in str(e.value)
+
+
+MEDIA_BODY = '''
+LookAt 0 0 -4  0 0 0  0 1 0
+Camera "perspective" "float fov" [30]
+Film "rgb" "integer xresolution" [8] "integer yresolution" [8]
+WorldBegin
+LightSource "infinite" "rgb L" [0.5 0.5 0.5]
+AttributeBegin
+  Translate 0.25 0 0
+  Scale 1 2 1
+  MakeNamedMedium "m" {medium}
+AttributeEnd
+AttributeBegin
+  MediumInterface "m" ""
+  Material ""
+  Shape "sphere" "float radius" [1.2]
+AttributeEnd
+'''
+
+
+def _media_text(case, tmp_path):
+    """A scene text whose medium is of the kind `case` names; its files
+    (a NanoVDB grid, a PNG heightmap) written under tmp_path."""
+    from vspg_pbrt_v4_tpu_torch.tools.nvdb import write_nvdb
+    from vspg_pbrt_v4_tpu_torch.utils.image import write_png
+
+    rng = np.random.default_rng(8)
+    if case == "nanovdb":
+        path = str(tmp_path / "g.nvdb")
+        write_nvdb(path, rng.uniform(0, 2, (16, 8, 8)).astype(np.float32),
+                   index_origin=(-8, -8, 0), voxel_size=0.125)
+        return ('"string type" "nanovdb" "string filename" "%s" '
+                '"rgb sigma_s" [1 2 3] "float densityoffset" [0.5] '
+                '"float majorantscale" [1.25]' % path)
+    if case == "rgbgrid":
+        n = 2 * 3 * 4 * 3
+        vals = " ".join(f"{v:.4f}" for v in rng.uniform(0, 2, n))
+        le = " ".join(f"{v:.4f}" for v in rng.uniform(0, 1, n))
+        return ('"string type" "rgbgrid" "integer nx" [2] "integer ny" [3] '
+                '"integer nz" [4] "point3 p0" [-1 -1 -1] "point3 p1" '
+                f'[1 0.5 1] "float sigma_a" [{vals}] "float sigma_s" '
+                f'[{vals}] "float Le" [{le}] "float Lescale" [2] '
+                '"float scale" [1.5] "float g" [0.3] '
+                '"float majorantscale" [1.1]')
+    if case in ("earth", "earth heightmap fails"):
+        path = str(tmp_path / "hm.png")
+        if case == "earth":
+            write_png(path, rng.uniform(0, 1, (8, 16, 3)))
+        return ('"string type" "earth" "rgb sigma_a_atmosphere" [0.1 0.2 '
+                '0.3] "rgb sigma_s_atmosphere" [1 1.5 2] "rgb sigma_a_cloud" '
+                '[0.5 0.5 0.5] "rgb sigma_s_cloud" [2 2 2] "point3 p0" '
+                '[-1.5 -1.5 -1.5] "point3 p1" [1.5 1.5 1.5] "point3 center" '
+                '[0 0.1 0] "float innerradius_atmosphere" [0.5] '
+                '"float outerradius_atmosphere" [1.2] '
+                '"float innerradius_cloud" [0.6] "float outerradius_cloud" '
+                '[0.9] "float decay" [0.25] "float densityoffset" [0.01] '
+                '"float rotationy" [45] "float majorantscale" [1.2] '
+                '"float scale_atmosphere" [0.5] "float scale_cloud" [2] '
+                f'"float g" [0.1] "string heightmap" "{path}"')
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["nanovdb", "rgbgrid", "earth",
+                                  "earth heightmap fails", "cloud file"])
+def test_media_build_alike(case, tmp_path):
+    """The media the port once refused build as in the JAX builder, every
+    field equal (floats within 1e-6): a NanoVDB grid file with its
+    densityoffset and majorantscale, an inline RGB grid with Le under a
+    CTM, the earth medium with a PNG heightmap (its channels averaged) and
+    with one that fails to load (the same warning, a constant shell), and
+    the shipped cloud scene file with its cloud swapped for the earth
+    medium."""
+    if case == "cloud file":
+        with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
+            text = f.read().replace('"string type" "cloud"',
+                                    '"string type" "earth"')
+    else:
+        text = MEDIA_BODY.format(medium=_media_text(case, tmp_path))
+    if case == "earth heightmap fails":
+        with pytest.warns(UserWarning) as rec:
+            ts = tbuild(tparse(text), device="cpu")
+        msgs = [str(w.message) for w in rec]
+        with pytest.warns(UserWarning) as rec_j:
+            js = jbuild(jparse(text))
+        assert any("earth heightmap" in m and "constant shell" in m
+                   for m in msgs), msgs
+        assert sorted(msgs) == sorted(str(w.message) for w in rec_j)
+    else:
+        ts, js = tbuild(tparse(text), device="cpu"), jbuild(jparse(text))
+    _check_alike(ts, js)
+    media = ts.scene.media
+    kind = {"nanovdb": "GridMedium", "rgbgrid": "RGBGridMedium"}.get(
+        case, "EarthMedium")
+    held = media.grids if kind != "EarthMedium" else media.procedurals
+    assert [type(m).__name__ for m in held] == [kind]
+    if case == "earth":
+        assert tuple(held[0].heightmap.shape) == (8, 16)
+    if case == "earth heightmap fails":
+        assert tuple(held[0].heightmap.shape) == (1, 1)
 
 
 def test_unknown_types_warn_and_degrade():

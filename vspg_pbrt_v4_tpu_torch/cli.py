@@ -138,13 +138,20 @@ def main(argv=None):
 
     if args.volMajScale is not None:
         # the global majorant override (cmd/pbrt.cpp:208 --volMajScale):
-        # a majorant is any upper bound, so estimators stay unbiased
+        # every grid's majorant table and every procedural medium's
+        # majorant_scale (the cloud's majorant is exact); a majorant is any
+        # upper bound, so estimators stay unbiased
         s = float(args.volMajScale)
         media = setup.scene.media
         grids = tuple(dataclasses.replace(gm, majorant=gm.majorant * s)
                       for gm in media.grids)
+        procs = tuple(
+            dataclasses.replace(pm, majorant_scale=pm.majorant_scale * s)
+            if hasattr(pm, "majorant_scale") else pm
+            for pm in media.procedurals)
         setup = setup._replace(scene=dataclasses.replace(
-            setup.scene, media=dataclasses.replace(media, grids=grids)))
+            setup.scene, media=dataclasses.replace(
+                media, grids=grids, procedurals=procs)))
 
     if args.pixelmaterial:
         x, y = (int(v) for v in args.pixelmaterial.split(","))
@@ -164,7 +171,7 @@ def _render(args, setup, device, t0, build_s):
     from .scene.parser import ParameterDictionary
     from .utils import log
     from .utils.image import mse as mse_np
-    from .utils.image import read_image, write_exr, write_png
+    from .utils.image import read_image, write_exr, write_image
 
     if args.debugstart:
         # single-sample replay: the stateless counter RNG makes any
@@ -193,6 +200,10 @@ def _render(args, setup, device, t0, build_s):
     name = setup.integrator
     spp_per_pass = max(1, min(args.spp_per_pass, setup.spp))
     out = args.outfile or setup.outfile
+    if os.path.splitext(out)[1] not in ("", ".exr", ".pfm", ".qoi", ".png"):
+        print(f"error: unsupported image extension: {out!r} (supported: "
+              ".exr .pfm .qoi .png)", file=sys.stderr)
+        return 1
 
     progressive = (args.time is not None or args.write_partial_images
                    or args.checkpoint)
@@ -301,10 +312,7 @@ def _render(args, setup, device, t0, build_s):
     img = img.cpu().numpy()
 
     dt = time.perf_counter() - t0
-    if out.endswith(".png"):
-        write_png(out, img)
-    else:
-        write_exr(out, img)
+    write_image(out, img)
     if ref is not None:
         mse_log.append((setup.spp, mse_np(img, ref)))
         for s, m in mse_log:

@@ -19,7 +19,8 @@ from .models.filters import Filter
 from .models.integrators.volpath import Scene, VolPathConfig
 from .models.lights import Lights
 from .models.materials import Materials
-from .models.media import CloudMedium, GridMedium, Media
+from .models.media import (CloudMedium, EarthMedium, GridMedium, Media,
+                           RGBGridMedium)
 from .models.shapes import Geometry
 from .models.textures import Textures
 from .ops.bvh import bvh_from_arrays
@@ -105,12 +106,21 @@ def _media(m, device):
     medium ids."""
     procs = []
     for pm in getattr(m, "procedurals", ()):
-        if type(pm).__name__ != "CloudMedium":
+        cls = {"CloudMedium": CloudMedium,
+               "EarthMedium": EarthMedium}.get(type(pm).__name__)
+        if cls is None:
             raise NotImplementedError(f"{type(pm).__name__} is not ported")
-        procs.append(CloudMedium(*(_t(getattr(pm, f), device, torch.float32)
-                                   for f in CloudMedium.__dataclass_fields__)))
+        procs.append(cls(*(_t(getattr(pm, f), device, torch.float32)
+                           for f in cls.__dataclass_fields__)))
     grids = []
     for gm in m.grids:
+        if type(gm).__name__ == "RGBGridMedium":
+            grids.append(RGBGridMedium(
+                *(_t(getattr(gm, f), device, torch.float32)
+                  for f in list(RGBGridMedium.__dataclass_fields__)[:-2]),
+                tuple(int(v) for v in gm.res),
+                tuple(int(v) for v in gm.maj_res)))
+            continue
         if type(gm).__name__ != "GridMedium":
             raise NotImplementedError(f"{type(gm).__name__} is not ported")
         grids.append(GridMedium(

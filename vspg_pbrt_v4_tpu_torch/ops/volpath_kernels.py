@@ -138,7 +138,8 @@ def extract_constants(scene, camera, film, cfg):
         return None
     m = scene.media
     if len(m.procedurals):
-        return None  # the kernels sample homogeneous media and one grid
+        return None  # the kernels sample homogeneous media and one grid;
+        # the cloud and the earth medium are procedural
     bmin = g.box_min[0].cpu().numpy()
     bmax = g.box_max[0].cpu().numpy()
     grid = None
@@ -151,6 +152,10 @@ def extract_constants(scene, camera, film, cfg):
         g_hg = float(m.h_g[0])
     elif len(m.grids) == 1 and m.n_homog == 0:
         grid = m.grids[0]
+        # an RGB grid has no density times base colour (pallas_volpath's
+        # type test, before any field is read)
+        if not isinstance(grid, GridMedium):
+            return None
         if g.n_tri and not all(
                 bool(((v >= grid.b_min) & (v <= grid.b_max)).all())
                 for v in (g.tri_p0, g.tri_p1, g.tri_p2)):

@@ -379,7 +379,8 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
     smooth dielectric or CookTorrance materials: ``pallas_vspg.supports``'
     gate, which refuses the mesh class), a uniform or an adaptive field and
     any of the three distance routes. It shades no emission, so it refuses
-    area lights, and it sees no sphere and no procedural medium."""
+    area lights, and it sees no sphere, no RGB grid (refused in
+    ``extract_constants``) and no procedural medium."""
     if (scene.lights.n_area or scene.geometry.n_sph
             or len(scene.media.procedurals)):
         return False

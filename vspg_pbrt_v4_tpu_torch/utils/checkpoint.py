@@ -19,7 +19,7 @@ def save_render_state(path, film_state: FilmState, spp_done: int, seed: int):
              splat_sum=np.zeros_like(rgb), spp_done=spp_done, seed=seed)
 
 
-def load_render_state(path, device="cpu"):
+def load_render_state(path, device="cuda"):
     """(FilmState on `device`, spp_done, seed)."""
     d = np.load(path)
     if np.any(d["splat_sum"]):

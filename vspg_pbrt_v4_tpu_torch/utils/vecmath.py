@@ -1,11 +1,11 @@
 """Vector geometry over ``(..., 3)`` tensors (counterpart of
-``utils/vecmath.py``, only what the ported integrators use)."""
+``utils/vecmath.py``, only what the ported integrators and media use)."""
 
 from __future__ import annotations
 
 import torch
 
-from .math import PI, safe_acos, safe_div, sqr
+from .math import PI, safe_acos, safe_div, safe_sqrt, sqr
 
 
 def dot(a, b):
@@ -21,6 +21,14 @@ def cross(a, b):
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
     return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
                         a0 * b1 - a1 * b0], dim=-1)
+
+
+def length(v):
+    return torch.sqrt(length_squared(v))
+
+
+def distance(a, b):
+    return length(a - b)
 
 
 def normalize(v):
@@ -72,3 +80,22 @@ def spherical_theta(v):
 def spherical_phi(v):
     p = torch.atan2(v[..., 1], v[..., 0])
     return torch.where(p < 0, p + 2.0 * PI, p)
+
+
+def equal_area_sphere_to_square(d):
+    """Clarberg's equal-area map of unit directions to [0, 1]^2."""
+    x, y, z = torch.abs(d[..., 0]), torch.abs(d[..., 1]), torch.abs(d[..., 2])
+    r = safe_sqrt(1.0 - z)
+    a = torch.maximum(x, y)
+    b = torch.minimum(x, y)
+    b = torch.where(a == 0, 0.0, safe_div(b, a))
+    phi = torch.atan(b) * (2.0 / PI)
+    phi = torch.where(x < y, 1.0 - phi, phi)
+    v_ = phi * r
+    u_ = r - v_
+    # southern hemisphere: fold
+    u_s = torch.where(d[..., 2] < 0, 1.0 - v_, u_)
+    v_s = torch.where(d[..., 2] < 0, 1.0 - u_, v_)
+    u_f = u_s * torch.sign(d[..., 0])
+    v_f = v_s * torch.sign(d[..., 1])
+    return torch.stack([0.5 * (u_f + 1.0), 0.5 * (v_f + 1.0)], dim=-1)
