@@ -80,7 +80,18 @@ the same density in one box and under guidedvolpathvspg; a
 64^3 RGB grid against the same density as a grid medium, and an emissive
 RGB slab against its analytic radiance; the earth medium with a PNG
 heightmap under volpath and guidedvolpathvspg; and a CLI render with a
-PIZ EXR as its MSE reference. The grid kernel (B2a-c) runs
+PIZ EXR as its MSE reference. Phase 20, run after 19, drives the other
+lights and the light samplers at the sizes their users render: a scene
+with a spot, goniometric, projection and distant light, a 2048x1024
+lat-long image environment and a blackbody area light through the CLI;
+a goniometric light with a constant image against a point light, and a
+constant image environment against the constant one; a ceiling of 4096
+emissive triangles and 16 point lights under the BVH light sampler
+against the power sampler; a room lit through a window by a 1024^2 image
+environment with and without a portal, and filled with fog under the
+guided integrators; and the fog box and the pyro cloud with a distant
+light added, which no kernel serves, through ``render_persistent`` and
+``render_vspg`` with no kernel launch. The grid kernel (B2a-c) runs
 (pixel, sample) items too:
 9a and 10a hold B2b and B2c per item against the plain per-item version
 at 4 spp, printing the items the kernel reads as 0 (a lost sample), and
@@ -935,7 +946,13 @@ def main():
           f"waves + {P17_UNET_FROZEN} frozen spp (7c: 48 + 64; was 16 + 16), "
           f"17d at {P17_DENOISE_STEPS} steps (was 4 and 48); 18b's plain "
           f"check of one block at 1 spp and max_events {PARITY_EVENTS} "
-          "(bench: 256; 32 before phase 19); 18c's CLI renders at 64x64x16",
+          "(bench: 256; 32 before phase 19); 18c's CLI renders at 64x64x16; "
+          f"19's CLI renders at {P19_SPP} spp (was 16); "
+          f"20a's API pairs at {P20_PAIR_RES}^2 x {P20_SPP}; 20b as two "
+          f"{P20_SPP // 2}-spp renders a sampler; 20e at {P20_PAIR_RES}^2 x "
+          f"{P20_SPP // 2} (the fog box; phase 6: 256^2 x 64) and "
+          f"{P20_VSPG_RES}^2 with {P20_VSPG_WAVES} training waves + "
+          f"{P20_VSPG_WAVES} spp (the pyro cloud; 7c: 256^2, 48 + 64)",
           flush=True)
     k7, inputs7, route7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
@@ -966,6 +983,7 @@ def main():
              {"vspg_render": inputs7, "vspg_render_nds": inputs8,
               "vspg_render_adaptive": inputs12}, route7)
     _phase19(dev, tag)
+    _phase20(dev, tag)
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -3561,12 +3579,13 @@ def _phase18(dev, tag, check_parity, kernels, inputs, route):
 
 
 # phase 19's sizes, those users of these media render at: 19a's cloud
-# sampled at 256^3 into a NanoVDB file, rendered at 256^2 x 16 through the
-# CLI (maxdepth 16) under volpath and guidedvolpathvspg (4 training waves
-# of 4 spp), B2a on the same density in one box at 16^3 majorants and 64
-# spp; 19b's 64^3 RGB grid against the same density as a grid medium at
-# 128^2 x 16; 19c's earth medium at 256^2 x 16
-P19_GRID, P19_RES, P19_SPP, P19_DEPTH = 256, 256, 16, 16
+# sampled at 256^3 into a NanoVDB file, rendered at 256^2 through the
+# CLI (maxdepth 16) under volpath and guidedvolpathvspg (P19_SPP // 4
+# training waves of 4 spp), B2a on the same density in one box at 16^3
+# majorants and 64 spp; 19b's 64^3 RGB grid against the same density as a
+# grid medium at 128^2; 19c's earth medium at 256^2. Every CLI render at
+# P19_SPP: 8, cut from 16 to keep the script inside its 1200 s
+P19_GRID, P19_RES, P19_SPP, P19_DEPTH = 256, 256, 8, 16
 P19_B2A_SPP = 64
 P19_RGB_GRID, P19_RGB_RES = 64, 128
 
@@ -3610,9 +3629,10 @@ P19_GUIDED_REL = 0.01
 
 
 def _guided_check(label, img, ref, tag):
-    """A guidedvolpathvspg CLI render (4 training waves of 4 spp) against
-    the same file's volpath render: finite, its mean within P19_GUIDED_REL
-    of volpath's; the difference in standard errors printed."""
+    """A guidedvolpathvspg CLI render (P19_SPP // 4 training waves of 4
+    spp) against the same file's volpath render: finite, its mean within
+    P19_GUIDED_REL of volpath's; the difference in standard errors
+    printed."""
     d, z = _z(img, ref)
     rel = d / ref.mean()
     print(f"phase {label} under guidedvolpathvspg through the CLI (the "
@@ -3643,10 +3663,11 @@ def _phase19(dev, tag):
     torch wavefront) against B2a's ``render_persistent`` of the same
     density in one box at 16^3 majorants, means and quadrant means within
     4 standard errors; the file under guidedvolpathvspg through the CLI
-    (4 training waves of 4 spp) within P19_GUIDED_REL of the volpath
-    render. No kernel serves a parsed scene (it has no box) or an RGB grid
-    or the earth medium, in either package. (b) a 64^3 RGB grid whose channels
-    hold a density times a grid medium's sigma, through the CLI, within 4
+    (P19_SPP // 4 training waves of 4 spp) within P19_GUIDED_REL of the
+    volpath render. No kernel serves a parsed scene (it has no box) or an
+    RGB grid or the earth medium, in either package. (b) a 64^3 RGB grid
+    whose channels hold a density times a grid medium's sigma, through the
+    CLI, within 4
     standard errors of that grid medium's scene; an absorbing, emissive
     RGB slab against the analytic Le (1 - exp(-sigma_a l)) at its centre
     pixels. (c) the earth medium with a heightmap written by
@@ -3923,6 +3944,530 @@ def _phase19(dev, tag):
           f"19c {secs['19c']:.1f}, 19d {secs['19d']:.1f} {tag}", flush=True)
     print(f"phase 19 done {_at()}, the phase "
           f"{time.perf_counter() - t19:.1f} s", flush=True)
+
+
+
+# Phase 20's sizes: the CLI renders at P20_RES^2 x P20_SPP (20b's as two
+# renders of half the samples a sampler, for the per-pixel variance), the
+# environment a 2048x1024 lat-long image (1024^2 equal-area once built),
+# 20a's API pairs and 20e's fog box at P20_PAIR_RES^2, 20e's pyro cloud at
+# P20_VSPG_RES^2 with P20_VSPG_WAVES training waves and as many frozen spp
+P20_RES, P20_SPP, P20_DEPTH = 256, 16, 8
+P20_PAIR_RES = 128
+P20_ENV = (2048, 1024)
+P20_CEILING = (64, 32)  # quads: 4096 emissive triangles
+P20_VSPG_RES, P20_VSPG_WAVES = 64, 2
+# 20a's lane check: every light's sampling on the card against the same
+# lights on the CPU (which the tests hold against the JAX package), on
+# P20_LANES seeded draws; a lane agrees when every output is within
+# rtol/atol (flags and indices equal), and P20_LANE_SHARE of them must
+P20_LANES, P20_LANE_RTOL, P20_LANE_ATOL, P20_LANE_SHARE = (
+    1 << 16, 1e-4, 1e-5, 0.999)
+
+P20_MAT = 'Material "diffuse" "rgb reflectance" [0.6 0.55 0.5]\n'
+# 20e holds the kernel-free route against backend="torch": the film adds a
+# pixel's samples with index_add_, which on a card adds in no fixed order,
+# so the two images agree to float32 rounding of that sum, not bit for bit
+P20_ORDER_REL = 1e-5
+
+
+def _rel_diff(a, b):
+    """Largest |a - b| / max(|b|, 1e-6) over the image."""
+    return (torch.abs(a - b) / torch.clamp(torch.abs(b), min=1e-6)).max(
+        ).item()
+
+
+def _quad(corners, flip=False):
+    """A trianglemesh line of the quad with `corners` (4 points): the
+    triangles 0 1 2 and 0 2 3, wound the other way with `flip`."""
+    idx = "0 2 1  0 3 2" if flip else "0 1 2  0 2 3"
+    return ('Shape "trianglemesh" "point3 P" ['
+            + "  ".join(" ".join(f"{v:g}" for v in c) for c in corners)
+            + f'] "integer indices" [{idx}]\n')
+
+
+def _header(integrator, res, spp, camera, sampler="uniform",
+            depth=P20_DEPTH):
+    return (f'Integrator "{integrator}" "integer maxdepth" [{depth}] '
+            f'"string lightsampler" "{sampler}"\n'
+            f'Sampler "independent" "integer pixelsamples" [{spp}]\n'
+            f'Film "rgb" "integer xresolution" [{res}] '
+            f'"integer yresolution" [{res}]\n{camera}\nWorldBegin\n')
+
+
+def _sky(w, h):
+    """A smooth lat-long sky (h, w, 3) float32: brighter toward the map's
+    +z pole and toward phi = pi/2, with no feature sharper than a texel of
+    the portal's 128^2 warp."""
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2 * np.pi
+    ct = np.cos(theta)[:, None, None]
+    sp = (np.sin(phi)[None, :, None] * np.sin(theta)[:, None, None])
+    img = (np.asarray([0.35, 0.45, 0.7]) * (1.2 + ct)
+           + np.asarray([0.5, 0.35, 0.2]) * (1.0 + sp) ** 2)
+    return img.astype(np.float32)
+
+
+# 20a: an open corner (a floor, a back and a left wall) seen from the front
+P20_CORNER_CAMERA = ('LookAt 0 2.2 -5.5  0 0.8 0.5  0 1 0\n'
+                     'Camera "perspective" "float fov" [45]')
+P20_CORNER = (P20_MAT
+              + _quad([(-3, 0, -3), (-3, 0, 3), (3, 0, 3), (3, 0, -3)])
+              + _quad([(-3, 0, 3), (-3, 3, 3), (3, 3, 3), (3, 0, 3)])
+              + _quad([(-3, 0, -3), (-3, 3, -3), (-3, 3, 3), (-3, 0, 3)]))
+# 20c and 20d: a closed 4 x 3 x 4 room with a 1.6 x 1.2 window in its +z
+# wall, seen from inside; the portal's corners are the window's, its frame's
+# z (p1 - p0 cross p3 - p0) pointing out of the room
+P20_WINDOW = ((-0.8, 0.8, 2.0), (0.8, 0.8, 2.0), (0.8, 2.0, 2.0),
+              (-0.8, 2.0, 2.0))
+P20_ROOM_CAMERA = ('LookAt 0 1.5 -1.9  0 0.7 1.2  0 1 0\n'
+                   'Camera "perspective" "float fov" [70]')
+P20_ROOM = (P20_MAT
+            + _quad([(-2, 0, -2), (-2, 0, 2), (2, 0, 2), (2, 0, -2)])
+            + _quad([(-2, 3, -2), (2, 3, -2), (2, 3, 2), (-2, 3, 2)])
+            + _quad([(-2, 0, -2), (-2, 3, -2), (-2, 3, 2), (-2, 0, 2)])
+            + _quad([(2, 0, -2), (2, 0, 2), (2, 3, 2), (2, 3, -2)])
+            + _quad([(-2, 0, -2), (2, 0, -2), (2, 3, -2), (-2, 3, -2)])
+            + _quad([(-2, 0, 2), (-2, 0.8, 2), (2, 0.8, 2), (2, 0, 2)])
+            + _quad([(-2, 2, 2), (-2, 3, 2), (2, 3, 2), (2, 2, 2)])
+            + _quad([(-2, 0.8, 2), (-2, 2, 2), (-0.8, 2, 2), (-0.8, 0.8, 2)])
+            + _quad([(0.8, 0.8, 2), (0.8, 2, 2), (2, 2, 2), (2, 0.8, 2)]))
+P20_FOG = ('MakeNamedMedium "fog" "string type" "homogeneous" "rgb sigma_a" '
+           '[0.02 0.02 0.02] "rgb sigma_s" [0.3 0.32 0.35] "float g" [0.3]\n'
+           'AttributeBegin\n  Material "interface"\n'
+           '  MediumInterface "fog" ""\n'
+           + _box_shape((-1.9, 0.02, -1.0), (1.9, 2.9, 1.9))
+           + "AttributeEnd\n")
+
+
+def _many_lights(rng):
+    """20b's lights: a ceiling at y = 3 of P20_CEILING quads, 4096 emissive
+    triangles facing down in 16 strips of their own radiance, and 16 point
+    lights of their own intensity over the floor."""
+    nx, nz = P20_CEILING
+    xs, zs = np.linspace(-4, 4, nx + 1), np.linspace(-4, 4, nz + 1)
+    out = []
+    per = nz // 16
+    for strip in range(16):
+        P, idx = [], []
+        for j in range(strip * per, (strip + 1) * per):
+            for i in range(nx):
+                b = len(P)
+                P += [(xs[i], 3, zs[j]), (xs[i + 1], 3, zs[j]),
+                      (xs[i + 1], 3, zs[j + 1]), (xs[i], 3, zs[j + 1])]
+                idx += [b, b + 1, b + 2, b, b + 2, b + 3]
+        L = rng.uniform(0.2, 3.0, 3) * (1.0 if strip % 5 else 6.0)
+        out.append('AttributeBegin\n  AreaLightSource "diffuse" "rgb L" ['
+                   + " ".join(f"{v:.4f}" for v in L) + ']\n'
+                   '  Shape "trianglemesh" "point3 P" ['
+                   + " ".join(f"{v:g}" for p in P for v in p)
+                   + '] "integer indices" [' + " ".join(map(str, idx))
+                   + ']\nAttributeEnd\n')
+    for k in range(16):
+        p = rng.uniform((-3.5, 0.3, -3.5), (3.5, 1.2, 3.5))
+        I_ = rng.uniform(0.1, 1.5, 3)
+        out.append('LightSource "point" "rgb I" ['
+                   + " ".join(f"{v:.4f}" for v in I_) + '] "point3 from" ['
+                   + " ".join(f"{v:.4f}" for v in p) + "]\n")
+    return "".join(out)
+
+
+def _with_distant(scene, dev):
+    """`scene` with a distant light added beside its point light and
+    constant environment."""
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+
+    li = scene.lights
+    assert not li.n_area and not li.beyond_kernels
+    lights = Lights.make(
+        point_p=li.point_p.cpu().numpy() if li.n_point else None,
+        point_I=li.point_I.cpu().numpy() if li.n_point else None,
+        env_L=li.env_L.cpu().numpy() if li.has_env else None,
+        distant_dir=[(0.3, -1.0, 0.2)], distant_L=[(0.6, 0.55, 0.5)],
+        world_radius=li.world_radius, device=dev)
+    return dataclasses.replace(scene, lights=lights)
+
+
+def _launch_counts():
+    """Every kernel wrapper's launch count, by name."""
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels, volpath_kernels
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels
+
+    return {k: v for c in (volpath_kernels.LAUNCHES, vspg_kernels.LAUNCHES,
+                           surface_kernels.LAUNCHES) for k, v in c.items()}
+
+
+def _zero_launches():
+    from vspg_pbrt_v4_tpu_torch.ops import surface_kernels, volpath_kernels
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels
+
+    for c in (volpath_kernels.LAUNCHES, vspg_kernels.LAUNCHES,
+              surface_kernels.LAUNCHES):
+        for k in c:
+            c[k] = 0
+
+
+def _phase20(dev, tag):
+    """The other lights and the light samplers on the card, at the sizes
+    their users render. (a) A scene file with a spot, a goniometric and a
+    projection light (their images PFMs the script writes), a distant
+    light, an image environment from a 2048x1024 lat-long PFM (1024^2
+    equal-area once built) and a blackbody area light over a floor and two
+    walls, through the CLI under volpath at 256^2 x 16; through the API, a
+    goniometric light with a constant image against a point light of the
+    same I, a spot light whose full-intensity cone holds the whole scene
+    against a point light of the same I, and a constant image environment
+    against the constant one, each pair's means within 4 standard errors;
+    and those lights (a 256x128 sky in place of the large one) under the
+    bvh sampler, ``sample``, ``sample_le``, ``le_escaped`` and
+    ``pdf_li_escaped`` on the card lane for lane against the same lights
+    on the CPU (the spot's cone edge, the projection's and goniometric
+    images, the blackbody area light and the BVH descent). (b) A ceiling
+    of 4096 emissive triangles and 16 point lights over a floor under the
+    bvh light sampler against the power sampler through the CLI, the means
+    within 4 standard errors, each sampler's seconds and the ratio of
+    their per-pixel variances printed. (c) A room lit through a window by the
+    1024^2 image environment, with and without a portal on the window,
+    through the CLI: the means within 4 standard errors. (d) That room with
+    a box of fog under guidedvolpath and guidedvolpathvspg through the
+    CLI, each mean within P19_GUIDED_REL of volpath's. (e) Phase 6's fog
+    box and 7c's pyro cloud, each with a distant light added, through
+    ``render_persistent`` and ``render_vspg``: no kernel launch (the
+    kernels refuse these lights, as the JAX package's gates do), the image
+    within P20_ORDER_REL of backend="torch"'s (the film's index_add_ adds
+    in no fixed order on a card). The CLI processes run at once, beside
+    this process's renders."""
+    import os
+    import tempfile
+
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.scene import (build_render_setup,
+                                              parse_pbrt_string)
+    from vspg_pbrt_v4_tpu_torch.utils.image import write_pfm
+
+    t20 = time.perf_counter()
+    secs = {}
+    rng = np.random.default_rng(20)
+    with tempfile.TemporaryDirectory() as tmp:
+        def write(name, text):
+            path = os.path.join(tmp, name)
+            with open(path, "w") as f:
+                f.write(text)
+            return path
+
+        def exr(name):
+            return os.path.join(tmp, name + ".exr")
+
+        # ---- the files ---------------------------------------------------
+        sky = os.path.join(tmp, "sky.pfm")
+        write_pfm(sky, _sky(*P20_ENV))
+        gonio = os.path.join(tmp, "gonio.pfm")
+        u = (np.arange(64) + 0.5) / 64
+        write_pfm(gonio, (0.3 + np.sin(6 * u)[:, None, None] ** 2
+                          * np.cos(3 * u)[None, :, None] ** 2
+                          * np.ones(3)).astype(np.float32))
+        proj = os.path.join(tmp, "proj.pfm")
+        write_pfm(proj, rng.uniform(0.1, 1.0, (96, 128, 3)).astype(
+            np.float32))
+        ones = os.path.join(tmp, "ones.pfm")
+        write_pfm(ones, np.ones((32, 32, 3), np.float32))
+        const_env = os.path.join(tmp, "const_env.pfm")
+        write_pfm(const_env, np.full((32, 64, 3), 0.4, np.float32))
+        lights_a = (
+            'LightSource "spot" "rgb I" [8 7 6] "point3 from" [1.5 2.5 0] '
+            '"point3 to" [1 0 1] "float coneangle" [30] '
+            '"float conedeltaangle" [6]\n'
+            'AttributeBegin\n  Translate -1 1.8 0.5\n  Rotate 90 1 0 0\n'
+            '  LightSource "goniometric" "rgb I" [3 3 3] '
+            f'"string filename" "{gonio}"\nAttributeEnd\n'
+            'AttributeBegin\n  Translate 0 2.5 1.5\n  Rotate 90 1 0 0\n'
+            '  LightSource "projection" "rgb I" [6 6 6] "float fov" [40] '
+            f'"string filename" "{proj}"\nAttributeEnd\n'
+            'LightSource "distant" "rgb L" [0.8 0.75 0.7] '
+            '"point3 from" [-1 3 -2] "point3 to" [0 0 0]\n'
+            f'LightSource "infinite" "string filename" "{sky}" '
+            '"float scale" [0.5]\n'
+            'AttributeBegin\n  AreaLightSource "diffuse" "blackbody L" '
+            '[2700]\n  '
+            + _quad([(0.5, 1.5, 2.5), (1.5, 1.5, 2.5), (1.5, 2.3, 2.5),
+                     (0.5, 2.3, 2.5)], flip=True) + 'AttributeEnd\n')
+        all_file = write("all.pbrt", _header(
+            "volpath", P20_RES, P20_SPP, P20_CORNER_CAMERA)
+            + lights_a + P20_CORNER)
+        many = _many_lights(rng)
+        many_camera = ('LookAt 0 2.2 -6  0 0 0.5  0 1 0\n'
+                       'Camera "perspective" "float fov" [50]')
+        many_files = {
+            smp: write(f"many_{smp}.pbrt", _header(
+                "volpath", P20_RES, P20_SPP // 2, many_camera, smp) + many
+                + P20_MAT + _quad([(-4, 0, -4), (-4, 0, 4), (4, 0, 4),
+                                   (4, 0, -4)]))
+            for smp in ("bvh", "power")}
+        portal = (' "point3 portal" ['
+                  + "  ".join(" ".join(f"{v:g}" for v in c)
+                              for c in P20_WINDOW) + "]")
+        env = f'LightSource "infinite" "string filename" "{sky}"'
+        room = {name: write(f"room_{name}.pbrt", _header(
+            "volpath", P20_RES, P20_SPP, P20_ROOM_CAMERA)
+            + env + (portal if name == "portal" else "") + "\n" + P20_ROOM)
+            for name in ("env", "portal")}
+        fog = {}
+        for integ in ("volpath", "guidedvolpath", "guidedvolpathvspg"):
+            head = _header(integ, P20_RES, P20_SPP, P20_ROOM_CAMERA)
+            if integ == "guidedvolpathvspg":
+                head = head.replace('"string lightsampler" "uniform"',
+                                    '"string isgbdenoiser" "atrous"')
+            fog[integ] = write(f"fog_{integ}.pbrt", head + env + portal
+                               + "\n" + P20_ROOM + P20_FOG)
+        secs["files"] = time.perf_counter() - t20
+
+        # ---- every CLI process at once ------------------------------------
+        runs = {"20a every light": [all_file, "--seed", "1", "--outfile",
+                                    exr("all")]}
+        for smp in ("bvh", "power"):
+            for half in (0, 1):
+                runs[f"20b {smp} {half}"] = [
+                    many_files[smp], "--seed", str(2 + half), "--outfile",
+                    exr(f"many_{smp}_{half}")]
+        for name in ("env", "portal"):
+            runs[f"20c {name}"] = [room[name], "--seed", "4", "--outfile",
+                                   exr(f"room_{name}")]
+        for integ in fog:
+            runs[f"20d {integ}"] = [fog[integ], "--seed", "5", "--outfile",
+                                    exr(f"fog_{integ}")]
+        started = {label: _cli_start(args) for label, args in runs.items()}
+
+        def wait(label):
+            return _cli_wait(started[label], runs[label],
+                             f"{label}, {len(runs)} CLI processes at once",
+                             tag)
+
+        # ---- 20a: the API pairs -----------------------------------------
+        t0 = time.perf_counter()
+        head = _header("volpath", P20_PAIR_RES, P20_SPP, P20_CORNER_CAMERA)
+        pairs = {
+            "a goniometric light with a constant image against a point "
+            "light of the same I": (
+                'AttributeBegin\n  Translate 0 1.5 0.5\n  Rotate 40 1 1 0\n'
+                '  LightSource "goniometric" "rgb I" [3 3 3] '
+                f'"string filename" "{ones}"\nAttributeEnd\n',
+                'LightSource "point" "rgb I" [3 3 3] "point3 from" '
+                '[0 1.5 0.5]\n'),
+            "a spot light whose full-intensity cone holds the whole scene "
+            "against a point light of the same I": (
+                'LightSource "spot" "rgb I" [3 3 3] "point3 from" '
+                '[0 1.5 0.5] "point3 to" [0 0 0.5] "float coneangle" [170] '
+                '"float conedeltaangle" [10]\n',
+                'LightSource "point" "rgb I" [3 3 3] "point3 from" '
+                '[0 1.5 0.5]\n'),
+            "a constant image environment against the constant one": (
+                f'LightSource "infinite" "string filename" "{const_env}"\n',
+                'LightSource "infinite" "rgb L" [0.4 0.4 0.4]\n')}
+        # seeds of their own: the spot and the goniometric light stand where
+        # the point light does and draw alike, so one seed gives one image
+        for i, (what, (text_a, text_b)) in enumerate(pairs.items()):
+            imgs = []
+            for seed, text in ((6 + 2 * i, text_a), (7 + 2 * i, text_b)):
+                setup = build_render_setup(parse_pbrt_string(
+                    head + text + P20_CORNER), device=dev)
+                imgs.append(volpath.render(
+                    setup.scene, setup.camera, setup.film, spp=P20_SPP,
+                    cfg=volpath.VolPathConfig(max_depth=P20_DEPTH),
+                    seed=seed, spp_per_pass=P20_SPP,
+                    device=dev).cpu().numpy())
+            d, z = _z(*imgs)
+            print(f"phase 20a {what} through build_render_setup + "
+                  f"volpath.render {P20_PAIR_RES}^2 x {P20_SPP}: means "
+                  f"{imgs[0].mean():.6f} and {imgs[1].mean():.6f}, "
+                  f"difference {d:+.6f} = {z:+.2f} standard errors "
+                  f"(bound 4) {tag}", flush=True)
+            assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
+            assert abs(z) <= 4.0, (what, z)
+        secs["20a pairs"] = time.perf_counter() - t0
+
+        # ---- 20a: every light's sampling, the card against the CPU ---------
+        t0 = time.perf_counter()
+        sky_small = os.path.join(tmp, "sky_small.pfm")
+        write_pfm(sky_small, _sky(256, 128))
+        lights = build_render_setup(parse_pbrt_string(
+            _header("volpath", P20_PAIR_RES, P20_SPP, P20_CORNER_CAMERA,
+                    "bvh") + lights_a.replace(sky, sky_small) + P20_CORNER),
+            device=dev).scene.lights
+        n = P20_LANES
+        ref_p = rng.uniform((-3, 0, -3), (3, 3, 3), (n, 3))
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        u1 = rng.uniform(0, 1, (2, n))
+        u2 = rng.uniform(0, 1, (2, n, 2))
+        draws = [x.astype(np.float32) for x in (ref_p, d, *u1, *u2)]
+        outs = {}
+        for where, lt, on in (("card", lights, dev),
+                              ("cpu", lights.to("cpu"), "cpu")):
+            p_, d_, us, ul, ua, ub = (torch.from_numpy(x).to(on)
+                                      for x in draws)
+            s_ = lt.sample(p_, us, ua)
+            le = lt.sample_le(us, ul, ua, ub)
+            outs[where] = dict(
+                {f"sample.{k}": v for k, v in s_._asdict().items()},
+                **{f"sample_le[{i}]": v for i, v in enumerate(le)},
+                le_escaped=lt.le_escaped(d_, p_),
+                pdf_li_escaped=lt.pdf_li_escaped(d_, p_))
+        agree = torch.ones(n, dtype=torch.bool)
+        worst = {}
+        for k, want in outs["cpu"].items():
+            got = outs["card"][k].cpu()
+            if want.is_floating_point():
+                ok = torch.isclose(got, want, rtol=P20_LANE_RTOL,
+                                   atol=P20_LANE_ATOL, equal_nan=True)
+            else:
+                ok = got == want
+            ok = ok.reshape(n, -1).all(-1)
+            worst[k] = ok.float().mean().item()
+            agree &= ok
+        share = agree.float().mean().item()
+        low = min(worst, key=worst.get)
+        picked = torch.bincount(
+            outs["card"]["sample.light_idx"].clamp(min=0).cpu()).tolist()
+        print(f"phase 20a spot, goniometric, projection, distant, image "
+              f"environment and blackbody area lights under the bvh sampler: "
+              f"sample, sample_le, le_escaped and pdf_li_escaped on the card "
+              f"against the CPU on {n} lanes: {share:.6f} of lanes agree "
+              f"within rtol {P20_LANE_RTOL:g} atol {P20_LANE_ATOL:g}, flags "
+              f"and indices equal (bound {P20_LANE_SHARE}); least {low} "
+              f"{worst[low]:.6f}; lanes by light picked {picked} {tag}",
+              flush=True)
+        assert share >= P20_LANE_SHARE, (share, worst)
+        secs["20a lanes"] = time.perf_counter() - t0
+
+        # ---- 20e: lights no kernel serves ---------------------------------
+        t0 = time.perf_counter()
+        cfg6 = volpath.VolPathConfig(max_depth=32, max_events=128,
+                                     max_collisions=2048)
+        res = P20_PAIR_RES
+        cam, film = (vk.bench_camera(res, device=dev),
+                     RGBFilm.make((res, res), device=dev))
+        fogbox = _with_distant(vk.make_fog_box_scene(device=dev), dev)
+        assert vk.extract_constants(fogbox, cam, film, cfg6) is None
+        _zero_launches()
+        img = volpath.render_persistent(fogbox, cam, film,
+                                        spp=P20_SPP // 2, cfg=cfg6, seed=8,
+                                        device=dev)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _launch_counts().items() if v}
+        ref = volpath.render_persistent(fogbox, cam, film, spp=P20_SPP // 2,
+                                        cfg=cfg6, seed=8, backend="torch",
+                                        device=dev)
+        rel = _rel_diff(img, ref)
+        print(f"phase 20e phase 6's fog box with a distant light through "
+              f"render_persistent {res}^2 x {P20_SPP // 2}: kernel launches "
+              f"{launched or 0}, the image against backend='torch': largest "
+              f"relative difference {rel:.3e} (bound {P20_ORDER_REL:g}), "
+              f"mean {img.mean().item():.6f} {tag}", flush=True)
+        assert not launched and rel <= P20_ORDER_REL
+        assert bool(torch.isfinite(img).all())
+        cfg7 = volpath.VolPathConfig(max_depth=64, max_events=256,
+                                     max_collisions=4096)
+        gopt = guided_volpath.GuidingOptions(
+            field_res=8, record_depth=6, min_train_weight=16.0,
+            train_waves=P20_VSPG_WAVES)
+        vopt = vspg.VSPGOptions(vsp_criterion="contribution")
+        pyro = _with_distant(sk.make_pyro64_scene(device=dev), dev)
+        res = P20_VSPG_RES
+        cam, film = (vk.bench_camera(res, device=dev),
+                     RGBFilm.make((res, res), device=dev))
+        images = []
+        for backend in ("auto", "torch"):
+            _zero_launches()
+            sk.LAUNCH_EVENTS = []
+            img, field, _ = vspg.render_vspg(
+                pyro, cam, film, spp=2 * P20_VSPG_WAVES, cfg=cfg7, gopt=gopt,
+                vopt=vopt, seed=9, backend=backend, device=dev)
+            torch.cuda.synchronize()
+            events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+            launched = {k: v for k, v in _launch_counts().items() if v}
+            assert not launched and not events, (backend, launched)
+            images.append(img)
+        rel = _rel_diff(*images)
+        print(f"phase 20e 7c's pyro cloud with a distant light through "
+              f"render_vspg(backend='auto') {res}^2, {P20_VSPG_WAVES} "
+              f"training waves + {P20_VSPG_WAVES} spp: kernel launches 0, "
+              f"kernel events 0, {field.iteration} training updates, the "
+              f"image against backend='torch': largest relative difference "
+              f"{rel:.3e} (bound {P20_ORDER_REL:g}), mean "
+              f"{images[0].mean().item():.6f} {tag}", flush=True)
+        assert rel <= P20_ORDER_REL and field.iteration == P20_VSPG_WAVES
+        assert bool(torch.isfinite(images[0]).all())
+        secs["20e"] = time.perf_counter() - t0
+
+        # ---- 20a: every light through the CLI -----------------------------
+        t0 = time.perf_counter()
+        img_a, st_a, _ = wait("20a every light")
+        assert st_a["resolution"] == [P20_RES, P20_RES], st_a
+        assert img_a.mean() > 0.01 and (img_a > 0).mean() > 0.9
+        secs["20a CLI"] = time.perf_counter() - t0
+
+        # ---- 20b: the BVH light sampler against the power sampler ----------
+        t0 = time.perf_counter()
+        got = {}
+        for smp in ("bvh", "power"):
+            halves = [wait(f"20b {smp} {h}") for h in (0, 1)]
+            a, b = (x[0].astype(np.float64) for x in halves)
+            got[smp] = ((a + b) / 2, np.mean((a - b) ** 2) / 2,
+                        sum(x[1]["seconds"] for x in halves),
+                        halves[0][1]["build_seconds"])
+        d, z = _z(got["bvh"][0], got["power"][0])
+        ratio = got["bvh"][1] / got["power"][1]
+        print(f"phase 20b 4096 emissive triangles and 16 point lights "
+              f"{P20_RES}^2 x {P20_SPP} (two {P20_SPP // 2}-spp CLI renders a "
+              f"sampler): bvh {got['bvh'][2]:.2f} s (parse and build "
+              f"{got['bvh'][3]:.2f} s), power {got['power'][2]:.2f} s (parse "
+              f"and build {got['power'][3]:.2f} s); means "
+              f"{got['bvh'][0].mean():.6f} and {got['power'][0].mean():.6f}, "
+              f"difference {d:+.6f} = {z:+.2f} standard errors (bound 4); "
+              f"per-pixel variance at {P20_SPP // 2} spp bvh/power "
+              f"{ratio:.4f} {tag}", flush=True)
+        assert abs(z) <= 4.0 and got["bvh"][0].mean() > 0.01, z
+        secs["20b"] = time.perf_counter() - t0
+
+        # ---- 20c: the window, with and without a portal --------------------
+        t0 = time.perf_counter()
+        img_env, img_portal = (wait(f"20c {n}")[0] for n in ("env",
+                                                              "portal"))
+        d, z = _z(img_portal, img_env)
+        print(f"phase 20c the room lit through its window by the "
+              f"{P20_ENV[1]}^2 image environment {P20_RES}^2 x {P20_SPP}: "
+              f"with the portal mean {img_portal.mean():.6f}, without "
+              f"{img_env.mean():.6f}, difference {d:+.6f} = {z:+.2f} standard "
+              f"errors (bound 4) {tag}", flush=True)
+        assert abs(z) <= 4.0 and img_env.mean() > 0.01, z
+        secs["20c"] = time.perf_counter() - t0
+
+        # ---- 20d: the guided integrators in the fogged room ----------------
+        t0 = time.perf_counter()
+        img_v = wait("20d volpath")[0]
+        assert img_v.mean() > 0.01
+        for integ in ("guidedvolpath", "guidedvolpathvspg"):
+            img_g = wait(f"20d {integ}")[0]
+            d, z = _z(img_g, img_v)
+            rel = d / img_v.mean()
+            print(f"phase 20d the fogged room through the portal under "
+                  f"{integ} through the CLI {P20_RES}^2 x {P20_SPP}: mean "
+                  f"{img_g.mean():.6f} against volpath's {img_v.mean():.6f}, "
+                  f"difference {d:+.6f} = {rel:+.4%} = {z:+.2f} standard "
+                  f"errors (bound {P19_GUIDED_REL:.0%} of the mean; "
+                  f"ROADMAP.md section C 7) {tag}", flush=True)
+            assert np.isfinite(img_g).all() and abs(rel) <= P19_GUIDED_REL, (
+                integ, rel, z)
+        secs["20d"] = time.perf_counter() - t0
+    print("phase 20 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items())
+          + f" {tag}", flush=True)
+    print(f"phase 20 done {_at()}, the phase "
+          f"{time.perf_counter() - t20:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

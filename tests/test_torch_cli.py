@@ -216,12 +216,12 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
     bdpt.write_text('Integrator "bdpt"\nWorldBegin\n')
     assert cli.main([str(bdpt), "--cpu", "--quiet"]) == 1
     assert "ROADMAP.md §A" in capsys.readouterr().err
-    # every medium is ported; a disk and a spot light in the VSPG scene
-    # file are not
+    # every medium and light is ported; a disk and a plastic material in
+    # the VSPG scene file are not
     with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
         cloud_text = f.read()
     for kind, line in (("disk", 'Shape "disk" "float radius" [1]'),
-                       ("spot", 'LightSource "spot" "rgb I" [1 1 1]')):
+                       ("plastic", 'Material "plastic"')):
         path = tmp_path / f"{kind}.pbrt"
         path.write_text(cloud_text + "\n" + line + "\n")
         assert cli.main([str(path), "--cpu", "--quiet"]) == 1

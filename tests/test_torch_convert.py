@@ -8,6 +8,7 @@ import sys
 import numpy as np
 import pytest
 
+from vspg_pbrt_v4_tpu.models.cameras import PerspectiveCamera
 from vspg_pbrt_v4_tpu.models.integrators import volpath as jv
 from vspg_pbrt_v4_tpu.models.lights import Lights as JLights
 from vspg_pbrt_v4_tpu.models.shapes import Geometry as JGeometry
@@ -72,10 +73,16 @@ def test_from_jax_refuses_unported_objects():
                                        mat=-1)])
     with pytest.raises(NotImplementedError):
         from_jax(scene._replace(geometry=disk), cam, film, cfg, "cpu")
-    # area lights convert; distant lights are not ported
+    # every light kind converts (distant lights since the port has them);
+    # a motion-blurred camera is not ported
     distant = JLights.make(distant_dir=[(0, -1, 0)], distant_L=[(1, 1, 1)])
+    lights = from_jax(scene._replace(lights=distant), cam, film, cfg,
+                      "cpu")[0].lights
+    assert lights.n_distant == 1 and lights.base_area == 1
+    blur = PerspectiveCamera.make(cam.camera_to_world, 30.0, (8, 8),
+                                  shutter_open=0.0, shutter_close=1.0)
     with pytest.raises(NotImplementedError):
-        from_jax(scene._replace(lights=distant), cam, film, cfg, "cpu")
+        from_jax(scene, blur, film, cfg, "cpu")
 
 
 def test_port_imports_no_jax():

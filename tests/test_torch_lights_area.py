@@ -80,9 +80,17 @@ def test_make_selection_table_matches_jax(mix, sampler):
         assert float(pmf.max() - pmf.min()) > 0.1 * float(pmf.max())
 
 
-def test_bvh_light_sampler_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        Lights.make(area_tris=AREA, sampler="bvh", device="cpu")
+def test_bvh_light_sampler_builds():
+    """The area lights under ``sampler="bvh"``: the light BVH's arrays
+    equal JAX's, topology and trails exactly."""
+    jl, tl = both("area", "bvh")
+    assert tl.bvh is not None and jl.bvh is not None
+    assert tl.bvh.max_depth == jl.bvh.max_depth
+    for f in ("bmin", "bmax", "axis", "phi", "cos_o", "cos_e"):
+        close(getattr(tl.bvh, f), getattr(jl.bvh, f), rtol=1e-6, atol=0)
+    for f in ("two_sided", "child1", "leaf_light", "trail", "trail_node"):
+        assert np.array_equal(getattr(tl.bvh, f).numpy(),
+                              np.asarray(getattr(jl.bvh, f))), f
 
 
 @pytest.mark.parametrize("mix", sorted(MIXES))

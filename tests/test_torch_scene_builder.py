@@ -322,7 +322,7 @@ def test_spheres_lane_for_lane():
 
 REFUSED = {
     "disk": 'Shape "disk" "float radius" [1]',
-    "spot": 'LightSource "spot" "rgb I" [1 1 1]',
+    "cylinder": 'Shape "cylinder" "float radius" [1]',
     "coateddiffuse": 'Material "coateddiffuse"',
     "instancing": 'ObjectBegin "a"',
     "motion blur": ('Camera "perspective" "float shutteropen" [0] '
@@ -490,3 +490,116 @@ def test_kernel_predicates_refuse_a_sphere():
     assert sk.extract_constants(corn, ccam, cfilm, cfg) is not None
     assert sk.extract_constants(_with_sphere(corn), ccam, cfilm,
                                 cfg) is None
+
+
+LIGHTS_BODY = '''
+Integrator "volpath" "integer maxdepth" [5] "string lightsampler" "{sampler}"
+Sampler "independent" "integer pixelsamples" [8]
+Film "rgb" "integer xresolution" [16] "integer yresolution" [16]
+LookAt 0 1 -3.5  0 0.8 0  0 1 0
+Camera "perspective" "float fov" [45]
+WorldBegin
+{lights}
+Material "diffuse" "rgb reflectance" [0.6 0.55 0.5]
+Shape "trianglemesh" "point3 P" [-2 0 -2  2 0 -2  2 0 2  -2 0 2]
+  "integer indices" [0 2 1  0 3 2]
+Shape "trianglemesh" "point3 P" [-2 0 2  2 0 2  2 2.5 2  -2 2.5 2]
+  "integer indices" [0 2 1  0 3 2]
+AttributeBegin
+  Translate 0.3 1.6 0.4
+  AreaLightSource "diffuse" "blackbody L" [3200] "float scale" [2]
+  Shape "trianglemesh" "point3 P" [-0.2 0 -0.2  0.2 0 -0.2  0 0 0.2]
+    "integer indices" [0 1 2]
+AttributeEnd
+'''
+
+
+def light_lines(case, tmp):
+    """The LightSource lines of a case; the images it reads written as
+    PFMs into `tmp`: a goniometric equal-area map, a 12x20 projected image
+    and a 2:1 lat-long environment."""
+    from vspg_pbrt_v4_tpu_torch.utils.image import write_pfm
+
+    rs = np.random.default_rng(18)
+    files = {"gonio": rs.uniform(0.2, 1.0, (8, 8, 3)),
+             "proj": rs.uniform(0.2, 1.0, (12, 20, 3)),
+             "env": rs.uniform(0.0, 1.0, (16, 32, 3)) ** 2,
+             "envsq": rs.uniform(0.0, 1.0, (16, 16, 3))}
+    for name, img in files.items():
+        write_pfm(os.path.join(tmp, name + ".pfm"), img.astype(np.float32))
+    lines = {
+        "point blackbody": 'LightSource "point" "blackbody I" [5500] '
+                           '"point3 from" [0 2 0]',
+        "spot": ('AttributeBegin\n  Translate 0.2 0 0\n  LightSource "spot" '
+                 '"rgb I" [4 4 4] "point3 from" [0 1.8 0] "point3 to" '
+                 '[0.2 0 0.1] "float coneangle" [40] "float conedeltaangle" '
+                 '[8]\nAttributeEnd'),
+        "goniometric": ('AttributeBegin\n  Translate 0.3 1.5 0\n  Rotate 30 '
+                        '1 0 0\n  LightSource "goniometric" "rgb I" [2 2 2] '
+                        f'"string filename" "{tmp}/gonio.pfm"\nAttributeEnd'),
+        "projection": ('AttributeBegin\n  Translate -0.3 2 0\n  Rotate 90 '
+                       '1 0 0\n  LightSource "projection" "rgb I" [3 3 3] '
+                       f'"float fov" [50] "string filename" "{tmp}/proj.pfm"'
+                       '\nAttributeEnd'),
+        "distant": ('LightSource "distant" "rgb L" [1 0.9 0.8] "point3 from" '
+                    '[1 2 1] "point3 to" [0 0 0] "float scale" [0.5]'),
+        "image infinite": ('LightSource "infinite" "string filename" '
+                           f'"{tmp}/env.pfm" "float scale" [0.7]'),
+        "image infinite square": ('LightSource "infinite" "string filename" '
+                                  f'"{tmp}/envsq.pfm"'),
+        "portal": ('LightSource "infinite" "rgb L" [0.4 0.5 0.6] '
+                   '"point3 portal" [-1 0.5 2  1 0.5 2  1 2 2  -1 2 2]'),
+        "portal image": ('LightSource "infinite" "string filename" '
+                         f'"{tmp}/envsq.pfm" "point3 portal" '
+                         '[-1 0.5 2  -1 2 2  1 2 2  1 0.5 2]'),
+    }
+    if case == "all":
+        return "\n".join(v for k, v in lines.items()
+                         if not k.startswith("portal")
+                         and k != "image infinite square")
+    if case == "goniometric missing":
+        return lines["goniometric"].replace(f"{tmp}/gonio.pfm",
+                                            f"{tmp}/missing.pfm")
+    return lines[case]
+
+
+LIGHT_CASES = ("point blackbody", "spot", "goniometric",
+               "goniometric missing", "projection", "distant",
+               "image infinite", "image infinite square", "portal",
+               "portal image", "all", "all bvh")
+
+
+@pytest.mark.parametrize("case", LIGHT_CASES)
+def test_lights_build_alike(case, tmp_path):
+    """Every LightSource kind, blackbody spectra (a point light's I and an
+    area light's L), the image environment (a 2:1 lat-long PFM resampled
+    to an equal-area square, and a square one read as is), portals on a
+    constant and on an image environment, and the bvh light sampler build
+    as in the JAX builder: the lights field for field through
+    ``convert.from_jax`` (the BVH and the portal too; floats within 1e-6),
+    the same warning where a goniometric image fails to load."""
+    sampler = "bvh" if case == "all bvh" else "power"
+    text = LIGHTS_BODY.format(
+        sampler=sampler,
+        lights=light_lines(case.replace(" bvh", ""), str(tmp_path)))
+    if case == "goniometric missing":
+        with pytest.warns(UserWarning) as rec:
+            ts = tbuild(tparse(text), device="cpu")
+        with pytest.warns(UserWarning) as rec_j:
+            js = jbuild(jparse(text))
+        msgs = sorted(str(w.message) for w in rec)
+        assert msgs == sorted(str(w.message) for w in rec_j)
+        assert any("goniometric image" in m and "uniform" in m
+                   for m in msgs), msgs
+    else:
+        ts, js = tbuild(tparse(text), device="cpu"), jbuild(jparse(text))
+    _check_alike(ts, js)
+    li = ts.scene.lights
+    assert li.n_area == 1 and float(li.area_L[0].min()) > 0
+    assert (li.bvh is not None) == (case == "all bvh")
+    assert (li.portal is not None) == case.startswith("portal")
+    if case.startswith("all"):
+        assert (li.n_point, li.n_spot, li.n_gonio, li.n_proj,
+                li.n_distant) == (1, 1, 1, 1, 1) and li.has_env_img
+        assert li.env_img.shape == (16, 16, 3)
+    assert li.beyond_kernels == (case != "point blackbody")

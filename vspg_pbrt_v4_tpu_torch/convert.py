@@ -9,6 +9,8 @@ JAX array needs none. Objects outside the ported scope raise
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -18,9 +20,11 @@ from .models.film import RGBFilm
 from .models.filters import Filter
 from .models.integrators.volpath import Scene, VolPathConfig
 from .models.lights import Lights
+from .models.lightsamplers import LightBVH
 from .models.materials import Materials
 from .models.media import (CloudMedium, EarthMedium, GridMedium, Media,
                            RGBGridMedium)
+from .models.portal_light import PortalLight
 from .models.shapes import Geometry
 from .models.textures import Textures
 from .ops.bvh import bvh_from_arrays
@@ -134,21 +138,31 @@ def _media(m, device):
                  tuple(procs))
 
 
+def _arrays(obj, cls, device, skip=()):
+    """The array fields of `cls` read from `obj`: float32, bool or int64
+    tensors by the array's kind."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        a = getattr(obj, f.name)
+        if f.name in skip or a is None or isinstance(a, (bool, int, float)):
+            continue
+        kind = np.asarray(a).dtype.kind
+        out[f.name] = _t(a, device, torch.float32 if kind == "f" else
+                         torch.bool if kind == "b" else torch.int64)
+    return out
+
+
 def _lights(li, device):
-    if (_count(li.spot_p) or _count(li.gonio_p) or _count(li.proj_p)
-            or _count(li.distant_dir) or li.has_env_img
-            or li.portal is not None or li.bvh is not None):
-        raise NotImplementedError("only point lights, triangle area lights "
-                                  "and a constant environment are ported")
-    return Lights(_t(li.point_p, device), _t(li.point_I, device),
-                  _t(li.area_p0, device, torch.float32),
-                  _t(li.area_p1, device, torch.float32),
-                  _t(li.area_p2, device, torch.float32),
-                  _t(li.area_L, device, torch.float32),
-                  _t(li.area_twosided, device, torch.bool),
-                  _t(li.env_L, device), _t(li.select_pmf_table, device),
-                  _t(li.select_cdf, device), bool(li.has_env),
-                  float(li.world_radius))
+    """Every field of a JAX ``Lights``, with its light BVH and portal."""
+    bvh = portal = None
+    if li.bvh is not None:
+        bvh = LightBVH(**_arrays(li.bvh, LightBVH, device),
+                       max_depth=int(li.bvh.max_depth))
+    if li.portal is not None:
+        portal = PortalLight(**_arrays(li.portal, PortalLight, device))
+    return Lights(**_arrays(li, Lights, device, skip=("bvh", "portal")),
+                  has_env=bool(li.has_env), has_env_img=bool(li.has_env_img),
+                  world_radius=float(li.world_radius), bvh=bvh, portal=portal)
 
 
 def _transform(t, device):

@@ -150,6 +150,8 @@ def extract_constants(scene, camera, film, cfg):
         if mt[mid] != 0 or at[mid] >= 0:
             return None  # diffuse and untextured only
     li = scene.lights
+    if li.beyond_kernels:
+        return None  # spot/gonio/projection/distant, image env, portal, BVH
     if li.n_point > 1 or li.n_area > MAX_AREA_LIGHTS:
         return None
     n_lights = li.n_lights

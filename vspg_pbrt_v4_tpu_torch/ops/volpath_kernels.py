@@ -182,6 +182,8 @@ def extract_constants(scene, camera, film, cfg):
     if g.n_tri and kind != "grid":
         return None  # fused surfaces only in the grid kernel
     li = scene.lights
+    if li.beyond_kernels:
+        return None  # spot/gonio/projection/distant, image env, portal, BVH
     if li.n_point > 1 or li.n_area:
         return None  # B1 and B2 shade no emission (pallas_volpath's gate)
     has_point, has_env = li.n_point == 1, bool(li.has_env)

@@ -380,9 +380,12 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
     gate, which refuses the mesh class), a uniform or an adaptive field and
     any of the three distance routes. It shades no emission, so it refuses
     area lights, and it sees no sphere, no RGB grid (refused in
-    ``extract_constants``) and no procedural medium."""
-    if (scene.lights.n_area or scene.geometry.n_sph
-            or len(scene.media.procedurals)):
+    ``extract_constants``) and no procedural medium. It samples point and
+    constant environment lights by a uniform table only: no spot,
+    goniometric, projection or distant light, image environment, portal or
+    BVH light sampler."""
+    if (scene.lights.n_area or scene.lights.beyond_kernels
+            or scene.geometry.n_sph or len(scene.media.procedurals)):
         return False
     c = extract_constants(scene, camera, film, cfg)
     if c is None or c.kind != "grid":

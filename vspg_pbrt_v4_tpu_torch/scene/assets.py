@@ -48,19 +48,22 @@ def _load_volume(fname):
 
 def prefetch(directives):
     """Scan `directives` and start a background load of every asset file
-    the builder reads (PLY meshes, volume grids and heightmaps; the image
-    textures and light images the JAX package also prefetches are not
+    the builder reads (PLY meshes, light images, volume grids and
+    heightmaps; the image textures the JAX package also prefetches are not
     ported)."""
     from .parser import ParameterDictionary
 
     for d in directives:
         try:
             name = d.name
-            if name not in ("Shape", "MakeNamedMedium"):
+            if name not in ("Shape", "LightSource", "MakeNamedMedium"):
                 continue
             p = ParameterDictionary(d.params)
             if name == "Shape" and d.args and d.args[0] == "plymesh":
                 _submit("ply", p.get_string("filename"), _load_ply)
+            elif name == "LightSource" and d.args and d.args[0] in (
+                    "goniometric", "projection", "infinite"):
+                _submit("img", p.get_string("filename"), _load_image)
             elif name == "MakeNamedMedium":
                 gridfile = p.get_string("gridfile",
                                         p.get_string("filename", ""))

@@ -7,29 +7,33 @@ does, collecting shapes with their material, area light and medium
 interface, lights and media, then builds the scene, camera and film on
 the requested device. It builds trianglemesh, plymesh, loopsubdiv and
 sphere shapes; the diffuse, conductor, smooth dielectric and cooktorrance
-materials with the checker and constant textures; point, constant
-infinite and triangle area lights; homogeneous, uniform-grid (inline or
-from an ``.npz`` gridfile), ``nanovdb`` (an ``.nvdb`` file), ``rgbgrid``,
-procedural ``cloud`` and ``earth`` media (the earth's heightmap an image
-file); the
-perspective camera (pinhole or thin lens), the orthographic, spherical
-and realistic cameras (a ``lensfile`` read in millimetres, else the
-built-in singlet); the ``rgb`` film; the box, triangle, gaussian and
-mitchell filters; and every sampler the JAX package names (independent,
-stratified, halton, sobol, paddedsobol, zsobol, pmj02bn).
+materials with the checker and constant textures; point, spot,
+goniometric, projection and distant lights, triangle area lights, the
+constant or image ``infinite`` light (a lat-long image resampled to an
+equal-area square) with an optional ``portal``, blackbody spectra, and
+the uniform, power and bvh light samplers; homogeneous, uniform-grid
+(inline or from an ``.npz`` gridfile), ``nanovdb`` (an ``.nvdb`` file),
+``rgbgrid``, procedural ``cloud`` and ``earth`` media (the earth's
+heightmap an image file); the perspective camera (pinhole or thin lens),
+the orthographic, spherical and realistic cameras (a ``lensfile`` read in
+millimetres, else the built-in singlet); the ``rgb`` film; the box,
+triangle, gaussian and mitchell filters; and every sampler the JAX
+package names (independent, stratified, halton, sobol, paddedsobol,
+zsobol, pmj02bn).
 
 Where the JAX builder warns and degrades (an unknown shape, light,
 medium, texture, material, camera or filter type), this one warns or
 degrades in the same way. Where the JAX builder builds something this
-package does not serve yet (other shapes, lights and materials,
-instancing, motion blur), it raises ``NotImplementedError`` naming the
-directive, its type and its ``file:line`` (ROADMAP.md §A 8). Asset files
-(PLY meshes, volume grids, heightmaps) load on background threads from
+package does not serve yet (other shapes and materials, instancing,
+motion blur), it raises ``NotImplementedError`` naming the directive, its
+type and its ``file:line`` (ROADMAP.md §A 8). Asset files (PLY meshes,
+light images, volume grids, heightmaps) load on background threads from
 the start of the build (``scene/assets.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import NamedTuple
 
@@ -41,20 +45,21 @@ from ..models.cameras import (OrthographicCamera, PerspectiveCamera,
 from ..models.film import RGBFilm
 from ..models.filters import Filter
 from ..models.integrators.volpath import Scene
-from ..models.lights import Lights
+from ..models.lights import Lights, equal_area_texel
 from ..models.materials import (CONDUCTOR, COOK_TORRANCE, DIELECTRIC, DIFFUSE,
                                 SMOOTH, Materials)
 from ..models.media import (CloudMedium, EarthMedium, GridMedium, Media,
                             RGBGridMedium)
+from ..models.portal_light import PortalLight
 from ..models.shapes import Geometry
 from ..models.textures import CHECKER, CONSTANT, Textures
 from ..utils import transform as tr
+from ..utils.envmap import latlong_to_equal_area
 from . import assets
 from .parser import ParameterDictionary, PbrtError
 
 # what the JAX builder builds and this package does not serve yet
 _UNPORTED_SHAPES = ("disk", "cylinder", "curve", "bilinearmesh", "bilinear")
-_UNPORTED_LIGHTS = ("spot", "goniometric", "projection", "distant")
 _UNPORTED_MATERIALS = ("thindielectric", "diffusetransmission",
                        "coateddiffuse", "plastic", "coatedconductor",
                        "subsurface", "hair", "mix", "measured")
@@ -108,6 +113,22 @@ def _xf_nrm(ctm, ns):
     return n / np.maximum(ln, 1e-20)
 
 
+def _env_fn(env_L, env_img):
+    """The environment's radiance along directions (N,3) (numpy): the
+    equal-area image's texel, else the constant."""
+    if env_img is None:
+        const = np.asarray(env_L, np.float32)
+        return lambda dirs: np.broadcast_to(const, (len(dirs), 3))
+    eimg = np.asarray(env_img, np.float32)
+
+    def env_fn(dirs):
+        iy, ix = equal_area_texel(torch.as_tensor(
+            np.asarray(dirs, np.float32)), eimg.shape[0])
+        return eimg[iy.numpy(), ix.numpy()]
+
+    return env_fn
+
+
 def _load_ply(fname):
     try:
         return assets.get_ply(fname)
@@ -131,7 +152,11 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     named_mats = {}
     area_tris = []
     point_lights = []
-    env_L = None
+    spot_lights = []
+    gonio_lights = []
+    proj_lights = []
+    distant_lights = []
+    env_L = env_img = portal_corners = None
     homog_media = []
     grid_media = []
     proc_media = []
@@ -141,7 +166,6 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     film_params = None
     integrator = "volpath"
     integrator_params = {}
-    integrator_directive = None
     sampler = "independent"
     spp = 16
     filter_directive = None
@@ -281,7 +305,6 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
             elif name == "Integrator":
                 integrator = d.args[0]
                 integrator_params = dict(d.params)
-                integrator_directive = d
             elif name in ("Filter", "PixelFilter"):
                 filter_directive = (d.args[0] if d.args else "box", p)
             elif name == "Accelerator":
@@ -321,17 +344,56 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                     I_ = p.get_rgb("I", np.asarray([1.0, 1, 1])) * scale
                     frm = p.get_point3("from", np.zeros(3))
                     point_lights.append((_xf_pts(st.ctm, frm), I_))
+                elif ltype == "spot":
+                    I_ = p.get_rgb("I", np.asarray([1.0, 1, 1])) * scale
+                    frm = p.get_point3("from", np.zeros(3))
+                    to = p.get_point3("to", np.asarray([0, 0, 1.0]))
+                    cone = p.get_float("coneangle", 30.0)
+                    delta = p.get_float("conedeltaangle", 5.0)
+                    spot_lights.append(dict(
+                        p=_xf_pts(st.ctm, frm), I=I_,
+                        dir=_xf_pts(st.ctm, to) - _xf_pts(st.ctm, frm),
+                        cos_total=float(np.cos(np.radians(cone))),
+                        cos_start=float(np.cos(np.radians(cone - delta)))))
+                elif ltype in ("goniometric", "projection"):
+                    I_ = p.get_rgb("I", np.asarray([1.0, 1, 1])) * scale
+                    fname = p.get_string("filename")
+                    try:
+                        img = assets.get_image(fname)
+                    except Exception as ex:  # noqa: BLE001 - any load failure warns
+                        warn(f"{ltype} image '{fname}' failed ({ex}); "
+                             "uniform", d.loc)
+                        img = np.ones((2, 2, 3), np.float32)
+                    light = dict(p=_xf_pts(st.ctm, np.zeros(3)), I=I_,
+                                 img=img, rot=st.ctm.m_inv.numpy().astype(
+                                     np.float32)[:3, :3])
+                    if ltype == "goniometric":
+                        gonio_lights.append(light)
+                    else:
+                        proj_lights.append(dict(
+                            light, fov_deg=p.get_float("fov", 90.0)))
+                elif ltype == "distant":
+                    L = p.get_rgb("L", np.asarray([1.0, 1, 1])) * scale
+                    frm = p.get_point3("from", np.zeros(3))
+                    to = p.get_point3("to", np.asarray([0, 0, 1.0]))
+                    distant_lights.append(
+                        (_xf_pts(st.ctm, to) - _xf_pts(st.ctm, frm), L))
                 elif ltype == "infinite":
-                    if p.get_string("filename") is not None:
-                        raise _unported(d, "(image environment)", ltype)
-                    if p.get_floats("portal") is not None:
-                        raise _unported(d, "(portal)", ltype)
-                    L = p.get_rgb("L", None)
-                    if L is None:
-                        L = p.get_rgb("radiance", np.asarray([1.0, 1, 1]))
-                    env_L = L * scale
-                elif ltype in _UNPORTED_LIGHTS:
-                    raise _unported(d, "type", ltype)
+                    fname = p.get_string("filename")
+                    if fname is not None:
+                        img = assets.get_image(fname) * scale
+                        if img.shape[0] != img.shape[1]:
+                            img = latlong_to_equal_area(img)
+                        env_img = img
+                    else:
+                        L = p.get_rgb("L", None)
+                        if L is None:
+                            L = p.get_rgb("radiance", np.asarray([1.0, 1, 1]))
+                        env_L = L * scale
+                    prt = p.get_floats("portal")
+                    if prt is not None and len(prt) == 12:
+                        portal_corners = _xf_pts(
+                            st.ctm, np.asarray(prt, np.float32).reshape(4, 3))
                 else:
                     warn(f"light '{ltype}' unsupported; ignored", d.loc)
             elif name == "MakeNamedMedium":
@@ -461,13 +523,19 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     lsampler = "uniform"
     if "lightsampler" in integrator_params:
         lsampler = str(integrator_params["lightsampler"][1][0])
-        if lsampler == "bvh":
-            raise _unported(integrator_directive, "lightsampler", lsampler)
     lights = Lights.make(
         point_p=[pl[0] for pl in point_lights] or None,
         point_I=[pl[1] for pl in point_lights] or None,
-        area_tris=area_tris or None, env_L=env_L,
-        world_radius=max(world_r, 10.0), sampler=lsampler, device=device)
+        distant_dir=[dl[0] for dl in distant_lights] or None,
+        distant_L=[dl[1] for dl in distant_lights] or None,
+        area_tris=area_tris or None, env_L=env_L, env_img=env_img,
+        world_radius=max(world_r, 10.0), sampler=lsampler,
+        spots=spot_lights or None, gonios=gonio_lights or None,
+        projections=proj_lights or None, device=device)
+    if portal_corners is not None and (env_L is not None
+                                       or env_img is not None):
+        lights = dataclasses.replace(lights, portal=PortalLight.make(
+            _env_fn(env_L, env_img), portal_corners, res=128, device=device))
     scene = Scene(geometry, materials, media, lights, tex_bank)
 
     nx = res_override[0] if res_override else (

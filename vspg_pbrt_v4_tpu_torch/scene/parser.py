@@ -211,9 +211,9 @@ class ParameterDictionary:
             return default
         ptype = self.params[name][0]
         if ptype == "blackbody":
-            raise NotImplementedError(
-                f"\"blackbody {name}\": blackbody spectra are not ported "
-                "yet (ROADMAP.md §A 8)")
+            from ..utils.spectrum import blackbody_normalized_rgb
+
+            return np.clip(blackbody_normalized_rgb(float(v[0])), 0, None)
         if len(v) == 1:
             return np.asarray([v[0]] * 3, np.float32)
         return np.asarray(v[:3], np.float32)

@@ -82,6 +82,23 @@ def spherical_phi(v):
     return torch.where(p < 0, p + 2.0 * PI, p)
 
 
+def equal_area_square_to_sphere(p):
+    """[0, 1]^2 -> unit sphere, Clarberg's low-distortion equal-area map."""
+    u = 2.0 * p[..., 0] - 1.0
+    v = 2.0 * p[..., 1] - 1.0
+    up, vp = torch.abs(u), torch.abs(v)
+    sd = 1.0 - (up + vp)
+    d = torch.abs(sd)
+    r = 1.0 - d
+    phi = torch.where(r == 0, 1.0, (vp - up) / torch.where(r == 0, 1.0, r)
+                      + 1.0) * PI / 4.0
+    z = (1.0 - sqr(r)) * torch.sign(sd)
+    cos_phi = torch.cos(phi) * torch.sign(u)
+    sin_phi = torch.sin(phi) * torch.sign(v)
+    scale = r * safe_sqrt(2.0 - sqr(r))
+    return torch.stack([cos_phi * scale, sin_phi * scale, z], dim=-1)
+
+
 def equal_area_sphere_to_square(d):
     """Clarberg's equal-area map of unit directions to [0, 1]^2."""
     x, y, z = torch.abs(d[..., 0]), torch.abs(d[..., 1]), torch.abs(d[..., 2])
