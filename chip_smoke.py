@@ -944,15 +944,19 @@ def main():
           f"maxdepth {P17_CLOUD_DEPTH} (the file's 32 and 32), 17b at "
           f"{P17_GUIDED_SPP} spp (was 8), 17c {P17_UNET_WAVES} training "
           f"waves + {P17_UNET_FROZEN} frozen spp (7c: 48 + 64; was 16 + 16), "
-          f"17d at {P17_DENOISE_STEPS} steps (was 4 and 48); 18b's plain "
+          f"17d at {P17_DENOISE_STEPS} steps (was 4 and 48, 4 and 16 "
+          "before phase 21); 18b's plain "
           f"check of one block at 1 spp and max_events {PARITY_EVENTS} "
           "(bench: 256; 32 before phase 19); 18c's CLI renders at 64x64x16; "
-          f"19's CLI renders at {P19_SPP} spp (was 16); "
+          f"19's CLI renders at {P19_SPP} spp (was 16, 8 before phase "
+          "21); phase 20's CLI renders and pairs at "
+          f"{P20_SPP} spp (16 before phase 21); "
           f"20a's API pairs at {P20_PAIR_RES}^2 x {P20_SPP}; 20b as two "
           f"{P20_SPP // 2}-spp renders a sampler; 20e at {P20_PAIR_RES}^2 x "
           f"{P20_SPP // 2} (the fog box; phase 6: 256^2 x 64) and "
           f"{P20_VSPG_RES}^2 with {P20_VSPG_WAVES} training waves + "
-          f"{P20_VSPG_WAVES} spp (the pyro cloud; 7c: 256^2, 48 + 64)",
+          f"{P20_VSPG_WAVES} spp (the pyro cloud; 7c: 256^2, 48 + 64); "
+          f"21c's gate renders at {P21_GATE_RES}^2, 1 spp, max_events 4",
           flush=True)
     k7, inputs7, route7 = _phase7(dev, tag, check_parity, fma_lib)
     kernels += k7
@@ -984,6 +988,7 @@ def main():
               "vspg_render_adaptive": inputs12}, route7)
     _phase19(dev, tag)
     _phase20(dev, tag)
+    _phase21(dev, tag)
     t14 = time.perf_counter()
     _phase14(dev, tag, inputs7, inputs9, variants, check_parity)
     print(f"phase 14 done {_at()}, the phase {time.perf_counter() - t14:.1f} "
@@ -3109,7 +3114,7 @@ def _phase16(dev, tag):
 P17_CLOUD_SPP, P17_CLOUD_DEPTH = 4, 8
 P17_GUIDED_SPP = 4
 P17_UNET_WAVES, P17_UNET_FROZEN = 8, 8
-P17_DENOISE_STEPS = (4, 16)
+P17_DENOISE_STEPS = (4, 8)
 
 
 def _volpath_text(text):
@@ -3584,8 +3589,9 @@ def _phase18(dev, tag, check_parity, kernels, inputs, route):
 # training waves of 4 spp), B2a on the same density in one box at 16^3
 # majorants and 64 spp; 19b's 64^3 RGB grid against the same density as a
 # grid medium at 128^2; 19c's earth medium at 256^2. Every CLI render at
-# P19_SPP: 8, cut from 16 to keep the script inside its 1200 s
-P19_GRID, P19_RES, P19_SPP, P19_DEPTH = 256, 256, 8, 16
+# P19_SPP: 4, cut from 16 (and from 8 when phase 21 came) to keep the
+# script inside its time
+P19_GRID, P19_RES, P19_SPP, P19_DEPTH = 256, 256, 4, 16
 P19_B2A_SPP = 64
 P19_RGB_GRID, P19_RGB_RES = 64, 128
 
@@ -3952,7 +3958,7 @@ def _phase19(dev, tag):
 # environment a 2048x1024 lat-long image (1024^2 equal-area once built),
 # 20a's API pairs and 20e's fog box at P20_PAIR_RES^2, 20e's pyro cloud at
 # P20_VSPG_RES^2 with P20_VSPG_WAVES training waves and as many frozen spp
-P20_RES, P20_SPP, P20_DEPTH = 256, 16, 8
+P20_RES, P20_SPP, P20_DEPTH = 256, 8, 8
 P20_PAIR_RES = 128
 P20_ENV = (2048, 1024)
 P20_CEILING = (64, 32)  # quads: 4096 emissive triangles
@@ -4469,6 +4475,621 @@ def _phase20(dev, tag):
     print(f"phase 20 done {_at()}, the phase "
           f"{time.perf_counter() - t20:.1f} s", flush=True)
 
+
+
+# Phase 21's sizes: 21a's lanes (P21_LANES seeded draws a material or
+# texture kind, the card against the CPU; a lane agrees when every output
+# is within rtol/atol and its flags are equal, and P21_LANE_SHARE of them
+# must), 21b's API pairs at P21_PAIR_RES^2 x P21_PAIR_SPP, 21c's gate
+# renders at P21_GATE_RES^2, 21d's CLI renders at P21_RES^2 x P21_SPP
+P21_LANES, P21_LANE_RTOL, P21_LANE_ATOL, P21_LANE_SHARE = (
+    1 << 16, 1e-4, 1e-5, 0.9999)
+# the coats of the smooth plastic (a Trowbridge-Reitz lobe of alpha 0.01,
+# the clamp of roughness 0) and of the coated conductor (0.05) turn the
+# last-bit differences of the card's and the CPU's sin, cos, sqrt and exp
+# in a sampled direction into up to 7e-3 relative of the sample's f and
+# pdf (6.5% and 1% of lanes beyond 1e-4 on an NVIDIA H100 80GB HBM3):
+# their lanes are held at this rtol
+P21_COAT_RTOL = 1e-2
+P21_COATS = ("plastic", "coated conductor")
+# hair's sampled f chains Mp's exp and log-Bessel terms (an exponent 1/v up
+# to 1e5 for a smooth fibre) and the trimmed logistic's inverse (0.05% of
+# lanes beyond 1e-4 relative, the 0.9999 quantile 6.1e-4 on an NVIDIA
+# H100 80GB HBM3), so its lanes are held at this rtol
+P21_HAIR_RTOL = 1e-3
+P21_PAIR_RES, P21_PAIR_SPP, P21_DEPTH = 128, 8, 5
+P21_GATE_RES = 16
+P21_RES, P21_SPP, P21_GUIDED_PASS = 256, 16, 8
+P21_IMAGE = 2048  # 21d's imagemap, a common texture size
+P21_PTEX = (64, 64, 16)  # 21d's Ptex quad mesh: 64 x 64 faces at 16^2
+P21_MERL = (90, 90, 180)  # a MERL file's native table
+# 21a's material rows: every kind, a rough dielectric, a smooth plastic
+# (its coat's alpha clamped to 0.01) and a mix (resolved by the hit
+# position first), a MERL table, hair and subsurface
+P21_MATERIALS = {
+    "diffuse": [dict(type=0, albedo=(0.6, 0.5, 0.4))],
+    "smooth conductor": [dict(type=1, albedo=(0.9, 0.7, 0.4))],
+    "rough conductor": [dict(type=1, albedo=(0.9, 0.7, 0.4),
+                             roughness=0.25)],
+    "smooth dielectric": [dict(type=2, eta=1.5)],
+    "rough dielectric": [dict(type=2, eta=1.5, roughness=0.3)],
+    "diffuse transmission": [dict(type=3, albedo=(0.6, 0.5, 0.4),
+                                  albedo2=(0.2, 0.3, 0.25))],
+    "thin dielectric": [dict(type=4, eta=1.5)],
+    "plastic": [dict(type=5, albedo=(0.6, 0.3, 0.2), eta=1.5)],
+    "coated diffuse": [dict(type=5, albedo=(0.6, 0.3, 0.2), roughness=0.1,
+                            eta=1.5)],
+    "coated conductor": [dict(type=6, albedo=(0.9, 0.6, 0.3),
+                              roughness=0.2, roughness2=0.05, eta=1.5)],
+    "mix": [dict(type=1, albedo=(0.9, 0.7, 0.4), roughness=0.2),
+            dict(type=5, albedo=(0.2, 0.5, 0.7), roughness=0.2),
+            dict(type=7, mix_m1=0, mix_m2=1, mix_amount=0.4)],
+    "hair": [dict(type=8, albedo2=(0.42, 0.7, 1.4), eta=1.55,
+                  roughness=0.3, roughness2=0.3,
+                  mix_amount=float(np.radians(2.0)))],
+    "subsurface": [dict(type=9, albedo=(0.8, 0.7, 0.6),
+                        albedo2=(0.3, 0.2, 0.1), eta=1.33)],
+    "measured": [dict(type=10, meas_id=0)],
+    "cooktorrance": [dict(type=11, albedo=(0.65, 0.3, 0.2), eta=1.5,
+                          roughness=0.3)],
+}
+# 21a's texture rows: every kind; the nested ones over a noise and an image
+P21_TEXTURES = [
+    dict(kind=0, c0=(0.3, 0.4, 0.5)),
+    dict(kind=1, c0=(0.9, 0.1, 0.1), c1=(0.1, 0.8, 0.2), uvscale=(6.0, 4.0)),
+    dict(kind=2, image_id=0, uvscale=(2.0, 3.0)),
+    dict(kind=3, c0=(0.6, 0.5, 0.4), inner=7),
+    dict(kind=4, c0=(0.4,) * 3, inner=2, inner2=5),
+    dict(kind=5, octaves=8, omega=0.5, scale=3.0),
+    dict(kind=6, octaves=5, omega=0.6, scale=4.0),
+    dict(kind=7, octaves=6, omega=0.5, scale=2.0, variation=0.5),
+    dict(kind=8, c0=(0.2, 0.6, 0.3), c1=(0.9, 0.1, 0.1), uvscale=(6.0, 6.0)),
+    dict(kind=9),
+    dict(kind=10),
+    dict(kind=11, c0=(1, 0, 0), c1=(0, 1, 0), c2=(0, 0, 1), c3=(1, 1, 0),
+         uvscale=(2.0, 1.0)),
+]
+
+
+def _write_merl(path, vals):
+    """A MERL .binary of the (3, theta_h, theta_d, phi_d) BRDF values
+    `vals`, in MERL's scaling of its float64 channels."""
+    scale = np.asarray([1 / 1500, 1.15 / 1500, 1.66 / 1500])
+    with open(path, "wb") as f:
+        f.write(np.asarray(vals.shape[1:], np.int32).tobytes())
+        f.write((vals / scale[:, None, None, None]).astype(
+            np.float64).tobytes())
+
+
+def _glossy_brdf(dims, rng):
+    """A smooth, mildly glossy BRDF on a MERL grid of `dims` (90 x 90 x 180
+    is the format's own): a lobe in theta_h, tinted, with a 5% ripple."""
+    theta_h = (np.arange(dims[0]) + 0.5) / dims[0] * (np.pi / 2)
+    lobe = (0.2 + 2.0 * np.exp(-(theta_h / 0.3) ** 2)) / np.pi
+    ripple = 1.0 + 0.05 * rng.uniform(-1, 1, dims[1:])
+    return np.stack([tint * lobe[:, None, None] * ripple
+                     for tint in (0.9, 0.6, 0.4)])
+
+
+def _lanes_agree(card, cpu, rtol=P21_LANE_RTOL):
+    """Per lane: every float output of `card` within rtol / P21_LANE_ATOL
+    of `cpu`'s, every other output equal. Returns (the lanes' agreement,
+    the least share of any one output, the largest relative difference
+    of the float outputs and its 0.9999 quantile over the lanes)."""
+    n = next(iter(cpu.values())).shape[0]
+    agree = torch.ones(n, dtype=torch.bool)
+    worst = {}
+    rel = torch.zeros(n)
+    for k, want in cpu.items():
+        got = card[k].cpu()
+        if want.is_floating_point():
+            ok = torch.isclose(got, want, rtol=rtol, atol=P21_LANE_ATOL,
+                               equal_nan=True)
+            r = (torch.abs(got - want) / (torch.abs(want) + P21_LANE_ATOL)
+                 ).reshape(n, -1).amax(-1)
+            rel = torch.maximum(rel, torch.nan_to_num(r))
+        else:
+            ok = got == want
+        ok = ok.reshape(n, -1).all(-1)
+        worst[k] = ok.float().mean().item()
+        agree &= ok
+    return agree, worst, (rel.max().item(), torch.quantile(
+        rel, P21_LANE_SHARE).item())
+
+
+def _phase21(dev, tag):
+    """The other materials and textures on the card, at the sizes their
+    users render. (a) P21_LANES lanes of every material kind (a rough
+    dielectric, a smooth plastic, a mix resolved by the hit position, a
+    MERL table at its native 90 x 90 x 180, hair, subsurface) through
+    gather_textured, bsdf_f, bsdf_pdf and bsdf_sample, and of every
+    texture kind through eval_texture with world positions, on the card
+    against the CPU. (b) API renders at P21_PAIR_RES^2: a measured
+    Lambertian table against diffuse of the same albedo, mix(A, B, 0.5)
+    against the mean of A's and B's renders, a constant imagemap against
+    a constant texture of its colour, scale(t, 1) against t, each within 4
+    standard errors; the JAX tests' analytic furnaces with their bounds (a
+    thin-dielectric pane in a furnace, tests/test_materials_ext.py:141;
+    the white subsurface slab, tests/test_bssrdf.py:96). (c) The teaser
+    cloud with each new kind in turn and a non-checker texture: no kernel
+    launch through render_persistent and render_vspg(backend="auto"), the
+    image within P20_ORDER_REL of backend="torch"'s; with kinds 0, 1, 2,
+    11 and a checker the kernels still launch (B2b; B3c/B4c untextured).
+    (d) A scene file the script writes with every material and texture, a
+    2048^2 imagemap, a Ptex mesh of 4096 faces at 16^2 texels and a MERL
+    file at its native size, in fog, through the CLI at P21_RES^2 x
+    P21_SPP under volpath, guidedvolpath and guidedvolpathvspg (the guided
+    ones in P21_GUIDED_PASS-spp waves, the field trained on the first; at
+    once, beside b-c): finite, guidedvolpath within 4 standard errors of
+    volpath, guidedvolpathvspg within P19_GUIDED_REL of its mean."""
+    import os
+    import tempfile
+
+    from vspg_pbrt_v4_tpu_torch.models import materials as M
+    from vspg_pbrt_v4_tpu_torch.models import textures as T
+    from vspg_pbrt_v4_tpu_torch.models.cameras import PerspectiveCamera
+    from vspg_pbrt_v4_tpu_torch.models.film import RGBFilm
+    from vspg_pbrt_v4_tpu_torch.models.integrators import guided_volpath
+    from vspg_pbrt_v4_tpu_torch.models.integrators import volpath, vspg
+    from vspg_pbrt_v4_tpu_torch.models.lights import Lights
+    from vspg_pbrt_v4_tpu_torch.models.media import Media
+    from vspg_pbrt_v4_tpu_torch.models.shapes import Geometry
+    from vspg_pbrt_v4_tpu_torch.ops import volpath_kernels as vk
+    from vspg_pbrt_v4_tpu_torch.ops import vspg_kernels as sk
+    from vspg_pbrt_v4_tpu_torch.scene import (build_render_setup,
+                                              parse_pbrt_string)
+    from vspg_pbrt_v4_tpu_torch.tools.ptex import write_ptx
+    from vspg_pbrt_v4_tpu_torch.utils import transform as tr
+    from vspg_pbrt_v4_tpu_torch.utils.image import write_pfm
+
+    t21 = time.perf_counter()
+    secs = {}
+    rng = np.random.default_rng(21)
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # ---- the files: 21d's scene and what it reads ----------------------
+        write_pfm(path("img.pfm"), rng.uniform(
+            0.05, 0.95, (P21_IMAGE, P21_IMAGE, 3)).astype(np.float32))
+        _write_merl(path("merl.binary"), _glossy_brdf(P21_MERL, rng))
+        fx, fz, fres = P21_PTEX
+        cols = rng.uniform(0.1, 0.9, (fx * fz, 3)).astype(np.float32)
+        grad = np.linspace(0.8, 1.2, fres, dtype=np.float32)
+        write_ptx(path("faces.ptx"), [c * grad[:, None, None]
+                                      * np.ones((fres, fres, 3), np.float32)
+                                      for c in cols], datatype="half")
+        write_pfm(path("grey.pfm"), np.full((8, 8, 3), 0.45, np.float32))
+        scene_texts = _p21_scene_texts(tmp)
+        files = {}
+        for integ, text in scene_texts.items():
+            files[integ] = path(f"{integ}.pbrt")
+            with open(files[integ], "w") as f:
+                f.write(text)
+        secs["files"] = time.perf_counter() - t21
+
+        # ---- 21a: every material and texture kind, card against CPU --------
+        t0 = time.perf_counter()
+        n = P21_LANES
+        fails = []
+        bank = M.load_merl_brdf(path("merl.binary"))[None]
+        for name, rows in P21_MATERIALS.items():
+            mats = M.Materials.build(rows, bank, device="cpu")
+            mid = np.full(n, len(rows) - 1, np.int32)
+            draws = [mid, rng.uniform(0, 1, (n, 2)), rng.uniform(-4, 4, (n, 3)),
+                     rng.normal(size=(n, 3)), rng.normal(size=(n, 3)),
+                     rng.uniform(0, 1, n), rng.uniform(0, 1, (n, 2))]
+            for k in (3, 4):
+                draws[k] /= np.linalg.norm(draws[k], axis=-1, keepdims=True)
+            draws = [x if x.dtype == np.int32 else x.astype(np.float32)
+                     for x in draws]
+            outs = {}
+            for where, mt, on in (("card", mats.to(dev), dev),
+                                  ("cpu", mats, "cpu")):
+                m_, uv, p_, wo, wi, ul, u2 = (torch.from_numpy(x).to(on)
+                                              for x in draws)
+                lanes = mt.gather_textured(None, m_, uv, p_)
+                bs = M.bsdf_sample(lanes, wo, ul, u2)
+                outs[where] = dict(
+                    mat_type=lanes.mat_type, f=M.bsdf_f(lanes, wo, wi),
+                    pdf=M.bsdf_pdf(lanes, wo, wi),
+                    **{f"sample.{k}": v for k, v in bs._asdict().items()})
+            rtol = (P21_COAT_RTOL if name in P21_COATS else P21_HAIR_RTOL
+                    if name == "hair" else P21_LANE_RTOL)
+            agree, worst, (rel_max, rel_q) = _lanes_agree(
+                outs["card"], outs["cpu"], rtol)
+            share = agree.float().mean().item()
+            low = min(worst, key=worst.get)
+            valid = outs["cpu"]["sample.valid"].float().mean().item()
+            print(f"phase 21a {name}: gather_textured, bsdf_f, bsdf_pdf and "
+                  f"bsdf_sample on the card against the CPU on {n} lanes: "
+                  f"{share:.6f} agree within rtol {rtol:g} atol "
+                  f"{P21_LANE_ATOL:g}, flags equal (bound {P21_LANE_SHARE}); "
+                  f"least {low} {worst[low]:.6f}; relative differences: "
+                  f"largest {rel_max:.3e}, 0.9999 of lanes within "
+                  f"{rel_q:.3e}; sampled valid {valid:.4f} {tag}",
+                  flush=True)
+            if share < P21_LANE_SHARE:
+                fails.append((name, share, worst))
+        imgs = [rng.uniform(0, 1, s + (3,)).astype(np.float32)
+                for s in ((7, 5), (64, 48))]
+        tex = T.Textures.build(P21_TEXTURES, imgs, device="cpu")
+        for k, row in enumerate(P21_TEXTURES):
+            draws = [np.full(n, k, np.int32),
+                     rng.uniform(-2, 2, (n, 2)).astype(np.float32),
+                     rng.uniform(-3, 3, (n, 3)).astype(np.float32)]
+            outs = {}
+            for where, tb, on in (("card", tex.to(dev), dev),
+                                  ("cpu", tex, "cpu")):
+                t_, uv, p_ = (torch.from_numpy(x).to(on) for x in draws)
+                outs[where] = dict(rgb=T.eval_texture(tb, t_, uv, p_))
+            agree, _, (rel_max, rel_q) = _lanes_agree(outs["card"],
+                                                      outs["cpu"])
+            share = agree.float().mean().item()
+            print(f"phase 21a texture kind {row['kind']}: eval_texture with "
+                  f"world positions on the card against the CPU on {n} "
+                  f"lanes: {share:.6f} agree (bound {P21_LANE_SHARE}); "
+                  f"relative differences: largest {rel_max:.3e}, 0.9999 of "
+                  f"lanes within {rel_q:.3e} {tag}", flush=True)
+            if share < P21_LANE_SHARE:
+                fails.append((row, share))
+        assert not fails, fails
+        secs["21a"] = time.perf_counter() - t0
+        print(f"phase 21a done {_at()}, {secs['21a']:.1f} s", flush=True)
+        # the CLI processes start after 21a, whose CPU half they would slow
+        # volpath renders its 16 spp in one pass, the guided integrators in
+        # P21_GUIDED_PASS-spp waves: the field trains on the first wave's
+        # samples and guides the later waves
+        runs = {f"21d {integ}": [
+            files[integ], "--seed", str(3 + i), "--outfile",
+            path(f"{integ}.exr"), "--spp-per-pass",
+            str(P21_SPP if integ == "volpath" else P21_GUIDED_PASS)]
+            for i, integ in enumerate(files)}
+        started = {label: _cli_start(args) for label, args in runs.items()}
+
+        # ---- 21b: the API pairs and the analytic furnaces ------------------
+        t0 = time.perf_counter()
+        head = (f'Film "rgb" "integer xresolution" [{P21_PAIR_RES}] '
+                f'"integer yresolution" [{P21_PAIR_RES}]\n'
+                'LookAt 0 2.5 -4  0 0.3 0.5  0 1 0\n'
+                'Camera "perspective" "float fov" [40]\nWorldBegin\n'
+                'LightSource "infinite" "rgb L" [0.5 0.55 0.6]\n'
+                'LightSource "point" "rgb I" [5 5 5] "point3 from" '
+                '[1 3 -1]\n')
+        floor = ('Shape "trianglemesh" "point3 P" [-3 0 -3  -3 0 3  3 0 3  '
+                 '3 0 -3] "integer indices" [0 1 2  0 2 3] "point2 uv" '
+                 '[0 0  0 1  1 1  1 0]\n')
+        ball = 'Shape "sphere" "float radius" [0.7]\n'
+        lamb = path("lambert.binary")
+        _write_merl(lamb, np.full((3, 9, 9, 18), 0.55 / np.pi))
+        cfg_b = volpath.VolPathConfig(max_depth=P21_DEPTH)
+
+        def render(body, seed):
+            setup = build_render_setup(parse_pbrt_string(head + body),
+                                       device=dev)
+            return volpath.render(
+                setup.scene, setup.camera, setup.film, spp=P21_PAIR_SPP,
+                cfg=cfg_b, seed=seed, spp_per_pass=P21_PAIR_SPP,
+                device=dev).cpu().numpy()
+
+        tex_a = ('Texture "t" "spectrum" "fbm" "float scale" [3]\n'
+                 'Texture "s" "spectrum" "scale" "string tex" "t" '
+                 '"rgb scale" [1 1 1]\n')
+        pairs = {
+            "a measured Lambertian table (a MERL file of albedo 0.55) "
+            "against diffuse of albedo 0.55": (
+                f'Material "measured" "string filename" "{lamb}"\n' + ball,
+                'Material "diffuse" "rgb reflectance" [0.55 0.55 0.55]\n'
+                + ball),
+            "a constant 8x8 imagemap against a constant texture of its "
+            "colour": (
+                f'Texture "i" "spectrum" "imagemap" "string filename" '
+                f'"{path("grey.pfm")}"\n'
+                'Material "diffuse" "texture reflectance" "i"\n' + floor,
+                'Texture "c" "spectrum" "constant" "rgb value" '
+                '[0.45 0.45 0.45]\n'
+                'Material "diffuse" "texture reflectance" "c"\n' + floor),
+            "scale(fbm, 1) against fbm": (
+                tex_a + 'Material "diffuse" "texture reflectance" "s"\n'
+                + floor + ball,
+                tex_a + 'Material "diffuse" "texture reflectance" "t"\n'
+                + floor + ball)}
+        for i, (what, (text_a, text_b)) in enumerate(pairs.items()):
+            imgs = [render(text_a, 30 + 2 * i), render(text_b, 31 + 2 * i)]
+            d, z = _z(*imgs)
+            err = d / z if z else 0.0
+            print(f"phase 21b {what}, {P21_PAIR_RES}^2 x {P21_PAIR_SPP}: "
+                  f"means {imgs[0].mean():.6f} and {imgs[1].mean():.6f}, "
+                  f"difference {d:+.6f}, standard error {err:.6f}, {z:+.2f} "
+                  f"standard errors (bound 4) {tag}", flush=True)
+            assert np.isfinite(imgs[0]).all() and imgs[0].mean() > 0.01
+            assert abs(z) <= 4.0, (what, z)
+        named = ('MakeNamedMaterial "a" "string type" "conductor" '
+                 '"rgb reflectance" [0.9 0.6 0.3] "float roughness" [0.2]\n'
+                 'MakeNamedMaterial "b" "string type" "plastic" '
+                 '"rgb reflectance" [0.2 0.5 0.7] "float roughness" [0.1]\n')
+        # the ball alone, convex: no path meets it twice, so the mix's
+        # image is its parts' mean in expectation (with a floor, a path
+        # from A over the floor to B would have no such term)
+        img_m = render(named + 'Material "mix" "string materials" ["a" "b"] '
+                       '"float amount" [0.5]\n' + ball, 40)
+        img_a = render(named + 'NamedMaterial "a"\n' + ball, 41)
+        img_b = render(named + 'NamedMaterial "b"\n' + ball, 42)
+        d, z = _z(img_m, 0.5 * (img_a + img_b))
+        print(f"phase 21b mix(A, B, 0.5) of a rough conductor and a plastic "
+              f"against the mean of A's and B's renders, {P21_PAIR_RES}^2 x "
+              f"{P21_PAIR_SPP}: means {img_m.mean():.6f} and "
+              f"{0.5 * (img_a.mean() + img_b.mean()):.6f}, difference "
+              f"{d:+.6f}, standard error {d / z:.6f}, {z:+.2f} standard "
+              f"errors (bound 4) {tag}", flush=True)
+        assert abs(z) <= 4.0, z
+        # the thin-dielectric pane in a furnace (R + T = 1 a sample)
+        L0 = 0.8
+        pane = [dict(p0=(-3, -3, 0), p1=(3, -3, 0), p2=(3, 3, 0), mat=0),
+                dict(p0=(-3, -3, 0), p1=(3, 3, 0), p2=(-3, 3, 0), mat=0)]
+        scene = volpath.Scene(
+            Geometry.build(triangles=pane, device=dev),
+            M.Materials.build([dict(type=M.THIN_DIELECTRIC, eta=1.5)],
+                              device=dev), Media.make(device=dev),
+            Lights.make(env_L=[L0] * 3, world_radius=50.0, device=dev))
+        cam = PerspectiveCamera.make(
+            tr.look_at((0, 0, -4), (0, 0, 0), (0, 1, 0), device=dev), 40.0,
+            (24, 24), device=dev)
+        img = volpath.render(scene, cam, RGBFilm.make((24, 24), device=dev),
+                             spp=64, cfg=volpath.VolPathConfig(max_depth=16),
+                             seed=3, spp_per_pass=64, device=dev)
+        m_thin = img.mean().item()
+        # the white subsurface slab (A = 1) in a unit furnace
+        slab = [dict(p0=(-8, 0, -8), p1=(8, 0, -8), p2=(8, 0, 8), mat=0),
+                dict(p0=(-8, 0, -8), p1=(8, 0, 8), p2=(-8, 0, 8), mat=0)]
+        scene = volpath.Scene(
+            Geometry.build(triangles=slab, device=dev),
+            M.Materials.build([dict(type=M.SUBSURFACE, albedo=(1.0,) * 3,
+                                    albedo2=(0.3,) * 3, eta=1.33)],
+                              device=dev), Media.make(device=dev),
+            Lights.make(env_L=[1.0] * 3, world_radius=100.0, device=dev))
+        cam = PerspectiveCamera.make(
+            tr.look_at((0, 3, -3), (0, 0, 0), (0, 1, 0), device=dev), 40.0,
+            (24, 24), device=dev)
+        img_s = volpath.render(scene, cam, RGBFilm.make((24, 24), device=dev),
+                               spp=96, cfg=volpath.VolPathConfig(
+                                   sss=True, max_depth=16),
+                               seed=0, spp_per_pass=96, device=dev)
+        m_sss = img_s.mean().item()
+        print(f"phase 21b furnaces: a thin-dielectric pane 24^2 x 64 mean "
+              f"{m_thin:.5f} ({L0} within 2%), the white subsurface slab "
+              f"24^2 x 96 mean {m_sss:.5f} (0.85 to 1.08) {tag}", flush=True)
+        assert abs(m_thin - L0) < 0.02 * L0, m_thin
+        assert bool(torch.isfinite(img_s).all()) and 0.85 < m_sss < 1.08
+        secs["21b"] = time.perf_counter() - t0
+        print(f"phase 21b done {_at()}, {secs['21b']:.1f} s", flush=True)
+
+        # ---- 21c: the kernel gates -----------------------------------------
+        t0 = time.perf_counter()
+        res = P21_GATE_RES
+        cam, film = (vk.bench_camera(res, device=dev),
+                     RGBFilm.make((res, res), device=dev))
+        # a short walk: the route and its image are what is checked
+        cfg_c = volpath.VolPathConfig(max_depth=3, max_events=4,
+                                      max_collisions=16)
+        gopt = guided_volpath.GuidingOptions(field_res=8, record_depth=6,
+                                             min_train_weight=16.0,
+                                             train_waves=1)
+        vopt = vspg.VSPGOptions(vsp_criterion="contribution")
+        base = vk.make_machines_scene(device=dev)
+        rows = [dict(r) for r in vk.MACHINE_MATERIALS["smooth"]]
+        # each kind beyond the kernels' once (the smooth plastic is a
+        # coated diffuse row), and a rough dielectric
+        cases = {name: (tab[-1], None) for name, tab in P21_MATERIALS.items()
+                 if (tab[-1]["type"] not in vk.KERNEL_KINDS
+                     or name == "rough dielectric") and name != "plastic"}
+        cases["fbm texture"] = (dict(rows[0], albedo_tex=0),
+                                dict(kind=5, scale=3.0))
+        for name, (row, trow) in cases.items():
+            tab = [row] + rows[1:]
+            if name == "mix":  # its constituents: the glass and the metal
+                tab = [dict(row, mix_m1=1, mix_m2=2)] + rows[1:]
+            scene = dataclasses.replace(
+                base, materials=M.Materials.build(tab, bank, device=dev),
+                textures=(None if trow is None else T.Textures.build(
+                    [trow], device=dev)))
+            assert vk.extract_constants(scene, cam, film, cfg_c) is None
+            got = {}
+            for route in ("persistent", "vspg"):
+                images = []
+                for backend in ("auto", "torch"):
+                    _zero_launches()
+                    sk.LAUNCH_EVENTS = []
+                    if route == "persistent":
+                        img = volpath.render_persistent(
+                            scene, cam, film, spp=1, cfg=cfg_c, seed=8,
+                            backend=backend, device=dev)
+                    else:
+                        img = vspg.render_vspg(
+                            scene, cam, film, spp=1, cfg=cfg_c, gopt=gopt,
+                            vopt=vopt, seed=9, backend=backend,
+                            device=dev)[0]
+                    torch.cuda.synchronize()
+                    events, sk.LAUNCH_EVENTS = sk.LAUNCH_EVENTS, None
+                    launched = {k: v for k, v in _launch_counts().items()
+                                if v}
+                    assert not launched and not events, (name, route,
+                                                         launched)
+                    assert bool(torch.isfinite(img).all())
+                    images.append(img)
+                got[route] = _rel_diff(*images)
+                assert got[route] <= P20_ORDER_REL, (name, route, got)
+            print(f"phase 21c teaser cloud with {name}: render_persistent and "
+                  f"render_vspg(backend='auto') {res}^2, kernel launches 0, "
+                  f"kernel events 0, the images against backend='torch': "
+                  f"largest relative differences {got['persistent']:.3e} and "
+                  f"{got['vspg']:.3e} (bound {P20_ORDER_REL:g}) {tag}",
+                  flush=True)
+        for variant, route, want in (
+                ("checker", "persistent", {"grid_tris": 1}),
+                ("rough", "persistent", {"grid_tris": 1}),
+                ("rough", "vspg", {"vspg_record_tris": 1,
+                                   "vspg_render_tris": 1})):
+            scene = vk.make_machines_scene(materials=variant, device=dev)
+            _zero_launches()
+            if route == "persistent":
+                volpath.render_persistent(scene, cam, film, spp=1,
+                                          cfg=cfg_c, seed=8, device=dev)
+            else:
+                vspg.render_vspg(scene, cam, film, spp=2, cfg=cfg_c,
+                                 gopt=gopt, vopt=vopt, seed=9, device=dev)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _launch_counts().items() if v}
+            kinds = sorted(int(k) for k in scene.materials.mat_type.tolist())
+            print(f"phase 21c teaser cloud with kinds {kinds}"
+                  f"{' and a checker' if variant == 'checker' else ''} "
+                  f"through render_{route}: launches {launched} {tag}",
+                  flush=True)
+            assert all(launched.get(k, 0) >= v for k, v in want.items()), (
+                variant, route, launched)
+        secs["21c"] = time.perf_counter() - t0
+        print(f"phase 21c done {_at()}, {secs['21c']:.1f} s", flush=True)
+
+        # ---- 21d: the scene file through the CLI --------------------------
+        t0 = time.perf_counter()
+        out = {integ: _cli_wait(started[f"21d {integ}"],
+                                runs[f"21d {integ}"],
+                                f"21d every material and texture under "
+                                f"{integ}, {len(runs)} CLI processes at "
+                                "once", tag)
+               for integ in files}
+        img_v = out["volpath"][0]
+        assert img_v.mean() > 0.01
+        d, z = _z(out["guidedvolpath"][0], img_v)
+        print(f"phase 21d guidedvolpath against volpath {P21_RES}^2 x "
+              f"{P21_SPP}: means {out['guidedvolpath'][0].mean():.6f} and "
+              f"{img_v.mean():.6f}, difference {d:+.6f}, standard error "
+              f"{d / z:.6f}, {z:+.2f} standard errors (bound 4) {tag}",
+              flush=True)
+        assert abs(z) <= 4.0, z
+        img_g = out["guidedvolpathvspg"][0]
+        d, z = _z(img_g, img_v)
+        rel = d / img_v.mean()
+        print(f"phase 21d guidedvolpathvspg against volpath {P21_RES}^2 x "
+              f"{P21_SPP} (the resampling route, {P21_SPP // P21_GUIDED_PASS}"
+              f" waves of {P21_GUIDED_PASS} spp, the field trained on the "
+              f"first): means {img_g.mean():.6f} "
+              f"and {img_v.mean():.6f}, difference {d:+.6f} = {rel:+.4%} = "
+              f"{z:+.2f} standard errors (bound {P19_GUIDED_REL:.0%} of the "
+              f"mean; ROADMAP.md section C 7) {tag}", flush=True)
+        assert np.isfinite(img_g).all() and abs(rel) <= P19_GUIDED_REL, rel
+        secs["21d"] = time.perf_counter() - t0
+    print("phase 21 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in secs.items())
+          + f" {tag}", flush=True)
+    print(f"phase 21 done {_at()}, the phase "
+          f"{time.perf_counter() - t21:.1f} s", flush=True)
+
+
+def _p21_scene_texts(tmp):
+    """21d's scene under volpath, guidedvolpath and guidedvolpathvspg: a
+    floor textured by a mix of the 2048^2 imagemap and a checker, a wall of
+    the Ptex quad mesh (one triangle a face), spheres of every material
+    and every procedural texture on a 4 x 4 grid, all in a box of fog
+    wound outward, under an environment and a point light."""
+    import os
+
+    fx, fz, _ = P21_PTEX
+    xs, ys = np.linspace(-3, 3, fx + 1), np.linspace(0, 3, fz + 1)
+    P, idx = [], []
+    for j in range(fz):
+        for i in range(fx):
+            P += [(xs[i], ys[j], 3), (xs[i + 1], ys[j], 3),
+                  (xs[i + 1], ys[j + 1], 3)]
+            idx.append(len(P) - 3)
+    wall = ('Shape "trianglemesh" "point3 P" ['
+            + " ".join(f"{v:g}" for p in P for v in p)
+            + '] "integer indices" ['
+            + " ".join(f"{b} {b + 1} {b + 2}" for b in idx) + ']\n')
+    f = os.path.join
+    body = (
+        f'Texture "img" "spectrum" "imagemap" "string filename" '
+        f'"{f(tmp, "img.pfm")}" "float uscale" [2]\n'
+        'Texture "checks" "spectrum" "checkerboard" "float uscale" [8] '
+        '"float vscale" [8] "rgb tex1" [0.8 0.8 0.8] "rgb tex2" '
+        '[0.2 0.3 0.4]\n'
+        'Texture "mixed" "spectrum" "mix" "string tex1" "img" '
+        '"string tex2" "checks" "float amount" [0.4]\n'
+        'Texture "fbm" "spectrum" "fbm" "float scale" [3]\n'
+        'Texture "wrinkled" "spectrum" "wrinkled" "float scale" [4]\n'
+        'Texture "windy" "spectrum" "windy"\n'
+        'Texture "marble" "spectrum" "marble" "float scale" [2] '
+        '"float variation" [0.5]\n'
+        'Texture "scaled" "spectrum" "scale" "string tex" "marble" '
+        '"rgb scale" [0.6 0.5 0.4]\n'
+        'Texture "dots" "spectrum" "dots" "float uscale" [6] '
+        '"float vscale" [6] "rgb inside" [0.9 0.1 0.1] "rgb outside" '
+        '[0.2 0.6 0.3]\n'
+        'Texture "bilerp" "spectrum" "bilerp" "rgb v00" [1 0 0] '
+        '"rgb v01" [0 1 0] "rgb v10" [0 0 1] "rgb v11" [1 1 0]\n'
+        'Texture "uvt" "spectrum" "uv"\n'
+        f'Texture "faces" "spectrum" "ptex" "string filename" '
+        f'"{f(tmp, "faces.ptx")}"\n'
+        'MakeNamedMaterial "gold" "string type" "conductor" '
+        '"rgb reflectance" [0.9 0.7 0.3] "float roughness" [0.1]\n'
+        'MakeNamedMaterial "dotted" "string type" "diffuse" '
+        '"texture reflectance" "dots"\n'
+        'AttributeBegin\n  Material "diffuse" "texture reflectance" '
+        '"mixed"\n  Shape "trianglemesh" "point3 P" [-3 0 -3  3 0 -3  '
+        '3 0 3  -3 0 3] "integer indices" [0 2 1  0 3 2] "point2 uv" '
+        '[0 0  1 0  1 1  0 1]\nAttributeEnd\n'
+        'AttributeBegin\n  Material "diffuse" "texture reflectance" '
+        '"faces"\n  ' + wall + 'AttributeEnd\n')
+    spheres = [
+        'Material "thindielectric" "float eta" [1.5]',
+        'Material "diffusetransmission" "rgb reflectance" [0.3 0.5 0.2] '
+        '"rgb transmittance" [0.4 0.3 0.2]',
+        'Material "plastic" "rgb reflectance" [0.6 0.3 0.2] '
+        '"float roughness" [0.1]',
+        'Material "coatedconductor" "float interface.roughness" [0.05] '
+        '"float conductor.roughness" [0.2]',
+        'Material "subsurface" "rgb sigma_s" [2 2 2] "rgb sigma_a" '
+        '[0.02 0.1 0.4]',
+        'Material "hair" "rgb reflectance" [0.6 0.4 0.2]',
+        'Material "mix" "string materials" ["gold" "dotted"] '
+        '"float amount" [0.5]',
+        f'Material "measured" "string filename" "{f(tmp, "merl.binary")}"',
+        'Material "dielectric" "float roughness" [0.2] "float eta" [1.4]',
+        'Material "cooktorrance" "rgb reflectance" [0.5 0.4 0.3] '
+        '"float roughness" [0.3]',
+        'Material "diffuse" "texture reflectance" "wrinkled"',
+        'Material "diffuse" "texture reflectance" "scaled"',
+        'Material "diffuse" "texture reflectance" "windy"',
+        'Material "diffuse" "texture reflectance" "bilerp"',
+        'Material "diffuse" "texture reflectance" "uvt"',
+        'Material "diffuse" "texture reflectance" "fbm"']
+    for i, line in enumerate(spheres):
+        x, z = -1.2 + 0.8 * (i % 4), -0.6 + 0.8 * (i // 4)
+        body += (f"AttributeBegin\n  Translate {x:g} 0.3 {z:g}\n  {line}\n"
+                 '  Shape "sphere" "float radius" [0.3]\nAttributeEnd\n')
+    body += ('MakeNamedMedium "fog" "string type" "homogeneous" '
+             '"rgb sigma_a" [0.01 0.01 0.01] "rgb sigma_s" [0.06 0.07 0.08] '
+             '"float g" [0.2]\nAttributeBegin\n  Material "interface"\n'
+             '  MediumInterface "fog" ""\n'
+             + _box_shape((-3.5, -0.01, -3.5), (3.5, 3.5, 3.49))
+             + "AttributeEnd\n")
+    camera = ('LookAt 0 4.6 -5.2  0 0.3 0.8  0 1 0\n'
+              'Camera "perspective" "float fov" [42]')
+    # no point light in the fog: its 1/r^2 near the light made the image's
+    # standard error 0.7% of its mean at 256^2 x 16 on an H100
+    lights = ('LightSource "infinite" "rgb L" [0.4 0.45 0.5]\n'
+              'LightSource "distant" "rgb L" [1.5 1.4 1.3] "point3 from" '
+              '[1 3 -2] "point3 to" [0 0 0]\n')
+    out = {}
+    for integ in ("volpath", "guidedvolpath", "guidedvolpathvspg"):
+        head = (f'Integrator "{integ}" "integer maxdepth" [{P21_DEPTH + 3}]'
+                + (' "string isgbdenoiser" "atrous"'
+                   if integ == "guidedvolpathvspg" else "")
+                + f'\nSampler "independent" "integer pixelsamples" '
+                f'[{P21_SPP}]\nFilm "rgb" "integer xresolution" [{P21_RES}] '
+                f'"integer yresolution" [{P21_RES}]\n{camera}\nWorldBegin\n')
+        out[integ] = head + lights + body
+    return out
 
 if __name__ == "__main__":
     try:

@@ -216,12 +216,13 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
     bdpt.write_text('Integrator "bdpt"\nWorldBegin\n')
     assert cli.main([str(bdpt), "--cpu", "--quiet"]) == 1
     assert "ROADMAP.md §A" in capsys.readouterr().err
-    # every medium and light is ported; a disk and a plastic material in
-    # the VSPG scene file are not
+    # every medium, light, material and texture is ported; a disk and a
+    # curve in the VSPG scene file are not
     with open(os.path.join(REPO, "scenes", "cloud_vspg.pbrt")) as f:
         cloud_text = f.read()
     for kind, line in (("disk", 'Shape "disk" "float radius" [1]'),
-                       ("plastic", 'Material "plastic"')):
+                       ("curve", 'Shape "curve" "point3 P" '
+                                 '[0 0 0 1 0 0 1 1 0 0 1 0]')):
         path = tmp_path / f"{kind}.pbrt"
         path.write_text(cloud_text + "\n" + line + "\n")
         assert cli.main([str(path), "--cpu", "--quiet"]) == 1
@@ -231,6 +232,33 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
                      "--spp", "1", "--outfile",
                      str(tmp_path / "x.jpg")]) == 1
     assert "unsupported image extension" in capsys.readouterr().err
+
+
+def test_cli_renders_plastic(tmp_path):
+    """A plastic sphere in the fog box (the coated diffuse family, which
+    the CLI refused before the other materials were ported) renders
+    through the CLI on the CPU, bit for bit with the API's render of the
+    same setup, and differs from the box without it where the sphere
+    is."""
+    with open(FOGBOX) as f:
+        text = f.read()
+    scene = tmp_path / "plastic.pbrt"
+    scene.write_text(text + '\nAttributeBegin\n  Material "plastic" '
+                     '"rgb reflectance" [0.8 0.2 0.1] "float roughness" '
+                     '[0.05]\n  Shape "sphere" "float radius" [0.5]\n'
+                     'AttributeEnd\n')
+    out = str(tmp_path / "plastic.exr")
+    assert cli.main([str(scene), "--cpu", "--quiet", "--spp", "4",
+                     "--spp-per-pass", "4", "--resolution", "8x8",
+                     "--seed", "3", "--outfile", out]) == 0
+    s = tbuild(tparse_file(str(scene)), 4, RES, device="cpu")
+    assert s.scene.materials.mat_type.tolist() == [0, 5]
+    img = tv.render(s.scene, s.camera, s.film, spp=4,
+                    cfg=tv.VolPathConfig(max_depth=32), seed=3,
+                    spp_per_pass=4, device="cpu").numpy()
+    np.testing.assert_array_equal(read_image(out), img)
+    assert np.isfinite(img).all()
+    assert np.abs(img[3:5, 3:5] - _api(4, 4)[3:5, 3:5]).max() > 1e-3
 
 
 @pytest.mark.parametrize("case,ext", [("nanovdb", "exr"),

@@ -323,12 +323,13 @@ def test_spheres_lane_for_lane():
 REFUSED = {
     "disk": 'Shape "disk" "float radius" [1]',
     "cylinder": 'Shape "cylinder" "float radius" [1]',
-    "coateddiffuse": 'Material "coateddiffuse"',
+    "curve": 'Shape "curve" "point3 P" [0 0 0 1 0 0 1 1 0 0 1 0]',
     "instancing": 'ObjectBegin "a"',
     "motion blur": ('Camera "perspective" "float shutteropen" [0] '
                     '"float shutterclose" [1]'),
-    "rough dielectric": 'Material "dielectric" "float roughness" [0.3]',
-    "imagemap": 'Texture "t" "spectrum" "imagemap" "string filename" "x.png"',
+    "bilinearmesh": ('Shape "bilinearmesh" "point3 P" '
+                     '[0 0 0 1 0 0 0 1 0 1 1 0]'),
+    "spectral": 'Film "spectral"',
 }
 
 

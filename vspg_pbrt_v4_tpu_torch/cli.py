@@ -192,8 +192,12 @@ def _render(args, setup, device, t0, build_s):
         return 0
 
     ip = ParameterDictionary(setup.integrator_params)
+    from .models.materials import SUBSURFACE
+
+    # subsurface probe relocation when the scene holds a subsurface row
     cfg = volpath.VolPathConfig(
-        max_depth=args.maxdepth or ip.get_int("maxdepth", 32))
+        max_depth=args.maxdepth or ip.get_int("maxdepth", 32),
+        sss=SUBSURFACE in setup.scene.materials.kinds)
     ref = (read_image(args.mse_reference_image)
            if args.mse_reference_image else None)
     mse_log = []
@@ -354,7 +358,12 @@ def _pixel_material_probe(setup, x, y, max_depth=16):
     from .ops.intersect import offset_ray_origin
 
     fam = {M.DIFFUSE: "diffuse", M.CONDUCTOR: "conductor",
-           M.DIELECTRIC: "dielectric", M.COOK_TORRANCE: "cooktorrance"}
+           M.DIELECTRIC: "dielectric", M.DIFFUSE_TRANS: "diffusetransmission",
+           M.THIN_DIELECTRIC: "thindielectric",
+           M.COATED_DIFFUSE: "coateddiffuse",
+           M.COATED_CONDUCTOR: "coatedconductor", M.MIX: "mix",
+           M.HAIR: "hair", M.SUBSURFACE: "subsurface",
+           M.MEASURED: "measured", M.COOK_TORRANCE: "cooktorrance"}
     nx, ny = setup.film.resolution
     if not (0 <= x < nx and 0 <= y < ny):
         print(f"error: pixel ({x},{y}) outside film {nx}x{ny}",

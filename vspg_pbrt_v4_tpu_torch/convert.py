@@ -86,23 +86,30 @@ def _tri_bvh(bvh, device):
 
 
 def _materials(m, device):
-    out = Materials(_t(m.mat_type, device, torch.int32),
-                    _t(m.albedo, device, torch.float32),
-                    _t(m.eta, device, torch.float32),
-                    _t(m.roughness, device, torch.float32),
-                    _t(m.albedo_tex, device, torch.int32))
-    out.check_ported()
-    return out
+    """Every field of the JAX Materials, the measured bank included."""
+    f32, i32 = torch.float32, torch.int32
+    return Materials(
+        _t(m.mat_type, device, i32), _t(m.albedo, device, f32),
+        _t(m.eta, device, f32), _t(m.roughness, device, f32),
+        _t(m.albedo_tex, device, i32), _t(m.albedo2, device, f32),
+        _t(m.roughness2, device, f32), _t(m.mix_m1, device, i32),
+        _t(m.mix_m2, device, i32), _t(m.mix_amount, device, f32),
+        _t(m.meas_id, device, i32),
+        None if m.meas_bank is None else _t(m.meas_bank, device, f32))
 
 
 def _textures(tex, device):
+    """Every field of the JAX Textures, the image atlas included."""
     if tex is None:
         return None
-    Textures.check_kinds(np.asarray(tex.kind).tolist())
-    return Textures(_t(tex.kind, device, torch.int32),
-                    _t(tex.c0, device, torch.float32),
-                    _t(tex.c1, device, torch.float32),
-                    _t(tex.uvscale, device, torch.float32))
+    f32, i32 = torch.float32, torch.int32
+    return Textures(
+        _t(tex.kind, device, i32), _t(tex.c0, device, f32),
+        _t(tex.c1, device, f32), _t(tex.uvscale, device, f32),
+        _t(tex.image_id, device, i32), _t(tex.inner, device, i32),
+        _t(tex.inner2, device, i32), _t(tex.params, device, f32),
+        _t(tex.atlas, device, f32), _t(tex.c2, device, f32),
+        _t(tex.c3, device, f32), bool(tex.has_images))
 
 
 def _media(m, device):

@@ -279,7 +279,8 @@ def guided_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
                                 depth, alive, specular, s.hero_idx,
                                 medium_id, s.eta_scale, prev_p), rec)
     depth = torch.where(shade, depth + 1, depth)
-    lanes = scene.materials.gather_textured(scene.textures, h.mat_id, h.uv)
+    lanes = scene.materials.gather_textured(scene.textures, h.mat_id, h.uv,
+                                            h.p)
     ns = face_forward(h.ns, h.n)
     # the surface half: cosine product on opaque materials only
     is_transmissive = (lanes.mat_type == 2) | (lanes.mat_type == 3)
@@ -441,9 +442,8 @@ def render_guided(scene, camera, film, spp=16, cfg=VolPathConfig(),
     and the wave carries more than ``min_train_weight``. Returns (image,
     field); a given `field` with train=False guides without training (a
     loaded guiding cache)."""
-    if cfg.spectral or cfg.sss:
-        raise NotImplementedError("spectral and subsurface modes are not "
-                                  "ported yet")
+    if cfg.spectral:
+        raise NotImplementedError("the spectral mode is not ported yet")
     if spp % spp_per_pass:
         raise ValueError(f"spp {spp} is not a multiple of spp_per_pass "
                          f"{spp_per_pass}")

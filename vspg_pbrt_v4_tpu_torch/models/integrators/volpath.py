@@ -15,11 +15,13 @@ through this wavefront on the JAX package's random streams;
 ``render_persistent`` keeps a lane pool busy and dispatches to the
 kernels where a scene is of their class.
 
-Scope: homogeneous, grid and procedural cloud media inside box or
-triangle interfaces, flat triangles (by brute force up to 64, through the
-geometry's BVH above) and spheres with the materials of
-``models/materials.py``, point lights, triangle area lights and a constant
-environment, a pinhole camera, RGB hero-channel mode.
+Scope: homogeneous, grid and procedural media inside box or triangle
+interfaces, flat triangles (by brute force up to 64, through the
+geometry's BVH above) and spheres with every material and texture of
+``models/materials.py`` and ``models/textures.py`` (subsurface through the
+probe relocation of ``models/bssrdf.py`` with ``cfg.sss``), every light of
+``models/lights.py``, the cameras of ``models/cameras.py``, RGB
+hero-channel mode.
 """
 
 from __future__ import annotations
@@ -62,7 +64,8 @@ class VolPathConfig(NamedTuple):
     max_collisions: int = 4096  # delta-tracking runaway guard
     max_shadow_segments: int = 8  # shadow-ray interface crossings
     rr_start_depth: int = 2  # RR when depth > 1 (integrators.cpp:1305)
-    sss: bool = False  # subsurface scattering is not ported
+    sss: bool = False  # subsurface probe relocation (set by the CLI when
+    #     the scene has SUBSURFACE materials)
 
 
 def shading_frame(ns):
@@ -557,17 +560,22 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
     shade = shade & ~depth_hit
     eta_scale = s.eta_scale
     if not bool(shade.any()):
-        # the JAX bounce draws the surface NEE (1D + 2D) and the BSDF
-        # sample (1D + 2D) for every lane; with no shaded lane they only
-        # advance the dimension counter
-        sampler = sampler.advance(4)
+        # the JAX bounce draws the subsurface split (four 1D, with
+        # cfg.sss), the surface NEE (1D + 2D) and the BSDF sample (1D +
+        # 2D) for every lane; with no shaded lane they only advance the
+        # dimension counter
+        sampler = sampler.advance(8 if cfg.sss else 4)
     else:
         depth = torch.where(shade, depth + 1, depth)
         lanes = scene.materials.gather_textured(scene.textures, h.mat_id,
-                                                h.uv)
+                                                h.uv, h.p)
         ns = face_forward(h.ns, h.n)  # shading normal on the geometric side
+        hp, hn = h.p, h.n
+        if cfg.sss:
+            sampler, beta, alive, shade, lanes, hp, hn, ns = _subsurface(
+                scene, s, h, sampler, beta, alive, shade, lanes, ns)
         can_nee = shade & ~lanes.is_specular
-        sampler, Ld_s = sample_ld_surface(scene, cfg, h.p, h.n, ns, -s.d,
+        sampler, Ld_s = sample_ld_surface(scene, cfg, hp, hn, ns, -s.d,
                                           lanes, medium_id, s.hero_idx,
                                           sampler, beta, r_u, can_nee)
         L = _m(can_nee, L + Ld_s, L)
@@ -593,13 +601,13 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
         # far side of the arrival direction) adopts the far side's label, so
         # that a reflection off an inward-wound face cannot tunnel into the
         # medium behind it (interaction.h SpawnRay)
-        wi_front = dot(wi_world, h.n) > 0
-        crossed = bs_ok & (wi_front != (dot(s.d, h.n) < 0))
+        wi_front = dot(wi_world, hn) > 0
+        crossed = bs_ok & (wi_front != (dot(s.d, hn) < 0))
         medium_id = torch.where(crossed, torch.where(wi_front, h.med_out,
                                                      h.med_in), medium_id)
-        o_new = _m(bs_ok, offset_ray_origin(h.p, h.n, wi_world), o_new)
+        o_new = _m(bs_ok, offset_ray_origin(hp, hn, wi_world), o_new)
         d_new = _m(bs_ok, wi_world, d_new)
-        prev_p = _m(bs_ok, h.p, prev_p)
+        prev_p = _m(bs_ok, hp, prev_p)
 
     # ---- Russian roulette (integrators.cpp:1301-1312) ----------------------
     alive = alive & ~(shade & (_max3(beta) == 0))
@@ -616,6 +624,50 @@ def volpath_bounce(scene: Scene, cfg: VolPathConfig, s: PathState) -> PathState:
 
     return PathState(sampler, o_new, d_new, beta, r_u, r_l, L, depth, alive,
                      specular, s.hero_idx, medium_id, eta_scale, prev_p)
+
+
+def _subsurface(scene, s, h, sampler, beta, alive, shade, lanes, ns):
+    """The subsurface branch of the bounce (cfg.sss; bssrdf.h
+    SeparableBSSRDF as ``models/bssrdf.py`` redesigns it): a Fresnel split
+    of the SUBSURFACE lanes into the interface's mirror and the
+    transmitted lanes, which a probe ray relocates to their exit point and
+    which leave through a Lambertian lobe. A transmitted lane whose probe
+    finds no exit dies. Draws u_fr, u_r1, u_r2 and u_phi for every lane,
+    as the JAX bounce. Returns (sampler, beta, alive, shade, lanes, the
+    shading point, its geometric and shading normals)."""
+    from ..bssrdf import sample_exit_point, sp_weight
+    from ..materials import (CONDUCTOR, DIFFUSE, SUBSURFACE,
+                             fresnel_dielectric)
+
+    is_sss = shade & (lanes.mat_type == SUBSURFACE)
+    t1s, t2s = shading_frame(ns)
+    sampler, u_fr = sampler.get_1d()
+    F_in = fresnel_dielectric(torch.abs(dot(-s.d, ns)), lanes.eta)
+    sss_refl = is_sss & (u_fr < F_in)  # the interface's reflection lobe
+    sss_trans = is_sss & ~sss_refl
+    sampler, u_r1 = sampler.get_1d()
+    sampler, u_r2 = sampler.get_1d()
+    sampler, u_phi = sampler.get_1d()
+    mid = torch.clamp(h.mat_id, min=0).long()
+    d_mfp = scene.materials.albedo2[mid]
+    sss_ok, p_x, n_x, r_s, cos_x = sample_exit_point(
+        scene.geometry, h.p, ns, t1s, t2s, h.mat_id, torch.mean(d_mfp, -1),
+        u_r1, u_r2, u_phi, sss_trans)
+    w_sp = sp_weight(h.p, p_x, scene.materials.albedo[mid], d_mfp, r_s,
+                     cos_x)
+    dead_sss = sss_trans & ~sss_ok
+    relocated = sss_trans & sss_ok
+    beta = _m(relocated, beta * w_sp, beta)
+    # transmitted lanes leave through a Lambertian lobe (Sw integrates to
+    # one over the hemisphere); reflected lanes become a perfect mirror
+    lanes = lanes._replace(
+        mat_type=torch.where(sss_refl, CONDUCTOR, torch.where(
+            relocated, DIFFUSE, lanes.mat_type)).to(lanes.mat_type.dtype),
+        albedo=torch.where(is_sss[..., None], 1.0, lanes.albedo),
+        roughness=torch.where(is_sss, 0.0, lanes.roughness))
+    return (sampler, beta, alive & ~dead_sss, shade & ~dead_sss, lanes,
+            _m(relocated, p_x, h.p), _m(relocated, n_x, h.n),
+            _m(relocated, n_x, ns))
 
 
 # ---------------------------------------------------------------------------
@@ -740,9 +792,8 @@ def render(scene: Scene, camera, film, spp=16, cfg=VolPathConfig(), seed=0,
     if spp % spp_per_pass:
         raise ValueError(f"spp {spp} is not a multiple of spp_per_pass "
                          f"{spp_per_pass}")
-    if cfg.spectral or cfg.sss:
-        raise NotImplementedError("spectral and subsurface modes are not "
-                                  "ported yet")
+    if cfg.spectral:
+        raise NotImplementedError("the spectral mode is not ported yet")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     state = film.init_state()
     for i in range(spp // spp_per_pass):
@@ -881,9 +932,8 @@ def render_persistent(scene: Scene, camera, film, spp=16,
     pool only: a kernel sizes its own work items."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.spectral or cfg.sss:
-        raise NotImplementedError("spectral and subsurface modes are not "
-                                  "ported yet")
+    if cfg.spectral:
+        raise NotImplementedError("the spectral mode is not ported yet")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     if backend == "auto" and camera_medium == -1:
         from ...ops import surface_kernels as _sk

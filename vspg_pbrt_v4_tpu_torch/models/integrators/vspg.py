@@ -873,7 +873,8 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
         return VState(s2, rec, gs.pixel_id, last_vol, first_set, first_vol,
                       first_albedo, first_normal, tr_est, gs.tr_prev)
     depth = torch.where(shade, depth + 1, depth)
-    lanes = scene.materials.gather_textured(scene.textures, h.mat_id, h.uv)
+    lanes = scene.materials.gather_textured(scene.textures, h.mat_id, h.uv,
+                                            h.p)
     ns = face_forward(h.ns, h.n)
 
     # ISGB first-event data (surface)
@@ -884,7 +885,7 @@ def vspg_bounce(scene, cfg: VolPathConfig, gopt: GuidingOptions,
     first_normal = _m(first_now_s, ns, first_normal)
 
     # the surface half: cosine product for opaque surfaces only
-    is_transmissive = lanes.mat_type == 2
+    is_transmissive = (lanes.mat_type == 2) | (lanes.mat_type == 3)
     ns_cos = torch.where((dot(-s.d, ns) < 0)[..., None], -ns, ns)
     dist_cos = gfield.surface_distribution(field, h.p, ns_cos, True)
     dist_flat = gfield.surface_distribution(field, h.p, ns_cos, False)
@@ -1064,9 +1065,8 @@ def render_vspg(scene, camera, film, spp=16, cfg=VolPathConfig(),
     package's use_pallas=False)."""
     if backend not in ("auto", "torch"):
         raise ValueError(f"unknown backend {backend!r}")
-    if cfg.spectral or cfg.sss:
-        raise NotImplementedError("spectral and subsurface modes are not "
-                                  "ported yet")
+    if cfg.spectral:
+        raise NotImplementedError("the spectral mode is not ported yet")
     scene, camera, film = scene.to(device), camera.to(device), film.to(device)
     field = (_scene_field(scene, gopt, device) if field is None
              else field.to(device))

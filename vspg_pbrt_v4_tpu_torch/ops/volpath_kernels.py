@@ -83,6 +83,10 @@ MAT_COLS = 16
 (M_KIND, M_ALB, M_ETA, M_ROUGH, M_TEX, M_C0, M_C1, M_UVS) = (0, 1, 4, 5, 6,
                                                            7, 10, 13)
 MAX_MATS = 16
+# the material kinds the triangle kernels (B2b, B2c, B3c, B4c) shade:
+# diffuse, conductor, smooth dielectric, CookTorrance (the JAX gate's
+# (0, 1, 2, 11), pallas_volpath.py:230); every other kind renders in torch
+KERNEL_KINDS = (0, 1, 2, 11)
 
 # majorant grids live in one block's shared memory
 MAX_MAJ_VOX = 4096
@@ -261,7 +265,6 @@ def _tris_supported(scene):
     conductor / smooth dielectric / CookTorrance, albedo textures only
     checkers and only in the teaser class (at most MAX_TRIS_GRID); above
     that the geometry must carry its BVH."""
-    from ..models.materials import PORTED_KINDS
     from ..models.textures import CHECKER
 
     g = scene.geometry
@@ -283,7 +286,7 @@ def _tris_supported(scene):
         return False
     for mid in torch.unique(g.tri_mat).tolist():
         kind = int(mats.mat_type[mid])
-        if kind not in PORTED_KINDS:
+        if kind not in KERNEL_KINDS:
             return False
         if kind == 2 and float(mats.roughness[mid]) >= 1e-3:
             return False
@@ -1082,7 +1085,7 @@ def _surface_lanes(mats, tris, k, b1, b2):
                       torch.where(odd[:, None], m[:, M_C1:M_C1 + 3],
                                   m[:, M_C0:M_C0 + 3]), alb)
     return BSDFLanes(m[:, M_KIND].to(torch.int32), alb, m[:, M_ETA],
-                     m[:, M_ROUGH])
+                     m[:, M_ROUGH], kinds=frozenset(KERNEL_KINDS))
 
 
 def _surface_event(K, media, seed, S, idx, hit_t, k, b1, b2, tris, mats,

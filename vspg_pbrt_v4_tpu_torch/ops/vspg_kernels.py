@@ -391,13 +391,14 @@ def supports(scene, camera, film, cfg, gopt, vopt, field):
     if c is None or c.kind != "grid":
         return False
     if c.n_tri:
-        from .volpath_kernels import M_KIND, M_ROUGH, M_TEX, MAX_TRIS_GRID
+        from .volpath_kernels import (KERNEL_KINDS, M_KIND, M_ROUGH, M_TEX,
+                                      MAX_TRIS_GRID)
 
         if c.n_tri > MAX_TRIS_GRID:
             return False  # the mesh class trains and renders in torch waves
 
         m = c.mats.cpu().numpy()
-        if not (np.isin(m[:, M_KIND], (0, 1, 2, 11)).all()
+        if not (np.isin(m[:, M_KIND], KERNEL_KINDS).all()
                 and not ((m[:, M_KIND] == 2) & (m[:, M_ROUGH] >= 1e-3)).any()
                 and (m[:, M_TEX] < 0).all()):
             return False

@@ -48,19 +48,22 @@ def _load_volume(fname):
 
 def prefetch(directives):
     """Scan `directives` and start a background load of every asset file
-    the builder reads (PLY meshes, light images, volume grids and
-    heightmaps; the image textures the JAX package also prefetches are not
-    ported)."""
+    the builder reads (PLY meshes, image textures, light images, volume
+    grids and heightmaps), as the JAX package does."""
     from .parser import ParameterDictionary
 
     for d in directives:
         try:
             name = d.name
-            if name not in ("Shape", "LightSource", "MakeNamedMedium"):
+            if name not in ("Shape", "Texture", "LightSource",
+                            "MakeNamedMedium"):
                 continue
             p = ParameterDictionary(d.params)
             if name == "Shape" and d.args and d.args[0] == "plymesh":
                 _submit("ply", p.get_string("filename"), _load_ply)
+            elif (name == "Texture" and len(d.args) > 2
+                  and d.args[2] == "imagemap"):
+                _submit("img", p.get_string("filename"), _load_image)
             elif name == "LightSource" and d.args and d.args[0] in (
                     "goniometric", "projection", "infinite"):
                 _submit("img", p.get_string("filename"), _load_image)

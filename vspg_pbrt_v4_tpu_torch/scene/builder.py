@@ -6,8 +6,13 @@ A CTM and attribute stack walks the directive list as the JAX builder
 does, collecting shapes with their material, area light and medium
 interface, lights and media, then builds the scene, camera and film on
 the requested device. It builds trianglemesh, plymesh, loopsubdiv and
-sphere shapes; the diffuse, conductor, smooth dielectric and cooktorrance
-materials with the checker and constant textures; point, spot,
+sphere shapes; every material of the JAX builder (diffuse, conductor,
+dielectric, thindielectric, diffusetransmission, coateddiffuse and
+plastic, coatedconductor, cooktorrance, subsurface, hair, mix of two
+named materials, measured from a MERL file) and every texture (constant,
+checkerboard, imagemap, scale, mix, fbm, wrinkled, windy, marble, dots,
+bilerp, uv, and ptex baked into a face atlas whose rects rewrite the
+bound mesh's corner uvs); point, spot,
 goniometric, projection and distant lights, triangle area lights, the
 constant or image ``infinite`` light (a lat-long image resampled to an
 equal-area square) with an optional ``portal``, blackbody spectra, and
@@ -24,10 +29,11 @@ zsobol, pmj02bn).
 Where the JAX builder warns and degrades (an unknown shape, light,
 medium, texture, material, camera or filter type), this one warns or
 degrades in the same way. Where the JAX builder builds something this
-package does not serve yet (other shapes and materials, instancing,
-motion blur), it raises ``NotImplementedError`` naming the directive, its
+package does not serve yet (other shapes, instancing, motion blur, the
+spectral film), it raises ``NotImplementedError`` naming the directive, its
 type and its ``file:line`` (ROADMAP.md §A 8). Asset files (PLY meshes,
-light images, volume grids, heightmaps) load on background threads from
+image textures, light images, volume grids, heightmaps) load on
+background threads from
 the start of the build (``scene/assets.py``).
 """
 
@@ -46,13 +52,18 @@ from ..models.film import RGBFilm
 from ..models.filters import Filter
 from ..models.integrators.volpath import Scene
 from ..models.lights import Lights, equal_area_texel
-from ..models.materials import (CONDUCTOR, COOK_TORRANCE, DIELECTRIC, DIFFUSE,
-                                SMOOTH, Materials)
+from ..models.materials import (COATED_CONDUCTOR, COATED_DIFFUSE, CONDUCTOR,
+                                COOK_TORRANCE, DIELECTRIC, DIFFUSE,
+                                DIFFUSE_TRANS, HAIR, MEASURED, MIX,
+                                SUBSURFACE, THIN_DIELECTRIC, Materials,
+                                hair_sigma_a_from_reflectance, load_merl_brdf)
 from ..models.media import (CloudMedium, EarthMedium, GridMedium, Media,
                             RGBGridMedium)
 from ..models.portal_light import PortalLight
 from ..models.shapes import Geometry
-from ..models.textures import CHECKER, CONSTANT, Textures
+from ..models import textures as T
+from ..models.textures import (Textures, build_face_atlas,
+                               load_face_textures)
 from ..utils import transform as tr
 from ..utils.envmap import latlong_to_equal_area
 from . import assets
@@ -60,11 +71,6 @@ from .parser import ParameterDictionary, PbrtError
 
 # what the JAX builder builds and this package does not serve yet
 _UNPORTED_SHAPES = ("disk", "cylinder", "curve", "bilinearmesh", "bilinear")
-_UNPORTED_MATERIALS = ("thindielectric", "diffusetransmission",
-                       "coateddiffuse", "plastic", "coatedconductor",
-                       "subsurface", "hair", "mix", "measured")
-_UNPORTED_TEXTURES = ("imagemap", "scale", "mix", "fbm", "wrinkled",
-                      "windy", "marble", "dots", "bilerp", "uv", "ptex")
 _FILTERS = ("box", "triangle", "gaussian", "mitchell")
 
 
@@ -150,6 +156,7 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     spheres = []
     mats = [dict(type=DIFFUSE, albedo=(0.5, 0.5, 0.5))]  # default material
     named_mats = {}
+    measured_bank = []  # measured BRDF tables (MERL .binary)
     area_tris = []
     point_lights = []
     spot_lights = []
@@ -170,11 +177,24 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
     spp = 16
     filter_directive = None
     textures = []
+    tex_images = []  # the image textures' arrays, atlas order
     named_textures = {}
+    ptex_rects_by_tex = {}  # texture id -> its faces' atlas rects
+    face_atlas_rects = {}  # material id -> its texture's face rects
     named_coord_systems = {}
 
     def warn(msg, loc):
         warnings.warn(f"{loc}: {msg}")
+
+    def add_material(d, mtype, p):
+        """Append the material's row; a row whose albedo is a face atlas
+        keeps the atlas's face rects for the meshes bound to it."""
+        mats.append(_make_material(d, mtype, p, warn, named_textures,
+                                   named_mats, measured_bank))
+        tref = mats[-1].get("albedo_tex", -1)
+        if tref in ptex_rects_by_tex:
+            face_atlas_rects[len(mats) - 1] = ptex_rects_by_tex[tref]
+        return len(mats) - 1
 
     def handle_shape(d, p, st):
         stype = d.args[0]
@@ -186,8 +206,12 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
             two = lp.get_bool("twosided", False)
         mat_id = st.material
 
-        def add_mesh(Pw, idx, Nw=None, UV=None):
-            if not has_light:
+        def add_mesh(Pw, idx, Nw=None, UV=None, rects=None):
+            """A mesh without a light (and without face rects) as one
+            array bundle, else triangle by triangle: triangle i of a mesh
+            whose material's texture is a face atlas takes face i's rect
+            (pbrt's Ptex faceIndex), as in the JAX builder."""
+            if not has_light and rects is None:
                 bund = dict(p0=Pw[idx[:, 0]], p1=Pw[idx[:, 1]],
                             p2=Pw[idx[:, 2]], mat=mat_id,
                             med_in=st.medium_in, med_out=st.medium_out)
@@ -199,16 +223,22 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                                 uv2=UV[idx[:, 2]])
                 tri_meshes.append(bund)
                 return
-            for a, b, c in idx:
-                light_id = len(area_tris)
-                area_tris.append(dict(p0=Pw[a], p1=Pw[b], p2=Pw[c],
-                                      L=L_area, twosided=two))
+            for t_i, (a, b, c) in enumerate(idx):
+                light_id = -1
+                if has_light:
+                    light_id = len(area_tris)
+                    area_tris.append(dict(p0=Pw[a], p1=Pw[b], p2=Pw[c],
+                                          L=L_area, twosided=two))
                 trid = dict(p0=Pw[a], p1=Pw[b], p2=Pw[c], mat=mat_id,
                             light=light_id, med_in=st.medium_in,
                             med_out=st.medium_out)
                 if Nw is not None:
                     trid.update(n0=Nw[a], n1=Nw[b], n2=Nw[c])
-                if UV is not None:
+                if rects is not None and t_i < len(rects):
+                    u0, v0, u1, v1 = rects[t_i]
+                    # the face's barycentric corners onto its atlas rect
+                    trid.update(uv0=(u1, v0), uv1=(u0, v1), uv2=(u0, v0))
+                elif UV is not None:
                     trid.update(uv0=UV[a], uv1=UV[b], uv2=UV[c])
                 tris.append(trid)
 
@@ -233,7 +263,8 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
             add_mesh(_xf_pts(st.ctm, P.reshape(-1, 3)), idx.reshape(-1, 3),
                      _xf_nrm(st.ctm, N.reshape(-1, 3)) if N is not None
                      else None,
-                     UV.reshape(-1, 2) if UV is not None else None)
+                     UV.reshape(-1, 2) if UV is not None else None,
+                     face_atlas_rects.get(mat_id))
         elif stype == "loopsubdiv":
             from ..utils.loopsubdiv import subdivide
 
@@ -326,13 +357,10 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
                 if mtype in ("", "none", "interface"):
                     st.material = -1  # medium interface / no BSDF
                 else:
-                    mats.append(_make_material(d, mtype, p, warn,
-                                               named_textures))
-                    st.material = len(mats) - 1
+                    st.material = add_material(d, mtype, p)
             elif name == "MakeNamedMaterial":
-                mats.append(_make_material(d, p.get_string("type", "diffuse"),
-                                           p, warn, named_textures))
-                named_mats[d.args[0]] = len(mats) - 1
+                named_mats[d.args[0]] = add_material(
+                    d, p.get_string("type", "diffuse"), p)
             elif name == "NamedMaterial":
                 st.material = named_mats.get(d.args[0], 0)
             elif name == "AreaLightSource":
@@ -458,22 +486,9 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
             elif name == "Shape":
                 handle_shape(d, p, st)
             elif name == "Texture":
-                tname, tclass = d.args[0], d.args[2]
-                if tclass == "constant":
-                    row = dict(kind=CONSTANT,
-                               c0=tuple(p.get_rgb("value", np.ones(3))))
-                elif tclass in ("checkerboard", "checker"):
-                    row = dict(kind=CHECKER,
-                               c0=tuple(p.get_rgb("tex1", np.ones(3))),
-                               c1=tuple(p.get_rgb("tex2", np.zeros(3))),
-                               uvscale=(p.get_float("uscale", 1.0),
-                                        p.get_float("vscale", 1.0)))
-                elif tclass in _UNPORTED_TEXTURES:
-                    raise _unported(d, "class", tclass)
-                else:
-                    warn(f"texture type '{tclass}' unsupported; constant "
-                         "grey", d.loc)
-                    row = dict(kind=CONSTANT, c0=(0.5, 0.5, 0.5))
+                tname = d.args[0]
+                row = _texture_row(d, p, warn, named_textures, tex_images,
+                                   len(textures), ptex_rects_by_tex)
                 textures.append(row)
                 named_textures[tname] = len(textures) - 1
             elif name == "CoordinateSystem":
@@ -504,8 +519,11 @@ def build_render_setup(directives, spp_override=None, res_override=None, *,
 
     geometry = Geometry.build(triangles=tris, spheres=spheres,
                               tri_meshes=tri_meshes, device=device)
-    materials = Materials.build(mats, device=device)
-    tex_bank = Textures.build(textures, device=device) if textures else None
+    materials = Materials.build(
+        mats, np.stack(measured_bank) if measured_bank else None,
+        device=device)
+    tex_bank = (Textures.build(textures, tex_images, device=device)
+                if textures else None)
     media = Media.make(homogeneous=homog_media or None,
                        grids=tuple(grid_media),
                        procedurals=tuple(proc_media), device=device)
@@ -694,21 +712,97 @@ def _earth_medium(ctm, p, d, warn, device):
         scale_cloud=p.get_float("scale_cloud", 1.0), device=device)
 
 
-def _make_material(d, mtype, p, warn, named_textures):
-    """One material row (the JAX builder's ``_make_material`` for the
-    kinds this package serves)."""
+def _texture_row(d, p, warn, named_textures, tex_images, tex_id,
+                 ptex_rects_by_tex):
+    """The texture table's row of a Texture directive, as the JAX builder
+    makes it: an image loads through the asset prefetch into tex_images,
+    a ptex file's faces bake into one atlas image whose face rects go to
+    ptex_rects_by_tex[tex_id]; a file that fails to load and an unknown
+    class warn and give a constant."""
+    tclass = d.args[2]
+
+    def uvscale():
+        return (p.get_float("uscale", 1.0), p.get_float("vscale", 1.0))
+
+    if tclass == "constant":
+        return dict(kind=T.CONSTANT,
+                    c0=tuple(p.get_rgb("value", np.ones(3))))
+    if tclass in ("checkerboard", "checker"):
+        return dict(kind=T.CHECKER, c0=tuple(p.get_rgb("tex1", np.ones(3))),
+                    c1=tuple(p.get_rgb("tex2", np.zeros(3))),
+                    uvscale=uvscale())
+    if tclass == "imagemap":
+        fname = p.get_string("filename")
+        try:
+            tex_images.append(assets.get_image(fname))
+        except Exception as ex:  # noqa: BLE001 - any load failure warns
+            warn(f"imagemap '{fname}' failed to load ({ex}); using "
+                 "constant", d.loc)
+            return dict(kind=T.CONSTANT, c0=(0.5, 0.5, 0.5))
+        return dict(kind=T.IMAGE, image_id=len(tex_images) - 1,
+                    uvscale=uvscale())
+    if tclass == "scale":
+        return dict(kind=T.SCALE, c0=tuple(p.get_rgb("scale", np.ones(3))),
+                    inner=named_textures.get(p.get_string("tex", ""), -1))
+    if tclass == "mix":
+        amt = p.get_float("amount", 0.5)
+        return dict(kind=T.MIX, c0=(amt, amt, amt),
+                    inner=named_textures.get(p.get_string("tex1", ""), -1),
+                    inner2=named_textures.get(p.get_string("tex2", ""), -1))
+    if tclass in ("fbm", "wrinkled", "windy", "marble"):
+        kind = {"fbm": T.FBM, "wrinkled": T.WRINKLED, "windy": T.WINDY,
+                "marble": T.MARBLE}[tclass]
+        return dict(kind=kind, octaves=p.get_int("octaves", 8),
+                    omega=p.get_float("roughness", 0.5),
+                    scale=p.get_float("scale", 1.0),
+                    variation=p.get_float("variation", 0.2))
+    if tclass == "dots":
+        return dict(kind=T.DOTS, c0=tuple(p.get_rgb("outside", np.ones(3))),
+                    c1=tuple(p.get_rgb("inside", np.zeros(3))),
+                    uvscale=uvscale())
+    if tclass == "bilerp":
+        return dict(kind=T.BILERP, c0=tuple(p.get_rgb("v00", np.zeros(3))),
+                    c1=tuple(p.get_rgb("v01", np.zeros(3))),
+                    c2=tuple(p.get_rgb("v10", np.ones(3))),
+                    c3=tuple(p.get_rgb("v11", np.ones(3))), uvscale=uvscale())
+    if tclass == "uv":
+        return dict(kind=T.UV)
+    if tclass == "ptex":
+        fname = p.get_string("filename")
+        try:
+            atlas, rects = build_face_atlas(load_face_textures(fname))
+        except Exception as ex:  # noqa: BLE001 - any load failure warns
+            warn(f"ptex '{fname}' failed to load ({ex}); using constant",
+                 d.loc)
+            return dict(kind=T.CONSTANT, c0=(0.5, 0.5, 0.5))
+        tex_images.append(atlas)
+        ptex_rects_by_tex[tex_id] = rects
+        return dict(kind=T.IMAGE, image_id=len(tex_images) - 1,
+                    uvscale=(1.0, 1.0))
+    warn(f"texture type '{tclass}' unsupported; constant grey", d.loc)
+    return dict(kind=T.CONSTANT, c0=(0.5, 0.5, 0.5))
+
+
+def _make_material(d, mtype, p, warn, named_textures, named_mats,
+                   measured_bank):
+    """One material row (the JAX builder's ``_make_material``): its
+    defaults, warnings and fallbacks to diffuse. A measured material's
+    table goes to measured_bank."""
+    grey = dict(type=DIFFUSE, albedo=(0.5, 0.5, 0.5))
 
     def tex_of(pname):
         if pname in p.params and p.params[pname][0] == "texture":
             return named_textures.get(str(p.params[pname][1][0]), -1)
         return -1
 
+    def rgb(name, default):
+        return tuple(p.get_rgb(name, np.asarray([default] * 3)))
+
     if mtype == "diffuse":
         t = tex_of("reflectance")
         if t >= 0:
             return dict(type=DIFFUSE, albedo=(1.0, 1.0, 1.0), albedo_tex=t)
-        return dict(type=DIFFUSE, albedo=tuple(
-            p.get_rgb("reflectance", np.asarray([0.5] * 3))))
+        return dict(type=DIFFUSE, albedo=rgb("reflectance", 0.5))
     if mtype == "conductor":
         refl = p.get_rgb("reflectance", None)
         if refl is None:
@@ -716,20 +810,93 @@ def _make_material(d, mtype, p, warn, named_textures):
         return dict(type=CONDUCTOR, albedo=tuple(refl),
                     roughness=p.get_float("roughness", 0.0))
     if mtype == "dielectric":
-        rough = p.get_float("roughness", 0.0)
-        if rough >= SMOOTH:
-            raise _unported(d, "type (rough)", mtype)
         return dict(type=DIELECTRIC, eta=p.get_float("eta", 1.5),
-                    roughness=rough)
+                    roughness=p.get_float("roughness", 0.0))
+    if mtype == "thindielectric":
+        return dict(type=THIN_DIELECTRIC, eta=p.get_float("eta", 1.5))
+    if mtype == "diffusetransmission":
+        return dict(type=DIFFUSE_TRANS, albedo=rgb("reflectance", 0.25),
+                    albedo2=rgb("transmittance", 0.25))
+    if mtype in ("coateddiffuse", "plastic"):
+        return dict(type=COATED_DIFFUSE, albedo=rgb("reflectance", 0.5),
+                    roughness=p.get_float("roughness", 0.0),
+                    eta=p.get_float("interface.eta",
+                                    p.get_float("eta", 1.5)),
+                    albedo_tex=tex_of("reflectance"))
+    if mtype == "coatedconductor":
+        refl = p.get_rgb("conductor.reflectance", None)
+        if refl is None:
+            refl = np.asarray([0.9, 0.7, 0.4])
+        return dict(type=COATED_CONDUCTOR, albedo=tuple(refl),
+                    roughness=p.get_float("conductor.roughness", 0.01),
+                    roughness2=p.get_float("interface.roughness",
+                                           p.get_float("roughness", 0.0)),
+                    eta=p.get_float("interface.eta", 1.5))
     if mtype == "cooktorrance":
-        t = tex_of("reflectance")
         rough = p.get_float("roughness", 0.0)
         rough = max(p.get_float("uroughness", rough),
                     p.get_float("vroughness", rough))
-        return dict(type=COOK_TORRANCE, albedo=tuple(
-            p.get_rgb("reflectance", np.asarray([0.5] * 3))),
-            roughness=rough, eta=p.get_float("eta", 1.5), albedo_tex=t)
-    if mtype in _UNPORTED_MATERIALS:
-        raise _unported(d, "type", mtype)
+        return dict(type=COOK_TORRANCE, albedo=rgb("reflectance", 0.5),
+                    roughness=rough, eta=p.get_float("eta", 1.5),
+                    albedo_tex=tex_of("reflectance"))
+    if mtype == "subsurface":
+        # the mean free path from sigma_a and sigma_s (d ~ 1 / sigma_t'),
+        # else given directly
+        sig_s = p.get_rgb("sigma_s", None)
+        sig_a = p.get_rgb("sigma_a", None)
+        g = p.get_float("g", 0.0)
+        scale = p.get_float("scale", 1.0)
+        if sig_s is not None and sig_a is not None:
+            sig_sp = np.asarray(sig_s) * (1.0 - g) * scale
+            sig_t = sig_sp + np.asarray(sig_a) * scale
+            A = sig_sp / np.maximum(sig_t, 1e-6)
+            d_mfp = 1.0 / np.maximum(sig_t, 1e-6)
+        else:
+            A = np.asarray(p.get_rgb("reflectance", np.asarray([0.5] * 3)))
+            d_mfp = np.asarray(p.get_rgb("mfp", np.asarray([1.0] * 3)))
+        return dict(type=SUBSURFACE, albedo=tuple(A), albedo2=tuple(d_mfp),
+                    eta=p.get_float("eta", 1.33))
+    if mtype == "hair":
+        # sigma_a directly, else from a reflectance, else from melanin
+        beta_m = p.get_float("beta_m", 0.3)
+        beta_n = p.get_float("beta_n", 0.3)
+        sig = p.get_rgb("sigma_a", None)
+        if sig is None:
+            refl = p.get_rgb("reflectance", p.get_rgb("color", None))
+            if refl is not None:
+                sig = hair_sigma_a_from_reflectance(refl, beta_n)
+            else:
+                ce = p.get_float("eumelanin", 1.3)
+                cp = p.get_float("pheomelanin", 0.0)
+                sig = (ce * np.asarray([0.419, 0.697, 1.37])
+                       + cp * np.asarray([0.187, 0.4, 1.05]))
+        return dict(type=HAIR, albedo2=tuple(np.asarray(sig, np.float64)),
+                    eta=p.get_float("eta", 1.55), roughness=beta_m,
+                    roughness2=beta_n,
+                    mix_amount=float(np.radians(p.get_float("alpha", 2.0))))
+    if mtype == "mix":
+        names = [str(n) for n in p.params.get("materials", ("string", []))[1]]
+        if len(names) == 2:
+            # amount is the probability of the second material
+            # (materials.h MixMaterial::ChooseMaterial)
+            return dict(type=MIX, mix_m1=named_mats.get(names[1], 0),
+                        mix_m2=named_mats.get(names[0], 0),
+                        mix_amount=p.get_float("amount", 0.5))
+        warn("mix material needs two named materials; using diffuse", d.loc)
+        return grey
+    if mtype == "measured":
+        fn = p.get_string("filename", None)
+        if fn is None:
+            warn('measured material needs "string filename"; using diffuse',
+                 d.loc)
+            return grey
+        try:
+            tbl = load_merl_brdf(str(fn))
+        except Exception as ex:  # noqa: BLE001 - any load failure warns
+            warn(f"measured BRDF '{fn}' failed to load ({ex}); using "
+                 "diffuse", d.loc)
+            return grey
+        measured_bank.append(tbl)
+        return dict(type=MEASURED, meas_id=len(measured_bank) - 1)
     warn(f"material '{mtype}' unsupported; using diffuse", d.loc)
-    return dict(type=DIFFUSE, albedo=(0.5, 0.5, 0.5))
+    return grey

@@ -34,6 +34,28 @@ def safe_div(a, b, fill=0.0):
     return torch.where(b_ok, a / denom, torch.full_like(denom, fill))
 
 
+def py_mod(x, y):
+    """x mod y with the sign of y, as ``jnp.remainder`` computes it: the
+    exact fmod, moved into y's sign where it differs (``torch.remainder``
+    divides and rounds instead)."""
+    r = torch.fmod(x, y)
+    return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
+
+
+def int_pow(x, n):
+    """x ** n for a positive integer n by the squarings of XLA's
+    ``integer_pow`` (binary exponentiation, low bits first), so that the
+    product rounds as the JAX package's."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
 def nanmax(x, dim=-1):
     """Max over `dim` ignoring NaNs (jnp.nanmax)."""
     return torch.where(torch.isnan(x), -torch.inf, x).amax(dim)

@@ -1,4 +1,5 @@
-"""Perlin gradient noise and fBm (counterpart of ``utils/noise.py``).
+"""Perlin gradient noise, fBm and turbulence (counterpart of
+``utils/noise.py``).
 
 The lattice hash is arithmetic (pcg-style integer mixing), not pbrt's
 permutation table, bit for bit with the JAX package. CPU torch has no
@@ -71,12 +72,35 @@ def perlin(p):
     return y0 + w * (y1 - y0)
 
 
-def fbm(p, omega=0.5, octaves=6):
-    """Fractional Brownian motion (pbrt FBm with a fixed octave count)."""
-    total = torch.zeros(p.shape[:-1], device=p.device)
-    lam, o = 1.0, 1.0
+def octave_points(p, octaves):
+    """(octaves, ..., 3): p scaled by each octave's frequency 1.99^i, the
+    frequency rounded to float32 as a Python number multiplying a float32
+    tensor is; one perlin call over all of them evaluates every octave in
+    one set of launches, each element as alone."""
+    lam, lams = 1.0, []
     for _ in range(int(octaves)):
-        total = total + o * perlin(p * lam)
+        lams.append(lam)
         lam *= 1.99
+    lam_t = torch.tensor(lams, dtype=torch.float32, device=p.device)
+    return p[None] * lam_t.reshape((-1,) + (1,) * p.dim())
+
+
+def _octave_sum(noise, omega):
+    """sum_i omega^i noise[i], accumulated in octave order."""
+    total = torch.zeros(noise.shape[1:], device=noise.device)
+    o = 1.0
+    for i in range(noise.shape[0]):
+        total = total + o * noise[i]
         o *= omega
     return total
+
+
+def fbm(p, omega=0.5, octaves=6):
+    """Fractional Brownian motion (pbrt FBm with a fixed octave count)."""
+    return _octave_sum(perlin(octave_points(p, octaves)), omega)
+
+
+def turbulence(p, omega=0.5, octaves=6):
+    """Sum of |noise| octaves (pbrt Turbulence with a fixed octave
+    count)."""
+    return _octave_sum(torch.abs(perlin(octave_points(p, octaves))), omega)
